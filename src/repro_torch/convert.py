@@ -1,0 +1,94 @@
+"""State carried across from the reference package, as numpy arrays.
+
+The port never sees an object of the reference: a caller (the parity tests)
+converts the reference plan's state with ``np.asarray`` and hands the
+arrays over. ``plan_from_reference_arrays`` rebuilds a working
+:class:`~repro_torch.api.InteractionPlan` from them, so both packages can
+compute the same ``matvec`` on the same plan.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch._device import DeviceLike, from_numpy, resolve_device
+from repro_torch.api import InteractionPlan, PlanConfig, _PlanHost
+from repro_torch.core.blocksparse import BSR
+from repro_torch.core.hierarchy import Tree
+
+
+def bsr_from_arrays(bs: int, sb: int, n: int, col_idx, nbr_mask, vals,
+                    fill: float = 0.0, device: DeviceLike = None) -> BSR:
+    """A port :class:`BSR` from the arrays of an ELL-BSR: ``col_idx``
+    (n_rb, max_nbr) int, ``nbr_mask`` (n_rb, max_nbr) bool, ``vals``
+    (n_rb, max_nbr, bs, bs) float."""
+    dev = resolve_device(device)
+    col_idx = np.asarray(col_idx)
+    vals = np.asarray(vals)
+    n_rb, max_nbr = col_idx.shape
+    if vals.shape != (n_rb, max_nbr, bs, bs):
+        raise ValueError(f"vals {vals.shape} does not match col_idx "
+                         f"{col_idx.shape} with bs={bs}")
+    if np.asarray(nbr_mask).shape != col_idx.shape:
+        raise ValueError("nbr_mask and col_idx shapes differ")
+    if col_idx.size and (col_idx.min() < 0 or col_idx.max() >= n_rb):
+        raise ValueError(f"col_idx outside the {n_rb} column blocks")
+    return BSR(bs=bs, sb=sb, n=n, n_rb=n_rb, n_cb=n_rb,
+               col_idx=from_numpy(col_idx, dev, torch.int32),
+               nbr_mask=from_numpy(nbr_mask, dev, torch.bool),
+               vals=from_numpy(vals, dev, torch.float32),
+               fill=float(fill), max_nbr=max_nbr)
+
+
+def plan_from_reference_arrays(
+        config: dict, n: int, pi, inv,
+        coo: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+        col_idx, nbr_mask, vals, sigma: float, *,
+        fill: float = 0.0,
+        embedding=None, embed_mean=None, embed_axes=None,
+        tree_levels: Optional[Sequence[np.ndarray]] = None,
+        device: DeviceLike = None) -> InteractionPlan:
+    """Build a port plan from a reference plan's state.
+
+    ``config`` is the reference ``PlanConfig`` as a dict
+    (``dataclasses.asdict``); knobs the port does not know are rejected.
+    ``coo`` is the reordered ``(rows, cols, vals)`` pattern (or ``None``),
+    ``col_idx``/``nbr_mask``/``vals`` the ELL-BSR arrays (all ``None`` for a
+    profile-only plan), ``tree_levels`` the tree's per-level boundaries.
+    """
+    dev = resolve_device(device)
+    known = {f.name for f in dataclasses.fields(PlanConfig)}
+    unknown = sorted(set(config) - known)
+    if unknown:
+        raise ValueError(f"unknown PlanConfig knobs {unknown}")
+    cfg = PlanConfig(**config)
+    pi = np.asarray(pi).astype(np.int64)
+    inv = np.asarray(inv).astype(np.int64)
+    if pi.shape != (n,) or inv.shape != (n,) or \
+            not np.array_equal(inv[pi], np.arange(n)):
+        raise ValueError("pi/inv are not a permutation pair of length n")
+    bsr = None
+    if vals is not None:
+        bsr = bsr_from_arrays(cfg.bs, cfg.sb, n, col_idx, nbr_mask, vals,
+                              fill=fill, device=dev)
+    if coo is not None:
+        coo = (np.asarray(coo[0]), np.asarray(coo[1]),
+               np.asarray(coo[2], np.float32))
+    embedding = None if embedding is None else np.asarray(embedding)
+    tree = None
+    if tree_levels is not None:
+        d = embedding.shape[1] if embedding is not None else cfg.d
+        tree = Tree(perm=pi, levels=[np.asarray(lv) for lv in tree_levels],
+                    d=d, bits=cfg.bits)
+    host = _PlanHost(
+        pi=pi, inv=inv, coo=coo, tree=tree, embedding=embedding,
+        sigma=float(sigma),
+        embed_mean=None if embed_mean is None else np.asarray(embed_mean),
+        embed_axes=None if embed_axes is None else np.asarray(embed_axes),
+        y_last=embedding)
+    host.refresh.fill0 = bsr.fill if bsr is not None else None
+    return InteractionPlan(cfg, n, bsr, from_numpy(pi, dev, torch.int64),
+                           from_numpy(inv, dev, torch.int64), host)

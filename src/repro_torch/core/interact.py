@@ -1,0 +1,188 @@
+"""Multi-level near-neighbor interaction computations (paper §2.4).
+
+The interaction ``y = A x`` is computed block-by-block: every kept tile is a
+dense (bs, bs) block multiplying a contiguous charge segment — the paper's
+"block-segment multiplication". The paths here are the port's **plain
+PyTorch reference paths**; they stand beside the hand-written CUDA kernel
+(``kernels/bsr_spmv.py``, registered as ``cuda`` by ``kernels/ops.py``) and
+run on any device:
+
+  spmv_csr      element-wise gather baseline (scattered/CSR semantics)
+  spmv_bsr      flat single-level block path (one einsum over kept tiles)
+  spmv_bsr_ml   multi-level path: a loop over row-superblocks so the
+                working set per step is a superblock stripe
+
+Published through the backend registry (``core.registry``) under the names
+``csr`` / ``bsr`` / ``bsr_ml``; prefer ``repro_torch.api`` plans over
+calling them directly.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.registry import register_backend, register_batched_backend
+
+
+# ---------------------------------------------------------------------------
+# SpMV paths
+# ---------------------------------------------------------------------------
+
+
+def spmv_csr(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+             x: torch.Tensor, n: int | None = None) -> torch.Tensor:
+    """Gather-based SpMV over COO/CSR edges: y_i = sum_j a_ij x_j.
+
+    ``index_add_`` adds with atomics on a CUDA device, so the summation
+    order — and the last bits of the result — change from run to run;
+    compare against it with a max-abs tolerance (1e-4 at unit-scale
+    charges), never bitwise."""
+    n = n if n is not None else x.shape[0]
+    y = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    contrib = vals.reshape((-1,) + (1,) * (x.ndim - 1)) * x[cols]
+    return y.index_add_(0, rows, contrib)
+
+
+def _pad_rows(x: torch.Tensor, rows: int, axis: int = 0) -> torch.Tensor:
+    """Zero-pad ``x`` along ``axis`` up to ``rows`` entries."""
+    pad = rows - x.shape[axis]
+    if pad <= 0:
+        return x
+    spec = [0, 0] * (x.ndim - 1 - axis) + [0, pad]
+    return F.pad(x, spec)
+
+
+def spmv_bsr(bsr_vals: torch.Tensor, col_idx: torch.Tensor, x: torch.Tensor,
+             n: int) -> torch.Tensor:
+    """Flat block path. bsr_vals (n_rb, nbr, bs, bs); x (n,) or (n, f)."""
+    n_rb, nbr, bs, _ = bsr_vals.shape
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[:, None]
+    xb = _pad_rows(x, n_rb * bs).reshape(n_rb, bs, -1)   # (n_cb, bs, f)
+    seg = xb[col_idx.long()]                              # (n_rb, nbr, bs, f)
+    y = torch.einsum("rnij,rnjf->rif", bsr_vals, seg)
+    y = y.reshape(n_rb * bs, -1)[:n]
+    return y[:, 0] if squeeze else y
+
+
+def spmv_bsr_ml(bsr_vals: torch.Tensor, col_idx: torch.Tensor,
+                x: torch.Tensor, n: int, sb: int = 8) -> torch.Tensor:
+    """Multi-level block path: loop over row-superblocks (stripes of ``sb``
+    row-blocks); each step touches only that stripe's tiles + segments."""
+    n_rb, nbr, bs, _ = bsr_vals.shape
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[:, None]
+    xb = _pad_rows(x, n_rb * bs).reshape(n_rb, bs, -1)
+    ci = col_idx.long()
+    ys = []
+    for r0 in range(0, n_rb, sb):
+        seg = xb[ci[r0:r0 + sb]]                          # (<=sb, nbr, bs, f)
+        ys.append(torch.einsum("rnij,rnjf->rif", bsr_vals[r0:r0 + sb], seg))
+    y = torch.cat(ys).reshape(n_rb * bs, -1)[:n]
+    return y[:, 0] if squeeze else y
+
+
+# -- batched paths (stacked plans, one call) --------------------------------
+
+
+def _flat_gather_segments(xs: torch.Tensor, col_idx: torch.Tensor,
+                          bs: int, n_cb: int | None = None) -> torch.Tensor:
+    """Charge segments for every (lane, row-block, tile) of a batch.
+
+    ``xs`` (B, n, f), ``col_idx`` (B, n_rb, nbr) -> (B, n_rb, nbr, bs, f).
+    The batch is flattened into one segment table and the indices offset
+    per lane, so the gather is one plain row gather. ``n_cb`` widens the
+    table beyond ``ceil(n / bs)`` column blocks (capacity-padded plans).
+    """
+    B = xs.shape[0]
+    n_cb = max((xs.shape[1] + bs - 1) // bs, n_cb or 0)
+    flat = _pad_rows(xs, n_cb * bs, axis=1).reshape(B * n_cb, bs, -1)
+    off = (torch.arange(B, device=xs.device) * n_cb)[:, None, None]
+    seg = flat[(col_idx.long() + off).reshape(-1)]
+    return seg.reshape(tuple(col_idx.shape) + tuple(seg.shape[1:]))
+
+
+def _tiles_times_segments(vals: torch.Tensor,
+                          seg: torch.Tensor) -> torch.Tensor:
+    """(..., nbr, bs, bs) tiles x (..., nbr, bs, f) segments ->
+    (..., bs, f), summed over the tile slots.
+
+    Two arithmetic forms, as in the kernel: the elementwise
+    broadcast-multiply + reduce for f == 1, and a batched tile product
+    summed over slots for f > 1."""
+    lead = tuple(vals.shape[:-3])
+    nbr, bs = vals.shape[-3], vals.shape[-1]
+    f = seg.shape[-1]
+    if f == 1:
+        y = (vals * seg[..., None, :, 0]).sum(dim=(-3, -1))
+        return y[..., None]
+    out = torch.bmm(vals.reshape(-1, bs, bs), seg.reshape(-1, bs, f))
+    return out.reshape(lead + (nbr, bs, f)).sum(dim=-3)
+
+
+def spmv_bsr_batched(vals: torch.Tensor, col_idx: torch.Tensor,
+                     xs: torch.Tensor) -> torch.Tensor:
+    """Flat block path over a stacked batch: ``vals`` (B, n_rb, nbr, bs,
+    bs), ``xs`` (B, n) or (B, n, f); one gather + one tile contraction
+    for every plan in the batch."""
+    B, n_rb, nbr, bs, _ = vals.shape
+    squeeze = xs.ndim == 2
+    if squeeze:
+        xs = xs[..., None]
+    n = xs.shape[1]
+    seg = _flat_gather_segments(xs, col_idx, bs)
+    y = _tiles_times_segments(vals, seg)
+    y = y.reshape(B, n_rb * bs, -1)[:, :n]
+    return y[..., 0] if squeeze else y
+
+
+def spmv_bsr_ml_batched(vals: torch.Tensor, col_idx: torch.Tensor,
+                        xs: torch.Tensor, sb: int = 8) -> torch.Tensor:
+    """Multi-level batched path: loop over row-superblock stripes (every
+    lane's stripe s together), flat-gathering each stripe's segments —
+    the working set per step is one stripe *across the batch*."""
+    B, n_rb, nbr, bs, _ = vals.shape
+    squeeze = xs.ndim == 2
+    if squeeze:
+        xs = xs[..., None]
+    n = xs.shape[1]
+    ys = []
+    for r0 in range(0, n_rb, sb):
+        seg = _flat_gather_segments(xs, col_idx[:, r0:r0 + sb], bs)
+        ys.append(_tiles_times_segments(vals[:, r0:r0 + sb], seg))
+    y = torch.cat(ys, dim=1).reshape(B, n_rb * bs, -1)[:, :n]
+    return y[..., 0] if squeeze else y
+
+
+@register_batched_backend("bsr")
+def _bsr_batched(spec, data, xs: torch.Tensor) -> torch.Tensor:
+    return spmv_bsr_batched(data.vals, data.col_idx, xs)
+
+
+@register_batched_backend("bsr_ml")
+def _bsr_ml_batched(spec, data, xs: torch.Tensor) -> torch.Tensor:
+    return spmv_bsr_ml_batched(data.vals, data.col_idx, xs, spec.sb)
+
+
+# -- registry backends (plan, x) -> y, cluster index space ------------------
+
+
+@register_backend("csr")
+def _csr_backend(plan, x: torch.Tensor, **_kw) -> torch.Tensor:
+    """Per-edge gather baseline over the plan's reordered COO pattern."""
+    rows, cols, vals = plan.coo_device()
+    return spmv_csr(vals, rows, cols, x, plan.n)
+
+
+@register_backend("bsr")
+def _bsr_backend(plan, x: torch.Tensor, **_kw) -> torch.Tensor:
+    b = plan.bsr
+    return spmv_bsr(b.vals, b.col_idx, x, plan.n)
+
+
+@register_backend("bsr_ml")
+def _bsr_ml_backend(plan, x: torch.Tensor, **_kw) -> torch.Tensor:
+    b = plan.bsr
+    return spmv_bsr_ml(b.vals, b.col_idx, x, plan.n, b.sb)

@@ -1,0 +1,130 @@
+"""ELL-BSR SpMV/SpMM: the hand-written CUDA kernel and its plain version.
+
+Counterpart of the reference's ``kernels/bsr_spmv.py`` (Pallas, TPU). Two
+entries share one device code (``csrc/bsr_spmv.cu``):
+
+* ``bsr_spmv_batched`` — stacked members ``vals (B, n_rb, nbr, bs, bs)``,
+  ``col_idx (B, n_rb, nbr)``, ``xs (B, n_cb*bs, f)`` -> ``(B, n_rb*bs, f)``.
+* ``bsr_spmv`` — the single-plan form, ``x (n_cb*bs, f)`` -> ``(n_rb*bs, f)``.
+
+For a tensor on the CPU a wrapper returns its plain version; for a CUDA
+tensor it launches the kernel or raises. Each wrapper counts its launches
+in a plain integer attribute ``launches``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.interact import (_flat_gather_segments,
+                                       _tiles_times_segments)
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import bsr_spmv_ref
+
+SUPPORTED_BS = (4, 8, 16, 32, 64)
+
+
+def bsr_spmv_batched_plain(vals: torch.Tensor, col_idx: torch.Tensor,
+                           xs: torch.Tensor) -> torch.Tensor:
+    """Plain version: flat segment gather, then the tile contraction in the
+    kernel's two arithmetic forms (f == 1 multiply-reduce, f > 1 batched
+    tile product summed over slots)."""
+    B, n_rb, nbr, bs, _ = vals.shape
+    seg = _flat_gather_segments(xs, col_idx, bs, n_cb=xs.shape[1] // bs)
+    return _tiles_times_segments(vals, seg).reshape(B, n_rb * bs, -1)
+
+
+def bsr_spmv_plain(vals: torch.Tensor, col_idx: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the single-plan entry (the einsum oracle)."""
+    return bsr_spmv_ref(vals, col_idx, x)
+
+
+def _check(vals, col_idx, xs, batched: bool):
+    nd = 5 if batched else 4
+    if vals.ndim != nd or col_idx.ndim != nd - 2 or xs.ndim != nd - 2:
+        raise ValueError(
+            f"expected vals {nd}-D, col_idx {nd - 2}-D, charges {nd - 2}-D; "
+            f"got {tuple(vals.shape)}, {tuple(col_idx.shape)}, "
+            f"{tuple(xs.shape)}")
+    bs = vals.shape[-1]
+    if vals.shape[-2] != bs or tuple(col_idx.shape) != tuple(vals.shape[:-2]):
+        raise ValueError(
+            f"vals {tuple(vals.shape)} / col_idx {tuple(col_idx.shape)} "
+            "do not describe square tiles with one column index each")
+    if batched and xs.shape[0] != vals.shape[0]:
+        raise ValueError(f"batch mismatch: vals {vals.shape[0]}, "
+                         f"charges {xs.shape[0]}")
+    if xs.shape[-2] % bs:
+        raise ValueError(f"charge length {xs.shape[-2]} is not a whole "
+                         f"number of bs={bs} column blocks")
+    if vals.dtype != torch.float32 or xs.dtype != torch.float32:
+        raise TypeError(f"vals/charges must be float32, got {vals.dtype}/"
+                        f"{xs.dtype}")
+    if col_idx.dtype != torch.int32:
+        raise TypeError(f"col_idx must be int32, got {col_idx.dtype}")
+    if not (vals.device == col_idx.device == xs.device):
+        raise ValueError("vals, col_idx and charges must share one device")
+    n_cb = xs.shape[-2] // bs
+    if col_idx.numel():
+        lo, hi = torch.aminmax(col_idx)
+        if int(lo) < 0 or int(hi) >= n_cb:
+            raise ValueError(f"col_idx range [{int(lo)}, {int(hi)}] outside "
+                             f"the {n_cb} column blocks of the charges")
+    return bs, n_cb
+
+
+def _check_cuda(bs, *tensors):
+    if bs not in SUPPORTED_BS:
+        raise ValueError(f"the CUDA kernel supports bs in {SUPPORTED_BS}, "
+                         f"got {bs}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernel needs contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError("the CUDA kernel needs 16-byte aligned tensors")
+
+
+def bsr_spmv_batched(vals: torch.Tensor, col_idx: torch.Tensor,
+                     xs: torch.Tensor) -> torch.Tensor:
+    """vals (B, n_rb, nbr, bs, bs) f32; col_idx (B, n_rb, nbr) i32;
+    xs (B, n_cb*bs, f) f32. Returns y (B, n_rb*bs, f) = A[b] @ xs[b]."""
+    bs, n_cb = _check(vals, col_idx, xs, batched=True)
+    if vals.device.type != "cuda":
+        return bsr_spmv_batched_plain(vals, col_idx, xs)
+    _check_cuda(bs, vals, col_idx, xs)
+    B, n_rb, nbr = col_idx.shape
+    f = xs.shape[-1]
+    y = torch.empty((B, n_rb * bs, f), dtype=torch.float32, device=vals.device)
+    with torch.cuda.device(vals.device):
+        code = _build.load().repro_bsr_spmv_batched(
+            vals.data_ptr(), col_idx.data_ptr(), xs.data_ptr(), y.data_ptr(),
+            B, n_rb, nbr, bs, n_cb, f, _build.current_stream())
+    _build.check(code, "bsr_spmv_batched")
+    bsr_spmv_batched.launches += 1
+    return y
+
+
+bsr_spmv_batched.launches = 0
+
+
+def bsr_spmv(vals: torch.Tensor, col_idx: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """vals (n_rb, nbr, bs, bs) f32; col_idx (n_rb, nbr) i32;
+    x (n_cb*bs, f) f32. Returns y (n_rb*bs, f) = A @ x."""
+    bs, n_cb = _check(vals, col_idx, x, batched=False)
+    if vals.device.type != "cuda":
+        return bsr_spmv_plain(vals, col_idx, x)
+    _check_cuda(bs, vals, col_idx, x)
+    n_rb, nbr = col_idx.shape
+    f = x.shape[-1]
+    y = torch.empty((n_rb * bs, f), dtype=torch.float32, device=vals.device)
+    with torch.cuda.device(vals.device):
+        code = _build.load().repro_bsr_spmv(
+            vals.data_ptr(), col_idx.data_ptr(), x.data_ptr(), y.data_ptr(),
+            n_rb, nbr, bs, n_cb, f, _build.current_stream())
+    _build.check(code, "bsr_spmv")
+    bsr_spmv.launches += 1
+    return y
+
+
+bsr_spmv.launches = 0

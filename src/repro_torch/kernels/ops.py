@@ -1,0 +1,105 @@
+"""Public wrappers for the CUDA kernels and the ``cuda`` registry backend.
+
+On a CUDA tensor the wrappers launch the hand-written kernels
+(``csrc/*.cu``, built at first use); on a CPU tensor they return the
+kernels' plain PyTorch versions. The wrappers handle ``(n,)`` vs
+``(n, f)`` charges, padding of the charges to the plan's full column-block
+range, float32/int32 casts and slicing back to the charge length. The
+kernel needs no tile-size arguments: one thread block per (member, row
+block, 8-column feature tile) loops the whole ELL width.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch._device import DeviceLike, device_of, from_numpy
+from repro_torch.core.interact import _pad_rows
+from repro_torch.core.registry import register_backend, register_batched_backend
+from repro_torch.kernels import bsr_spmv as _bsr
+from repro_torch.kernels import gamma_score as _gs
+
+
+@register_backend("cuda")
+def _cuda_backend(plan, x: torch.Tensor, **_kw) -> torch.Tensor:
+    """InteractionPlan SpMV via the CUDA kernel (batched kernel at B=1).
+    Handles (n,) and (n, f) charges and capacity-padded plans — dead-slot
+    rows carry zero tiles and stay zero in the output."""
+    b = plan.bsr
+    y = bsr_spmv_batched(b.vals[None], b.col_idx[None], x[None],
+                         shape_key=plan.spec.shape_key)[0]
+    return y[:plan.n]
+
+
+@register_batched_backend("cuda")
+def _cuda_batched(spec, data, xs: torch.Tensor) -> torch.Tensor:
+    """Stacked-plan SpMV: the whole batch in ONE kernel launch."""
+    return bsr_spmv_batched(data.vals, data.col_idx, xs,
+                            shape_key=spec.shape_key)
+
+
+def bsr_spmv(vals: torch.Tensor, col_idx: torch.Tensor, x: torch.Tensor,
+             n: int | None = None) -> torch.Tensor:
+    """ELL-BSR SpMV/SpMM. x (n,) or (n, f); returns same leading length."""
+    n_rb, nbr, bs, _ = vals.shape
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[:, None]
+    x = _pad_rows(x, n_rb * bs)
+    y = _bsr.bsr_spmv(vals.to(torch.float32).contiguous(),
+                      col_idx.to(torch.int32).contiguous(),
+                      x.to(torch.float32).contiguous())
+    if n is not None:
+        y = y[:n]
+    return y[:, 0] if squeeze else y
+
+
+def bsr_spmv_batched(vals: torch.Tensor, col_idx: torch.Tensor,
+                     xs: torch.Tensor,
+                     shape_key: tuple | None = None) -> torch.Tensor:
+    """Batched ELL-BSR SpMV/SpMM.
+
+    vals (B, n_rb, nbr, bs, bs); xs (B, n) or (B, n, f); returns the same
+    leading charge length as the plain batched backends (sliced to n).
+    ``shape_key`` (``PlanSpec.shape_key``) names the plan's column-block
+    count, which may exceed the live charge length on capacity-padded
+    plans.
+    """
+    B, n_rb, nbr, bs, _ = vals.shape
+    squeeze = xs.ndim == 2
+    if squeeze:
+        xs = xs[..., None]
+    n = xs.shape[1]
+    n_cb = max((n + bs - 1) // bs,
+               shape_key[4] if shape_key is not None else 0)
+    xs = _pad_rows(xs, n_cb * bs, axis=1)
+    y = _bsr.bsr_spmv_batched(vals.to(torch.float32).contiguous(),
+                              col_idx.to(torch.int32).contiguous(),
+                              xs.to(torch.float32).contiguous())
+    y = y[:, :n]
+    return y[..., 0] if squeeze else y
+
+
+def gamma_exact(rows, cols, sigma: float, bn: int = 256, weights=None,
+                device: DeviceLike = None) -> torch.Tensor:
+    """Exact Eq. 4 via the tiled kernel.
+
+    Pads the coordinate list to a tile multiple with zero-weight entries
+    (exactly inert) and exploits pair symmetry to skip the upper tile
+    triangle. ``weights`` supports weighted patterns (tombstoned entries
+    carry weight 0). ``rows``/``cols`` may be numpy arrays or tensors; the
+    sum runs on ``device`` (a tensor's own device when ``device`` is None).
+    """
+    dev = device_of(rows, device)
+    r = from_numpy(rows, dev, torch.float32)
+    c = from_numpy(cols, dev, torch.float32)
+    nnz = r.shape[0]
+    coords = torch.stack([r, c], 1)
+    w = (torch.ones(nnz, dtype=torch.float32, device=dev) if weights is None
+         else from_numpy(weights, dev, torch.float32))
+    pad = (-nnz) % bn
+    coords = _pad_rows(coords, nnz + pad).contiguous()
+    w = _pad_rows(w, nnz + pad).contiguous()
+    total = _gs.gamma_pairs(coords, float(sigma), bn, weights=w,
+                            symmetric=True)
+    denom = float(nnz) if weights is None else w.sum()
+    return total / (float(sigma) * denom)

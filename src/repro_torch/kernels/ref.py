@@ -1,0 +1,21 @@
+"""Plain PyTorch oracles for the kernels (the allclose targets)."""
+from __future__ import annotations
+
+import torch
+
+
+def bsr_spmv_ref(vals: torch.Tensor, col_idx: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """vals (n_rb, nbr, bs, bs); col_idx (n_rb, nbr); x (n_cb*bs, f)."""
+    n_rb, nbr, bs, _ = vals.shape
+    xb = x.reshape(-1, bs, x.shape[-1])          # (n_cb, bs, f)
+    seg = xb[col_idx.long()]                     # (n_rb, nbr, bs, f)
+    y = torch.einsum("rnij,rnjf->rif", vals, seg)
+    return y.reshape(n_rb * bs, -1)
+
+
+def gamma_pairs_ref(coords: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Literal dense (n, n) pair sum — small inputs only."""
+    c = coords.to(torch.float32)
+    d2 = ((c[:, None, :] - c[None, :, :]) ** 2).sum(-1)
+    return torch.exp(-d2 / (sigma * sigma)).sum()

@@ -1,0 +1,231 @@
+"""Kernels B1/B2/B3 of the port against the reference's Pallas kernels.
+
+On this CPU the port's wrappers take their plain versions (the tensors lie
+on the CPU) and the reference runs its kernels in interpret mode through
+``repro.kernels.ops``. The CUDA kernels themselves are held against the
+plain versions on a card by ``chip_smoke.py`` and by the ``requires_cuda``
+tests of ``tests/test_torch_cuda.py``.
+
+Tolerance: float32 ``rtol=1e-5`` (``atol=1e-5`` at unit-scale charges) —
+the arithmetic is the same, only the summation order differs.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_close, random_ell, tn, tt
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_ref
+from repro_torch.kernels import bsr_spmv as t_bsr
+from repro_torch.kernels import gamma_score as t_gs
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import ref as t_ref
+
+
+# -- B1: bsr_spmv_batched ----------------------------------------------------
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("f", [1, 3, 8])
+def test_bsr_spmv_batched_matches_reference(B, f):
+    # n_rb = 7 is a multiple of nothing convenient; one padded ELL slot
+    bs, n_rb, nbr = 8, 7, 4
+    vals, col = random_ell(10 * B + f, B, n_rb, nbr, bs, pad_slots=1)
+    xs = np.random.default_rng(f).standard_normal(
+        (B, n_rb * bs, f)).astype(np.float32)
+    want = ref_ops.bsr_spmv_batched(jnp.asarray(vals), jnp.asarray(col),
+                                    jnp.asarray(xs))
+    got = t_ops.bsr_spmv_batched(tt(vals), tt(col), tt(xs))
+    assert tuple(got.shape) == tuple(want.shape)
+    assert_close(got, want)
+    # and against the reference's own oracle, member by member
+    for b in range(B):
+        oracle = ref_ref.bsr_spmv_ref(jnp.asarray(vals[b]),
+                                      jnp.asarray(col[b]),
+                                      jnp.asarray(xs[b]))
+        assert_close(got[b], oracle)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_bsr_spmv_batched_1d_charges(B):
+    bs, n_rb, nbr = 16, 5, 3
+    vals, col = random_ell(3 + B, B, n_rb, nbr, bs)
+    xs = np.random.default_rng(1).standard_normal(
+        (B, n_rb * bs)).astype(np.float32)
+    want = ref_ops.bsr_spmv_batched(jnp.asarray(vals), jnp.asarray(col),
+                                    jnp.asarray(xs))
+    got = t_ops.bsr_spmv_batched(tt(vals), tt(col), tt(xs))
+    assert tuple(got.shape) == (B, n_rb * bs)
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("f", [1, 3])
+def test_bsr_spmv_batched_capacity_padded_shape_key(f):
+    """Charges shorter than the plan's column range: ``shape_key`` names
+    the full column-block count, the output is sliced to the charges."""
+    bs, n_rb, nbr, B = 8, 6, 3, 2
+    n = n_rb * bs - 5                      # live charge length < capacity
+    vals, col = random_ell(21, B, n_rb, nbr, bs, pad_slots=1,
+                           dead_rows=(n_rb - 1,))
+    # tiles of the last (dead) column block must not be referenced by live
+    # rows beyond the charge length: keep columns inside the live range
+    col = np.minimum(col, n_rb - 2).astype(np.int32)
+    xs = np.random.default_rng(2).standard_normal((B, n, f)).astype(
+        np.float32)
+    key = (n_rb * bs, bs, 8, n_rb, n_rb, nbr)
+    want = ref_ops.bsr_spmv_batched(jnp.asarray(vals), jnp.asarray(col),
+                                    jnp.asarray(xs), shape_key=key)
+    got = t_ops.bsr_spmv_batched(tt(vals), tt(col), tt(xs), shape_key=key)
+    assert tuple(got.shape) == (B, n, f)
+    assert_close(got, want)
+
+
+def test_bsr_spmv_batched_dead_rows_exactly_zero():
+    bs, n_rb, nbr, B = 8, 7, 4, 3
+    dead = (2, 6)
+    vals, col = random_ell(5, B, n_rb, nbr, bs, dead_rows=dead)
+    xs = np.random.default_rng(3).standard_normal(
+        (B, n_rb * bs, 3)).astype(np.float32)
+    got = tn(t_ops.bsr_spmv_batched(tt(vals), tt(col), tt(xs)))
+    for r in dead:
+        assert (got[:, r * bs:(r + 1) * bs] == 0.0).all()
+    assert np.abs(got).max() > 0
+
+
+def test_bsr_spmv_batched_wrapper_rejects_bad_input():
+    vals, col = random_ell(0, 1, 3, 2, 8)
+    xs = np.zeros((1, 24, 1), np.float32)
+    with pytest.raises(TypeError, match="float32"):
+        t_bsr.bsr_spmv_batched(tt(vals).double(), tt(col), tt(xs))
+    with pytest.raises(TypeError, match="int32"):
+        t_bsr.bsr_spmv_batched(tt(vals), tt(col).long(), tt(xs))
+    bad = col.copy()
+    bad[0, 0, 0] = 3                       # only 3 column blocks: 0..2
+    with pytest.raises(ValueError, match="col_idx range"):
+        t_bsr.bsr_spmv_batched(tt(vals), tt(bad), tt(xs))
+    with pytest.raises(ValueError, match="whole number"):
+        t_bsr.bsr_spmv_batched(tt(vals), tt(col), tt(xs)[:, :20])
+
+
+# -- B2: bsr_spmv ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("f", [1, 3, 8])
+@pytest.mark.parametrize("bs", [8, 16])
+def test_bsr_spmv_matches_reference(f, bs):
+    n_rb, nbr = 5, 3
+    vals, col = random_ell(bs + f, 1, n_rb, nbr, bs, pad_slots=1)
+    vals, col = vals[0], col[0]
+    n = n_rb * bs - 3                      # wrapper pads to whole blocks
+    x = np.random.default_rng(f).standard_normal((n, f)).astype(np.float32)
+    want = ref_ops.bsr_spmv(jnp.asarray(vals), jnp.asarray(col),
+                            jnp.asarray(x), n)
+    got = t_ops.bsr_spmv(tt(vals), tt(col), tt(x), n)
+    assert tuple(got.shape) == (n, f)
+    assert_close(got, want)
+    xp = np.pad(x, ((0, n_rb * bs - n), (0, 0)))
+    oracle = ref_ref.bsr_spmv_ref(jnp.asarray(vals), jnp.asarray(col),
+                                  jnp.asarray(xp))
+    assert_close(t_ref.bsr_spmv_ref(tt(vals), tt(col), tt(xp)), oracle)
+    assert_close(got, np.asarray(oracle)[:n])
+
+
+def test_bsr_spmv_1d_and_rectangular():
+    bs, n_rb, n_cb, nbr = 8, 4, 9, 3
+    vals, col = random_ell(9, 1, n_rb, nbr, bs, n_cb=n_cb)
+    x = np.random.default_rng(4).standard_normal(
+        (n_cb * bs, 2)).astype(np.float32)
+    want = ref_ref.bsr_spmv_ref(jnp.asarray(vals[0]), jnp.asarray(col[0]),
+                                jnp.asarray(x))
+    got = t_bsr.bsr_spmv(tt(vals[0]), tt(col[0]), tt(x))
+    assert tuple(got.shape) == (n_rb * bs, 2)
+    assert_close(got, want)
+    sq_vals, sq_col = random_ell(11, 1, 4, 2, 8)
+    x1 = np.random.default_rng(5).standard_normal(32).astype(np.float32)
+    want1 = ref_ops.bsr_spmv(jnp.asarray(sq_vals[0]), jnp.asarray(sq_col[0]),
+                             jnp.asarray(x1))
+    got1 = t_ops.bsr_spmv(tt(sq_vals[0]), tt(sq_col[0]), tt(x1))
+    assert tuple(got1.shape) == (32,)
+    assert_close(got1, want1)
+
+
+# -- B3: gamma_pairs / gamma_exact -------------------------------------------
+
+
+def _pattern(seed, nnz, n):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, n, nnz).astype(np.int32),
+            rng.integers(0, n, nnz).astype(np.int32))
+
+
+@pytest.mark.parametrize("nnz,bn", [(700, 64), (512, 128), (300, 256)])
+def test_gamma_exact_matches_reference(nnz, bn):
+    rows, cols = _pattern(nnz, nnz, 200)
+    want = ref_ops.gamma_exact(jnp.asarray(rows), jnp.asarray(cols), 6.0, bn)
+    got = t_ops.gamma_exact(rows, cols, 6.0, bn, device="cpu")
+    assert_close(got, want)
+    co = np.stack([rows, cols], 1).astype(np.float32)
+    oracle = ref_ref.gamma_pairs_ref(jnp.asarray(co), 6.0) / (6.0 * nnz)
+    assert_close(got, oracle)
+
+
+def test_gamma_exact_weighted_matches_reference():
+    rows, cols = _pattern(7, 500, 150)
+    w = (np.random.default_rng(8).random(500) > 0.3).astype(np.float32)
+    want = ref_ops.gamma_exact(jnp.asarray(rows), jnp.asarray(cols), 5.0, 64,
+                               weights=jnp.asarray(w))
+    got = t_ops.gamma_exact(rows, cols, 5.0, 64, weights=w, device="cpu")
+    assert_close(got, want)
+    # zero-weight entries are the same as leaving the entries out
+    keep = w > 0
+    live = t_ops.gamma_exact(rows[keep], cols[keep], 5.0, 64, device="cpu")
+    assert_close(got, live)
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_gamma_pairs_symmetric_schedule_and_padding(symmetric):
+    """The lower-triangle schedule gives the full sum, and zero-weight
+    padding rows are inert wherever their coordinates lie."""
+    rows, cols = _pattern(3, 320, 90)
+    co = np.stack([rows, cols], 1).astype(np.float32)
+    full = ref_ref.gamma_pairs_ref(jnp.asarray(co), 4.0)
+    got = t_gs.gamma_pairs(tt(co), 4.0, 64, symmetric=symmetric)
+    assert_close(got, full)
+    pad = np.full((64, 2), 17.0, np.float32)     # in the thick of the data
+    co_p = np.concatenate([co, pad])
+    w_p = np.concatenate([np.ones(320, np.float32), np.zeros(64, np.float32)])
+    got_p = t_gs.gamma_pairs(tt(co_p), 4.0, 64, weights=tt(w_p),
+                             symmetric=symmetric)
+    assert_close(got_p, full)
+    from repro.kernels import gamma_score as ref_gs
+    want_p = ref_gs.gamma_pairs(jnp.asarray(co_p), 4.0, 64,
+                                weights=jnp.asarray(w_p),
+                                symmetric=symmetric, interpret=True)
+    assert_close(got_p, want_p)
+
+
+def test_gamma_pairs_wrapper_rejects_bad_input():
+    co = torch.zeros(100, 2)
+    with pytest.raises(ValueError, match="multiple of bn"):
+        t_gs.gamma_pairs(co, 4.0, 64)
+    with pytest.raises(ValueError, match="sigma"):
+        t_gs.gamma_pairs(torch.zeros(64, 2), 0.0, 64)
+    with pytest.raises(TypeError, match="float32"):
+        t_gs.gamma_pairs(torch.zeros(64, 2, dtype=torch.float64), 4.0, 64)
+
+
+# -- launch counters and the CPU rule ----------------------------------------
+
+
+def test_cpu_tensors_take_plain_versions_and_count_no_launch():
+    before = (t_bsr.bsr_spmv_batched.launches, t_bsr.bsr_spmv.launches,
+              t_gs.gamma_pairs.launches)
+    vals, col = random_ell(1, 2, 3, 2, 8)
+    xs = np.ones((2, 24, 2), np.float32)
+    t_bsr.bsr_spmv_batched(tt(vals), tt(col), tt(xs))
+    t_bsr.bsr_spmv(tt(vals[0]), tt(col[0]), tt(xs[0]))
+    t_gs.gamma_pairs(torch.zeros(64, 2), 3.0, 64)
+    assert before == (t_bsr.bsr_spmv_batched.launches,
+                      t_bsr.bsr_spmv.launches, t_gs.gamma_pairs.launches)
