@@ -5,6 +5,7 @@ and no GPU — kernels are built when they are first launched, never at
 import."""
 import ast
 import importlib
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -69,9 +70,10 @@ def test_modules_import_without_toolchain_or_jax():
         "if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         env={"PYTHONPATH": str(ROOT / "src"),
-                              "PATH": "/nonexistent"},
+    env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
