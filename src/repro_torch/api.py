@@ -39,10 +39,20 @@ Spec/data split: every plan factors into a hashable, structure-only
 ``InteractionPlan.from_spec_data`` reconstructs a working plan from the
 pair.
 
-The plan lifecycle of the reference (refresh, streaming inserts/deletes,
-sharding, solvers, batched plans, the iterative-application hooks) is not
-ported yet; those entry points raise ``NotImplementedError`` naming what
-they wait for.
+Iterative applications (paper §3): ``plan.tsne_attractive(y)`` computes
+the t-SNE attractive force over the stored affinities — through the
+hand-written CUDA kernel (``kernels/csrc/tsne_force.cu``) for a plan on a
+CUDA device, through the plain blockwise path on the CPU or when the
+caller names ``backend="bsr"`` — and ``plan.meanshift_step`` one
+mean-shift iteration over the stored neighbor pattern. Both run in a loop
+with ``plan.refresh(x_new)``, which escalates through the reference's
+three tiers (patch / rebucket / rebuild) as the points move; a patch
+updates the plan's tile tensors in place (see :func:`refresh_plan`).
+
+Not ported yet, raising ``NotImplementedError`` with their ROADMAP item:
+the streaming half of the lifecycle (insert, delete, update, compact,
+``update_plan``, ``capacity > n``), batched plans (``PlanBatch``,
+``build_plan_batch``), sharding and the solvers.
 """
 from __future__ import annotations
 
@@ -56,9 +66,9 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, from_numpy, resolve_device, to_numpy
-from repro_torch.core import knn, measures
+from repro_torch.core import hierarchy, interact, knn, measures
 from repro_torch.core import ordering as ordering_mod
-from repro_torch.core.blocksparse import BSR, build_bsr
+from repro_torch.core.blocksparse import BSR, build_bsr, patch_bsr
 from repro_torch.core.embedding import apply_pca_map, embed, pca_map
 from repro_torch.core.hierarchy import Tree, build_tree
 from repro_torch.core.ordering import ORDERINGS  # noqa: F401  (re-export)
@@ -67,6 +77,7 @@ from repro_torch.core.registry import (backend_names,  # noqa: F401
                                        preconditioner_names,
                                        register_backend,
                                        register_batched_backend)
+from repro_torch.kernels import ops as kernel_ops
 
 __all__ = [
     "PlanConfig", "PlanSpec", "PlanData", "InteractionPlan", "PlanBatch",
@@ -193,8 +204,10 @@ class PlanData:
 
 @dataclasses.dataclass
 class RefreshStats:
-    """Lifecycle telemetry of a plan lineage (mutable, host-side). Only the
-    fields cross over for now; the tiers that move them are not ported."""
+    """Lifecycle telemetry of a plan lineage (mutable, host-side). The
+    refresh tiers move the first block of fields; the streaming counters
+    (appends ... deleted_total) cross over but nothing in the port moves
+    them yet."""
     builds: int = 1
     patches: int = 0
     rebuckets: int = 0
@@ -577,6 +590,62 @@ class InteractionPlan:
         return InteractionPlan(self.config, self.n, bsr, self.pi, self.inv,
                                host)
 
+    # -- iterative value-update hooks (paper §3) ---------------------------
+
+    def tsne_attractive(self, y, backend: Optional[str] = None
+                        ) -> torch.Tensor:
+        """t-SNE attractive force (§3.1) on embedding ``y`` (n, d), cluster
+        order; the stored tiles are the (fixed-profile) affinities ``p``.
+
+        ``backend``: ``None``/``"auto"`` launches the CUDA kernel for a plan
+        on a CUDA device and takes the plain blockwise path for a plan on
+        the CPU; ``"cuda"`` is the kernel (``kernels.ops.tsne_force``);
+        ``"bsr"`` is the plain blockwise path (``interact.tsne_attractive``).
+        """
+        b = self._require_bsr()
+        name = backend or "auto"
+        if name == "auto":
+            name = "cuda" if self.device.type == "cuda" else "bsr"
+        y = from_numpy(y, self.device, torch.float32)
+        if name == "cuda":
+            return kernel_ops.tsne_force(b.vals, b.col_idx, y, self.n)
+        if name == "bsr":
+            return interact.tsne_attractive(b.vals, b.col_idx, b.nbr_mask,
+                                            y, self.n)
+        raise ValueError(f"unknown tsne_attractive backend {backend!r}; "
+                         "expected None | 'auto' | 'cuda' | 'bsr'")
+
+    def meanshift_step(self, targets, sources, h2: float) -> torch.Tensor:
+        """One mean-shift iteration (§3.2). ``targets`` and ``sources``
+        (n, d) in cluster order; the stored tiles are the 0/1 neighbor
+        pattern. Runs the plain blockwise path on the plan's device."""
+        b = self._require_bsr()
+        s = from_numpy(sources, self.device, torch.float32)
+        s = interact._pad_rows(s, b.n_cb * b.bs)
+        s_blocked = s.reshape(b.n_cb, b.bs, -1)
+        return interact.meanshift_step(
+            b.vals, b.col_idx, s_blocked,
+            from_numpy(targets, self.device, torch.float32), h2, self.n)
+
+    # -- lifecycle (refresh + drift monitoring) ----------------------------
+
+    def refresh(self, x_new, *, policy: Optional[str] = None
+                ) -> "InteractionPlan":
+        """See :func:`refresh_plan`."""
+        return refresh_plan(self, x_new, policy=policy)
+
+    def gamma_drift(self) -> float:
+        """Relative γ degradation against the lineage's reference score
+        (positive = locality got worse). The reference is pinned at the
+        first scoring after a (re)build; γ itself is computed lazily, so
+        hot loops that never call this never pay for scoring."""
+        st = self.host.refresh
+        g = self.gamma
+        if st.gamma0 is None:
+            st.gamma0 = g
+            return 0.0
+        return measures.gamma_drift(st.gamma0, g)
+
     # -- not ported yet ------------------------------------------------------
 
     def solve(self, *args, **kwargs):
@@ -585,17 +654,8 @@ class InteractionPlan:
     def eigs(self, *args, **kwargs):
         raise _not_ported("plan.eigs", "A8")
 
-    def tsne_attractive(self, *args, **kwargs):
-        raise _not_ported("plan.tsne_attractive", "A3")
-
-    def meanshift_step(self, *args, **kwargs):
-        raise _not_ported("plan.meanshift_step", "A3")
-
     def shard(self, *args, **kwargs):
         raise _not_ported("plan.shard", "A11")
-
-    def refresh(self, *args, **kwargs):
-        raise _not_ported("plan.refresh", "A6")
 
     def insert(self, *args, **kwargs):
         raise _not_ported("plan.insert", "A6")
@@ -641,10 +701,6 @@ class PlanBatch:
 
 def build_plan_batch(*args, **kwargs):
     raise _not_ported("build_plan_batch", "A4")
-
-
-def refresh_plan(*args, **kwargs):
-    raise _not_ported("refresh_plan", "A6")
 
 
 def update_plan(*args, **kwargs):
@@ -770,3 +826,326 @@ def build_plan(x, *, k: int = 16, ordering: str = "dual_tree", bs: int = 32,
     elif values is not None:
         plan.host.values_mode = "static"
     return plan
+
+
+# ---------------------------------------------------------------------------
+# plan refresh (lifecycle: the non-stationary targets of paper §3.2)
+# ---------------------------------------------------------------------------
+
+
+def _cmp_shift(n: int, d: int, bits: int, tree: Optional[Tree],
+               leaf_size: int) -> int:
+    """Morton-code shift at which cell identity is compared for migration.
+
+    Uses the tree's realized depth (cells at leaf granularity) when one
+    exists, else the depth a balanced 2^d tree would need for ~leaf_size
+    points per cell. Comparing at full code resolution would flag every
+    sub-cell wiggle as migration."""
+    total = d * hierarchy.eff_bits(d, bits)
+    if tree is not None and tree.n_levels > 1:
+        level = tree.n_levels - 1
+    else:
+        cells_per_dim = max(float(n) / max(leaf_size, 1), 1.0) ** (1.0 / d)
+        level = max(int(np.ceil(np.log2(max(cells_per_dim, 1.0)))), 1)
+    return max(total - level * d, 0)
+
+
+def _cell_migration(y_ref: np.ndarray, y_new: np.ndarray, bits: int,
+                    shift: int, device: DeviceLike = None) -> np.ndarray:
+    """Mask of points whose Morton cell (at leaf granularity) changed.
+
+    Both coordinate sets are quantized against their joint bounding box,
+    so a global translation/expansion of the cloud (which leaves relative
+    order intact) does not read as migration. The codes are computed on
+    ``device``."""
+    lo = np.minimum(y_ref.min(0), y_new.min(0))
+    hi = np.maximum(y_ref.max(0), y_new.max(0))
+    ca = to_numpy(hierarchy.morton_codes_box(y_ref, lo, hi, bits, device))
+    cb = to_numpy(hierarchy.morton_codes_box(y_new, lo, hi, bits, device))
+    return (ca >> shift) != (cb >> shift)
+
+
+def _knn_subset(x_new: np.ndarray, rows_idx: np.ndarray,
+                sources: Optional[np.ndarray], k: int,
+                valid: Optional[np.ndarray] = None,
+                device: DeviceLike = None):
+    """Exact kNN edges (original index space) for a subset of target rows,
+    computed on ``device``.
+
+    ``valid`` masks the candidate sources (tombstoned physical slots hold
+    stale coordinates and must never be picked as neighbors).
+    """
+    tq = x_new[rows_idx]
+    # query block sized to the subset, as the reference sizes its scan
+    block = min(1 << max(7, int(np.ceil(np.log2(max(len(rows_idx), 1))))),
+                1024)
+    if sources is None:
+        # targets are a subset of the sources: take k+1 and drop each
+        # row's own point (knn_graph's exclude_self assumes aligned sets)
+        idx, d2 = knn.knn_graph(tq, x_new, k + 1, block=block, valid=valid,
+                                device=device)
+        idx, d2 = to_numpy(idx), to_numpy(d2)
+        keep = idx != rows_idx[:, None]
+        order = np.argsort(~keep, axis=1, kind="stable")  # kept first,
+        idx = np.take_along_axis(idx, order, 1)[:, :k]    # distance order
+        d2 = np.take_along_axis(d2, order, 1)[:, :k]      # preserved
+    else:
+        idx, d2 = knn.knn_graph(tq, sources, k, block=block, valid=valid,
+                                device=device)
+        idx, d2 = to_numpy(idx), to_numpy(d2)
+    return np.repeat(rows_idx, k), idx.reshape(-1), d2.reshape(-1)
+
+
+def edge_values(host: _PlanHost, rows, cols, d2) -> np.ndarray:
+    """Edge weights for a batch of (row, col, squared-distance) triples
+    under the host's values mode — the single place interaction strengths
+    are computed for migrated rows."""
+    if host.values_mode == "fn":
+        return np.asarray(host.values_fn(rows, cols, d2), np.float32)
+    return np.ones(len(rows), np.float32)
+
+
+def _patch_pattern(host: _PlanHost, cfg: PlanConfig, n: int,
+                   x_new: np.ndarray, rows_m: np.ndarray,
+                   device: DeviceLike = None):
+    """Original-space COO with migrated rows' kNN edges recomputed."""
+    r2, c2, v2 = host.coo
+    r_o, c_o = host.pi[r2], host.pi[c2]
+    drop = np.isin(r_o, rows_m)
+    if cfg.symmetrize:
+        drop |= np.isin(c_o, rows_m)
+    nr, nc, nd2 = _knn_subset(x_new, rows_m, host.sources, cfg.k,
+                              valid=host.alive, device=device)
+    nv = edge_values(host, nr, nc, nd2)
+    if cfg.symmetrize:
+        nr, nc, nv = _symmetrize_pattern(nr, nc, nv, n)
+    r_all = np.concatenate([r_o[~drop], nr])
+    c_all = np.concatenate([c_o[~drop], nc])
+    v_all = np.concatenate([v2[~drop], nv])
+    if cfg.symmetrize:  # mirrored new edges may duplicate kept ones
+        key = r_all.astype(np.int64) * n + c_all
+        _, first = np.unique(key, return_index=True)
+        r_all, c_all, v_all = r_all[first], c_all[first], v_all[first]
+    dropped_rows = r_o[drop]
+    return r_all, c_all, v_all, dropped_rows
+
+
+def _refresh_patch(plan: InteractionPlan, x_new, y_new, moved, stats,
+                   moved_frac: float, drift_frac: float):
+    """Cheapest tier: permutation kept, migrated rows' tiles patched in
+    place. Returns None when a patched row-block overflows the pinned ELL
+    width (caller escalates to rebucket); the storage is then untouched."""
+    host, cfg, n = plan.host, plan.config, plan.n
+    rows_m = np.nonzero(moved)[0]
+    refreshes_pattern = (host.pattern_from_knn
+                         and host.values_mode != "static"
+                         and len(rows_m) > 0)
+    stats = dataclasses.replace(
+        stats, patches=stats.patches + 1, last_action="patch",
+        last_migrated_frac=moved_frac, ordering_drift_frac=drift_frac,
+        patched_rows=stats.patched_rows
+        + (len(rows_m) if refreshes_pattern else 0))
+    if not refreshes_pattern:
+        # pattern does not follow the coords (or nothing changed cells):
+        # bookkeeping only; ordering drift keeps accumulating
+        host2 = dataclasses.replace(host, y_last=y_new, refresh=stats,
+                                    x=x_new)
+        return InteractionPlan(cfg, n, plan.bsr, plan.pi, plan.inv, host2)
+    r_all, c_all, v_all, dropped_rows = _patch_pattern(
+        host, cfg, n, x_new, rows_m, device=plan.device)
+    r2n, c2n = ordering_mod.apply_ordering(r_all, c_all, host.pi)
+    bsr = plan.bsr
+    affected = np.concatenate([host.inv[dropped_rows], host.inv[rows_m]])
+    touched_rb = np.unique(affected // cfg.bs)
+    if bsr is not None:
+        try:
+            bsr = patch_bsr(bsr, r2n, c2n, v_all, touched_rb)
+        except ValueError:
+            return None
+        if measures.fill_drift(stats.fill0, bsr.fill) > cfg.drift_tol:
+            stats = dataclasses.replace(stats, degraded=True)
+    host2 = dataclasses.replace(host, coo=(r2n, c2n, v_all), coo_dev=None,
+                                gamma=None, y_last=y_new, refresh=stats,
+                                x=x_new)
+    return InteractionPlan(cfg, n, bsr, plan.pi, plan.inv, host2)
+
+
+def _refresh_rebucket(plan: InteractionPlan, x_new, y_new, moved, stats,
+                      moved_frac: float) -> InteractionPlan:
+    """Middle tier: stable partial reorder + re-bucketed tree levels;
+    embedding map, quantization frame and unmigrated kNN rows reused."""
+    host, cfg, n, dev = plan.host, plan.config, plan.n, plan.device
+    if host.tree is not None:
+        tree = hierarchy.rebucket(y_new, host.tree, cfg.leaf_size,
+                                  device=dev)
+        pi = np.asarray(tree.perm)
+    else:
+        # a host carried across without its tree arrays: the ordering
+        # still refreshes, by a stable re-sort of the new codes
+        codes = to_numpy(hierarchy.morton_codes(y_new, cfg.bits, dev))
+        pi = ordering_mod.stable_partial_reorder(host.pi, codes)
+        tree = None
+    inv = np.empty_like(pi)
+    inv[pi] = np.arange(n)
+
+    rows_m = np.nonzero(moved)[0]
+    refreshes_pattern = (host.pattern_from_knn
+                         and host.values_mode != "static"
+                         and len(rows_m) > 0)
+    if refreshes_pattern:
+        r_o, c_o, v2, _ = _patch_pattern(host, cfg, n, x_new, rows_m,
+                                         device=dev)
+    else:
+        r2, c2, v2 = host.coo
+        r_o, c_o = host.pi[r2], host.pi[c2]
+    r2n, c2n = ordering_mod.apply_ordering(r_o, c_o, pi)
+    bsr = (build_bsr(r2n, c2n, v2, n, bs=cfg.bs, sb=cfg.sb,
+                     slack=cfg.ell_slack, device=dev)
+           if plan.bsr is not None else None)
+    stats = dataclasses.replace(
+        stats, rebuckets=stats.rebuckets + 1, last_action="rebucket",
+        last_migrated_frac=moved_frac, ordering_drift_frac=0.0,
+        patched_rows=stats.patched_rows
+        + (len(rows_m) if refreshes_pattern else 0),
+        fill0=bsr.fill if bsr is not None else None, gamma0=None,
+        degraded=False)
+    host2 = dataclasses.replace(
+        host, pi=pi, inv=inv, coo=(r2n, c2n, v2), coo_dev=None, tree=tree,
+        embedding=y_new, y_last=y_new, gamma=None, refresh=stats, x=x_new)
+    return InteractionPlan(cfg, n, bsr, from_numpy(pi, dev, torch.int64),
+                           from_numpy(inv, dev, torch.int64), host2)
+
+
+def _refresh_rebuild(plan: InteractionPlan, x_new, stats,
+                     moved_frac: float) -> InteractionPlan:
+    """Top tier: the full pipeline again (fresh embedding fit, tree, kNN,
+    BSR); only the config and lineage telemetry carry over."""
+    host, cfg, dev = plan.host, plan.config, plan.device
+    if host.pattern_from_knn and host.values_mode != "static":
+        values = host.values_fn if host.values_mode == "fn" else None
+        new = build_plan(x_new, config=cfg, values=values, sigma=host.sigma,
+                         sources=host.sources,
+                         with_bsr=plan.bsr is not None, device=dev)
+    else:
+        r2, c2, v2 = host.coo
+        r_o, c_o = host.pi[r2], host.pi[c2]
+        new = InteractionPlan.from_coo(
+            r_o, c_o, v2, plan.n, x=x_new, config=cfg, sigma=host.sigma,
+            with_bsr=plan.bsr is not None, device=dev, _symmetrized=True)
+        new.host.pattern_from_knn = host.pattern_from_knn
+        new.host.values_mode = host.values_mode
+        new.host.values_fn = host.values_fn
+        new.host.sources = host.sources
+    new.host.refresh = dataclasses.replace(
+        new.host.refresh, builds=stats.builds + 1, patches=stats.patches,
+        rebuckets=stats.rebuckets, rebuilds=stats.rebuilds + 1,
+        last_action="rebuild", last_migrated_frac=moved_frac,
+        patched_rows=stats.patched_rows)
+    return new
+
+
+def refresh_plan(plan: InteractionPlan, x_new,
+                 *, policy: Optional[str] = None) -> InteractionPlan:
+    """Refresh ``plan`` for moved points ``x_new`` (n, D, original order).
+
+    Re-embeds the points through the plan's *stored* PCA map, detects
+    Morton-cell migration at leaf granularity (old/new coords quantized
+    jointly), and escalates through three tiers:
+
+      patch     permutation kept; kNN recomputed for migrated rows only,
+                affected BSR row-block tiles patched in place
+      rebucket  stable partial reorder + re-bucketed tree levels; storage
+                rebuilt, everything upstream reused
+      rebuild   full ``build_plan`` pipeline
+
+    ``policy`` (or ``plan.config.refresh_policy``) forces a tier; the
+    default ``"auto"`` picks by the ordering-drift fraction against
+    ``PlanConfig.patch_frac`` / ``rebuild_frac``, with recorded fill
+    degradation (``refresh_stats.degraded``) forcing escalation; a patch
+    that overflows the pinned ELL width escalates to rebucket. The pattern
+    follows the points only when edge values are recomputable (default 1.0
+    or a ``values`` callable); plans with static value arrays or an
+    externally fixed COO pattern refresh their *ordering* only. γ/fill of
+    the result are recomputed lazily.
+
+    Returns a new plan. Where the reference's patch copies the tile
+    tensor, the port's patch tier updates it in place: the returned plan
+    shares its storage with ``plan``, whose tiles then describe the
+    refreshed pattern — carry on with the returned plan. The other tiers
+    leave ``plan`` as it was.
+    """
+    host, cfg, dev = plan.host, plan.config, plan.device
+    if host.embed_axes is None or host.embedding is None:
+        raise ValueError(
+            "plan is not refreshable: no stored embedding map (build with "
+            "ordering='dual_tree' and coordinates x)")
+    x_new = np.asarray(to_numpy(x_new), np.float32)
+    if x_new.shape[0] != plan.n:
+        raise ValueError(
+            f"refresh expects the same {plan.n}-slot physical buffer, got "
+            f"{x_new.shape[0]} (use plan.insert/plan.delete/update_plan "
+            "for growing or shrinking point sets)")
+    if x_new.shape[1] != host.embed_axes.shape[0]:
+        raise ValueError(
+            f"refresh expects {host.embed_axes.shape[0]}-dim points, got "
+            f"{x_new.shape[1]}")
+    stats = host.refresh
+    y_new = to_numpy(apply_pca_map(x_new, host.embed_mean, host.embed_axes,
+                                   device=dev))
+    d = y_new.shape[1]
+    shift = _cmp_shift(plan.n, d, cfg.bits, host.tree, cfg.leaf_size)
+    holey = host.alive is not None and not host.alive.all()
+    if holey:
+        # tombstoned slots carry stale/garbage coordinates: they must
+        # neither read as migration nor pollute the joint quantization
+        # bounding box, so detection runs on the live rows only
+        live = np.nonzero(host.alive)[0]
+        drift = np.zeros(plan.n, bool)
+        moved = np.zeros(plan.n, bool)
+        drift[live] = _cell_migration(host.embedding[live], y_new[live],
+                                      cfg.bits, shift, dev)
+        moved[live] = _cell_migration(host.y_last[live], y_new[live],
+                                      cfg.bits, shift, dev)
+        denom = max(live.size, 1)
+    else:
+        drift = _cell_migration(host.embedding, y_new, cfg.bits, shift, dev)
+        moved = _cell_migration(host.y_last, y_new, cfg.bits, shift, dev)
+        denom = plan.n
+    drift_frac = float(drift.sum()) / denom
+    moved_frac = float(moved.sum()) / denom
+
+    action = policy or cfg.refresh_policy
+    if action == "auto":
+        if drift_frac > cfg.rebuild_frac:
+            action = "rebuild"
+        elif drift_frac > cfg.patch_frac or stats.degraded:
+            action = "rebucket"
+        else:
+            action = "patch"
+    if action not in ("patch", "rebucket", "rebuild"):
+        raise ValueError(f"unknown refresh policy {action!r}; expected "
+                         "auto | patch | rebucket | rebuild")
+    if action == "rebuild" and holey:
+        if policy == "rebuild":
+            raise ValueError(
+                "rebuild on a plan with tombstoned rows would renumber "
+                "the physical slots; use plan.compact() (or "
+                "update_plan(policy='compact')) to rebuild on the "
+                "survivors explicitly")
+        action = "rebucket"  # index-stable escalation cap for streamers
+
+    # free γ-reference snapshot: if a score was already computed for the
+    # outgoing pattern, keep it as the drift baseline for this lineage
+    if stats.gamma0 is None and host.gamma is not None:
+        stats = dataclasses.replace(stats, gamma0=host.gamma)
+
+    if action == "patch":
+        out = _refresh_patch(plan, x_new, y_new, moved, stats, moved_frac,
+                             drift_frac)
+        if out is not None:
+            return out
+        action = "rebucket"  # pinned ELL width overflowed: escalate
+    if action == "rebucket":
+        return _refresh_rebucket(plan, x_new, y_new, moved, stats,
+                                 moved_frac)
+    return _refresh_rebuild(plan, x_new, stats, moved_frac)

@@ -9,13 +9,14 @@ compute the same ``matvec`` on the same plan.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, from_numpy, resolve_device
-from repro_torch.api import InteractionPlan, PlanConfig, _PlanHost
+from repro_torch.api import (InteractionPlan, PlanConfig, RefreshStats,
+                             _PlanHost)
 from repro_torch.core.blocksparse import BSR
 from repro_torch.core.hierarchy import Tree
 
@@ -50,6 +51,9 @@ def plan_from_reference_arrays(
         fill: float = 0.0,
         embedding=None, embed_mean=None, embed_axes=None,
         tree_levels: Optional[Sequence[np.ndarray]] = None,
+        y_last=None, x=None, sources=None, pattern_from_knn: bool = False,
+        values_mode: str = "ones", values_fn: Optional[Callable] = None,
+        refresh: Optional[dict] = None,
         device: DeviceLike = None) -> InteractionPlan:
     """Build a port plan from a reference plan's state.
 
@@ -58,6 +62,15 @@ def plan_from_reference_arrays(
     ``coo`` is the reordered ``(rows, cols, vals)`` pattern (or ``None``),
     ``col_idx``/``nbr_mask``/``vals`` the ELL-BSR arrays (all ``None`` for a
     profile-only plan), ``tree_levels`` the tree's per-level boundaries.
+
+    The lifecycle state a refresh reads crosses over too, so a reference
+    plan refreshes in the port as it would in the reference: ``y_last``
+    (embedding at the last refresh; defaults to ``embedding``), ``x`` and
+    ``sources`` (original-order coordinates), ``pattern_from_knn``,
+    ``values_mode`` (``ones`` | ``fn`` | ``static``) with ``values_fn`` (the
+    reference plan's callable over numpy arrays) and ``refresh``, the
+    ``RefreshStats`` fields as a dict (``dataclasses.asdict``); unknown
+    fields are rejected.
     """
     dev = resolve_device(device)
     known = {f.name for f in dataclasses.fields(PlanConfig)}
@@ -83,12 +96,30 @@ def plan_from_reference_arrays(
         d = embedding.shape[1] if embedding is not None else cfg.d
         tree = Tree(perm=pi, levels=[np.asarray(lv) for lv in tree_levels],
                     d=d, bits=cfg.bits)
+    if values_mode not in ("ones", "fn", "static"):
+        raise ValueError(f"unknown values_mode {values_mode!r}; expected "
+                         "ones | fn | static")
+    if values_mode == "fn" and values_fn is None:
+        raise ValueError("values_mode 'fn' needs values_fn")
+
+    def arr(a, dtype=None):
+        return None if a is None else np.asarray(a, dtype)
+
     host = _PlanHost(
         pi=pi, inv=inv, coo=coo, tree=tree, embedding=embedding,
-        sigma=float(sigma),
-        embed_mean=None if embed_mean is None else np.asarray(embed_mean),
-        embed_axes=None if embed_axes is None else np.asarray(embed_axes),
-        y_last=embedding)
-    host.refresh.fill0 = bsr.fill if bsr is not None else None
+        sigma=float(sigma), embed_mean=arr(embed_mean),
+        embed_axes=arr(embed_axes),
+        y_last=embedding if y_last is None else np.asarray(y_last),
+        x=arr(x, np.float32), sources=arr(sources, np.float32),
+        pattern_from_knn=bool(pattern_from_knn), values_mode=values_mode,
+        values_fn=values_fn)
+    if refresh is None:
+        host.refresh.fill0 = bsr.fill if bsr is not None else None
+    else:
+        known = {f.name for f in dataclasses.fields(RefreshStats)}
+        unknown = sorted(set(refresh) - known)
+        if unknown:
+            raise ValueError(f"unknown RefreshStats fields {unknown}")
+        host.refresh = RefreshStats(**refresh)
     return InteractionPlan(cfg, n, bsr, from_numpy(pi, dev, torch.int64),
                            from_numpy(inv, dev, torch.int64), host)

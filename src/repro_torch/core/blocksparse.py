@@ -141,6 +141,91 @@ def build_bsr(rows: np.ndarray, cols: np.ndarray, vals: Optional[np.ndarray],
                vals=dense, fill=fill, max_nbr=m)
 
 
+def patch_bsr(bsr: BSR, rows: np.ndarray, cols: np.ndarray,
+              vals: Optional[np.ndarray], touched_rb: np.ndarray) -> BSR:
+    """Rebuild only the ``touched_rb`` row-blocks of ``bsr`` from the (full,
+    cluster-order) COO ``(rows, cols, vals)``; every other row-block's
+    stored tiles are reused as-is (plan refresh patches migrated rows
+    without paying a full :func:`build_bsr`).
+
+    The ELL shape is pinned: raises ``ValueError`` when a patched row-block
+    needs more than ``bsr.max_nbr`` tile slots — callers escalate to a full
+    rebuild in that case. Maintains the layout invariants (superblock-major
+    tile lists, zero padding) and recomputes ``fill`` from the new totals.
+
+    Unlike the reference, whose ``.at[]`` updates return copies, the port
+    updates the resident ``col_idx``/``nbr_mask``/``vals`` tensors **in
+    place** (``index_copy_``, ``index_fill_``, ``index_add_``): the
+    returned BSR shares them with ``bsr``, so the input's tiles change too
+    and only the returned object's ``fill`` describes them. Only the true
+    edges of the touched row-blocks are scattered (no padding entries).
+    """
+    rows = np.asarray(rows)
+    cols = np.asarray(cols)
+    nnz = len(rows)
+    vals = (np.ones(nnz, np.float32) if vals is None
+            else np.asarray(vals, np.float32))
+    touched = np.unique(np.asarray(touched_rb))
+    if touched.size == 0:
+        return bsr
+    bs, sb, m = bsr.bs, bsr.sb, bsr.max_nbr
+    if touched.min(initial=0) < 0 or touched.max(initial=0) >= bsr.n_rb:
+        raise ValueError(f"touched_rb out of range for n_rb={bsr.n_rb}")
+
+    rb_all = rows // bs
+    sel = np.isin(rb_all, touched)
+    r_t, c_t, v_t = rows[sel], cols[sel], vals[sel]
+    rb, cb = r_t // bs, c_t // bs
+
+    # dense slot of every touched row-block (row-block id -> 0..t-1)
+    slot_of_rb = np.full(bsr.n_rb, -1, np.int64)
+    slot_of_rb[touched] = np.arange(touched.size)
+    col_rows = np.zeros((touched.size, m), np.int32)
+    mask_rows = np.zeros((touched.size, m), bool)
+
+    # unique tiles keyed (row-block, superblock-major column): np.unique
+    # yields every touched row's tile list already in schedule order
+    skey = (cb // sb).astype(np.int64) * bsr.n_cb + cb
+    span = np.int64(bsr.n_cb) * ((bsr.n_cb + sb - 1) // sb + 1)
+    uniq = np.unique(rb.astype(np.int64) * span + skey)
+    urow = slot_of_rb[uniq // span]               # 0..t-1, sorted runs
+    ucol = (uniq % span) % bsr.n_cb
+    counts = np.bincount(urow, minlength=touched.size)
+    if counts.max(initial=0) > m:
+        raise ValueError(
+            f"a patched row-block needs {counts.max()} tile slots, "
+            f"max_nbr={m} — rebuild the BSR")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    uslot = np.arange(len(uniq)) - starts[urow]   # rank within its row
+    col_rows[urow, uslot] = ucol
+    mask_rows[urow, uslot] = True
+
+    # every selected edge's flat position in the tile tensor
+    pos = np.searchsorted(uniq, rb.astype(np.int64) * span + skey)
+    flat = ((rb.astype(np.int64) * m + uslot[pos]) * bs + r_t % bs) * bs \
+        + c_t % bs
+
+    mask_host = to_numpy(bsr.nbr_mask)
+    kept_prev = int(mask_host.sum())
+    kept_touched_prev = int(mask_host[touched].sum())
+    kept_new = int(mask_rows.sum())
+
+    dev = bsr.device
+    ti = from_numpy(touched, dev, torch.int64)
+    bsr.col_idx.index_copy_(0, ti, from_numpy(col_rows, dev, torch.int32))
+    bsr.nbr_mask.index_copy_(0, ti, from_numpy(mask_rows, dev, torch.bool))
+    bsr.vals.index_fill_(0, ti, 0.0)
+    if len(flat):
+        bsr.vals.view(-1).index_add_(0, from_numpy(flat, dev, torch.int64),
+                                     from_numpy(v_t, dev, torch.float32))
+
+    kept = kept_prev - kept_touched_prev + kept_new
+    fill = nnz / max(kept * bs * bs, 1)
+    return BSR(bs=bs, sb=sb, n=bsr.n, n_rb=bsr.n_rb, n_cb=bsr.n_cb,
+               col_idx=bsr.col_idx, nbr_mask=bsr.nbr_mask, vals=bsr.vals,
+               fill=fill, max_nbr=m)
+
+
 def random_bsr(key_seed: int, n: int, bs: int, nbr: int, *, sb: int = 8,
                banded: bool = False, device: DeviceLike = None) -> BSR:
     """Synthetic BSR with exactly ``nbr`` dense tiles per row-block — the

@@ -174,3 +174,23 @@ def build_tree(y, bits: int = 0, leaf_size: int = 64, max_levels: int = 0,
     d = y.shape[1]
     perm = np.argsort(codes, kind="stable")
     return tree_from_codes(codes, perm, d, bits, leaf_size, max_levels)
+
+
+def rebucket(y_new, prev: Tree, leaf_size: int = 64, max_levels: int = 0,
+             device: DeviceLike = None) -> Tree:
+    """Incremental re-bucket for moved points (plan refresh).
+
+    Reuses the previous tree's dimensionality/resolution and re-sorts the
+    *new* Morton codes stably with the previous leaf order as tiebreak —
+    points that stayed in their cell keep their relative order (so the
+    downstream reordered pattern changes only where points migrated), while
+    migrated points slot into their new cells. Levels are recomputed from
+    the code prefixes (no re-embedding, no code re-fit). The codes are
+    computed on ``device``; the stable sort runs in numpy.
+    """
+    codes = to_numpy(morton_codes(y_new, prev.bits, device))
+    perm_prev = np.asarray(prev.perm)
+    order = np.argsort(codes[perm_prev], kind="stable")
+    perm = perm_prev[order]
+    return tree_from_codes(codes, perm, prev.d, prev.bits, leaf_size,
+                           max_levels)

@@ -15,6 +15,14 @@ run on any device:
 Published through the backend registry (``core.registry``) under the names
 ``csr`` / ``bsr`` / ``bsr_ml``; prefer ``repro_torch.api`` plans over
 calling them directly.
+
+Iterative-application value updates (t-SNE attractive force, mean shift)
+are computed *blockwise dense* from the current coordinates, as in the
+reference, but in chunks of row blocks: the ``(rows, nbr, bs, bs, d)``
+pairwise-difference tensor of one chunk stays under ``CHUNK_BYTES``. At
+the paper's sizes the unchunked tensor would take 10 GB (t-SNE, d = 2) to
+200 GB (mean shift, D = 128). The t-SNE force has a hand-written kernel
+(``kernels/tsne_force.py``); these are its plain paths.
 """
 from __future__ import annotations
 
@@ -186,3 +194,92 @@ def _bsr_backend(plan, x: torch.Tensor, **_kw) -> torch.Tensor:
 def _bsr_ml_backend(plan, x: torch.Tensor, **_kw) -> torch.Tensor:
     b = plan.bsr
     return spmv_bsr_ml(b.vals, b.col_idx, x, plan.n, b.sb)
+
+
+# ---------------------------------------------------------------------------
+# Iterative applications: blockwise-dense value recomputation
+# ---------------------------------------------------------------------------
+
+# budget of one chunk's (rows, nbr, bs, bs, d) difference tensor; the
+# chunk's other intermediates (squared norms, weights) are smaller
+CHUNK_BYTES = 512 * 2**20
+
+
+def _row_chunk(n_rb: int, nbr: int, bs: int, d: int) -> int:
+    """Row blocks per chunk so the chunk's difference tensor fits
+    ``CHUNK_BYTES`` (at least one row block)."""
+    per_rb = max(nbr * bs * bs * d * 4, 1)
+    return max(1, min(n_rb, CHUNK_BYTES // per_rb))
+
+
+def tsne_force_blocked(p_vals: torch.Tensor, col_idx: torch.Tensor,
+                       yp: torch.Tensor) -> torch.Tensor:
+    """The t-SNE attractive force over padded coordinates, chunked.
+
+    ``p_vals`` (n_rb, nbr, bs, bs) stored target x source, ``col_idx``
+    (n_rb, nbr), ``yp`` (n_cb*bs, d) with n_cb >= n_rb. Returns
+    (n_rb*bs, d): F_i = sum_j p_ij q_ij (y_i - y_j),
+    q_ij = 1/(1 + |y_i - y_j|^2), in the reference's arithmetic order.
+    """
+    n_rb, nbr, bs, _ = p_vals.shape
+    d = yp.shape[1]
+    yb = yp.reshape(-1, bs, d)
+    ci = col_idx.long()
+    step = _row_chunk(n_rb, nbr, bs, d)
+    out = []
+    for r0 in range(0, n_rb, step):
+        r1 = min(n_rb, r0 + step)
+        ysrc = yb[ci[r0:r1]]                             # (r, nbr, bs, d)
+        ytgt = yb[r0:r1, None, :, None, :]               # (r, 1, bs, 1, d)
+        diff = ytgt - ysrc[:, :, None, :, :]             # (r, nbr, t, s, d)
+        q = 1.0 / (1.0 + (diff * diff).sum(-1))
+        w = p_vals[r0:r1] * q                # p tile is (target, source)
+        out.append(torch.einsum("rnts,rntsd->rtd", w, diff))
+    if not out:
+        return yp.new_zeros((0, d))
+    return torch.cat(out).reshape(n_rb * bs, d)
+
+
+def tsne_attractive(p_vals: torch.Tensor, col_idx: torch.Tensor,
+                    nbr_mask: torch.Tensor, y: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """t-SNE attractive force (paper §3.1), blockwise.
+
+    F_i = sum_j p_ij q_ij (y_i - y_j), q_ij = 1/(1 + |y_i - y_j|^2), with
+    p the (fixed-profile) kNN-based affinity stored as dense tiles. Values
+    p_ij q_ij are recomputed dense per tile from the current embedding y
+    (n, d). ``nbr_mask`` is not read: padding slots hold zero P tiles.
+    """
+    n_rb, nbr, bs, _ = p_vals.shape
+    yp = _pad_rows(y, n_rb * bs)
+    return tsne_force_blocked(p_vals, col_idx, yp)[:n]
+
+
+def meanshift_step(w_pattern: torch.Tensor, col_idx: torch.Tensor,
+                   sources_blocked: torch.Tensor, t: torch.Tensor,
+                   h2: float, n: int) -> torch.Tensor:
+    """One mean-shift iteration (paper §3.2), blockwise.
+
+    New mean m_i = sum_j w_ij s_j / sum_j w_ij with Gaussian weights
+    w_ij = exp(-|t_i - s_j|^2 / h2) over the (fixed) neighbor pattern;
+    weights are recomputed dense per tile from current targets t.
+    ``w_pattern`` (n_rb, nbr, bs, bs) is the 0/1 neighbor-pattern tile.
+    ``sources_blocked`` (n_cb, bs, d) are sources in cluster order.
+    """
+    n_rb, nbr, bs, _ = w_pattern.shape
+    d = t.shape[1]
+    tp = _pad_rows(t, n_rb * bs).reshape(n_rb, bs, d)
+    ci = col_idx.long()
+    step = _row_chunk(n_rb, nbr, bs, d)
+    out = []
+    for r0 in range(0, n_rb, step):
+        r1 = min(n_rb, r0 + step)
+        s = sources_blocked[ci[r0:r1]]                   # (r, nbr, bs, d)
+        diff = tp[r0:r1, None, :, None, :] - s[:, :, None, :, :]
+        w = torch.exp(-(diff * diff).sum(-1) / h2) * w_pattern[r0:r1]
+        num = torch.einsum("rnts,rnsd->rtd", w, s)
+        den = w.sum(dim=(1, 3))[..., None]
+        out.append(num / torch.clamp_min(den, 1e-12))
+    if not out:
+        return t.new_zeros((0, d))
+    return torch.cat(out).reshape(-1, d)[:n]

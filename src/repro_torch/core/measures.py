@@ -184,3 +184,26 @@ def compact_live(rows: np.ndarray, cols: np.ndarray,
     keep = alive_in_order[rows] & alive_in_order[cols]
     rank = np.cumsum(alive_in_order) - 1
     return rank[rows[keep]], rank[cols[keep]], int(alive_in_order.sum())
+
+
+# ---------------------------------------------------------------------------
+# drift monitoring (plan refresh lifecycle)
+# ---------------------------------------------------------------------------
+
+
+def gamma_drift(gamma_ref: "float | None",
+                gamma_now: "float | None") -> float:
+    """Relative γ degradation since ``gamma_ref`` (positive = locality got
+    worse). Returns 0 when either score is missing or the reference is 0,
+    so drift checks are safe on unscored / empty / single-block plans."""
+    if gamma_ref is None or gamma_now is None or gamma_ref == 0:
+        return 0.0
+    return float((gamma_ref - gamma_now) / abs(gamma_ref))
+
+
+def fill_drift(fill_ref: "float | None", fill_now: "float | None") -> float:
+    """Relative fill degradation since ``fill_ref`` (positive = storage got
+    emptier). Same None/zero-safety as :func:`gamma_drift`."""
+    if fill_ref is None or fill_now is None or fill_ref == 0:
+        return 0.0
+    return float((fill_ref - fill_now) / abs(fill_ref))

@@ -74,6 +74,21 @@ def dual_tree_fast(x, d: int = 3, bits: int = 10, y=None,
     return to_numpy(morton_order(y, bits, device))
 
 
+def stable_partial_reorder(pi_old: np.ndarray,
+                           keys: np.ndarray) -> np.ndarray:
+    """Re-sort an existing ordering by fresh ``keys`` (plan refresh).
+
+    ``keys`` is indexed by *original* point index (e.g. new Morton codes
+    after points moved). The sort is stable with the old placement as
+    tiebreak: points whose key did not change keep their relative order —
+    the reordered pattern is perturbed only where points actually migrated
+    — while changed points slot into their new key position.
+    """
+    pi_old = np.asarray(pi_old)
+    order = np.argsort(np.asarray(keys)[pi_old], kind="stable")
+    return pi_old[order]
+
+
 def apply_ordering(rows: np.ndarray, cols: np.ndarray,
                    pi_t: np.ndarray, pi_s: Optional[np.ndarray] = None):
     """Relabel COO indices under row/col orderings (targets pi_t, sources pi_s)."""

@@ -34,6 +34,7 @@ SIGNATURES = {
     "repro_bsr_spmv_batched": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "repro_bsr_spmv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_gamma_pairs": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
+    "repro_tsne_force": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

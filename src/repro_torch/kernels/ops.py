@@ -17,6 +17,7 @@ from repro_torch.core.interact import _pad_rows
 from repro_torch.core.registry import register_backend, register_batched_backend
 from repro_torch.kernels import bsr_spmv as _bsr
 from repro_torch.kernels import gamma_score as _gs
+from repro_torch.kernels import tsne_force as _tf
 
 
 @register_backend("cuda")
@@ -77,6 +78,20 @@ def bsr_spmv_batched(vals: torch.Tensor, col_idx: torch.Tensor,
                               xs.to(torch.float32).contiguous())
     y = y[:, :n]
     return y[..., 0] if squeeze else y
+
+
+def tsne_force(p_vals: torch.Tensor, col_idx: torch.Tensor, y: torch.Tensor,
+               n: int | None = None) -> torch.Tensor:
+    """Blockwise t-SNE attractive force via the CUDA kernel: pads ``y``
+    (n, d) to whole row blocks, casts to float32/int32 and slices the
+    force back to ``n`` rows. The kernel needs no tile-size argument: one
+    thread block per row block loops the whole ELL width."""
+    n_rb, nbr, bs, _ = p_vals.shape
+    yp = _pad_rows(y, n_rb * bs)
+    f = _tf.tsne_force(p_vals.to(torch.float32).contiguous(),
+                       col_idx.to(torch.int32).contiguous(),
+                       yp.to(torch.float32).contiguous())
+    return f[:n] if n is not None else f
 
 
 def gamma_exact(rows, cols, sigma: float, bn: int = 256, weights=None,

@@ -19,3 +19,20 @@ def gamma_pairs_ref(coords: torch.Tensor, sigma: float) -> torch.Tensor:
     c = coords.to(torch.float32)
     d2 = ((c[:, None, :] - c[None, :, :]) ** 2).sum(-1)
     return torch.exp(-d2 / (sigma * sigma)).sum()
+
+
+def tsne_force_ref(p_vals: torch.Tensor, col_idx: torch.Tensor,
+                   y: torch.Tensor) -> torch.Tensor:
+    """Oracle for kernels.tsne_force (same contract, unchunked — small
+    inputs only): p_vals (n_rb, nbr, bs, bs); col_idx (n_rb, nbr);
+    y (n_cb*bs, d). Returns F (n_rb*bs, d)."""
+    n_rb, nbr, bs, _ = p_vals.shape
+    d = y.shape[-1]
+    yb = y.reshape(-1, bs, d)
+    ys = yb[col_idx.long()]                           # (n_rb, nbr, bs, d)
+    yt = yb[:n_rb]
+    diff = yt[:, None, :, None, :] - ys[:, :, None, :, :]
+    q = 1.0 / (1.0 + (diff * diff).sum(-1))
+    w = p_vals * q
+    f = torch.einsum("rnts,rntsd->rtd", w, diff)
+    return f.reshape(n_rb * bs, d)

@@ -328,15 +328,12 @@ def test_plan_config_fields_and_preconditioner_names():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda p: p.refresh(None), "A6"), (lambda p: p.insert(None), "A6"),
+    (lambda p: p.insert(None), "A6"),
     (lambda p: p.delete([0]), "A6"), (lambda p: p.update(insert=None), "A6"),
     (lambda p: p.compact(), "A6"), (lambda p: p.shard(), "A11"),
     (lambda p: p.solve(None), "A8"), (lambda p: p.eigs(2), "A8"),
-    (lambda p: p.tsne_attractive(None), "A3"),
-    (lambda p: p.meanshift_step(None, None, 1.0), "A3"),
     (lambda p: t_api.PlanBatch(), "A4"),
     (lambda p: t_api.build_plan_batch([]), "A4"),
-    (lambda p: t_api.refresh_plan(p, None), "A6"),
     (lambda p: t_api.update_plan(p), "A6"),
     (lambda p: t_api.build_plan(p.host.x, k=4, capacity=p.n + 8,
                                 device="cpu"), "A6"),

@@ -19,6 +19,7 @@ from repro_torch import api as t_api
 from repro_torch.data.pipeline import feature_mixture
 from repro_torch.kernels import bsr_spmv as t_bsr
 from repro_torch.kernels import gamma_score as t_gs
+from repro_torch.kernels import tsne_force as t_tf
 
 
 def _pattern(seed, nnz, n):
@@ -96,3 +97,73 @@ def test_cuda_plan_defaults_to_the_kernel(cuda_device):
     assert t_bsr.bsr_spmv_batched.launches == n0 + 1
     assert_close(y, plan.matvec(ch, backend="bsr"), rtol=1e-4, atol=1e-4)
     assert_close(y, plan.matvec(ch, backend="csr"), rtol=1e-4, atol=1e-4)
+
+
+def _tsne_inputs(seed, n_rb, nbr, bs, d, n, device):
+    vals, col = random_ell(seed, 1, n_rb, nbr, bs, pad_slots=1)
+    p = np.abs(vals[0]) / (n_rb * bs)
+    rows = np.arange(n_rb)[:, None] * bs + np.arange(bs)[None, :]
+    p *= (rows < n)[:, None, :, None]          # ragged last row block
+    y = np.random.default_rng(seed).standard_normal((n_rb * bs, d))
+    y[n:] = 0.0
+    return (tt(p.astype(np.float32)).to(device), tt(col[0]).to(device),
+            tt(y.astype(np.float32)).to(device))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_cuda_tsne_force_matches_plain_and_is_reproducible(cuda_device, bs,
+                                                           d):
+    n_rb = 23
+    p, c, y = _tsne_inputs(bs + d, n_rb, 6, bs, d, n_rb * bs - 5,
+                           cuda_device)
+    n0 = t_tf.tsne_force.launches
+    got = t_tf.tsne_force(p, c, y)
+    again = t_tf.tsne_force(p, c, y)
+    torch.cuda.synchronize()
+    assert t_tf.tsne_force.launches == n0 + 2
+    want = t_tf.tsne_force_plain(p, c, y)
+    scale = float(want.abs().max())
+    # the kernel sums in another order than the plain version
+    assert_close(got, want, rtol=1e-5, atol=2e-5 * scale)
+    assert torch.equal(got, again)            # no atomics: bit-reproducible
+    assert (got[n_rb * bs - 5:] == 0).all()   # zero P rows: exactly zero
+
+
+@pytest.mark.requires_cuda
+def test_cuda_tsne_force_rejects_what_the_kernel_does_not_take(cuda_device):
+    p, c, y = _tsne_inputs(0, 4, 2, 8, 2, 32, cuda_device)
+    with pytest.raises(ValueError, match=r"d in \(1, 2, 3\)"):
+        t_tf.tsne_force(p, c, torch.zeros(32, 4, device=cuda_device))
+    vals, col = random_ell(1, 1, 4, 2, 4)          # bs = 4: not supported
+    with pytest.raises(ValueError, match="supports bs"):
+        t_tf.tsne_force(tt(vals[0]).to(cuda_device),
+                        tt(col[0]).to(cuda_device),
+                        torch.zeros(16, 2, device=cuda_device))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_plan_tsne_and_refresh_run_through_the_kernels(cuda_device):
+    """On a CUDA plan tsne_attractive defaults to the kernel; every refresh
+    tier keeps the plan on the card and its products consistent."""
+    x = feature_mixture(1024, 32, n_clusters=8, seed=1, spread=1.0)
+    plan = t_api.build_plan(x, k=8, bs=32, sb=4, ell_slack=16)
+    y = torch.randn(1024, 2, device=cuda_device)
+    n0 = t_tf.tsne_force.launches
+    f = plan.tsne_attractive(y)
+    assert t_tf.tsne_force.launches == n0 + 1
+    want = plan.tsne_attractive(y, backend="bsr")
+    assert_close(f, want, rtol=1e-5, atol=2e-5 * float(want.abs().max()))
+    rng = np.random.default_rng(2)
+    x2 = x.copy()
+    mv = rng.choice(1024, 30, replace=False)
+    x2[mv] = x[(mv + 512) % 1024]
+    ch = rng.standard_normal((1024, 3)).astype(np.float32)
+    for policy in ("patch", "rebucket", "rebuild"):
+        p2 = plan.refresh(x2, policy=policy)
+        assert p2.refresh_stats.last_action == policy
+        assert p2.device.type == "cuda" and p2.bsr.vals.is_cuda
+        assert_close(p2.matvec(ch), p2.matvec(ch, backend="csr"),
+                     rtol=1e-4, atol=1e-4)
+        plan = p2

@@ -14,8 +14,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "examples" / "quickstart_torch.py"]
+FILES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "tsne_torch.py",
+    ROOT / "examples" / "meanshift_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 
 
@@ -48,11 +50,12 @@ def test_port_has_the_expected_modules():
                  "core/embedding.py", "core/hierarchy.py",
                  "core/ordering.py", "core/measures.py", "kernels/_build.py",
                  "kernels/bsr_spmv.py", "kernels/gamma_score.py",
-                 "kernels/ops.py", "kernels/ref.py", "data/pipeline.py",
+                 "kernels/tsne_force.py", "kernels/ops.py",
+                 "kernels/ref.py", "data/pipeline.py",
                  "configs/paper_spmv.py"):
         assert must in names, must
     cu = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
-    assert cu == {"bsr_spmv.cu", "gamma_pairs.cu"}
+    assert cu == {"bsr_spmv.cu", "gamma_pairs.cu", "tsne_force.cu"}
 
 
 def test_modules_import_without_toolchain_or_jax():
