@@ -8,14 +8,20 @@ port's paths through the entry points a user calls: ``api.build_plan(x) ->
 plan.matvec(charges)`` at the paper's SIFT setting (arXiv 1709.03671 §4.2:
 128-d descriptors, k = 30, tile 32, superblock 8) on n = 262 144 synthetic
 descriptors made from a seed, then the paper's two iterative applications
-(§3) at the same n. Phases, each of which fails the run when it fails:
+(§3) at the same n, then Qwen2-0.5B at full width (random weights from the
+seed) served with ClusterKV attention. Phases, each of which fails the run
+when it fails:
 
 1. environment: versions, the card, the kernel build with its wall time;
 2. every kernel against its plain PyTorch version on the card, on the
    paper's §4.1 micro matrices (16 dense tiles per row block, banded and
    scattered), on random nonzero coordinates and on random ELL affinity
    patterns with a ragged last row block (t-SNE force, also run twice and
-   required to be bit-equal);
+   required to be bit-equal), the ClusterKV prefill kernel (causal and not,
+   g = 7, tiles of 128 and 64, float32 and bf16) and the decode kernel
+   (plain mode, plan mode with holes with and without the self column,
+   g = 1 and 7, float32 and bf16; the same tiles selected as the plain
+   path);
 3. the main path at full size — per-stage build times, ``matvec`` through
    the ``cuda`` backend for (n,) and (n, 8) charges against the ``bsr``
    and ``csr`` reference paths, the single-plan kernel entry on the plan's
@@ -36,11 +42,28 @@ descriptors made from a seed, then the paper's two iterative applications
    checked against a float64 edge-wise mean on sampled rows;
 8. the twin examples ``examples/tsne_torch.py`` and
    ``examples/meanshift_torch.py`` on the card, which must print
-   "clusters separated OK" and "converged to modes OK".
+   "clusters separated OK" and "converged to modes OK";
+9. batched plans: ``kv_plan_batch(k, with_bsr=True)`` over Qwen2-0.5B's
+   prefilled keys (24 layers x 2 kv heads = 48 members), whose
+   ``matvec(backend="cuda")`` must be ONE launch of the batched SpMV kernel
+   (held against ``bsr``), and ``plan_prefill`` through those orderings
+   held against ``prefill`` (float32, budgets covering every tile);
+10. serving Qwen2-0.5B through ``Engine(backend="clusterkv")``: 4 slots,
+   ``max_seq`` 8192, prefill bucket 1024, 8 requests of 2048-6144 seeded
+   tokens, 32 new tokens each (prefill ms per request, decode ms per tick,
+   tokens/s); a scalar-position ``decode_step`` loop (the decode kernel's
+   plain mode); and a float32 run with budgets covering every tile that
+   must give the flash engine's greedy tokens and first-token logits
+   within 1e-3 x scale;
 
-Launch counters are set to 0 just before each path (phases 3-4, 6, 7) and
-read just after it; launches made to compare or time a kernel are not
-counted. Every kernel must have been launched by a path.
+then B5 and B6 are timed at the serving path's shapes beside their plain
+versions, SDPA with the equivalent mask (B6) and their bounds.
+
+Launch counters are set to 0 just before each path (phases 3-4, 6, 7, 9,
+10) and read just after it; launches made to compare or time a kernel are
+not counted. Every kernel must have been launched by a path: B6 by the
+prefills, B5 by the ticks (plan mode) and the scalar steps (plain mode),
+B1 once per 48-member ``PlanBatch.matvec``.
 
 Needs a CUDA device and ``nvcc``; without a device it exits non-zero and
 prints no result. ``--rehearse-cpu`` walks the same phases at tiny sizes
@@ -129,19 +152,34 @@ class Timer:
         return sorted(self._run(fn, iters) for _ in range(self.REPEATS))[1]
 
 
-def check_close(name: str, got, want, rel_tol: float = REL_TOL):
-    """max-abs error of ``got`` against ``want``; raises beyond
-    ``rel_tol * max|want|``."""
+def bf16_spacing(x):
+    """The distance between adjacent bf16 values at each element's
+    magnitude (8 significant bits), 0 at exact zeros."""
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def check_close(name: str, got, want, rel_tol: float = REL_TOL,
+                bf16_ulps: int = 0):
+    """max-abs error of ``got`` against ``want``; raises where an element
+    differs by more than ``rel_tol * max|want|`` plus ``bf16_ulps`` bf16
+    spacings at that element's magnitude."""
     if tuple(got.shape) != tuple(want.shape):
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite values")
-    err = float((got - want).abs().max())
+    diff = (got - want).abs()
+    err = float(diff.max())
     scale = float(want.abs().max())
-    if err > rel_tol * max(scale, 1e-30):
+    limit = rel_tol * max(scale, 1e-30)
+    if bf16_ulps:
+        limit = limit + bf16_ulps * bf16_spacing(want)
+    if bool((diff > limit).any()):
         raise AssertionError(f"{name}: max-abs error {err:.3e} exceeds "
-                             f"{rel_tol:g} x scale {scale:.3e}")
+                             f"{rel_tol:g} x scale {scale:.3e}"
+                             + (f" + {bf16_ulps} bf16 spacing"
+                                if bf16_ulps else ""))
     return err, scale
 
 
@@ -495,6 +533,446 @@ def phase_examples(rehearse: bool):
             f"({time.perf_counter() - t0:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# ClusterKV attention kernels (B5, B6) and serving Qwen2-0.5B (phases 9-10)
+# ---------------------------------------------------------------------------
+
+# bf16 kernel-vs-plain tolerance: both round float32 results that differ in
+# the last float32 bits (REL_TOL) to bf16, which can land them one bf16
+# spacing apart, so each element may also differ by the spacing at its own
+# magnitude
+BF16_ULPS = 1
+BF16_TOL_TEXT = f"{REL_TOL:g} x scale + {BF16_ULPS} bf16 spacing"
+# serving check: first-token logits of the covering-budget ClusterKV engine
+# against the flash engine, float32 (examples/serve_clusterkv.py's bound)
+SERVE_TOL = 1e-3
+
+
+def attention_inputs(gen, b, hq, hkv, s, dh, bq, n_sel, dtype, device):
+    """Cluster-sorted k/v with a permuted position per key and, for every
+    query tile, ``n_sel`` distinct key tiles drawn at random."""
+    q = torch.randn((b, hq, s, dh), generator=gen, device=device).to(dtype)
+    k = torch.randn((b, hkv, s, dh), generator=gen, device=device).to(dtype)
+    v = torch.randn((b, hkv, s, dh), generator=gen, device=device).to(dtype)
+    kpos = torch.stack([torch.randperm(s, generator=gen, device=device)
+                        for _ in range(b * hkv)]).reshape(b, hkv, s)
+    nqb = s // bq
+    idx = torch.argsort(torch.rand((b, hkv, nqb, s // bq), generator=gen,
+                                   device=device), dim=-1)[..., :n_sel]
+    return (q, k, v, kpos.to(torch.int32),
+            torch.arange(s, dtype=torch.int32, device=device),
+            idx.to(torch.int32).contiguous())
+
+
+def decode_inputs(gen, b, hkv, g, s, dh, bk, dtype, device, holes: float):
+    """Plan-ordered caches: whole tiles shuffled with time order kept inside
+    a tile, a fraction ``holes`` of slots marked INT32_MAX."""
+    from repro_torch.core.clusterkv import block_centroids
+    q = torch.randn((b, hkv * g, dh), generator=gen, device=device).to(dtype)
+    k = torch.randn((b, hkv, s, dh), generator=gen, device=device).to(dtype)
+    v = torch.randn((b, hkv, s, dh), generator=gen, device=device).to(dtype)
+    nkb = s // bk
+    order = torch.argsort(torch.rand((b, hkv, nkb), generator=gen,
+                                     device=device), dim=-1)
+    pos = (order[..., None] * bk + torch.arange(bk, device=device)
+           ).reshape(b, hkv, s)
+    if holes:
+        pos[torch.rand(pos.shape, generator=gen, device=device) < holes] = \
+            2 ** 31 - 1
+    cent = block_centroids(k.float(), bk)
+    return q, k, v, pos.to(torch.int32).contiguous(), cent
+
+
+def block_attention_bound(b, hq, s, dh, bq, n_sel, elem: int):
+    """Least time of B6: every selected (query tile, key tile) pair costs
+    2 x 2 x bq x bk x dh float32 operations (q.k and p.v); bytes are q,
+    the kv heads' k and v, positions, indices and the output, each once."""
+    ops = 4.0 * b * hq * (s // bq) * n_sel * bq * bq * dh
+    byts = elem * (2 * b * hq * s * dh) + elem * 2 * b * 2 * s * dh \
+        + 4 * (b * 2 * s + s + b * 2 * (s // bq) * n_sel)
+    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def decode_bound(b, hkv, g, s, dh, bk, n_sel, elem: int, plan_mode: bool):
+    """Least time of B5: the selected k/v tiles, the positions (of the whole
+    cache in plan mode, of the selected tiles otherwise), the centroids,
+    q and the output each cross device memory once; 2 x g operations per
+    selected key entry for q.k and again for p.v."""
+    sel = b * hkv * n_sel * bk
+    byts = elem * sel * 2 * dh + 4 * (b * hkv * s if plan_mode else sel) \
+        + 4 * b * hkv * (s // bk) * dh + 4 * 2 * b * hkv * g * dh
+    ops = 4.0 * g * sel * dh
+    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def check_attention_kernels(args, dev, rehearse, cases):
+    """Phase 2, B5 and B6: each kernel against its plain version."""
+    from repro_torch.core.clusterkv import decode_select
+    from repro_torch.kernels import block_attention as k_ba
+    from repro_torch.kernels import decode_attend as k_da
+    from repro_torch.core.clusterkv import plan_select
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 20)
+    s6 = 512 if rehearse else 2048
+    for dtype in (torch.float32, torch.bfloat16):
+        ulps = 0 if dtype == torch.float32 else BF16_ULPS
+        tol = f"{REL_TOL:g} x scale" if ulps == 0 else BF16_TOL_TEXT
+        for bq in (128, 64):
+            for causal in (True, False):
+                q, k, v, kpos, qpos, idx = attention_inputs(
+                    gen, 1, 14, 2, s6, 64, bq, 8, dtype, dev)
+                got = k_ba.block_attention(q, k, v, kpos, qpos, idx, bq=bq,
+                                           bk=bq, causal=causal)
+                want = k_ba.block_attention_plain(q, k, v, kpos, qpos, idx,
+                                                  bq=bq, bk=bq,
+                                                  causal=causal)
+                err, scale = check_close(
+                    f"block_attention {dtype} bq={bq} causal={causal}",
+                    got.float(), want.float(), bf16_ulps=ulps)
+                cases.append({"kernel": "block_attention",
+                              "dtype": str(dtype), "S": s6, "g": 7,
+                              "dh": 64, "bq": bq, "n_sel": 8,
+                              "causal": causal, "max_abs_err": err,
+                              "scale": scale, "tolerance": tol})
+                say(f"  B6 {str(dtype):14s} S={s6} g=7 dh=64 bq=bk={bq} "
+                    f"causal={causal!s:5s}: err {err:.2e} (scale "
+                    f"{scale:.2f}, tolerance {tol})")
+    b, s5, bk, n_sel = 4, (2048 if rehearse else 8192), 128, 16
+    qpos = torch.tensor([s5 - 500, s5 // 3, s5 - 1, 40], dtype=torch.int32,
+                        device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        ulps = 0 if dtype == torch.float32 else BF16_ULPS
+        tol = f"{REL_TOL:g} x scale" if ulps == 0 else BF16_TOL_TEXT
+        for g in (1, 7):
+            for mode in ("plain", "plan", "plan+self"):
+                plan_mode = mode != "plain"
+                q, k, v, pos, cent = decode_inputs(
+                    gen, b, 2, g, s5, 64, bk, dtype, dev,
+                    holes=0.2 if plan_mode else 0.0)
+                ks = torch.randn((b, 2, 64), generator=gen,
+                                 device=dev).to(dtype)
+                vs = torch.randn((b, 2, 64), generator=gen,
+                                 device=dev).to(dtype)
+                kw = dict(n_sel=n_sel, bk=bk, plan_mode=plan_mode,
+                          has_self=mode == "plan+self", window=bk)
+                sel = torch.zeros((b, 2, n_sel), dtype=torch.int32,
+                                  device=dev)
+                got = k_da.decode_attend_fused(
+                    q, k, v, pos, cent, qpos, ks, vs,
+                    sel_out=None if rehearse else sel, **kw)
+                want = k_da.decode_attend_plain(q, k, v, pos, cent, qpos, ks,
+                                                vs, **kw)
+                err, scale = check_close(
+                    f"decode_attend {dtype} g={g} {mode}", got.float(),
+                    want.float(), bf16_ulps=ulps)
+                if plan_mode:
+                    want_sel = plan_select(q, pos, cent, qpos, n_sel=n_sel,
+                                           bk=bk, window=bk)
+                else:
+                    want_sel = decode_select(q.float(), cent, n_sel)
+                # the same set of tiles; their order may differ where two
+                # scores differ in the last bits only (it changes nothing
+                # but the order of the softmax sums)
+                want_sel = want_sel.long()
+                same = rehearse or torch.equal(
+                    sel.long().sort(-1).values, want_sel.sort(-1).values)
+                if not same:
+                    raise AssertionError(f"decode_attend {dtype} g={g} "
+                                         f"{mode}: tile selection differs")
+                ordered = rehearse or torch.equal(sel.long(), want_sel)
+                cases.append({"kernel": "decode_attend_fused",
+                              "dtype": str(dtype), "S": s5, "B": b, "g": g,
+                              "mode": mode, "n_sel": n_sel,
+                              "max_abs_err": err, "scale": scale,
+                              "tolerance": tol, "selection_equal": True,
+                              "selection_order_equal": bool(ordered)})
+                say(f"  B5 {str(dtype):14s} B={b} S={s5} g={g} "
+                    f"{mode:9s}: err {err:.2e} (scale {scale:.2f}, "
+                    f"tolerance {tol}), selected tiles equal"
+                    + ("" if ordered else " (order differs)"))
+
+
+def time_attention_kernels(args, dev, timer, rehearse, launches):
+    """B5 and B6 at the serving path's shapes, with their bounds."""
+    from repro_torch.kernels import block_attention as k_ba
+    from repro_torch.kernels import decode_attend as k_da
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 21)
+    it_fast, it_slow = (2, 1) if rehearse else (20, 3)
+    entries = []
+    dtype = torch.float32 if rehearse else torch.bfloat16
+    elem = 4 if rehearse else 2
+    # B6: one layer's prefill of a 4096-token prompt at Qwen2-0.5B
+    s6, n6 = (512, 4) if rehearse else (4096, 16)
+    q, k, v, kpos, qpos, idx = attention_inputs(gen, 1, 14, 2, s6, 64, 128,
+                                                n6, dtype, dev)
+    run = lambda: k_ba.block_attention(q, k, v, kpos, qpos, idx, bq=128,
+                                       bk=128)
+    plain = lambda: k_ba.block_attention_plain(q, k, v, kpos, qpos, idx,
+                                               bq=128, bk=128)
+    got = run()
+    err, _ = check_close("block_attention at the prefill shape",
+                         got.float(), plain().float(),
+                         bf16_ulps=0 if rehearse else BF16_ULPS)
+    ms, plain_ms = timer(run, it_fast), timer(plain, it_slow)
+    # the library yardstick: scaled_dot_product_attention over the same
+    # keys with the equivalent boolean mask (selected tiles AND causal)
+    g = 7
+    tile_of = torch.arange(s6, device=dev) // 128
+    sel = torch.zeros((1, 2, s6 // 128, s6 // 128), dtype=torch.bool,
+                      device=dev)
+    sel.scatter_(-1, idx.long(), True)
+    mask = sel[:, :, :, tile_of].repeat_interleave(128, dim=2)
+    mask &= kpos[:, :, None, :] <= qpos[None, None, :, None]
+    mask = mask.repeat_interleave(g, dim=1)
+    kx, vx = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    lib_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kx, vx, attn_mask=mask), it_fast)
+    del mask, kx, vx, sel
+    bound, by = block_attention_bound(1, 14, s6, 64, 128, n6, elem)
+    say(f"  block_attention B=1 Hq=14 S={s6} n_sel={n6} {dtype}: kernel "
+        f"{ms:.3f} ms  plain {plain_ms:.3f} ms  library (SDPA, boolean "
+        f"mask) {lib_ms:.3f} ms  bound {bound:.3f} ms ({by})")
+    entries.append({
+        "name": "block_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_attention.cu",
+        "replaces": "src/repro/kernels/block_attention.py:60",
+        "launches": launches.get("block_attention", 0),
+        "shape": (f"q (1, 14, {s6}, 64) {dtype}, k/v (1, 2, {s6}, 64), "
+                  f"bq=bk=128, n_sel={n6}, causal"),
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
+    del q, k, v, kpos, qpos, idx, got
+    # B5: one layer's tick of the engine: 4 slots, plan mode, no self column
+    b, s5, n5 = (2, 1024, 4) if rehearse else (4, 8192, 16)
+    q, k, v, pos, cent = decode_inputs(gen, b, 2, 7, s5, 64, 128, dtype, dev,
+                                       holes=0.0)
+    qp = torch.tensor([s5 - 1, s5 // 2, s5 // 3, s5 // 4][:b],
+                      dtype=torch.int32, device=dev)
+    kw = dict(n_sel=n5, bk=128, plan_mode=True, has_self=False, window=128)
+    run = lambda: k_da.decode_attend_fused(q, k, v, pos, cent, qp, **kw)
+    plain = lambda: k_da.decode_attend_plain(q, k, v, pos, cent, qp, **kw)
+    err, _ = check_close("decode_attend at the tick shape", run().float(),
+                         plain().float(),
+                         bf16_ulps=0 if rehearse else BF16_ULPS)
+    ms, plain_ms = timer(run, it_fast), timer(plain, it_slow)
+    bound, by = decode_bound(b, 2, 7, s5, 64, 128, n5, elem, True)
+    say(f"  decode_attend_fused B={b} Hkv=2 g=7 S={s5} n_sel={n5} {dtype} "
+        f"plan mode: kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
+        f"{bound:.4f} ms ({by}); {b * 2} blocks on the card")
+    entries.append({
+        "name": "decode_attend_fused", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attend.cu",
+        "replaces": "src/repro/kernels/decode_attend.py:137",
+        "launches": launches.get("decode_attend_fused", 0),
+        "shape": (f"q ({b}, 14, 64), k/v ({b}, 2, {s5}, 64) {dtype}, "
+                  f"bk=128, n_sel={n5}, plan mode"),
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": None})
+    return entries
+
+
+def qwen_config(rehearse: bool):
+    """Qwen2-0.5B at full width (its own ClusterKV defaults), or the reduced
+    twin with small tiles for the CPU rehearsal."""
+    from repro_torch.configs import ClusterKVConfig, get_config, reduced_config
+    if rehearse:
+        return reduced_config("qwen2-0.5b").with_(
+            clusterkv=ClusterKVConfig(enabled=True, block_q=32, block_k=32,
+                                      blocks_per_query=4, decode_clusters=4))
+    return get_config("qwen2-0.5b")
+
+
+def phase_plan_batch(args, dev, sync, cfg, params, rehearse, reset_counts,
+                     collect_counts, k_bsr):
+    """Phase 9: batched plans over Qwen's prefilled layer keys."""
+    import dataclasses
+    from repro_torch.core import clusterkv as ckv
+    from repro_torch.models import transformer as tf
+
+    s = 256 if rehearse else 2048
+    nkb = s // cfg.clusterkv.block_k
+    # budgets cover every tile at this length, so prefill through any key
+    # ordering is exact attention: plan_prefill must match prefill
+    cfg32 = cfg.with_(dtype="float32", clusterkv=dataclasses.replace(
+        cfg.clusterkv, blocks_per_query=nkb))
+    say(f"== phase 9: batched plans over {cfg.name}'s layer keys, S={s}")
+    rng = np.random.default_rng(args.seed + 9)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, s))).to(dev)
+    reset_counts()
+    cache, logits = tf.prefill(params, cfg32, {"tokens": tokens}, "clusterkv")
+    keys = cache["k"]                             # (L, 1, Hkv, S, dh)
+    t0 = time.perf_counter()
+    pb = ckv.kv_plan_batch(keys, with_bsr=True)
+    sync()
+    build_s = time.perf_counter() - t0
+    members = cfg.n_layers * cfg.n_kv_heads
+    if pb.batch != members:
+        raise AssertionError(f"{pb.batch} members, expected {members}")
+    xs = torch.from_numpy(rng.standard_normal((pb.batch, pb.capacity, 1))
+                          .astype(np.float32)).to(dev)
+    n0 = k_bsr.bsr_spmv_batched.launches
+    y = pb.matvec(xs, backend="cuda")
+    sync()
+    one = k_bsr.bsr_spmv_batched.launches - n0
+    if not rehearse and one != 1:
+        raise AssertionError(f"PlanBatch.matvec launched the batched kernel "
+                             f"{one} times for {pb.batch} members")
+    err_mv, scale_mv = check_close("PlanBatch.matvec cuda vs bsr", y,
+                                   pb.matvec(xs, backend="bsr"),
+                                   rel_tol=BACKEND_TOL)
+    perms = ckv.plan_batch_perm(pb, (cfg.n_layers, 1, cfg.n_kv_heads))
+    got = tf.plan_prefill(params, cfg32, {"tokens": tokens}, perms)
+    sync()
+    err_pf, scale_pf = check_close("plan_prefill vs prefill", got, logits,
+                                   rel_tol=SERVE_TOL)
+    if int(got.argmax()) != int(logits.argmax()):
+        raise AssertionError("plan_prefill and prefill pick other tokens")
+    launches = collect_counts("plan batch")
+    say(f"  kv_plan_batch: {pb} in {build_s:.2f} s (ELL width "
+        f"{pb.spec.max_nbr}, mean fill {np.mean(pb.fills):.3f})")
+    say(f"  PlanBatch.matvec B={pb.batch}: {one} launch of the batched "
+        f"kernel; cuda vs bsr max-abs {err_mv:.2e} (scale {scale_mv:.2f})")
+    say(f"  plan_prefill vs prefill (float32, budgets cover all {nkb} "
+        f"tiles): last logits max-abs {err_pf:.2e} (scale {scale_pf:.2f}, "
+        f"tolerance {SERVE_TOL:g} x scale), same argmax")
+    return {"S": s, "members": pb.batch, "capacity": pb.capacity,
+            "max_nbr": pb.spec.max_nbr, "build_s": build_s,
+            "matvec_launches": one, "err_matvec": err_mv,
+            "err_plan_prefill": err_pf, "launches": launches}
+
+
+def phase_serve(args, dev, sync, cfg, params, rehearse, reset_counts,
+                collect_counts):
+    """Phase 10: serving Qwen2-0.5B through ``Engine(backend="clusterkv")``."""
+    import dataclasses
+    from repro_torch.models import model_api
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.serve_loop import Engine, Request
+
+    if rehearse:
+        slots, max_seq, bucket, n_req, max_new = 2, 256, 64, 4, 6
+        lo, hi = 16, 120
+    else:
+        slots, max_seq, bucket, n_req, max_new = 4, 8192, 1024, 8, 32
+        lo, hi = 2048, 6144
+    say(f"== phase 10: serving {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.dtype}) through Engine(backend='clusterkv'): "
+        f"slots={slots}, max_seq={max_seq}, bucket={bucket}, {n_req} "
+        f"requests of {lo}-{hi} tokens, max_new={max_new}")
+    rng = np.random.default_rng(args.seed + 10)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab, int(
+        rng.integers(lo, hi + 1))).astype(np.int64), max_new=max_new)
+        for i in range(n_req)]
+    eng = Engine(cfg, params, slots=slots, max_seq=max_seq,
+                 prefill_bucket=bucket, backend="clusterkv", device=dev)
+    for r in reqs:
+        eng.submit(r)
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = collect_counts("serving (Engine)")
+    plan_mode = launches["decode_attend_fused.plan_mode"]
+    if not rehearse:
+        if launches["block_attention"] != cfg.n_layers * n_req:
+            raise AssertionError(f"prefills launched block_attention "
+                                 f"{launches['block_attention']} times")
+        if plan_mode != cfg.n_layers * eng.ticks or \
+                launches["decode_attend_fused"] != plan_mode:
+            raise AssertionError(f"{eng.ticks} ticks launched the plan-mode "
+                                 f"decode kernel {plan_mode} times")
+    for r in reqs:
+        if len(r.output) != max_new or not all(0 <= t < cfg.vocab
+                                               for t in r.output):
+            raise AssertionError(f"request {r.rid}: output {r.output}")
+    for rid, lg in eng.first_logits.items():
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"request {rid}: non-finite logits")
+    generated = sum(len(r.output) for r in reqs)
+    pre = [t * 1e3 for t in eng.timings["prefill_s"]]
+    tick = [t * 1e3 for t in eng.timings["tick_s"]]
+    say(f"  {n_req} requests, {generated} tokens in {wall:.2f} s: "
+        f"{generated / wall:.1f} tokens/s; {eng.ticks} ticks")
+    say(f"  prefill ms per request: "
+        + ", ".join(f"{len(r.tokens)}->{t:.1f}" for r, t in zip(reqs, pre)))
+    say(f"  decode ms per tick: median {float(np.median(tick)):.2f}, mean "
+        f"{float(np.mean(tick)):.2f}, min {min(tick):.2f}, max "
+        f"{max(tick):.2f}")
+
+    # plain-mode decode kernel: a scalar-position decode_step loop
+    steps = 8
+    plen = 64 if rehearse else 2048
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, plen))).to(dev)
+    cache, logits = tf.prefill(params, cfg, {"tokens": toks}, "clusterkv")
+    cache = model_api.grow_cache(cfg, cache, 2 * plen)
+    sync()
+    reset_counts()
+    nxt = logits.argmax(-1)[:, None]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = tf.decode_step(params, cfg, cache, nxt, "clusterkv")
+        nxt = logits.argmax(-1)[:, None]
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches_p = collect_counts("scalar decode_step")
+    plain_mode = launches_p["decode_attend_fused.plain_mode"]
+    if not rehearse and (plain_mode != cfg.n_layers * steps or
+                         launches_p["decode_attend_fused"] != plain_mode):
+        raise AssertionError(f"{steps} scalar decode steps launched the "
+                             f"plain-mode decode kernel {plain_mode} times")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("scalar decode_step: non-finite logits")
+    say(f"  scalar decode_step over a {plen}-token prompt in a "
+        f"{2 * plen}-slot cache: {step_ms:.2f} ms per step (host clock)")
+
+    # correctness: float32, budgets covering every tile -> exact attention;
+    # the ClusterKV engine must give the flash engine's greedy tokens
+    cover = max_seq // cfg.clusterkv.block_k
+    cfgc = cfg.with_(dtype="float32", clusterkv=dataclasses.replace(
+        cfg.clusterkv, blocks_per_query=cover, decode_clusters=cover))
+    n_chk, new_chk = 2, 8
+    chk = [rng.integers(0, cfg.vocab, int(n)).astype(np.int64)
+           for n in ((40, 70) if rehearse else (2048, 3000))]
+    outs, firsts = {}, {}
+    for backend in ("flash", "clusterkv"):
+        e = Engine(cfgc, params, slots=n_chk, max_seq=max_seq,
+                   prefill_bucket=bucket, backend=backend, device=dev)
+        rs = [Request(rid=i, tokens=t, max_new=new_chk)
+              for i, t in enumerate(chk)]
+        for r in rs:
+            e.submit(r)
+        e.run()
+        outs[backend] = [r.output for r in rs]
+        firsts[backend] = e.first_logits
+    collect_counts("covering-budget check")
+    if outs["flash"] != outs["clusterkv"]:
+        raise AssertionError(f"clusterkv engine tokens {outs['clusterkv']} "
+                             f"!= flash engine tokens {outs['flash']}")
+    errs = [check_close(f"first-token logits request {i}",
+                        firsts["clusterkv"][i], firsts["flash"][i],
+                        rel_tol=SERVE_TOL) for i in range(n_chk)]
+    say(f"  covering budgets (blocks_per_query = decode_clusters = {cover}), "
+        f"float32: {n_chk} requests x {new_chk} tokens equal the flash "
+        f"engine's token for token; first-token logits max-abs "
+        + ", ".join(f"{e:.2e} (scale {s:.2f})" for e, s in errs)
+        + f", tolerance {SERVE_TOL:g} x scale")
+    return {"slots": slots, "max_seq": max_seq, "bucket": bucket,
+            "requests": n_req, "prompt_tokens": [len(r.tokens) for r in reqs],
+            "max_new": max_new, "generated": generated, "wall_s": wall,
+            "tokens_per_s": generated / wall, "ticks": eng.ticks,
+            "prefill_ms": pre, "tick_ms": tick,
+            "tick_ms_median": float(np.median(tick)),
+            "scalar_decode_ms": step_ms, "launches": launches,
+            "scalar_decode_launches": launches_p,
+            "check_tokens": outs["clusterkv"],
+            "check_logit_err": [e for e, _ in errs]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=262144,
@@ -518,10 +996,13 @@ def main() -> int:
     from repro_torch.core.blocksparse import random_bsr
     from repro_torch.data.pipeline import feature_mixture, sift_like
     from repro_torch.kernels import _build
+    from repro_torch.kernels import block_attention as k_ba
     from repro_torch.kernels import bsr_spmv as k_bsr
+    from repro_torch.kernels import decode_attend as k_da
     from repro_torch.kernels import gamma_score as k_gs
     from repro_torch.kernels import ops
     from repro_torch.kernels import tsne_force as k_tf
+    from repro_torch.models import model_api
 
     dev = torch.device("cpu" if rehearse else "cuda")
     timer = Timer(dev)
@@ -529,22 +1010,31 @@ def main() -> int:
     wrappers = {"bsr_spmv_batched": k_bsr.bsr_spmv_batched,
                 "bsr_spmv": k_bsr.bsr_spmv,
                 "gamma_pairs": k_gs.gamma_pairs,
-                "tsne_force": k_tf.tsne_force}
-    # launches by the paths (phases 3-4, 6, 7): counters are set to 0 just
-    # before a path and read just after it
+                "tsne_force": k_tf.tsne_force,
+                "block_attention": k_ba.block_attention,
+                "decode_attend_fused": k_da.decode_attend_fused}
+    # the decode kernel's wrapper also counts its launches per contract
+    mode_counters = {"decode_attend_fused.plain_mode": "plain_mode_launches",
+                     "decode_attend_fused.plan_mode": "plan_mode_launches"}
+    # launches by the paths (phases 3-4, 6, 7, 9, 10): counters are set to 0
+    # just before a path and read just after it
     main_launches = dict.fromkeys(wrappers, 0)
 
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+        for attr in mode_counters.values():
+            setattr(k_da.decode_attend_fused, attr, 0)
 
     def collect_counts(path: str) -> dict:
         got = {name: w.launches for name, w in wrappers.items()}
         for name, count in got.items():
             main_launches[name] += count
-        say(f"  launches on the {path} path: {got}")
+        modes = {name: getattr(k_da.decode_attend_fused, attr)
+                 for name, attr in mode_counters.items()}
+        say(f"  launches on the {path} path: {got}; decode modes {modes}")
         reset_counts()
-        return got
+        return {**got, **modes}
 
     def sync():
         if dev.type == "cuda":
@@ -686,6 +1176,7 @@ def main() -> int:
                 f"{err:.2e} (scale {scale:.2e}), bit-reproducible, padded "
                 "rows exactly 0")
             del p4, c4, y4
+    check_attention_kernels(args, dev, rehearse, micro_cases)
 
     # ------------------------------------------------------------ 3 + 4 ---
     reset_counts()
@@ -897,6 +1388,25 @@ def main() -> int:
     # ---------------------------------------------------------------- 8 ---
     phase_examples(rehearse)
 
+    # ----------------------------------------------------------- 9 + 10 ---
+    cfg = qwen_config(rehearse)
+    gen_w = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    params = model_api.init(cfg, gen_w, device=dev)
+    sync()
+    say(f"== {cfg.name}: random weights from seed {args.seed} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    plan_batch = phase_plan_batch(args, dev, sync, cfg, params, rehearse,
+                                  reset_counts, collect_counts, k_bsr)
+    serve = phase_serve(args, dev, sync, cfg, params, rehearse, reset_counts,
+                        collect_counts)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    say("== B5 and B6 at the serving path's shapes")
+    entries += time_attention_kernels(args, dev, timer, rehearse,
+                                      main_launches)
+
     say(f"  launches on all paths: {main_launches}")
     if not rehearse:
         for name, count in main_launches.items():
@@ -916,7 +1426,8 @@ def main() -> int:
                           "max_nbr": max_nbr, "kept_tiles": kept,
                           "gamma": {o: {"exact": g[0], "score": g[1]}
                                     for o, g in gammas.items()},
-                          "tsne": tsne, "meanshift": meanshift})
+                          "tsne": tsne, "meanshift": meanshift,
+                          "plan_batch": plan_batch, "serve": serve})
     kernels = json.dumps({"kernels": entries})
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
     if rehearse:

@@ -49,10 +49,15 @@ with ``plan.refresh(x_new)``, which escalates through the reference's
 three tiers (patch / rebucket / rebuild) as the points move; a patch
 updates the plan's tile tensors in place (see :func:`refresh_plan`).
 
+Batched plans: :class:`PlanBatch` stacks spec-identical plans (one per
+attention head in ClusterKV) and runs the whole batch through one batched
+call — for the ``cuda`` backend one launch of the batched SpMV kernel;
+``build_plan_batch`` builds the members and stacks them.
+
 Not ported yet, raising ``NotImplementedError`` with their ROADMAP item:
 the streaming half of the lifecycle (insert, delete, update, compact,
-``update_plan``, ``capacity > n``), batched plans (``PlanBatch``,
-``build_plan_batch``), sharding and the solvers.
+``update_plan``, ``capacity > n``, batches of members of different sizes),
+sharding and the solvers.
 """
 from __future__ import annotations
 
@@ -60,7 +65,7 @@ import dataclasses
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,7 +73,7 @@ import torch
 from repro_torch._device import DeviceLike, from_numpy, resolve_device, to_numpy
 from repro_torch.core import hierarchy, interact, knn, measures
 from repro_torch.core import ordering as ordering_mod
-from repro_torch.core.blocksparse import BSR, build_bsr, patch_bsr
+from repro_torch.core.blocksparse import BSR, append_rows, build_bsr, patch_bsr
 from repro_torch.core.embedding import apply_pca_map, embed, pca_map
 from repro_torch.core.hierarchy import Tree, build_tree
 from repro_torch.core.ordering import ORDERINGS  # noqa: F401  (re-export)
@@ -692,15 +697,375 @@ class InteractionPlan:
                 f"device={str(self.device)!r})")
 
 
+# ---------------------------------------------------------------------------
+# batched plans (many small problems in lockstep: one plan per head/batch
+# entry, one kernel launch for the whole batch)
+# ---------------------------------------------------------------------------
+
+
+def _pow2_capacity(n: int, bs: int) -> int:
+    """Shared physical capacity for a batch: the next power of two at or
+    above ``n``, rounded up to a whole bottom-level block. Quantizing keeps
+    a *stream* of heterogeneous batches on a handful of specs instead of
+    one per max-member-size."""
+    cap = 1 << max(int(np.ceil(np.log2(max(n, 1)))), 0)
+    cap = max(cap, n)
+    return -(-cap // bs) * bs
+
+
+# backends whose compute reads only the plan's device tensors (plan.bsr and
+# n), so they run over stacked PlanData; csr reads the host COO and dist
+# runs collectives
+_BATCHED_BACKENDS = ("bsr", "bsr_ml", "cuda")
+
+
+def _batch_take(xs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-member permutation of a stacked batch: ``xs`` (B, n, ...) indexed
+    by ``idx`` (B, n) along axis 1, as ONE flat offset gather."""
+    B, n = idx.shape
+    flat = xs.reshape((B * n,) + tuple(xs.shape[2:]))
+    off = (torch.arange(B, device=idx.device) * n)[:, None]
+    return flat[(idx.long() + off).reshape(-1)].reshape(xs.shape)
+
+
+def _member_data(data: PlanData, i: int) -> PlanData:
+    def pick(a):
+        return None if a is None else a[i]
+    return PlanData(pi=data.pi[i], inv=data.inv[i],
+                    col_idx=pick(data.col_idx), nbr_mask=pick(data.nbr_mask),
+                    vals=pick(data.vals), alive=pick(data.alive))
+
+
+def _batch_apply(spec: PlanSpec, data: PlanData, xs: torch.Tensor,
+                 backend: str, mode: str, serial: bool) -> torch.Tensor:
+    """The whole stacked batch through one backend.
+
+    A backend with a registered *batched* implementation
+    (``register_batched_backend``: ``bsr``, ``bsr_ml`` and ``cuda`` ship
+    one) gets the whole stack in ONE call — for ``cuda`` one kernel
+    launch, however many members ride the batch. Anything else, or
+    ``serial=True``, loops the members through the single-plan path, each
+    over a view rebuilt by ``InteractionPlan.from_spec_data`` (the
+    counterpart of the reference's ``lax.scan`` variant: one member's
+    tiles in flight at a time).
+    """
+    bfn = None if serial else get_batched_backend(backend)
+    if bfn is not None:
+        if mode == "matvec":
+            xs = _batch_take(xs, data.pi)
+        ys = bfn(spec, data, xs)
+        if mode == "matvec":
+            ys = _batch_take(ys, data.inv)
+        return ys
+
+    fn = get_backend(backend)
+    out = []
+    for i in range(xs.shape[0]):
+        d = _member_data(data, i)
+        view = InteractionPlan.from_spec_data(spec, d)
+        x = xs[i]
+        if mode == "matvec":
+            x = torch.index_select(x, 0, d.pi.long())
+        y = fn(view, x)
+        if mode == "matvec":
+            y = torch.index_select(y, 0, d.inv.long())
+        out.append(y)
+    return torch.stack(out)
+
+
 class PlanBatch:
-    """Stacked spec-identical plans — not ported yet."""
+    """Many spec-identical plans stacked on a leading batch axis.
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("PlanBatch", "A4")
+    The highest-traffic consumers of near-neighbor interaction run many
+    *small* problems in lockstep — one interaction pattern per attention
+    head or batch entry (the ClusterKV workload). A ``PlanBatch`` holds ONE
+    :class:`PlanSpec` plus stacked :class:`PlanData`, and every
+    ``matvec``/``apply`` is one batched call (for the ``cuda`` backend one
+    kernel launch) for the whole batch.
+
+    Members share one size: their ELL widths are padded to the widest
+    member's (the extra slots are empty, exactly ``ell_slack`` headroom), so
+    a member view (:meth:`member`) is a fully working single plan. Members
+    of different sizes, ``capacity`` beyond the member size and the
+    lockstep streaming of :meth:`update` need the streaming tiers and wait
+    for ROADMAP A6b.
+    """
+
+    def __init__(self, spec: PlanSpec, data: PlanData,
+                 hosts: Sequence[_PlanHost], fills: Sequence[float]):
+        self.spec = spec
+        self.data = data
+        self.hosts = list(hosts)
+        self.fills = list(fills)
+
+    # -- construction ------------------------------------------------------
+
+    @classmethod
+    def from_plans(cls, plans: Sequence[InteractionPlan], *,
+                   capacity: Optional[int] = None) -> "PlanBatch":
+        """Stack shape-compatible plans into one batch.
+
+        Every member must share one ``PlanConfig`` (the spec is shared, so
+        the knobs must be too), one device, one size and agree on
+        ``with_bsr``-ness. Narrower members are widened to the widest
+        member's ELL width by :func:`~repro_torch.core.blocksparse.append_rows`.
+        """
+        plans = list(plans)
+        if not plans:
+            raise ValueError("PlanBatch needs at least one plan")
+        cfg = plans[0].config
+        has_bsr = plans[0].bsr is not None
+        for p in plans:
+            if p.config != cfg:
+                raise ValueError(
+                    "PlanBatch members must share one PlanConfig (the "
+                    f"spec is shared); got {p.config} vs {cfg}")
+            if (p.bsr is not None) != has_bsr:
+                raise ValueError("cannot mix profile-only (with_bsr=False) "
+                                 "and storage-backed plans in one batch")
+            if p.device != plans[0].device:
+                raise ValueError("PlanBatch members must share one device; "
+                                 f"got {p.device} and {plans[0].device}")
+        ns = [p.n for p in plans]
+        if capacity is not None and capacity < max(ns):
+            raise ValueError(f"capacity={capacity} < largest member "
+                             f"n={max(ns)}")
+        if len(set(ns)) != 1:
+            raise _not_ported("PlanBatch of members of different sizes",
+                              "A6b")
+        if capacity is not None and capacity > ns[0]:
+            raise _not_ported("PlanBatch(capacity > n)", "A6b")
+
+        if has_bsr:
+            m = max(p.bsr.max_nbr for p in plans)
+            plans = [
+                p if p.bsr.max_nbr == m
+                else InteractionPlan(p.config, p.n,
+                                     append_rows(p.bsr, p.n,
+                                                 extra_nbr=m - p.bsr.max_nbr),
+                                     p.pi, p.inv, p.host)
+                for p in plans]
+        spec = plans[0].spec
+        for p in plans[1:]:
+            assert p.spec == spec, (p.spec, spec)
+
+        def stack(get):
+            return torch.stack([get(p) for p in plans]) if has_bsr else None
+
+        any_alive = any(p.host.alive is not None for p in plans)
+        dev = plans[0].device
+        data = PlanData(
+            pi=torch.stack([p.pi for p in plans]),
+            inv=torch.stack([p.inv for p in plans]),
+            col_idx=stack(lambda p: p.bsr.col_idx),
+            nbr_mask=stack(lambda p: p.bsr.nbr_mask),
+            vals=stack(lambda p: p.bsr.vals),
+            alive=(torch.stack([from_numpy(p.alive, dev) for p in plans])
+                   if any_alive else None))
+        fills = [p.bsr.fill if has_bsr else 0.0 for p in plans]
+        return cls(spec, data, [p.host for p in plans], fills)
+
+    # -- shape surface -----------------------------------------------------
+
+    def __len__(self) -> int:
+        return len(self.hosts)
+
+    @property
+    def batch(self) -> int:
+        """Number of stacked members (the leading data axis B)."""
+        return len(self.hosts)
+
+    @property
+    def capacity(self) -> int:
+        """Shared physical capacity of every member."""
+        return self.spec.capacity
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.pi.device
+
+    @property
+    def n_alive(self) -> np.ndarray:
+        """(B,) live point count per member."""
+        return np.array([int(np.asarray(h.alive).sum())
+                         if h.alive is not None else self.capacity
+                         for h in self.hosts])
+
+    @property
+    def stats(self) -> dict:
+        """Batch telemetry: size, shared layout, per-member live counts,
+        mean fill, and the resolved backend."""
+        return {"batch": self.batch, "capacity": self.capacity,
+                "max_nbr": self.spec.max_nbr,
+                "n_alive": self.n_alive.tolist(),
+                "fill_mean": float(np.mean(self.fills)),
+                "backend": self.resolve_backend()}
+
+    def __repr__(self) -> str:
+        return (f"PlanBatch(B={self.batch}, capacity={self.capacity}, "
+                f"bs={self.spec.bs}, max_nbr={self.spec.max_nbr}, "
+                f"backend={self.spec.config.backend!r}, "
+                f"device={str(self.device)!r})")
+
+    # -- members (single-plan views over slices of the stacked data) -------
+
+    def member(self, i: int) -> InteractionPlan:
+        """The i-th plan as a real single ``InteractionPlan`` view (its BSR
+        tensors are slices of the stacked data; its host is the member's
+        own, so refresh works on it)."""
+        return InteractionPlan.from_spec_data(
+            self.spec, _member_data(self.data, i), host=self.hosts[i],
+            fill=self.fills[i])
+
+    def members(self) -> List[InteractionPlan]:
+        return [self.member(i) for i in range(self.batch)]
+
+    # -- charges -----------------------------------------------------------
+
+    def pad_charges(self, charges: Sequence) -> torch.Tensor:
+        """Per-member charge arrays (n_i, ...) -> one (B, capacity, ...)
+        float32 batch on the batch's device, zero-padded on the capacity
+        slots (member points occupy physical slots 0..n_i-1)."""
+        if len(charges) != self.batch:
+            raise ValueError(f"{len(charges)} charge arrays for batch of "
+                             f"{self.batch}")
+        first = np.asarray(to_numpy(charges[0]))
+        out = np.zeros((self.batch, self.capacity) + first.shape[1:],
+                       np.float32)
+        for i, c in enumerate(charges):
+            c = np.asarray(to_numpy(c), np.float32)
+            out[i, :c.shape[0]] = c
+        return from_numpy(out, self.device)
+
+    # -- interaction (one call for the whole batch) -------------------------
+
+    def resolve_backend(self, name: Optional[str] = None) -> str:
+        """Resolve a backend for the *whole batch* (one shared decision).
+        ``"auto"`` is ``"cuda"`` — one launch of the batched kernel — for a
+        batch on a CUDA device and ``"bsr"`` on the CPU."""
+        name = name or self.spec.config.backend
+        if name == "auto":
+            return "cuda" if self.device.type == "cuda" else "bsr"
+        if name in ("csr", "dist"):
+            raise ValueError(
+                f"backend {name!r} cannot run batched: csr reads the "
+                "host-side COO and dist issues collectives — use one of "
+                f"{_BATCHED_BACKENDS} (or register a batched backend)")
+        return name
+
+    def _dispatch(self, xs, backend: Optional[str], mode: str,
+                  serial: bool) -> torch.Tensor:
+        if self.spec.max_nbr is None:
+            raise ValueError("profile-only batch (with_bsr=False) has no "
+                             "storage; rebuild with with_bsr=True")
+        xs = from_numpy(xs, self.device, torch.float32)
+        if xs.ndim not in (2, 3) or xs.shape[0] != self.batch \
+                or xs.shape[1] != self.capacity:
+            raise ValueError(
+                f"batched charges must be (B={self.batch}, "
+                f"capacity={self.capacity}) or (B, capacity, f); got "
+                f"{tuple(xs.shape)} (pad_charges packs ragged member "
+                "charges)")
+        name = self.resolve_backend(backend)
+        return _batch_apply(self.spec, self.data, xs, name, mode, serial)
+
+    def apply(self, xs, backend: Optional[str] = None, *,
+              serial: bool = False) -> torch.Tensor:
+        """Batched ``y_b = A'_b x_b`` in each member's cluster order.
+        ``serial=True`` loops the members through the single-plan path."""
+        return self._dispatch(xs, backend, "apply", serial)
+
+    def matvec(self, xs, backend: Optional[str] = None, *,
+               serial: bool = False) -> torch.Tensor:
+        """Batched ``y_b = A_b x_b`` in original order (per-member
+        permute/apply/unpermute around the one batched call)."""
+        return self._dispatch(xs, backend, "matvec", serial)
+
+    # -- not ported yet ------------------------------------------------------
+
+    def solve(self, *args, **kwargs):
+        raise _not_ported("PlanBatch.solve", "A8")
+
+    def update(self, *args, **kwargs):
+        raise _not_ported("PlanBatch.update", "A6b")
+
+    def insert(self, *args, **kwargs):
+        raise _not_ported("PlanBatch.insert", "A6b")
+
+    def delete(self, *args, **kwargs):
+        raise _not_ported("PlanBatch.delete", "A6b")
+
+    def compact(self, *args, **kwargs):
+        raise _not_ported("PlanBatch.compact", "A6b")
+
+    @property
+    def refresh_stats(self) -> List[RefreshStats]:
+        """Per-member lifecycle counters, in batch order."""
+        return [h.refresh for h in self.hosts]
 
 
-def build_plan_batch(*args, **kwargs):
-    raise _not_ported("build_plan_batch", "A4")
+def build_plan_batch(xs, *, k: int = 16, ordering: str = "dual_tree",
+                     bs: int = 32, sb: int = 8, backend: str = "auto",
+                     d: int = 3, bits: int = 10, leaf_size: int = 64,
+                     symmetrize: bool = False, seed: int = 0,
+                     values: "Callable | None" = None,
+                     sigma: Optional[float] = None,
+                     with_bsr: bool = True,
+                     capacity: Optional[int] = None,
+                     config: Optional[PlanConfig] = None,
+                     device: DeviceLike = None,
+                     **cfg_overrides) -> PlanBatch:
+    """Run the pipeline once per member and stack the results (§2.4 × B).
+
+    ``xs`` is a (B, n, D) array or tensor, or a sequence of (n, D) point
+    sets of one size (members of different sizes, and ``capacity`` beyond
+    it, wait for ROADMAP A6b). Every member shares one ``PlanConfig``;
+    ``values`` must be ``None`` or a callable (a static per-member value
+    array cannot ride the shared spec — dress members individually and use
+    ``PlanBatch.from_plans`` for that). Runs on ``device`` (``None`` =
+    ``"cuda"``; raises when there is no card).
+
+    Example:
+        >>> import numpy as np
+        >>> from repro_torch import api
+        >>> rng = np.random.default_rng(0)
+        >>> xs = rng.standard_normal((2, 48, 8))
+        >>> batch = api.build_plan_batch(xs, k=4, bs=8, sb=2, backend="bsr",
+        ...                              device="cpu")
+        >>> batch.batch, batch.capacity
+        (2, 48)
+        >>> tuple(batch.matvec(np.ones((2, 48), np.float32)).shape)
+        (2, 48)
+    """
+    if values is not None and not callable(values):
+        raise ValueError(
+            "build_plan_batch values= must be None or a callable; a "
+            "static value array is member-specific — build members with "
+            "build_plan and stack them via PlanBatch.from_plans")
+    dev = resolve_device(device)
+    if config is None:
+        config = PlanConfig(k=k, ordering=ordering, bs=bs, sb=sb,
+                            backend=backend, d=d, bits=bits,
+                            leaf_size=leaf_size, symmetrize=symmetrize,
+                            seed=seed, **cfg_overrides)
+    elif cfg_overrides:
+        config = dataclasses.replace(config, **cfg_overrides)
+    members = [np.asarray(to_numpy(x), np.float32) for x in xs]
+    if not members:
+        raise ValueError("build_plan_batch needs at least one point set")
+    ns = [m.shape[0] for m in members]
+    if capacity is not None and capacity < max(ns):
+        raise ValueError(f"capacity={capacity} < largest member "
+                         f"n={max(ns)}")
+    if len(set(ns)) != 1:
+        raise _not_ported("build_plan_batch over members of different "
+                          "sizes", "A6b")
+    if capacity is not None and capacity > ns[0]:
+        raise _not_ported("build_plan_batch(capacity > n)", "A6b")
+    plans = [build_plan(x, config=config, values=values, sigma=sigma,
+                        with_bsr=with_bsr, device=dev)
+             for x in members]
+    return PlanBatch.from_plans(plans)
 
 
 def update_plan(*args, **kwargs):

@@ -1,0 +1,23 @@
+from repro_torch.configs.base import (
+    ARCH_IDS,
+    SHAPES,
+    ClusterKVConfig,
+    MLAConfig,
+    ModelConfig,
+    MoEConfig,
+    SSMConfig,
+    get_config,
+    reduced_config,
+)
+
+__all__ = [
+    "ARCH_IDS",
+    "SHAPES",
+    "ClusterKVConfig",
+    "MLAConfig",
+    "ModelConfig",
+    "MoEConfig",
+    "SSMConfig",
+    "get_config",
+    "reduced_config",
+]

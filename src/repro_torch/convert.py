@@ -123,3 +123,87 @@ def plan_from_reference_arrays(
         host.refresh = RefreshStats(**refresh)
     return InteractionPlan(cfg, n, bsr, from_numpy(pi, dev, torch.int64),
                            from_numpy(inv, dev, torch.int64), host)
+
+
+# ---------------------------------------------------------------------------
+# model parameters and configs
+# ---------------------------------------------------------------------------
+
+# fields renamed in the port: reference name -> (port name, value map).
+# The reference's choices pick a TPU path; in the port the device picks it
+# (the CUDA kernels on a CUDA tensor, their plain versions on the CPU), so
+# every known value crosses as "auto".
+_CKV_RENAMES = {
+    "use_pallas": ("use_kernel", {True: "auto", False: "auto"}),
+    "decode_backend": ("decode_backend",
+                       {"xla": "auto", "pallas": "auto", "auto": "auto"}),
+}
+
+
+def config_from_reference(cfg):
+    """A port ``ModelConfig`` from a reference ``ModelConfig`` (the
+    dataclass itself or ``dataclasses.asdict`` of it). Maps the two fields
+    the port renames: ``clusterkv.use_pallas`` -> ``use_kernel`` and
+    ``decode_backend``, each to ``"auto"`` whatever the reference chose
+    (see ``_CKV_RENAMES``); unknown fields and values are rejected."""
+    from repro_torch.configs import base
+
+    d = dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg) else dict(cfg)
+    ckv = dict(d.get("clusterkv") or {})
+    for old, (new, values) in _CKV_RENAMES.items():
+        if old in ckv:
+            v = ckv.pop(old)
+            if v not in values:
+                raise ValueError(f"clusterkv.{old}={v!r} has no counterpart "
+                                 f"in the port (known: {sorted(map(str, values))})")
+            ckv[new] = values[v]
+    nested = {"clusterkv": base.ClusterKVConfig, "moe": base.MoEConfig,
+              "ssm": base.SSMConfig, "mla": base.MLAConfig}
+    out = {}
+    known = {f.name for f in dataclasses.fields(base.ModelConfig)}
+    unknown = sorted(set(d) - known)
+    if unknown:
+        raise ValueError(f"unknown ModelConfig fields {unknown}")
+    for key, val in d.items():
+        if key in nested and val is not None:
+            val = ckv if key == "clusterkv" else val
+            fields = {f.name for f in dataclasses.fields(nested[key])}
+            bad = sorted(set(val) - fields)
+            if bad:
+                raise ValueError(f"unknown {key} fields {bad}")
+            val = nested[key](**val)
+        out[key] = val
+    return base.ModelConfig(**out)
+
+
+def params_from_reference(params_np, cfg, device: DeviceLike = None) -> dict:
+    """The port's parameters from a reference parameter tree.
+
+    ``params_np`` is the reference tree with every leaf as a numpy array
+    (``jax.tree.map(np.asarray, params)``): ``pm.linear``'s ``(d_in, d_out)``
+    weights, stacked ``(L, ...)`` layers, a tied head. The port keeps that
+    layout, so the tree crosses leaf for leaf, as float32 tensors on
+    ``device``; every leaf's shape is checked against the port's own
+    initialisation of ``cfg`` (built on the ``meta`` device, no memory).
+    """
+    from repro_torch.models import model_api
+
+    dev = resolve_device(device)
+    want = model_api.module_for(cfg).init_lm(
+        cfg, torch.Generator(device="cpu"), device="meta")
+
+    def cross(ref, shape_tree, path):
+        if isinstance(shape_tree, dict):
+            if not isinstance(ref, dict) or set(ref) != set(shape_tree):
+                got = sorted(ref) if isinstance(ref, dict) else type(ref)
+                raise ValueError(f"parameter tree at {path or '/'} has keys "
+                                 f"{got}, expected {sorted(shape_tree)}")
+            return {k: cross(ref[k], shape_tree[k], f"{path}/{k}")
+                    for k in shape_tree}
+        arr = np.asarray(ref)
+        if tuple(arr.shape) != tuple(shape_tree.shape):
+            raise ValueError(f"parameter {path}: shape {arr.shape}, expected "
+                             f"{tuple(shape_tree.shape)}")
+        return from_numpy(arr, dev, torch.float32)
+
+    return cross(params_np, want, "")

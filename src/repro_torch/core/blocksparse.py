@@ -253,3 +253,34 @@ def random_bsr(key_seed: int, n: int, bs: int, nbr: int, *, sb: int = 8,
                col_idx=from_numpy(col_idx, dev),
                nbr_mask=torch.ones((n_rb, nbr), dtype=torch.bool, device=dev),
                vals=from_numpy(vals, dev), fill=1.0, max_nbr=nbr)
+
+
+def append_rows(bsr: BSR, n_new: int, extra_nbr: int = 0) -> BSR:
+    """Grow the (square) matrix dimension to ``n_new`` by appending empty
+    row-blocks, and/or widen the ELL slot axis by ``extra_nbr`` spare slots.
+
+    Appended rows and slots carry no tiles (mask False, column 0, zero
+    values). ``PlanBatch.from_plans`` widens narrower members to the
+    widest one's ELL width through this. The column dimension grows in
+    lockstep (``n_cb == n_rb``), which existing tiles are agnostic to.
+    ``fill`` is unchanged: no kept tile was added or removed.
+    """
+    if n_new < bsr.n:
+        raise ValueError(f"append_rows cannot shrink: n_new={n_new} < "
+                         f"n={bsr.n} (delete + compact instead)")
+    if extra_nbr < 0:
+        raise ValueError(f"extra_nbr must be >= 0, got {extra_nbr}")
+    n_rb2 = (n_new + bsr.bs - 1) // bsr.bs
+    grow = n_rb2 - bsr.n_rb
+    if grow == 0 and extra_nbr == 0:
+        return BSR(bs=bsr.bs, sb=bsr.sb, n=n_new, n_rb=bsr.n_rb,
+                   n_cb=bsr.n_cb, col_idx=bsr.col_idx,
+                   nbr_mask=bsr.nbr_mask, vals=bsr.vals, fill=bsr.fill,
+                   max_nbr=bsr.max_nbr)
+    pad = torch.nn.functional.pad
+    col_idx = pad(bsr.col_idx, (0, extra_nbr, 0, grow))
+    nbr_mask = pad(bsr.nbr_mask, (0, extra_nbr, 0, grow))
+    vals = pad(bsr.vals, (0, 0, 0, 0, 0, extra_nbr, 0, grow))
+    return BSR(bs=bsr.bs, sb=bsr.sb, n=n_new, n_rb=n_rb2, n_cb=n_rb2,
+               col_idx=col_idx, nbr_mask=nbr_mask, vals=vals,
+               fill=bsr.fill, max_nbr=bsr.max_nbr + extra_nbr)

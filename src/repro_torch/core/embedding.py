@@ -12,13 +12,14 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch._device import DeviceLike, from_numpy, resolve_device
+from repro_torch._device import (DeviceLike, device_of, from_numpy,
+                                 resolve_device)
 
 
 def _subspace_iterate(xc: torch.Tensor, q: torch.Tensor,
                       iters: int) -> torch.Tensor:
     for _ in range(iters):
-        z = xc.T @ (xc @ q)             # (D, d): one subspace-iteration sweep
+        z = xc.mT @ (xc @ q)            # (..., D, d): one sweep
         q, _ = torch.linalg.qr(z)
     return q
 
@@ -98,10 +99,16 @@ def pca_project_det(x, d: int, iters: int = 4,
                     device: DeviceLike = None) -> torch.Tensor:
     """Top-``d`` principal projection with a deterministic start: the same
     subspace iteration as :func:`pca_axes`, seeded from the first ``d``
-    coordinate axes instead of random draws."""
-    dev = resolve_device(device)
+    coordinate axes instead of random draws.
+
+    ``x`` is one set (N, D) or a batch of sets (..., N, D), each projected
+    onto its own axes (the per-head embedding step of ClusterKV attention,
+    ``core.clusterkv.cluster_perm``). A tensor is projected on its own
+    device unless ``device`` says otherwise."""
+    dev = device_of(x, device)
     x = from_numpy(x, dev, torch.float32)
-    dh = x.shape[1]
-    xc = x - x.mean(dim=0, keepdim=True)
+    dh = x.shape[-1]
+    xc = x - x.mean(dim=-2, keepdim=True)
     q = torch.eye(dh, d, dtype=torch.float32, device=dev)
+    q = q.expand(tuple(x.shape[:-2]) + (dh, d))
     return xc @ _subspace_iterate(xc, q, iters)

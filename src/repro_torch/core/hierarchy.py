@@ -52,13 +52,13 @@ def eff_bits(d: int, bits: int = 0) -> int:
 
 def _interleave(q: torch.Tensor, d: int) -> torch.Tensor:
     if d == 1:
-        return q[:, 0]
+        return q[..., 0]
     if d == 2:
-        return _part1by1(q[:, 0]) | (_part1by1(q[:, 1]) << 1)
+        return _part1by1(q[..., 0]) | (_part1by1(q[..., 1]) << 1)
     if d == 3:
-        return (_part1by2(q[:, 0])
-                | (_part1by2(q[:, 1]) << 1)
-                | (_part1by2(q[:, 2]) << 2))
+        return (_part1by2(q[..., 0])
+                | (_part1by2(q[..., 1]) << 1)
+                | (_part1by2(q[..., 2]) << 2))
     raise ValueError(f"morton codes support d<=3, got d={d}")
 
 
@@ -67,11 +67,12 @@ def morton_codes(y, bits: int = 0, device: DeviceLike = None) -> torch.Tensor:
 
     Coordinates are min-max quantized to ``bits`` bits per dimension
     (default: the maximum that fits a 32-bit code: 30/16/10 for d=1/2/3).
+    Leading batch axes (..., N, d) code each set against its own box.
     """
     dev = resolve_device(device)
     y = from_numpy(y, dev, torch.float32)
-    lo = y.min(dim=0, keepdim=True).values
-    hi = y.max(dim=0, keepdim=True).values
+    lo = y.min(dim=-2, keepdim=True).values
+    hi = y.max(dim=-2, keepdim=True).values
     return morton_codes_box(y, lo, hi, bits, dev)
 
 
@@ -89,7 +90,7 @@ def morton_codes_box(y, lo, hi, bits: int = 0,
     y = from_numpy(y, dev, torch.float32)
     lo = from_numpy(lo, dev, torch.float32)
     hi = from_numpy(hi, dev, torch.float32)
-    d = y.shape[1]
+    d = y.shape[-1]
     if d not in MAX_BITS:
         raise ValueError(f"morton codes support d<=3, got d={d}")
     b = eff_bits(d, bits)

@@ -17,7 +17,8 @@ backends register themselves on first use:
 beside the kernel; they run on any device. ``cuda`` launches the kernel
 for a plan on the card and uses its plain version for a plan on the CPU.
 User code can ``register_backend`` custom paths and they become visible to
-``plan.apply`` immediately.
+``plan.apply`` immediately. The decode-attention backends of ClusterKV
+have a registry of their own at the end of this module.
 """
 from __future__ import annotations
 
@@ -123,3 +124,77 @@ def backend_names() -> Tuple[str, ...]:
 
 def preconditioner_names() -> Tuple[str, ...]:
     return tuple(sorted(PRECONDITIONERS))
+
+
+# ---------------------------------------------------------------------------
+# decode-attention backends
+# ---------------------------------------------------------------------------
+#
+# A decode backend is
+#
+#     fn(q, ks, vs, ps, cent, qpos, cfg, *, k_self=None, v_self=None) -> out
+#
+# computing ``clusterkv_plan_decode``'s contract over plan-ordered caches
+# (see models.attention). Built-ins:
+#
+#   plain    top-k select + tile gather + attend in plain PyTorch (the
+#            counterpart of the reference's ``xla``)
+#   cuda     the hand-written fused kernel (kernels.decode_attend; the
+#            counterpart of ``pallas``): selection, gather and softmax in
+#            one launch
+#
+# ``cfg.decode_backend == "auto"`` resolves to ``cuda`` for a CUDA tensor
+# and ``plain`` on the CPU (the cost model that ranks them is ROADMAP A9).
+
+_DECODE: Dict[str, Callable] = {}
+_DECODE_LOADED = False
+_DECODE_PROVIDERS = ("repro_torch.models.attention", "repro_torch.kernels.ops")
+
+
+def register_decode_backend(name: str, fn: Callable | None = None, *,
+                            overwrite: bool = False):
+    """Register ``fn`` as decode-attention backend ``name`` (decorator-friendly)."""
+
+    def _register(f: Callable) -> Callable:
+        prev = _DECODE.get(name)
+        if prev is not None and prev is not f and not overwrite:
+            raise ValueError(
+                f"decode backend {name!r} is already registered "
+                f"({prev.__module__}.{prev.__qualname__}); pass "
+                "overwrite=True to replace it deliberately")
+        _DECODE[name] = f
+        return f
+
+    return _register if fn is None else _register(fn)
+
+
+def _ensure_decode_defaults() -> None:
+    global _DECODE_LOADED
+    if _DECODE_LOADED:
+        return
+    import importlib
+
+    for mod in _DECODE_PROVIDERS:
+        importlib.import_module(mod)
+    _DECODE_LOADED = True
+
+
+def get_decode_backend(name: str) -> Callable:
+    _ensure_decode_defaults()
+    try:
+        return _DECODE[name]
+    except KeyError:
+        import difflib
+
+        close = difflib.get_close_matches(name, decode_backend_names(), n=1,
+                                          cutoff=0.5)
+        hint = f" — did you mean {close[0]!r}?" if close else ""
+        raise ValueError(
+            f"unknown decode backend {name!r}{hint}; "
+            f"registered: {decode_backend_names()}"
+        ) from None
+
+
+def decode_backend_names() -> Tuple[str, ...]:
+    _ensure_decode_defaults()
+    return tuple(sorted(_DECODE))

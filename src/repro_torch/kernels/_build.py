@@ -35,6 +35,9 @@ SIGNATURES = {
     "repro_bsr_spmv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_gamma_pairs": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
     "repro_tsne_force": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_block_attention": (_P, _P, _P, _P, _P, _P, _P) + (_I,) * 11
+                             + (_P,),
+    "repro_decode_attend": (_P,) * 10 + (_I,) * 12 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-"""Public wrappers for the CUDA kernels and the ``cuda`` registry backend.
+"""Public wrappers for the CUDA kernels and the ``cuda`` registry backends.
 
 On a CUDA tensor the wrappers launch the hand-written kernels
 (``csrc/*.cu``, built at first use); on a CPU tensor they return the
@@ -7,6 +7,11 @@ kernels' plain PyTorch versions. The wrappers handle ``(n,)`` vs
 range, float32/int32 casts and slicing back to the charge length. The
 kernel needs no tile-size arguments: one thread block per (member, row
 block, 8-column feature tile) loops the whole ELL width.
+
+The attention wrappers (``block_attention``, ``decode_attend_fused`` and
+the ``cuda`` decode backend) take the batched layouts of the reference's
+``ops.py`` and cast positions and indices to int32; the kernel modules
+they call count the launches.
 """
 from __future__ import annotations
 
@@ -14,8 +19,12 @@ import torch
 
 from repro_torch._device import DeviceLike, device_of, from_numpy
 from repro_torch.core.interact import _pad_rows
-from repro_torch.core.registry import register_backend, register_batched_backend
+from repro_torch.core.registry import (register_backend,
+                                       register_batched_backend,
+                                       register_decode_backend)
+from repro_torch.kernels import block_attention as _ba
 from repro_torch.kernels import bsr_spmv as _bsr
+from repro_torch.kernels import decode_attend as _da
 from repro_torch.kernels import gamma_score as _gs
 from repro_torch.kernels import tsne_force as _tf
 
@@ -118,3 +127,48 @@ def gamma_exact(rows, cols, sigma: float, bn: int = 256, weights=None,
                             symmetric=True)
     denom = float(nnz) if weights is None else w.sum()
     return total / (float(sigma) * denom)
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def block_attention(q, k_sorted, v_sorted, kpos, qpos, idx, *, bq, bk,
+                    causal=True) -> torch.Tensor:
+    """Batched cluster-block-sparse attention.
+
+    q (B,Hq,S,dh); k/v_sorted (B,Hkv,S,dh); kpos (B,Hkv,S); qpos (S,);
+    idx (B,Hkv,nqb,n_sel). GQA: q heads grouped onto kv heads, one kernel
+    launch for every (query tile, query head, batch member)."""
+    return _ba.block_attention(q.contiguous(), k_sorted.contiguous(),
+                               v_sorted.contiguous(), _i32(kpos), _i32(qpos),
+                               _i32(idx), bq=bq, bk=bk, causal=causal)
+
+
+def decode_attend_fused(q, k, v, pos, cent, qpos, *, n_sel, bk):
+    """Fused single-token cluster decode over plain (time-ordered) caches:
+    ``core.clusterkv.decode_select`` + ``decode_attend`` in one kernel.
+    q (B,Hq,dh); k/v (B,Hkv,S,dh|dv); pos (B,Hkv,S); cent (B,Hkv,S/bk,dh);
+    qpos scalar or (B,)."""
+    return _da.decode_attend_fused(q, k.contiguous(), v.contiguous(),
+                                   _i32(pos), cent, qpos, n_sel=n_sel, bk=bk)
+
+
+@register_decode_backend("cuda")
+def _cuda_plan_decode(q, ks, vs, ps, cent, qpos, cfg, *, k_self=None,
+                      v_self=None):
+    """Plan-ordered decode attend via the fused CUDA kernel (the counterpart
+    of the reference's ``pallas`` decode backend).
+
+    Same contract as the ``plain`` decode backend
+    (``core.clusterkv.plan_decode_plain``): hole tiles masked out of
+    selection, local-window recency boost, optional always-visible self
+    column. On a CPU tensor it takes that plain version."""
+    s = ks.shape[2]
+    bk = min(cfg.block_k, s)
+    has_self = k_self is not None
+    return _da.decode_attend_fused(
+        q, ks.contiguous(), vs.contiguous(), _i32(ps), cent, qpos, k_self,
+        v_self, n_sel=min(cfg.decode_clusters, s // bk), bk=bk,
+        plan_mode=True, has_self=has_self,
+        window=cfg.local_window_blocks * bk)

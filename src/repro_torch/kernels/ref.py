@@ -36,3 +36,33 @@ def tsne_force_ref(p_vals: torch.Tensor, col_idx: torch.Tensor,
     w = p_vals * q
     f = torch.einsum("rnts,rntsd->rtd", w, diff)
     return f.reshape(n_rb * bs, d)
+
+
+def block_attention_ref(q: torch.Tensor, k_sorted: torch.Tensor,
+                        v_sorted: torch.Tensor, kpos: torch.Tensor,
+                        qpos: torch.Tensor, idx: torch.Tensor, *, bq: int,
+                        bk: int, causal: bool = True) -> torch.Tensor:
+    """Single-slice oracle of kernels.block_attention: q (S, dh);
+    k/v_sorted (S_k, dh|dv); kpos (S_k,); qpos (S,); idx (S/bq, n_sel).
+    One flat softmax per query tile over its gathered key tiles."""
+    s, dh = q.shape
+    dv = v_sorted.shape[-1]
+    nqb = s // bq
+    scale = 1.0 / (dh ** 0.5)
+    kb = k_sorted.reshape(-1, bk, dh)
+    vb = v_sorted.reshape(-1, bk, dv)
+    pb = kpos.reshape(-1, bk)
+    out = []
+    for i in range(nqb):
+        qi = q[i * bq:(i + 1) * bq].float()
+        sel = idx[i].long()
+        ks = kb[sel].reshape(-1, dh).float()
+        vs = vb[sel].reshape(-1, dv).float()
+        ps = pb[sel].reshape(-1)
+        logit = qi @ ks.T * scale
+        if causal:
+            ok = ps[None, :] <= qpos[i * bq:(i + 1) * bq][:, None]
+            logit = torch.where(ok, logit, -1e30)
+        w = torch.softmax(logit, dim=-1)
+        out.append((w @ vs).to(q.dtype))
+    return torch.cat(out, dim=0)

@@ -5,6 +5,8 @@ reference's JAX arrays cross over through ``np.asarray`` and the port's
 tensors through ``.numpy()``. The reference runs on the CPU, its Pallas
 kernels in interpret mode; the port runs its plain versions on the CPU.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -69,3 +71,21 @@ def random_ell(seed, B, n_rb, nbr, bs, n_cb=None, pad_slots=0,
         vals[:, r] = 0.0
         col[:, r] = 0
     return vals, col
+
+
+def plan_from_reference(rp):
+    """A reference ``InteractionPlan`` -> port plan on the CPU, through
+    numpy arrays only (``convert.plan_from_reference_arrays``)."""
+    from repro_torch import convert
+    b, h = rp.bsr, rp.host
+    return convert.plan_from_reference_arrays(
+        dataclasses.asdict(rp.config), rp.n, np.asarray(h.pi),
+        np.asarray(h.inv), tuple(np.asarray(a) for a in h.coo),
+        None if b is None else np.asarray(b.col_idx),
+        None if b is None else np.asarray(b.nbr_mask),
+        None if b is None else np.asarray(b.vals),
+        h.sigma, fill=0.0 if b is None else b.fill,
+        embedding=h.embedding, embed_mean=h.embed_mean,
+        embed_axes=h.embed_axes,
+        tree_levels=None if h.tree is None else h.tree.levels,
+        device="cpu")

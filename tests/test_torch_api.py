@@ -332,8 +332,10 @@ def test_plan_config_fields_and_preconditioner_names():
     (lambda p: p.delete([0]), "A6"), (lambda p: p.update(insert=None), "A6"),
     (lambda p: p.compact(), "A6"), (lambda p: p.shard(), "A11"),
     (lambda p: p.solve(None), "A8"), (lambda p: p.eigs(2), "A8"),
-    (lambda p: t_api.PlanBatch(), "A4"),
-    (lambda p: t_api.build_plan_batch([]), "A4"),
+    (lambda p: t_api.build_plan_batch(
+        [p.host.x, p.host.x[:-8]], k=4, device="cpu"), "A6b"),
+    (lambda p: t_api.build_plan_batch([p.host.x], k=4, capacity=p.n + 8,
+                                      device="cpu"), "A6b"),
     (lambda p: t_api.update_plan(p), "A6"),
     (lambda p: t_api.build_plan(p.host.x, k=4, capacity=p.n + 8,
                                 device="cpu"), "A6"),

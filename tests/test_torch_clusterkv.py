@@ -1,0 +1,275 @@
+"""ClusterKV core (``core/clusterkv.py``) and the plain versions of kernels
+B5 and B6, against the reference on the same numpy inputs.
+
+Integer artifacts (cluster orderings, ``select_blocks``/``decode_select``
+tile indices) must be exactly equal; float32 outputs within ``rtol 1e-5``.
+B6's plain version is held against ``ref.block_attention_ref`` and against
+the reference's ``ops.block_attention`` (its Pallas kernel in interpret
+mode); B5's plain version against ``decode_select + decode_attend`` (plain
+mode) and ``_plan_decode_xla`` (plan mode) — the reference's fused kernel
+itself does not run on this JAX (ROADMAP C1).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_close, tn, tt
+
+from repro.core import clusterkv as r_ckv
+from repro.kernels import ops as r_ops
+from repro.kernels import ref as r_ref
+from repro.configs.base import ClusterKVConfig as RCKV
+from repro.models import attention as r_attn
+from repro_torch.core import clusterkv as t_ckv
+from repro_torch.kernels import block_attention as t_ba
+from repro_torch.kernels import decode_attend as t_da
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import ref as t_ref
+
+BIG = 2 ** 31 - 1
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _clustered_keys(seed, b=1, h=2, s=128, dh=16, n_clusters=4):
+    rng = _rng(seed)
+    cc = rng.standard_normal((n_clusters, dh)) * 4.0
+    asg = rng.integers(0, n_clusters, (b, h, s))
+    return (cc[asg] + 0.3 * rng.standard_normal((b, h, s, dh))
+            ).astype(np.float32)
+
+
+def test_topk_stable_breaks_ties_like_lax_top_k():
+    scores = np.array([[1.0, 3.0, 3.0, -1e30, 3.0, -1e30, 0.5, -1e30]],
+                      np.float32)
+    got = tn(t_ckv.topk_stable(tt(scores), 6))
+    import jax
+    _, want = jax.lax.top_k(jnp.asarray(scores), 6)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(got[0], [1, 2, 4, 0, 6, 3])
+
+
+@pytest.mark.parametrize("all_masked_row", [False, True])
+def test_masked_softmax_matches_reference(all_masked_row):
+    rng = _rng(1)
+    logit = rng.standard_normal((3, 5, 9)).astype(np.float32)
+    mask = rng.random((3, 5, 9)) > 0.3
+    if all_masked_row:
+        mask[1, 2] = False
+    got = t_ckv.masked_softmax(tt(logit), tt(mask))
+    want = r_ckv.masked_softmax(jnp.asarray(logit), jnp.asarray(mask))
+    assert_close(got, want)
+    if all_masked_row:
+        assert (tn(got)[1, 2] == 0).all()
+
+
+@pytest.mark.parametrize("g", [1, 3])
+def test_decode_logits_and_combine(g):
+    rng = _rng(2)
+    qh = rng.standard_normal((g, 16)).astype(np.float32)
+    ks = rng.standard_normal((40, 16)).astype(np.float32)
+    w = rng.random((g, 40)).astype(np.float32)
+    assert_close(t_ckv.decode_logits(tt(qh), tt(ks)),
+                 r_ckv.decode_logits(jnp.asarray(qh), jnp.asarray(ks)))
+    assert_close(t_ckv.decode_combine(tt(w), tt(ks)),
+                 r_ckv.decode_combine(jnp.asarray(w), jnp.asarray(ks)))
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_cluster_perm_equals_reference(d):
+    k = _clustered_keys(3, b=2, h=3, s=96, dh=12)
+    got = t_ckv.cluster_perm(tt(k), d=d)
+    want = r_ckv.cluster_perm(jnp.asarray(k), d=d)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(tn(got), np.asarray(want))
+
+
+def test_permute_kv_and_block_centroids():
+    rng = _rng(4)
+    k = rng.standard_normal((2, 2, 64, 8)).astype(np.float32)
+    v = rng.standard_normal((2, 2, 64, 8)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(64, dtype=np.int32), (2, 2, 64)).copy()
+    perm = np.stack([np.stack([rng.permutation(64) for _ in range(2)])
+                     for _ in range(2)]).astype(np.int32)
+    got = t_ckv.permute_kv(tt(k), tt(v), tt(pos), tt(perm))
+    want = r_ckv.permute_kv(jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+                            jnp.asarray(perm))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(tn(a), np.asarray(b))
+    assert_close(t_ckv.block_centroids(got[0], 16),
+                 r_ckv.block_centroids(want[0], 16))
+
+
+def _selection_inputs(seed, b=2, h=2, nqb=6, nkb=8, dh=8, bk=16):
+    rng = _rng(seed)
+    qc = rng.standard_normal((b, h, nqb, dh)).astype(np.float32)
+    kc = rng.standard_normal((b, h, nkb, dh)).astype(np.float32)
+    pos = np.stack([np.stack([rng.permutation(nkb * bk) for _ in range(h)])
+                    for _ in range(b)]).reshape(b, h, nkb, bk)
+    pos[0, 0, 3] = BIG                       # one whole hole tile
+    kmin = pos.min(-1).astype(np.int32)
+    kmax = np.where(pos == BIG, -1, pos).max(-1).astype(np.int32)
+    qpos = np.arange(nqb * bk, dtype=np.int32).reshape(nqb, bk)
+    return qc, kc, kmin, kmax, qpos.min(-1), qpos.max(-1)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n_sel", [1, 3, 8])
+def test_select_blocks_indices_exactly_equal(causal, n_sel):
+    qc, kc, kmin, kmax, qmin, qmax = _selection_inputs(5)
+    args = (qc, kc, kmin, kmax, qmin, qmax)
+    got = t_ckv.select_blocks(*map(tt, args), n_sel, 16, causal=causal,
+                              local_window=16)
+    want = r_ckv.select_blocks(*map(jnp.asarray, args), n_sel, 16,
+                               causal=causal, local_window=16)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(tn(got), np.asarray(want))
+
+
+def _tile_inputs(seed, b=2, hq=4, hkv=2, s=128, dh=16, bq=32, bk=32, n_sel=3):
+    rng = _rng(seed)
+    q = rng.standard_normal((b, hq, s, dh)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, s, dh)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, dh)).astype(np.float32)
+    kpos = np.stack([np.stack([rng.permutation(s) for _ in range(hkv)])
+                     for _ in range(b)]).astype(np.int32)
+    qpos = np.arange(s, dtype=np.int32)
+    idx = np.stack([np.stack([np.stack([
+        rng.choice(s // bk, n_sel, replace=False) for _ in range(s // bq)])
+        for _ in range(hkv)]) for _ in range(b)]).astype(np.int32)
+    return q, k, v, kpos, qpos, idx
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bq,bk", [(32, 32), (16, 32), (32, 16)])
+def test_sparse_block_attention_matches_reference(causal, bq, bk):
+    args = _tile_inputs(6, bq=bq, bk=bk)
+    got = t_ckv.sparse_block_attention(*map(tt, args), bq, bk, causal=causal)
+    want = r_ckv.sparse_block_attention(*map(jnp.asarray, args), bq, bk,
+                                        causal=causal)
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_b6_plain_version_matches_oracle_and_interpret_kernel(causal):
+    """The port's B6 wrapper on CPU tensors (its plain version) against the
+    reference's single-slice oracle and its Pallas kernel in interpret
+    mode through ``ops.block_attention``."""
+    args = _tile_inputs(7 if causal else 8)
+    q, k, v, kpos, qpos, idx = args
+    n0 = t_ba.block_attention.launches
+    got = t_ops.block_attention(*map(tt, args), bq=32, bk=32, causal=causal)
+    assert t_ba.block_attention.launches == n0          # CPU: no launch
+    want = r_ops.block_attention(*map(jnp.asarray, args), bq=32, bk=32,
+                                 causal=causal)
+    assert_close(got, want)
+    g = 2
+    for bi, h in ((0, 1), (1, 3)):
+        kh = h // g
+        oracle = r_ref.block_attention_ref(
+            jnp.asarray(q[bi, h]), jnp.asarray(k[bi, kh]),
+            jnp.asarray(v[bi, kh]), jnp.asarray(kpos[bi, kh]),
+            jnp.asarray(qpos), jnp.asarray(idx[bi, kh]), bq=32, bk=32,
+            causal=causal)
+        assert_close(got[bi, h], oracle)
+        mine = t_ref.block_attention_ref(
+            tt(q[bi, h]), tt(k[bi, kh]), tt(v[bi, kh]), tt(kpos[bi, kh]),
+            tt(qpos), tt(idx[bi, kh]), bq=32, bk=32, causal=causal)
+        assert_close(mine, oracle)
+
+
+def test_b6_uniform_weights_when_every_selected_key_is_future():
+    """NEG_INF masking with an unmasked exp: a query row whose selected
+    keys all lie in its future gets uniform weights in both packages."""
+    q, k, v, kpos, qpos, idx = _tile_inputs(9, b=1, hq=2, hkv=1, s=64,
+                                            bq=32, bk=32, n_sel=1)
+    kpos = np.broadcast_to(np.arange(64, dtype=np.int32), (1, 1, 64)).copy()
+    idx[...] = 1                              # keys 32..63 for every row
+    args = (q, k, v, kpos, qpos, idx)
+    got = t_ckv.sparse_block_attention(*map(tt, args), 32, 32)
+    want = r_ckv.sparse_block_attention(*map(jnp.asarray, args), 32, 32)
+    assert_close(got, want)
+    np.testing.assert_allclose(tn(got)[0, 0, 0], v[0, 0, 32:].mean(0),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _decode_inputs(seed, b=3, hkv=2, g=2, s=128, dh=16, bk=16, holes=False):
+    rng = _rng(seed)
+    q = rng.standard_normal((b, hkv * g, dh)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, s, dh)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, dh)).astype(np.float32)
+    nkb = s // bk
+    pos = np.empty((b, hkv, s), np.int32)
+    for bi in range(b):
+        for hi in range(hkv):
+            pos[bi, hi] = (rng.permutation(nkb)[:, None] * bk
+                           + np.arange(bk)).reshape(-1)
+    if holes:
+        pos[rng.random(pos.shape) < 0.25] = BIG
+        pos[0, 0, :bk] = BIG                  # one whole hole tile
+    cent = k.reshape(b, hkv, nkb, bk, dh).mean(3)
+    return q, k, v, pos, cent
+
+
+@pytest.mark.parametrize("n_sel", [1, 4, 8])
+def test_decode_select_and_attend_match_reference(n_sel):
+    q, k, v, pos, cent = _decode_inputs(10)
+    idx = t_ckv.decode_select(tt(q), tt(cent), n_sel)
+    ridx = r_ckv.decode_select(jnp.asarray(q), jnp.asarray(cent), n_sel)
+    np.testing.assert_array_equal(tn(idx), np.asarray(ridx))
+    for qpos in (5, 70, 127):
+        got = t_ckv.decode_attend(tt(q), tt(k), tt(v), tt(pos), qpos, idx, 16)
+        want = r_ckv.decode_attend(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), jnp.asarray(pos),
+                                   jnp.asarray(qpos, jnp.int32), ridx, 16)
+        assert_close(got, want)
+
+
+@pytest.mark.parametrize("g", [1, 3])
+def test_b5_plain_mode_matches_reference_pair(g):
+    q, k, v, pos, cent = _decode_inputs(11, g=g)
+    for qpos in (3, 64, 127):
+        got = t_ops.decode_attend_fused(tt(q), tt(k), tt(v), tt(pos),
+                                        tt(cent), qpos, n_sel=4, bk=16)
+        ridx = r_ckv.decode_select(jnp.asarray(q), jnp.asarray(cent), 4)
+        want = r_ckv.decode_attend(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), jnp.asarray(pos),
+                                   jnp.asarray(qpos, jnp.int32), ridx, 16)
+        assert_close(got, want)
+
+
+@pytest.mark.parametrize("has_self", [False, True])
+@pytest.mark.parametrize("g", [1, 2])
+def test_b5_plan_mode_matches_plan_decode_xla(has_self, g):
+    q, k, v, pos, cent = _decode_inputs(12 + g, g=g, holes=True)
+    pos[2][pos[2] == 0] = BIG                    # slot 2: nothing live yet
+    rng = _rng(13)
+    ks = rng.standard_normal((3, 2, 16)).astype(np.float32)
+    vs = rng.standard_normal((3, 2, 16)).astype(np.float32)
+    qpos = np.array([30, 100, 0], np.int32)
+    cfg = RCKV(enabled=True, block_k=16, decode_clusters=3,
+               local_window_blocks=1)
+    got = t_da.decode_attend_fused(
+        tt(q), tt(k), tt(v), tt(pos), tt(cent), tt(qpos), tt(ks), tt(vs),
+        n_sel=3, bk=16, plan_mode=True, has_self=has_self, window=16)
+    want = r_attn._plan_decode_xla(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+        jnp.asarray(cent), jnp.asarray(qpos), cfg,
+        k_self=jnp.asarray(ks) if has_self else None,
+        v_self=jnp.asarray(vs) if has_self else None)
+    assert_close(got, want)
+    if not has_self:
+        assert (tn(got)[2] == 0).all()            # guarded empty selection
+
+
+def test_b5_rejects_a_ragged_cache():
+    q, k, v, pos, cent = _decode_inputs(14)
+    with pytest.raises(ValueError, match="needs 9 whole 16-tiles"):
+        t_da.decode_attend_fused(tt(q), tt(k), tt(v), tt(pos), tt(cent), 5,
+                                 n_sel=9, bk=16)
+    with pytest.raises(ValueError, match="whole 48-tiles"):
+        t_da.decode_attend_fused(tt(q), tt(k), tt(v), tt(pos), tt(cent), 5,
+                                 n_sel=2, bk=48)

@@ -7,7 +7,9 @@ package, so they run on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m requires_cuda tests/test_torch_cuda.py
 
 Tolerance: the kernel sums in another order than the plain version, so
-float32 ``rtol=1e-4, atol=1e-4`` at these magnitudes (|y| up to ~50).
+float32 ``rtol=1e-4, atol=1e-4`` at these magnitudes (|y| up to ~50); the
+attention kernels ``2e-5 x max|plain|`` in float32, plus one bf16 spacing
+of each element in bf16.
 """
 import numpy as np
 import pytest
@@ -17,9 +19,13 @@ from _torch_parity import assert_close, cuda_device, random_ell, tt  # noqa: F40
 
 from repro_torch import api as t_api
 from repro_torch.data.pipeline import feature_mixture
+from repro_torch.core import clusterkv as t_ckv
+from repro_torch.kernels import block_attention as t_ba
 from repro_torch.kernels import bsr_spmv as t_bsr
+from repro_torch.kernels import decode_attend as t_da
 from repro_torch.kernels import gamma_score as t_gs
 from repro_torch.kernels import tsne_force as t_tf
+from repro_torch.models import attention as t_attn
 
 
 def _pattern(seed, nnz, n):
@@ -167,3 +173,172 @@ def test_cuda_plan_tsne_and_refresh_run_through_the_kernels(cuda_device):
         assert_close(p2.matvec(ch), p2.matvec(ch, backend="csr"),
                      rtol=1e-4, atol=1e-4)
         plan = p2
+
+
+def _assert_kernel_close(got, want, dtype):
+    """float32: 2e-5 x max|want| (summation order). bf16: both round one
+    float32 result to bf16, which may land one bf16 spacing apart, so each
+    element may also differ by the bf16 spacing at its own magnitude."""
+    assert got.dtype == dtype
+    got, want = got.float(), want.float()
+    limit = 2e-5 * float(want.abs().max())
+    if dtype == torch.bfloat16:
+        _, e = torch.frexp(want)
+        limit = limit + torch.where(want == 0, 0.0, torch.ldexp(
+            torch.ones_like(want), e - 8))
+    assert bool(((got - want).abs() <= limit).all())
+
+
+def _attention_inputs(seed, b, hq, hkv, s, dh, bq, n_sel, device, dtype):
+    """Cluster-sorted k/v with a permuted position per key, and for every
+    query tile ``n_sel`` distinct key tiles."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, s, dh)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, s, dh)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, dh)).astype(np.float32)
+    kpos = np.stack([np.stack([rng.permutation(s) for _ in range(hkv)])
+                     for _ in range(b)]).astype(np.int32)
+    nqb = s // bq
+    idx = np.stack([np.stack([np.stack([
+        rng.choice(s // bq, n_sel, replace=False) for _ in range(nqb)])
+        for _ in range(hkv)]) for _ in range(b)]).astype(np.int32)
+    dev = dict(device=device)
+    return (tt(q).to(dtype=dtype, **dev), tt(k).to(dtype=dtype, **dev),
+            tt(v).to(dtype=dtype, **dev), tt(kpos).to(**dev),
+            torch.arange(s, dtype=torch.int32, **dev), tt(idx).to(**dev))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bq,dh", [(128, 64), (64, 64), (32, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_block_attention_matches_plain(cuda_device, bq, dh, causal,
+                                            dtype):
+    q, k, v, kpos, qpos, idx = _attention_inputs(
+        bq + dh, 2, 14, 2, 4 * bq, dh, bq, 3, cuda_device, dtype)
+    n0 = t_ba.block_attention.launches
+    got = t_ba.block_attention(q, k, v, kpos, qpos, idx, bq=bq, bk=bq,
+                               causal=causal)
+    torch.cuda.synchronize()
+    assert t_ba.block_attention.launches == n0 + 1
+    want = t_ba.block_attention_plain(q, k, v, kpos, qpos, idx, bq=bq,
+                                      bk=bq, causal=causal)
+    _assert_kernel_close(got, want, dtype)
+    # one slice against the flat-softmax oracle
+    from repro_torch.kernels.ref import block_attention_ref
+    ref0 = block_attention_ref(q[1, 9], k[1, 1], v[1, 1], kpos[1, 1], qpos,
+                               idx[1, 1], bq=bq, bk=bq, causal=causal)
+    _assert_kernel_close(got[1, 9], ref0, dtype)
+
+
+def _decode_inputs(seed, b, hkv, g, s, dh, bk, device, dtype, holes):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hkv * g, dh)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, s, dh)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, dh)).astype(np.float32)
+    # plan order: whole tiles shuffled, time order kept inside a tile, so
+    # only the newest tile or two get the recency boost
+    nkb = s // bk
+    pos = np.empty((b, hkv, s), np.int64)
+    for bi in range(b):
+        for hi in range(hkv):
+            order = rng.permutation(nkb)
+            pos[bi, hi] = (order[:, None] * bk + np.arange(bk)).reshape(-1)
+    if holes:
+        pos[rng.random(pos.shape) < 0.2] = 2 ** 31 - 1
+    dev = dict(device=device)
+    kt = tt(k).to(dtype=dtype, **dev)
+    cent = t_ckv.block_centroids(kt.float(), bk)
+    return (tt(q).to(dtype=dtype, **dev), kt, tt(v).to(dtype=dtype, **dev),
+            tt(pos.astype(np.int32)).to(**dev), cent)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("g", [1, 7])
+@pytest.mark.parametrize("mode", ["plain", "plan", "plan_self"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attend_matches_plain(cuda_device, g, mode, dtype):
+    b, hkv, s, dh, bk, n_sel = 4, 2, 2048, 64, 128, 6
+    q, k, v, pos, cent = _decode_inputs(g, b, hkv, g, s, dh, bk, cuda_device,
+                                        dtype, holes=mode != "plain")
+    qpos = torch.tensor([1500, 900, 2047, 40], dtype=torch.int32,
+                        device=cuda_device)
+    plan_mode = mode != "plain"
+    has_self = mode == "plan_self"
+    ks = torch.randn(b, hkv, dh, device=cuda_device).to(dtype)
+    vs = torch.randn(b, hkv, dh, device=cuda_device).to(dtype)
+    sel = torch.empty((b, hkv, n_sel), dtype=torch.int32, device=cuda_device)
+    fused = t_da.decode_attend_fused
+    n0 = (fused.launches, fused.plain_mode_launches, fused.plan_mode_launches)
+    got = fused(q, k, v, pos, cent, qpos, ks, vs, n_sel=n_sel, bk=bk,
+                plan_mode=plan_mode, has_self=has_self, window=bk,
+                sel_out=sel)
+    torch.cuda.synchronize()
+    assert (fused.launches, fused.plain_mode_launches,
+            fused.plan_mode_launches) == (n0[0] + 1, n0[1] + (not plan_mode),
+                                          n0[2] + plan_mode)
+    want = t_da.decode_attend_plain(q, k, v, pos, cent, qpos, ks, vs,
+                                    n_sel=n_sel, bk=bk, plan_mode=plan_mode,
+                                    has_self=has_self, window=bk)
+    if plan_mode:
+        want_sel = t_ckv.plan_select(q, pos, cent, qpos, n_sel=n_sel, bk=bk,
+                                     window=bk)
+    else:
+        want_sel = t_ckv.decode_select(q.float(), cent, n_sel)
+    # the same tiles; order may differ between scores equal up to rounding
+    assert torch.equal(sel.long().sort(-1).values,
+                       want_sel.long().sort(-1).values)
+    _assert_kernel_close(got, want, dtype)
+    if plan_mode and not has_self:
+        # slot 3 (qpos 40) may select nothing live: exact zeros there
+        live = (pos[3] <= 40).any()
+        if not live:
+            assert (got[3] == 0).all()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_attention_wrappers_reject_what_the_kernels_do_not_take(
+        cuda_device):
+    q, k, v, kpos, qpos, idx = _attention_inputs(0, 1, 4, 2, 96, 64, 48, 1,
+                                                 cuda_device, torch.float32)
+    with pytest.raises(ValueError, match="supports"):
+        t_ba.block_attention(q, k, v, kpos, qpos, idx, bq=48, bk=48)
+    q, k, v, pos, cent = _decode_inputs(0, 1, 2, 2, 256, 64, 128,
+                                        cuda_device, torch.float32, False)
+    with pytest.raises(ValueError, match="whole 128-tiles"):
+        t_da.decode_attend_fused(q, k, v, pos, cent, 10, n_sel=3, bk=128)
+    with pytest.raises(TypeError, match="int32"):
+        t_da.decode_attend_fused(q, k, v, pos.long(), cent, 10, n_sel=2,
+                                 bk=128)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_block_attention_skips_tile_ids_outside_the_cache(cuda_device):
+    q, k, v, kpos, qpos, idx = _attention_inputs(3, 1, 4, 2, 512, 64, 128, 3,
+                                                 cuda_device, torch.float32)
+    bad = idx.clone()
+    bad[..., -1] = 4                                 # 4 key tiles: 0..3
+    got = t_ba.block_attention(q, k, v, kpos, qpos, bad, bq=128, bk=128)
+    want = t_ba.block_attention_plain(q, k, v, kpos, qpos,
+                                      idx[..., :-1].contiguous(), bq=128,
+                                      bk=128)
+    _assert_kernel_close(got, want, torch.float32)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_settings_asking_for_the_plain_path_raise(cuda_device):
+    """On a CUDA tensor the device picks the kernel: the settings that ask
+    for the plain version raise instead of running it on the card."""
+    from repro_torch.configs.base import ClusterKVConfig
+    q, k, v, pos, cent = _decode_inputs(1, 2, 2, 7, 512, 64, 128,
+                                        cuda_device, torch.float32, False)
+    kpos = torch.arange(512, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        t_attn.clusterkv_decode(q, k, v, kpos, 300, ClusterKVConfig(
+            enabled=True, decode_clusters=2, use_kernel=False))
+    qpos = torch.tensor([300, 511], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        t_attn.clusterkv_plan_decode(q, k, v, pos, cent, qpos,
+                                     ClusterKVConfig(enabled=True,
+                                                     decode_clusters=2,
+                                                     decode_backend="plain"))

@@ -52,10 +52,16 @@ def test_port_has_the_expected_modules():
                  "kernels/bsr_spmv.py", "kernels/gamma_score.py",
                  "kernels/tsne_force.py", "kernels/ops.py",
                  "kernels/ref.py", "data/pipeline.py",
-                 "configs/paper_spmv.py"):
+                 "configs/paper_spmv.py", "configs/base.py",
+                 "configs/qwen2_0_5b.py", "core/clusterkv.py",
+                 "kernels/block_attention.py", "kernels/decode_attend.py",
+                 "models/attention.py", "models/param.py",
+                 "models/model_api.py", "models/transformer.py",
+                 "train/serve_loop.py"):
         assert must in names, must
     cu = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
-    assert cu == {"bsr_spmv.cu", "gamma_pairs.cu", "tsne_force.cu"}
+    assert cu == {"bsr_spmv.cu", "gamma_pairs.cu", "tsne_force.cu",
+                  "block_attention.cu", "decode_attend.cu"}
 
 
 def test_modules_import_without_toolchain_or_jax():
