@@ -15,7 +15,10 @@ when it fails:
 1. environment: versions, the card, the kernel build with its wall time;
 2. every kernel against its plain PyTorch version on the card, on the
    paper's §4.1 micro matrices (16 dense tiles per row block, banded and
-   scattered), on random nonzero coordinates and on random ELL affinity
+   scattered; B1/B2 also under padded masks — kept counts spread over
+   0..16 as prefixes, holes anywhere, NaN tiles under the mask — and
+   required to be bit-equal run to run), on random nonzero coordinates
+   and on random ELL affinity
    patterns with a ragged last row block (t-SNE force, also run twice and
    required to be bit-equal), the ClusterKV prefill kernel (causal and not,
    g = 7, tiles of 128 and 64, float32 and bf16) and the decode kernel
@@ -29,7 +32,9 @@ when it fails:
 4. γ of the ordered pattern at the paper's Table 1 size (n = 4096, k = 30,
    σ = 15) through the γ-pair kernel, dual-tree against scattered;
 5. each kernel's time at the main path's shapes beside its plain version,
-   one library call and the least time the card could take;
+   one library call and the least time the card could take (B1/B2 timed
+   as the plan path launches them: with the plan's mask and no per-call
+   range check, which is timed apart; with GB/s of kept tiles);
 6. t-SNE attraction at full width: P calibrated to perplexity 30 over
    k = 90 neighbours (van der Maaten, JMLR 15, 2014), symmetrised, planned
    with ``InteractionPlan.from_coo`` ordered from the data; 20 attraction
@@ -230,6 +235,17 @@ def random_affinities(gen, n: int, bs: int, nbr: int, d: int, pad_slots: int,
     y = torch.randn((n_rb * bs, d), generator=gen, device=device)
     y[n:] = 0.0
     return p, col, y
+
+
+def padded_masks(gen, shape, device):
+    """ELL slot masks a plan's storage holds (kept counts spread over
+    0..nbr as prefixes) or could hold (holes anywhere)."""
+    nbr = shape[-1]
+    counts = torch.randint(0, nbr + 1, tuple(shape[:-1]) + (1,),
+                           generator=gen, device=device)
+    return {"prefix": torch.arange(nbr, device=device) < counts,
+            "holes": torch.rand(tuple(shape), generator=gen,
+                                device=device) < 0.5}
 
 
 def load_example(name: str):
@@ -1087,6 +1103,9 @@ def main() -> int:
                                    generator=gen, device=dev)
                 col = torch.stack([mat.col_idx.roll(b, 0) for b in range(B)])
             mask = torch.ones_like(col, dtype=torch.bool)
+            padded = padded_masks(gen, col.shape, dev)
+            nan_vals = torch.where(padded["prefix"][..., None, None], vals,
+                                   torch.full_like(vals, float("nan")))
             for f in (1, 8):
                 xs = torch.randn((B, mat.n_cb * mat.bs, f), generator=gen,
                                  device=dev)
@@ -1095,8 +1114,11 @@ def main() -> int:
                 want = k_bsr.bsr_spmv_batched_plain(vals, col, xs)
                 err, scale = check_close(
                     f"bsr_spmv_batched {kind} B={B} f={f}", got, want)
-                ms = timer(lambda: k_bsr.bsr_spmv_batched(vals, col, xs),
-                           it_fast)
+                # timed as the plan path launches it (mask, no range check)
+                ms = timer(lambda: k_bsr.bsr_spmv_batched(
+                    vals, col, xs, mask, indices_checked=True), it_fast)
+                checked_ms = timer(
+                    lambda: k_bsr.bsr_spmv_batched(vals, col, xs), it_fast)
                 plain_ms = timer(
                     lambda: k_bsr.bsr_spmv_batched_plain(vals, col, xs),
                     it_slow)
@@ -1106,13 +1128,13 @@ def main() -> int:
                                        xs.numel(), got.numel(), f)
                 case = {"kernel": "bsr_spmv_batched", "matrix": kind,
                         "n": n_micro, "B": B, "f": f, "max_abs_err": err,
-                        "scale": scale, "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": lib_ms, "bound_ms": bound,
-                        "bound_by": by}
+                        "scale": scale, "ms": ms, "checked_ms": checked_ms,
+                        "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": bound, "bound_by": by}
                 micro_cases.append(case)
                 say(f"  B1 {kind:9s} B={B} f={f}: err {err:.2e} (scale "
-                    f"{scale:.1f})  kernel {ms:.3f} ms  plain "
-                    f"{plain_ms:.3f} ms  library "
+                    f"{scale:.1f})  kernel {ms:.3f} ms (with range check "
+                    f"{checked_ms:.3f})  plain {plain_ms:.3f} ms  library "
                     f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}  "
                     f"bound {bound:.3f} ms ({by})")
                 if B == 1:
@@ -1121,16 +1143,45 @@ def main() -> int:
                     want2 = k_bsr.bsr_spmv_plain(vals[0], col[0], xs[0])
                     err2, _ = check_close(
                         f"bsr_spmv {kind} f={f}", got2, want2)
-                    ms2 = timer(
-                        lambda: k_bsr.bsr_spmv(vals[0], col[0], xs[0]),
-                        it_fast)
+                    ms2 = timer(lambda: k_bsr.bsr_spmv(
+                        vals[0], col[0], xs[0], mask[0],
+                        indices_checked=True), it_fast)
                     micro_cases.append(
                         {"kernel": "bsr_spmv", "matrix": kind, "n": n_micro,
                          "B": 1, "f": f, "max_abs_err": err2, "ms": ms2,
                          "bound_ms": bound, "bound_by": by})
                     say(f"  B2 {kind:9s}     f={f}: err {err2:.2e}  "
                         f"kernel {ms2:.3f} ms")
-            del vals, col, mask
+                for mname, mk, v in (("prefix", padded["prefix"], vals),
+                                     ("holes", padded["holes"], vals),
+                                     ("nan", padded["prefix"], nan_vals)):
+                    got = k_bsr.bsr_spmv_batched(v, col, xs, mk)
+                    again = k_bsr.bsr_spmv_batched(v, col, xs, mk,
+                                                   indices_checked=True)
+                    sync()
+                    err, scale = check_close(
+                        f"bsr_spmv_batched {kind} B={B} f={f} mask {mname}",
+                        got, k_bsr.bsr_spmv_batched_plain(v, col, xs, mk))
+                    if not torch.equal(got, again):
+                        raise AssertionError("bsr_spmv_batched is not "
+                                             "reproducible run to run")
+                    case = {"kernel": "bsr_spmv_batched", "matrix": kind,
+                            "mask": mname, "kept": int(mk.sum()),
+                            "n": n_micro, "B": B, "f": f,
+                            "max_abs_err": err, "scale": scale}
+                    if B == 1:
+                        got2 = k_bsr.bsr_spmv(v[0], col[0], xs[0], mk[0])
+                        sync()
+                        case["max_abs_err_bsr_spmv"], _ = check_close(
+                            f"bsr_spmv {kind} f={f} mask {mname}", got2,
+                            k_bsr.bsr_spmv_plain(v[0], col[0], xs[0],
+                                                 mk[0]))
+                    micro_cases.append(case)
+                    say(f"  B1{'/B2' if B == 1 else '   '} {kind:9s} B={B} "
+                        f"f={f} mask {mname:6s} ({case['kept']} of "
+                        f"{mk.numel()} slots kept): err {err:.2e} (scale "
+                        f"{scale:.1f}), bit-reproducible")
+            del vals, col, mask, padded, nan_vals
         del mat
     n_pairs = 1024 if rehearse else 8192
     coords = torch.randint(0, 4096, (n_pairs, 2), generator=gen,
@@ -1233,7 +1284,8 @@ def main() -> int:
                 f"{BACKEND_TOL:g} x scale)")
         # the single-plan kernel entry on the plan's storage
         xs_sorted = plan.permute(ch)
-        y2 = ops.bsr_spmv(b.vals, b.col_idx, xs_sorted, plan.n)
+        y2 = ops.bsr_spmv(b.vals, b.col_idx, xs_sorted, plan.n,
+                          nbr_mask=b.nbr_mask)
         sync()
         err, _ = check_close(f"ops.bsr_spmv {shape}", y2,
                              plan.apply(xs_sorted, backend="bsr"),
@@ -1292,6 +1344,7 @@ def main() -> int:
         say(f"  plan.matvec {shape:13s} end to end: {matvec_ms[shape]:.3f} "
             f"ms per call")
     vals1, col1, mask1 = b.vals[None], b.col_idx[None], b.nbr_mask[None]
+    kept_bytes = kept * b.bs * b.bs * 4
     entries = []
     spmv_rows = {}
     for f in (1, 8):
@@ -1299,25 +1352,37 @@ def main() -> int:
         lib_ms = time_library(timer, vals1, col1, mask1, xs, it_slow)
         bound, by = spmv_bound(kept, b.bs, col1.numel(), xs.numel(),
                                b.n_rb * b.bs * f, f)
-        for name, run, plain in (
+        # run: as the plan path launches it (the plan's mask, indices
+        # checked where they were built); checked: the direct entry's
+        # per-call range check (a host sync) on top
+        for name, run, checked, plain in (
                 ("bsr_spmv_batched",
-                 lambda: k_bsr.bsr_spmv_batched(vals1, col1, xs),
-                 lambda: k_bsr.bsr_spmv_batched_plain(vals1, col1, xs)),
+                 lambda: k_bsr.bsr_spmv_batched(vals1, col1, xs, mask1,
+                                                indices_checked=True),
+                 lambda: k_bsr.bsr_spmv_batched(vals1, col1, xs, mask1),
+                 lambda: k_bsr.bsr_spmv_batched_plain(vals1, col1, xs,
+                                                      mask1)),
                 ("bsr_spmv",
-                 lambda: k_bsr.bsr_spmv(vals1[0], col1[0], xs[0]),
-                 lambda: k_bsr.bsr_spmv_plain(vals1[0], col1[0], xs[0]))):
+                 lambda: k_bsr.bsr_spmv(vals1[0], col1[0], xs[0], mask1[0],
+                                        indices_checked=True),
+                 lambda: k_bsr.bsr_spmv(vals1[0], col1[0], xs[0], mask1[0]),
+                 lambda: k_bsr.bsr_spmv_plain(vals1[0], col1[0], xs[0],
+                                              mask1[0]))):
             got = run()
             sync()
             err, scale = check_close(f"{name} plan f={f}", got,
                                      plain())
-            row = {"f": f, "max_abs_err": err, "scale": scale,
-                   "ms": timer(run, it_fast),
+            ms = timer(run, it_fast)
+            row = {"f": f, "max_abs_err": err, "scale": scale, "ms": ms,
+                   "checked_ms": timer(checked, it_fast),
+                   "kept_tile_gb_s": kept_bytes / ms * 1e-6,
                    "plain_ms": timer(plain, it_slow), "library_ms": lib_ms,
                    "bound_ms": bound, "bound_by": by}
             spmv_rows[(name, f)] = row
             say(f"  {name:17s} f={f}: err {err:.2e}  kernel "
-                f"{row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms  "
-                f"library "
+                f"{ms:.3f} ms ({row['kept_tile_gb_s']:.0f} GB/s of kept "
+                f"tiles; with range check {row['checked_ms']:.3f} ms)  "
+                f"plain {row['plain_ms']:.3f} ms  library "
                 f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}  bound "
                 f"{bound:.3f} ms ({by})")
     shape = (f"vals (1, {b.n_rb}, {b.max_nbr}, {b.bs}, {b.bs}), "

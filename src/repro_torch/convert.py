@@ -25,18 +25,27 @@ def bsr_from_arrays(bs: int, sb: int, n: int, col_idx, nbr_mask, vals,
                     fill: float = 0.0, device: DeviceLike = None) -> BSR:
     """A port :class:`BSR` from the arrays of an ELL-BSR: ``col_idx``
     (n_rb, max_nbr) int, ``nbr_mask`` (n_rb, max_nbr) bool, ``vals``
-    (n_rb, max_nbr, bs, bs) float."""
+    (n_rb, max_nbr, bs, bs) float.
+
+    The arrays are checked here, once, because the plan path launches the
+    SpMV kernel without a per-call check: every ``col_idx`` must lie in
+    ``[0, n_rb)``, and every tile under a False ``nbr_mask`` bit must be
+    zero (the kernel skips masked slots while the reference sums every
+    slot, so only zero tiles there give both one matrix)."""
     dev = resolve_device(device)
     col_idx = np.asarray(col_idx)
+    nbr_mask = np.asarray(nbr_mask)
     vals = np.asarray(vals)
     n_rb, max_nbr = col_idx.shape
     if vals.shape != (n_rb, max_nbr, bs, bs):
         raise ValueError(f"vals {vals.shape} does not match col_idx "
                          f"{col_idx.shape} with bs={bs}")
-    if np.asarray(nbr_mask).shape != col_idx.shape:
+    if nbr_mask.shape != col_idx.shape:
         raise ValueError("nbr_mask and col_idx shapes differ")
     if col_idx.size and (col_idx.min() < 0 or col_idx.max() >= n_rb):
         raise ValueError(f"col_idx outside the {n_rb} column blocks")
+    if np.any(vals[~nbr_mask.astype(bool)]):     # NaN counts as nonzero
+        raise ValueError("a tile under a False nbr_mask bit is not zero")
     return BSR(bs=bs, sb=sb, n=n, n_rb=n_rb, n_cb=n_rb,
                col_idx=from_numpy(col_idx, dev, torch.int32),
                nbr_mask=from_numpy(nbr_mask, dev, torch.bool),

@@ -31,8 +31,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # C entry -> argument types (pointers and the stream are c_void_p: without
 # argtypes ctypes would cut them to 32 bits)
 SIGNATURES = {
-    "repro_bsr_spmv_batched": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "repro_bsr_spmv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "repro_bsr_spmv_batched": (_P,) * 5 + (_I,) * 6 + (_P,),
+    "repro_bsr_spmv": (_P,) * 5 + (_I,) * 5 + (_P,),
     "repro_gamma_pairs": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
     "repro_tsne_force": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_block_attention": (_P, _P, _P, _P, _P, _P, _P) + (_I,) * 11

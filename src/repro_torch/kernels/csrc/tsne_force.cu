@@ -31,8 +31,8 @@
 // shuffles in a fixed order and F is written once. No atomics, so the
 // force is bit-for-bit reproducible from run to run.
 //
-// This first version streams every ELL slot, padding included (as the
-// SpMV kernel does); skipping padding needs a per-row kept count.
+// This first version streams every ELL slot, padding included; the SpMV
+// kernel's walk over the kept slots of nbr_mask (bsr_spmv.cu) would skip it.
 
 #include <cuda_runtime.h>
 

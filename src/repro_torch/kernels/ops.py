@@ -4,9 +4,15 @@ On a CUDA tensor the wrappers launch the hand-written kernels
 (``csrc/*.cu``, built at first use); on a CPU tensor they return the
 kernels' plain PyTorch versions. The wrappers handle ``(n,)`` vs
 ``(n, f)`` charges, padding of the charges to the plan's full column-block
-range, float32/int32 casts and slicing back to the charge length. The
-kernel needs no tile-size arguments: one thread block per (member, row
-block, 8-column feature tile) loops the whole ELL width.
+range, float32/int32 casts and slicing back to the charge length. They take
+the plan's ``nbr_mask``: the kernel walks only the kept slots of each row
+block and reads no masked tile (``nbr_mask=None`` keeps every slot). It
+needs no tile-size arguments: one thread block per (member, row block)
+loops the kept slots, through a ``cp.async`` shared-memory ring with a
+register tile per thread for f > 1, and reads each kept tile once. The
+plan-path backends (``cuda`` and its batched form) launch without the
+per-call ``col_idx`` range check, whose host sync would stall every
+``matvec``: a plan's indices are made in range where they are built.
 
 The attention wrappers (``block_attention``, ``decode_attend_fused`` and
 the ``cuda`` decode backend) take the batched layouts of the reference's
@@ -36,7 +42,8 @@ def _cuda_backend(plan, x: torch.Tensor, **_kw) -> torch.Tensor:
     rows carry zero tiles and stay zero in the output."""
     b = plan.bsr
     y = bsr_spmv_batched(b.vals[None], b.col_idx[None], x[None],
-                         shape_key=plan.spec.shape_key)[0]
+                         shape_key=plan.spec.shape_key,
+                         nbr_mask=b.nbr_mask[None], indices_checked=True)[0]
     return y[:plan.n]
 
 
@@ -44,12 +51,19 @@ def _cuda_backend(plan, x: torch.Tensor, **_kw) -> torch.Tensor:
 def _cuda_batched(spec, data, xs: torch.Tensor) -> torch.Tensor:
     """Stacked-plan SpMV: the whole batch in ONE kernel launch."""
     return bsr_spmv_batched(data.vals, data.col_idx, xs,
-                            shape_key=spec.shape_key)
+                            shape_key=spec.shape_key,
+                            nbr_mask=data.nbr_mask, indices_checked=True)
+
+
+def _mask(nbr_mask: torch.Tensor | None) -> torch.Tensor | None:
+    return None if nbr_mask is None else nbr_mask.contiguous()
 
 
 def bsr_spmv(vals: torch.Tensor, col_idx: torch.Tensor, x: torch.Tensor,
-             n: int | None = None) -> torch.Tensor:
-    """ELL-BSR SpMV/SpMM. x (n,) or (n, f); returns same leading length."""
+             n: int | None = None,
+             nbr_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """ELL-BSR SpMV/SpMM. x (n,) or (n, f); returns same leading length.
+    ``nbr_mask`` (n_rb, nbr) bool marks the kept slots (None: all)."""
     n_rb, nbr, bs, _ = vals.shape
     squeeze = x.ndim == 1
     if squeeze:
@@ -57,22 +71,25 @@ def bsr_spmv(vals: torch.Tensor, col_idx: torch.Tensor, x: torch.Tensor,
     x = _pad_rows(x, n_rb * bs)
     y = _bsr.bsr_spmv(vals.to(torch.float32).contiguous(),
                       col_idx.to(torch.int32).contiguous(),
-                      x.to(torch.float32).contiguous())
+                      x.to(torch.float32).contiguous(), _mask(nbr_mask))
     if n is not None:
         y = y[:n]
     return y[:, 0] if squeeze else y
 
 
 def bsr_spmv_batched(vals: torch.Tensor, col_idx: torch.Tensor,
-                     xs: torch.Tensor,
-                     shape_key: tuple | None = None) -> torch.Tensor:
+                     xs: torch.Tensor, shape_key: tuple | None = None,
+                     nbr_mask: torch.Tensor | None = None, *,
+                     indices_checked: bool = False) -> torch.Tensor:
     """Batched ELL-BSR SpMV/SpMM.
 
     vals (B, n_rb, nbr, bs, bs); xs (B, n) or (B, n, f); returns the same
     leading charge length as the plain batched backends (sliced to n).
     ``shape_key`` (``PlanSpec.shape_key``) names the plan's column-block
     count, which may exceed the live charge length on capacity-padded
-    plans.
+    plans. ``nbr_mask`` (B, n_rb, nbr) bool marks the kept slots (None:
+    all). ``indices_checked=True`` (a plan's own storage) launches without
+    the range check of ``col_idx`` and its host sync.
     """
     B, n_rb, nbr, bs, _ = vals.shape
     squeeze = xs.ndim == 2
@@ -84,7 +101,9 @@ def bsr_spmv_batched(vals: torch.Tensor, col_idx: torch.Tensor,
     xs = _pad_rows(xs, n_cb * bs, axis=1)
     y = _bsr.bsr_spmv_batched(vals.to(torch.float32).contiguous(),
                               col_idx.to(torch.int32).contiguous(),
-                              xs.to(torch.float32).contiguous())
+                              xs.to(torch.float32).contiguous(),
+                              _mask(nbr_mask),
+                              indices_checked=indices_checked)
     y = y[:, :n]
     return y[..., 0] if squeeze else y
 

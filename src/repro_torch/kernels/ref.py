@@ -4,12 +4,32 @@ from __future__ import annotations
 import torch
 
 
+def drop_masked_slots(vals: torch.Tensor, col_idx: torch.Tensor,
+                      nbr_mask: torch.Tensor | None):
+    """Select away the ELL slots under a False ``nbr_mask`` bit, as the
+    SpMV kernel skips them: their tiles become 0 and their column blocks 0
+    (so a stale index gathers in range). Returns ``(vals, col_idx, keep)``
+    with ``keep`` the mask broadcast over a slot's (bs, ·) block, for
+    zeroing the gathered segments too; ``keep`` is None without a mask.
+    Selection, not multiplication by the mask: NaN x 0 is NaN."""
+    if nbr_mask is None:
+        return vals, col_idx, None
+    keep = nbr_mask[..., None, None]
+    return (torch.where(keep, vals, 0.0), torch.where(nbr_mask, col_idx, 0),
+            keep)
+
+
 def bsr_spmv_ref(vals: torch.Tensor, col_idx: torch.Tensor,
-                 x: torch.Tensor) -> torch.Tensor:
-    """vals (n_rb, nbr, bs, bs); col_idx (n_rb, nbr); x (n_cb*bs, f)."""
+                 x: torch.Tensor,
+                 nbr_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """vals (n_rb, nbr, bs, bs); col_idx (n_rb, nbr); x (n_cb*bs, f);
+    nbr_mask (n_rb, nbr) bool, or None when every slot is kept."""
     n_rb, nbr, bs, _ = vals.shape
     xb = x.reshape(-1, bs, x.shape[-1])          # (n_cb, bs, f)
+    vals, col_idx, keep = drop_masked_slots(vals, col_idx, nbr_mask)
     seg = xb[col_idx.long()]                     # (n_rb, nbr, bs, f)
+    if keep is not None:
+        seg = torch.where(keep, seg, 0.0)
     y = torch.einsum("rnij,rnjf->rif", vals, seg)
     return y.reshape(n_rb * bs, -1)
 

@@ -73,6 +73,18 @@ def random_ell(seed, B, n_rb, nbr, bs, n_cb=None, pad_slots=0,
     return vals, col
 
 
+def ell_masks(seed, B, n_rb, nbr):
+    """ELL slot masks of every kind the SpMV kernel must take, from a seed:
+    prefixes of random length (0..nbr kept per row block), holes anywhere,
+    none kept, all kept."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, nbr + 1, (B, n_rb))
+    return {"prefix": np.arange(nbr) < counts[..., None],
+            "holes": rng.random((B, n_rb, nbr)) < 0.5,
+            "none": np.zeros((B, n_rb, nbr), bool),
+            "all": np.ones((B, n_rb, nbr), bool)}
+
+
 def plan_from_reference(rp):
     """A reference ``InteractionPlan`` -> port plan on the CPU, through
     numpy arrays only (``convert.plan_from_reference_arrays``)."""

@@ -8,14 +8,16 @@ package, so they run on a machine that has only PyTorch:
 
 Tolerance: the kernel sums in another order than the plain version, so
 float32 ``rtol=1e-4, atol=1e-4`` at these magnitudes (|y| up to ~50); the
-attention kernels ``2e-5 x max|plain|`` in float32, plus one bf16 spacing
-of each element in bf16.
+masked SpMV cases and the attention kernels ``2e-5 x max|plain|`` in
+float32 (about 20 ulp of the largest value), plus one bf16 spacing of
+each element in bf16.
 """
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_close, cuda_device, random_ell, tt  # noqa: F401
+from _torch_parity import (assert_close, cuda_device, ell_masks,  # noqa: F401
+                           random_ell, tt)
 
 from repro_torch import api as t_api
 from repro_torch.data.pipeline import feature_mixture
@@ -53,6 +55,125 @@ def test_cuda_bsr_spmv_kernels_match_plain(cuda_device, bs, f, B):
     got1 = t_bsr.bsr_spmv(v[0], c[0], x[0])
     assert_close(got1, t_bsr.bsr_spmv_plain(v[0], c[0], x[0]),
                  rtol=1e-4, atol=1e-4)
+
+
+def _assert_within_scale(got, want, rel=2e-5):
+    """max-abs error within ``rel x max|want|``; both finite."""
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    assert err <= rel * max(scale, 1e-30), (err, scale)
+
+
+def _masked_cases(seed, B, n_rb, nbr, bs, n_cb, device):
+    """Tiles nonzero in every slot, and (name, vals, mask) for each mask
+    kind of ``ell_masks`` plus NaN tiles under a prefix mask."""
+    vals, col = random_ell(seed, B, n_rb, nbr, bs, n_cb=n_cb)
+    v = tt(vals).to(device)
+    masks = {k: tt(m).to(device)
+             for k, m in ell_masks(seed, B, n_rb, nbr).items()}
+    nan = torch.where(masks["prefix"][..., None, None], v,
+                      torch.full_like(v, float("nan")))
+    cases = [(k, v, m) for k, m in masks.items()]
+    cases.append(("nan", nan, masks["prefix"]))
+    return tt(col).to(device), cases
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("f", [1, 2, 7, 8, 9, 16, 33])
+@pytest.mark.parametrize("bs", [4, 8, 16, 32, 64])
+def test_cuda_bsr_spmv_masked_kernels_match_plain(cuda_device, bs, f, B):
+    """Only kept slots are read: every mask kind (none kept, all kept,
+    random prefixes, holes, NaN tiles under the mask) against the masked
+    plain versions, bit-identical run to run. nbr = 37 makes the kernel's
+    walk over the kept slots cross a 32-slot chunk."""
+    n_rb, nbr, n_cb = 19, 37, 40
+    c, cases = _masked_cases(bs * 100 + f, B, n_rb, nbr, bs, n_cb,
+                             cuda_device)
+    x = torch.randn((B, n_cb * bs, f), generator=torch.Generator(
+        device=cuda_device).manual_seed(f), device=cuda_device)
+    unmasked = t_bsr.bsr_spmv_batched(cases[0][1], c, x)
+    for kind, v, m in cases:
+        got = t_bsr.bsr_spmv_batched(v, c, x, m)
+        again = t_bsr.bsr_spmv_batched(v, c, x, m, indices_checked=True)
+        torch.cuda.synchronize()
+        want = t_bsr.bsr_spmv_batched_plain(v, c, x, m)
+        _assert_within_scale(got, want)
+        assert torch.equal(got, again), kind
+        if kind == "none":
+            assert (got == 0).all()
+        if kind == "all":                  # same slots in the same order
+            assert torch.equal(got, unmasked)
+        got1 = t_bsr.bsr_spmv(v[0], c[0], x[0], m[0])
+        torch.cuda.synchronize()
+        _assert_within_scale(got1, t_bsr.bsr_spmv_plain(v[0], c[0], x[0],
+                                                        m[0]))
+        assert torch.equal(got1, got[0]), kind
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bs,f", [(64, 260), (64, 301), (32, 520),
+                                  (4, 2049)])
+def test_cuda_bsr_spmm_wide_features_match_plain(cuda_device, bs, f):
+    """f wider than one block's register tiles is split into feature
+    groups (16-byte staging when f % 4 == 0, 4-byte otherwise; over 48 KB
+    of shared memory at these widths)."""
+    n_rb, nbr, n_cb = 6, 35, 36
+    c, cases = _masked_cases(f, 2, n_rb, nbr, bs, n_cb, cuda_device)
+    x = torch.randn((2, n_cb * bs, f), device=cuda_device)
+    for kind, v, m in cases:
+        got = t_bsr.bsr_spmv_batched(v, c, x, m)
+        torch.cuda.synchronize()
+        _assert_within_scale(got, t_bsr.bsr_spmv_batched_plain(v, c, x, m))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_plan_matvec_issues_no_host_sync(cuda_device):
+    """The plan path launches the SpMV kernel without reading anything
+    back to the host: ``plan.matvec`` and ``PlanBatch.matvec`` run under
+    ``set_sync_debug_mode("error")``."""
+    x = feature_mixture(1024, 32, n_clusters=8, seed=1)
+    plan = t_api.build_plan(x, k=8)
+    batch = t_api.PlanBatch.from_plans(
+        [plan, t_api.build_plan(feature_mixture(1024, 32, n_clusters=8,
+                                                seed=2), k=8)])
+    runs = [(plan, torch.randn(1024, device=cuda_device)),
+            (plan, torch.randn(1024, 3, device=cuda_device)),
+            (batch, torch.randn(2, batch.capacity, 2, device=cuda_device))]
+    for owner, ch in runs:
+        want = owner.matvec(ch, backend="bsr")
+        owner.matvec(ch)                   # kernels loaded, memory cached
+        torch.cuda.synchronize()
+        n0 = t_bsr.bsr_spmv_batched.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = owner.matvec(ch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert t_bsr.bsr_spmv_batched.launches == n0 + 1
+        assert_close(y, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_wrappers_reject_bad_masks(cuda_device):
+    vals, col = random_ell(2, 1, 4, 2, 8)
+    v, c = tt(vals).to(cuda_device), tt(col).to(cuda_device)
+    x = torch.zeros(1, 32, 1, device=cuda_device)
+    m = torch.ones(1, 4, 2, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="nbr_mask"):
+        t_bsr.bsr_spmv_batched(v, c, x, m[:, :3])
+    with pytest.raises(TypeError, match="bool"):
+        t_bsr.bsr_spmv_batched(v, c, x, m.to(torch.uint8))
+    with pytest.raises(ValueError, match="device"):
+        t_bsr.bsr_spmv_batched(v, c, x, m.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        t_bsr.bsr_spmv_batched(v, c, x, torch.ones(
+            1, 2, 4, dtype=torch.bool, device=cuda_device).transpose(1, 2))
+    bad = c.clone()
+    bad[0, 2, 1] = 4                       # only 4 column blocks: 0..3
+    with pytest.raises(ValueError, match="col_idx range"):
+        t_bsr.bsr_spmv_batched(v, bad, x, m)
 
 
 @pytest.mark.requires_cuda

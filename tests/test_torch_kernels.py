@@ -14,10 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_close, random_ell, tn, tt
+from _torch_parity import assert_close, ell_masks, random_ell, tn, tt
 
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
+from repro_torch import api as t_api
+from repro_torch import convert as t_convert
+from repro_torch.core import blocksparse as t_bs
 from repro_torch.kernels import bsr_spmv as t_bsr
 from repro_torch.kernels import gamma_score as t_gs
 from repro_torch.kernels import ops as t_ops
@@ -107,6 +110,169 @@ def test_bsr_spmv_batched_wrapper_rejects_bad_input():
         t_bsr.bsr_spmv_batched(tt(vals), tt(bad), tt(xs))
     with pytest.raises(ValueError, match="whole number"):
         t_bsr.bsr_spmv_batched(tt(vals), tt(col), tt(xs)[:, :20])
+
+
+# -- B1/B2 over the kept slots (nbr_mask) ------------------------------------
+
+
+def _port_bsr(source):
+    """A BSR made by one of the port's storage writers, on the CPU, with
+    its own mask: ``build_bsr`` with ELL slack, ``patch_bsr`` (row blocks
+    re-patched with fewer tiles, one left with none) or ``append_rows``
+    (new empty row blocks and spare slots)."""
+    n, bs = 150, 8
+    rng = np.random.default_rng(11)
+    rows = rng.integers(0, n, 900)
+    cols = np.clip(rows + rng.integers(-40, 41, 900), 0, n - 1)
+    vals = rng.standard_normal(900).astype(np.float32)
+    b = t_bs.build_bsr(rows, cols, vals, n, bs=bs, sb=4, slack=2,
+                       device="cpu")
+    if source == "patch":
+        touched = np.array([2, 5, 6])
+        drop = np.isin(rows // bs, touched) & ((rows % 3 != 0)
+                                              | (rows // bs == 6))
+        b = t_bs.patch_bsr(b, rows[~drop], cols[~drop], vals[~drop],
+                           touched)
+        assert not b.nbr_mask[6].any()
+    elif source == "append":
+        b = t_bs.append_rows(b, n + 20, extra_nbr=3)
+    assert not b.nbr_mask.all()                 # there is padding to skip
+    return b
+
+
+@pytest.mark.parametrize("source", ["build", "patch", "append"])
+@pytest.mark.parametrize("f", [1, 3])
+def test_masked_plain_matches_reference_on_port_bsrs(source, f):
+    b = _port_bsr(source)
+    x = np.random.default_rng(f).standard_normal(
+        (b.n_cb * b.bs, f)).astype(np.float32)
+    vals, col, mask = tn(b.vals), tn(b.col_idx), tn(b.nbr_mask)
+    want = ref_ops.bsr_spmv_batched(jnp.asarray(vals[None]),
+                                    jnp.asarray(col[None]),
+                                    jnp.asarray(x[None]))
+    got = t_bsr.bsr_spmv_batched(b.vals[None], b.col_idx[None], tt(x)[None],
+                                 b.nbr_mask[None])
+    assert_close(got, want)
+    got_ops = t_ops.bsr_spmv_batched(b.vals[None], b.col_idx[None],
+                                     tt(x)[None], nbr_mask=b.nbr_mask[None])
+    assert_close(got_ops, want)
+    want1 = ref_ops.bsr_spmv(jnp.asarray(vals), jnp.asarray(col),
+                             jnp.asarray(x))
+    assert_close(t_bsr.bsr_spmv(b.vals, b.col_idx, tt(x), b.nbr_mask),
+                 want1)
+    assert_close(t_ops.bsr_spmv(b.vals, b.col_idx, tt(x),
+                                nbr_mask=b.nbr_mask), want1)
+    # and the plan's cuda backend (plain here), which passes the mask
+    plan = t_api.InteractionPlan.from_bsr(b)
+    xv = x[:b.n]
+    assert_close(plan.matvec(xv, backend="cuda"),
+                 plan.matvec(xv, backend="bsr"))
+    assert mask.sum() < mask.size
+
+
+@pytest.mark.parametrize("kind", ["prefix", "holes", "none", "all"])
+@pytest.mark.parametrize("f", [1, 4])
+def test_masked_plain_matches_reference_with_zeroed_tiles(kind, f):
+    """Whatever the masked tiles hold, the masked plain versions equal the
+    reference summing every slot with those tiles zeroed."""
+    B, n_rb, nbr, bs = 2, 6, 5, 8
+    vals, col = random_ell(40 + f, B, n_rb, nbr, bs)     # no zero padding
+    mask = ell_masks(f, B, n_rb, nbr)[kind]
+    zeroed = np.where(mask[..., None, None], vals, 0.0).astype(np.float32)
+    xs = np.random.default_rng(9).standard_normal(
+        (B, n_rb * bs, f)).astype(np.float32)
+    want = ref_ops.bsr_spmv_batched(jnp.asarray(zeroed), jnp.asarray(col),
+                                    jnp.asarray(xs))
+    got = t_bsr.bsr_spmv_batched(tt(vals), tt(col), tt(xs), tt(mask))
+    assert_close(got, want)
+    for b in range(B):
+        got1 = t_bsr.bsr_spmv(tt(vals[b]), tt(col[b]), tt(xs[b]),
+                              tt(mask[b]))
+        assert_close(got1, want[b])
+
+
+def test_masked_plain_ignores_nan_and_stale_columns_under_the_mask():
+    """NaN tiles and out-of-range column blocks under a False bit never
+    reach the result: it is finite and equal to the result without those
+    slots."""
+    B, n_rb, nbr, bs = 2, 5, 4, 8
+    vals, col = random_ell(7, B, n_rb, nbr, bs, pad_slots=2)
+    mask = np.ones((B, n_rb, nbr), bool)
+    mask[:, :, nbr - 2:] = False
+    xs = np.random.default_rng(3).standard_normal(
+        (B, n_rb * bs, 2)).astype(np.float32)
+    clean = t_bsr.bsr_spmv_batched(tt(vals), tt(col), tt(xs))
+    poisoned = vals.copy()
+    poisoned[:, :, nbr - 2:] = np.nan
+    stale = col.copy()
+    stale[:, :, nbr - 1] = n_rb + 7              # outside the charges
+    got = t_bsr.bsr_spmv_batched(tt(poisoned), tt(stale), tt(xs), tt(mask))
+    assert np.isfinite(tn(got)).all()
+    np.testing.assert_array_equal(tn(got), tn(clean))
+    got1 = t_bsr.bsr_spmv(tt(poisoned[0]), tt(stale[0]), tt(xs[0]),
+                          tt(mask[0]))
+    assert np.isfinite(tn(got1)).all()
+    assert_close(got1, clean[0])
+
+
+def test_masked_plain_row_block_without_kept_slot_is_exact_zero():
+    B, n_rb, nbr, bs = 2, 4, 3, 16
+    vals, col = random_ell(5, B, n_rb, nbr, bs)          # nonzero tiles
+    mask = np.ones((B, n_rb, nbr), bool)
+    mask[0, 1] = False
+    mask[1, 3] = False
+    xs = np.random.default_rng(4).standard_normal(
+        (B, n_rb * bs, 3)).astype(np.float32)
+    got = tn(t_bsr.bsr_spmv_batched(tt(vals), tt(col), tt(xs), tt(mask)))
+    assert (got[0, bs:2 * bs] == 0.0).all()
+    assert (got[1, 3 * bs:] == 0.0).all()
+    assert np.abs(got[0, :bs]).max() > 0
+    got1 = tn(t_bsr.bsr_spmv(tt(vals[0]), tt(col[0]), tt(xs[0]),
+                             tt(mask[0])))
+    assert (got1[bs:2 * bs] == 0.0).all()
+
+
+def test_masked_wrapper_rejects_bad_masks_and_checks_kept_columns():
+    vals, col = random_ell(0, 1, 3, 2, 8)
+    xs = np.zeros((1, 24, 1), np.float32)
+    mask = np.ones((1, 3, 2), bool)
+    with pytest.raises(ValueError, match="nbr_mask"):
+        t_bsr.bsr_spmv_batched(tt(vals), tt(col), tt(xs), tt(mask[:, :2]))
+    with pytest.raises(TypeError, match="bool"):
+        t_bsr.bsr_spmv_batched(tt(vals), tt(col), tt(xs),
+                               tt(mask.astype(np.uint8)))
+    with pytest.raises(ValueError, match="nbr_mask"):
+        t_bsr.bsr_spmv(tt(vals[0]), tt(col[0]), tt(xs[0]), tt(mask))
+    bad = col.copy()
+    bad[0, 1, 1] = 3                       # only 3 column blocks: 0..2
+    with pytest.raises(ValueError, match="col_idx range"):
+        t_bsr.bsr_spmv_batched(tt(vals), tt(bad), tt(xs), tt(mask))
+    with pytest.raises(ValueError, match="col_idx range"):
+        t_bsr.bsr_spmv(tt(vals[0]), tt(bad[0]), tt(xs[0]), tt(mask[0]))
+    mask[0, 1, 1] = False                  # the stale slot is not kept
+    y = t_bsr.bsr_spmv_batched(tt(vals), tt(bad), tt(xs), tt(mask))
+    assert tuple(y.shape) == (1, 24, 1)
+
+
+def test_bsr_from_arrays_rejects_nonzero_tiles_under_false_bits():
+    """The plan path launches without a per-call check, so the arrays a
+    plan is made of are checked where they cross over: column blocks in
+    range, and zero tiles wherever the mask is False."""
+    vals, col = random_ell(3, 1, 4, 3, 8, pad_slots=1)
+    vals, col = vals[0], col[0]
+    mask = np.ones((4, 3), bool)
+    mask[:, 2] = False
+    b = t_convert.bsr_from_arrays(8, 4, 32, col, mask, vals, device="cpu")
+    assert tuple(b.vals.shape) == (4, 3, 8, 8)
+    for poison in (1e-3, np.nan):
+        bad = vals.copy()
+        bad[1, 2, 0, 0] = poison
+        with pytest.raises(ValueError, match="not zero"):
+            t_convert.bsr_from_arrays(8, 4, 32, col, mask, bad, device="cpu")
+    out = col.copy()
+    out[3, 0] = 4
+    with pytest.raises(ValueError, match="column blocks"):
+        t_convert.bsr_from_arrays(8, 4, 32, out, mask, vals, device="cpu")
 
 
 # -- B2: bsr_spmv ------------------------------------------------------------

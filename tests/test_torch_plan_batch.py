@@ -75,19 +75,22 @@ def test_batched_products_match_reference(batches, backend, f, mode):
 def test_cuda_batched_backend_is_one_call_for_the_whole_batch(batches,
                                                               monkeypatch):
     """``backend="cuda"`` hands the whole stack to the batched kernel
-    wrapper once (on the CPU it returns its plain version)."""
+    wrapper once, with the stacked ``nbr_mask`` and without the per-call
+    index check (on the CPU it returns its plain version)."""
     _, _, tb = batches
     calls = []
     real = t_bsr.bsr_spmv_batched
 
-    def spy(vals, col_idx, xs):
-        calls.append(tuple(vals.shape))
-        return real(vals, col_idx, xs)
+    def spy(vals, col_idx, xs, nbr_mask=None, **kw):
+        calls.append((tuple(vals.shape), tuple(nbr_mask.shape), kw))
+        return real(vals, col_idx, xs, nbr_mask, **kw)
 
     monkeypatch.setattr(t_bsr, "bsr_spmv_batched", spy)
     x = np.ones((tb.batch, tb.capacity), np.float32)
     y = tb.matvec(x, backend="cuda")
-    assert calls == [tuple(tb.data.vals.shape)]
+    assert calls == [(tuple(tb.data.vals.shape),
+                      tuple(tb.data.nbr_mask.shape),
+                      {"indices_checked": True})]
     assert_close(y, tb.matvec(x, backend="bsr"))
 
 
