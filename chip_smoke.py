@@ -12,7 +12,9 @@ descriptors made from a seed, then the paper's two iterative applications
 seed) served with ClusterKV attention. Phases, each of which fails the run
 when it fails:
 
-1. environment: versions, the card, the kernel build with its wall time;
+1. environment: versions, the card, the kernel build with its wall time,
+   and the registers and spills ``-Xptxas -v`` reports for the bf16 B6
+   kernel;
 2. every kernel against its plain PyTorch version on the card, on the
    paper's §4.1 micro matrices (16 dense tiles per row block, banded and
    scattered; B1/B2 also under padded masks — kept counts spread over
@@ -62,7 +64,11 @@ when it fails:
    within 1e-3 x scale;
 
 then B5 and B6 are timed at the serving path's shapes beside their plain
-versions, SDPA with the equivalent mask (B6) and their bounds.
+versions, SDPA with the equivalent mask (B6) and their bounds (B6's at the
+bf16 tensor-core rate); B5 also at the covering budget (64 tiles). B5's
+``ms`` is the time per call back to back, what the serving path pays;
+its ``device_ms``, one call replayed as a CUDA graph, is the launches'
+device time without the host's, which is the larger part of a call.
 
 Launch counters are set to 0 just before each path (phases 3-4, 6, 7, 9,
 10) and read just after it; launches made to compare or time a kernel are
@@ -85,6 +91,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import time
@@ -99,7 +106,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM data-sheet peaks the bounds are stated against
 HBM_BYTES_PER_S = 3.35e12
+# float32 outside the tensor cores: the rate of every kernel that computes
+# on the CUDA cores (B1-B4, B5, and B6 in float32)
 FP32_FLOP_PER_S = 67e12
+# bf16 on the tensor cores, dense: B6's bf16 path computes its products
+# there (mma.sync, bf16 in, float32 accumulate), so its least time is
+# stated at this rate, not at the float32 one
+BF16_FLOP_PER_S = 989e12
 # float32 operations counted per γ pair term: 2 subtractions, 2 multiplies
 # and 1 add for the squared distance, the scale by -1/σ², the exponential
 # (counted as one), the weight multiply and the accumulate
@@ -156,6 +169,21 @@ class Timer:
             torch.cuda.synchronize()
         return sorted(self._run(fn, iters) for _ in range(self.REPEATS))[1]
 
+    def device_time(self, fn, iters: int) -> float:
+        """ms of device work per call of ``fn``: one call captured in a
+        CUDA graph and the graph replayed, so that the host's time to
+        launch (Python, ctypes) is left out. Reported beside the time per
+        call, never in its place. The plain timer on the CPU (rehearsal
+        only)."""
+        if self.device.type != "cuda":
+            return self(fn, iters)
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return self(graph.replay, iters)
+
 
 def bf16_spacing(x):
     """The distance between adjacent bf16 values at each element's
@@ -186,6 +214,27 @@ def check_close(name: str, got, want, rel_tol: float = REL_TOL,
                              + (f" + {bf16_ulps} bf16 spacing"
                                 if bf16_ulps else ""))
     return err, scale
+
+
+def ptxas_summary(report: str, kernel: str) -> list:
+    """Registers and spills of each instantiation of ``kernel`` from the
+    ``-Xptxas -v`` report of the kernel build (mangled names: the first
+    template argument, the tile height, names the instantiation)."""
+    rows = []
+    blocks = re.split(r"Compiling entry function '", report)[1:]
+    for blk in blocks:
+        name = blk.split("'", 1)[0]
+        if kernel not in name:
+            continue
+        tile = re.search(kernel + r"ILi(\d+)E", name)
+        regs = re.search(r"Used (\d+) registers", blk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", blk)
+        rows.append({"kernel": f"{kernel}<{tile.group(1) if tile else '?'}>",
+                     "registers": int(regs.group(1)) if regs else None,
+                     "spill_stores": int(spill.group(1)) if spill else None,
+                     "spill_loads": int(spill.group(2)) if spill else None})
+    return rows
 
 
 def spmv_bound(kept_tiles: int, bs: int, col_idx_numel: int, x_numel: int,
@@ -601,23 +650,27 @@ def decode_inputs(gen, b, hkv, g, s, dh, bk, dtype, device, holes: float):
 
 def block_attention_bound(b, hq, s, dh, bq, n_sel, elem: int):
     """Least time of B6: every selected (query tile, key tile) pair costs
-    2 x 2 x bq x bk x dh float32 operations (q.k and p.v); bytes are q,
-    the kv heads' k and v, positions, indices and the output, each once."""
+    2 x 2 x bq x bk x dh operations (q.k and p.v), at the bf16 tensor-core
+    rate in bf16 (``elem`` 2) and the float32 CUDA-core rate in float32;
+    bytes are q, the kv heads' k and v, positions, indices and the output,
+    each once."""
     ops = 4.0 * b * hq * (s // bq) * n_sel * bq * bq * dh
     byts = elem * (2 * b * hq * s * dh) + elem * 2 * b * 2 * s * dh \
         + 4 * (b * 2 * s + s + b * 2 * (s // bq) * n_sel)
-    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+    rate = BF16_FLOP_PER_S if elem == 2 else FP32_FLOP_PER_S
+    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def decode_bound(b, hkv, g, s, dh, bk, n_sel, elem: int, plan_mode: bool):
     """Least time of B5: the selected k/v tiles, the positions (of the whole
-    cache in plan mode, of the selected tiles otherwise), the centroids,
-    q and the output each cross device memory once; 2 x g operations per
-    selected key entry for q.k and again for p.v."""
+    cache in plan mode, of the selected tiles otherwise), the float32
+    centroids, q and the output (both in the caches' dtype) each cross
+    device memory once; 2 x g operations per selected key entry for q.k and
+    again for p.v."""
     sel = b * hkv * n_sel * bk
     byts = elem * sel * 2 * dh + 4 * (b * hkv * s if plan_mode else sel) \
-        + 4 * b * hkv * (s // bk) * dh + 4 * 2 * b * hkv * g * dh
+        + 4 * b * hkv * (s // bk) * dh + elem * 2 * b * hkv * g * dh
     ops = 4.0 * g * sel * dh
     t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -761,32 +814,52 @@ def time_attention_kernels(args, dev, timer, rehearse, launches):
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
     del q, k, v, kpos, qpos, idx, got
-    # B5: one layer's tick of the engine: 4 slots, plan mode, no self column
-    b, s5, n5 = (2, 1024, 4) if rehearse else (4, 8192, 16)
+    # B5: one layer's tick of the engine (4 slots, plan mode, no self
+    # column), and the covering budget of phase 10's check (every tile)
+    b, s5 = (2, 1024) if rehearse else (4, 8192)
     q, k, v, pos, cent = decode_inputs(gen, b, 2, 7, s5, 64, 128, dtype, dev,
                                        holes=0.0)
     qp = torch.tensor([s5 - 1, s5 // 2, s5 // 3, s5 // 4][:b],
                       dtype=torch.int32, device=dev)
-    kw = dict(n_sel=n5, bk=128, plan_mode=True, has_self=False, window=128)
-    run = lambda: k_da.decode_attend_fused(q, k, v, pos, cent, qp, **kw)
-    plain = lambda: k_da.decode_attend_plain(q, k, v, pos, cent, qp, **kw)
-    err, _ = check_close("decode_attend at the tick shape", run().float(),
-                         plain().float(),
-                         bf16_ulps=0 if rehearse else BF16_ULPS)
-    ms, plain_ms = timer(run, it_fast), timer(plain, it_slow)
-    bound, by = decode_bound(b, 2, 7, s5, 64, 128, n5, elem, True)
-    say(f"  decode_attend_fused B={b} Hkv=2 g=7 S={s5} n_sel={n5} {dtype} "
-        f"plan mode: kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
-        f"{bound:.4f} ms ({by}); {b * 2} blocks on the card")
+    shapes = {}
+    for what, n5 in (("tick", 4 if rehearse else 16),
+                     ("covering", s5 // 128)):
+        kw = dict(n_sel=n5, bk=128, plan_mode=True, has_self=False,
+                  window=128)
+        run = lambda: k_da.decode_attend_fused(q, k, v, pos, cent, qp, **kw)
+        plain = lambda: k_da.decode_attend_plain(q, k, v, pos, cent, qp,
+                                                 **kw)
+        err, _ = check_close(f"decode_attend at the {what} shape",
+                             run().float(), plain().float(),
+                             bf16_ulps=0 if rehearse else BF16_ULPS)
+        # the time per call back to back (what the serving path pays, the
+        # host's launch cost included) and the launches' device time alone
+        # (graph replay)
+        ms, plain_ms = timer(run, it_fast), timer(plain, it_slow)
+        device_ms = timer.device_time(run, it_fast)
+        bound, by = decode_bound(b, 2, 7, s5, 64, 128, n5, elem, True)
+        say(f"  decode_attend_fused B={b} Hkv=2 g=7 S={s5} n_sel={n5} "
+            f"{dtype} plan mode ({what}): kernel {ms:.4f} ms a call back to "
+            f"back ({device_ms:.4f} ms device, graph replay)  plain "
+            f"{plain_ms:.3f} ms  bound {bound:.4f} ms ({by}); {b * 2} "
+            f"selection + {b * 2 * n5} part + {b * 2} combine blocks")
+        shapes[what] = dict(n_sel=n5, max_abs_err=err, ms=ms,
+                            device_ms=device_ms, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by=by)
+    tick = shapes["tick"]
+    cover = shapes["covering"]
     entries.append({
         "name": "decode_attend_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attend.cu",
         "replaces": "src/repro/kernels/decode_attend.py:137",
         "launches": launches.get("decode_attend_fused", 0),
         "shape": (f"q ({b}, 14, 64), k/v ({b}, 2, {s5}, 64) {dtype}, "
-                  f"bk=128, n_sel={n5}, plan mode"),
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": by, "library_ms": None})
+                  f"bk=128, n_sel={tick['n_sel']}, plan mode"),
+        "max_abs_err": tick["max_abs_err"], "ms": tick["ms"],
+        "device_ms": tick["device_ms"],
+        "plain_ms": tick["plain_ms"], "bound_ms": tick["bound_ms"],
+        "bound_by": tick["bound_by"], "library_ms": None,
+        "covering": cover})
     return entries
 
 
@@ -1071,6 +1144,7 @@ def main() -> int:
     say(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}")
     smi_line = "no nvidia-smi (CPU rehearsal)"
+    ptxas = []
     if not rehearse:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1084,6 +1158,13 @@ def main() -> int:
         _build.load()
         say(f"kernel build: {time.perf_counter() - t0:.2f} s "
             f"({', '.join(p.name for p in _build._sources())})")
+        ptxas = ptxas_summary(_build.ptxas_report(), "block_attention_mma")
+        if not ptxas:
+            raise AssertionError("no -Xptxas -v report of the bf16 B6 kernel")
+        for row in ptxas:
+            say(f"  ptxas {row['kernel']}: {row['registers']} registers, "
+                f"{row['spill_stores']} bytes spill stores, "
+                f"{row['spill_loads']} bytes spill loads")
 
     # ---------------------------------------------------------------- 2 ---
     say("== phase 2: kernels against their plain versions")
@@ -1483,7 +1564,8 @@ def main() -> int:
 
     # both lines are composed in the rehearsal too, so that a fault in
     # them shows on the CPU
-    details = json.dumps({"micro_cases": micro_cases,
+    details = json.dumps({"ptxas_b6_bf16": ptxas,
+                          "micro_cases": micro_cases,
                           "build_plan_s": build_s,
                           "stage_s": stage_s,
                           "matvec_ms": matvec_ms,

@@ -355,12 +355,14 @@ def plan_decode_plain(q, ks, vs, ps, cent, qpos, *, n_sel: int, bk: int,
                               device=ks.device)        # masked out
     else:
         self_pos = qp[:, None].expand(b, hkv)
-    ksel = torch.cat([ksel, k_self[:, :, None, :].to(ksel.dtype)], dim=2)
-    vsel = torch.cat([vsel, v_self[:, :, None, :].to(vsel.dtype)], dim=2)
+    # the self column is promoted with the tiles to float32, never rounded
+    # to the cache dtype (the reference's concatenate promotes likewise)
+    ksel = torch.cat([ksel.float(), k_self[:, :, None, :].float()], dim=2)
+    vsel = torch.cat([vsel.float(), v_self[:, :, None, :].float()], dim=2)
     psel = torch.cat([psel, self_pos[:, :, None]], dim=2)
-    logit = decode_logits(q.reshape(b, hkv, g, dh).float(), ksel.float())
+    logit = decode_logits(q.reshape(b, hkv, g, dh).float(), ksel)
     # guarded (see masked_softmax): a just-admitted slot can select nothing
     # but holes when no self column rides along
     w = masked_softmax(logit, psel[:, :, None, :] <= qp[:, None, None, None])
-    out = decode_combine(w, vsel.float())
+    out = decode_combine(w, vsel)
     return out.reshape(b, hq, dv).to(q.dtype)

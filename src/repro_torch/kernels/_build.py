@@ -37,11 +37,12 @@ SIGNATURES = {
     "repro_tsne_force": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_block_attention": (_P, _P, _P, _P, _P, _P, _P) + (_I,) * 11
                              + (_P,),
-    "repro_decode_attend": (_P,) * 10 + (_I,) * 12 + (_P,),
+    "repro_decode_attend": (_P,) * 11 + (_I,) * 14 + (_P,),
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_lib_path: Optional[Path] = None
 
 
 def _nvcc() -> str:
@@ -63,20 +64,26 @@ def _sources() -> list:
 
 
 def _digest(sources) -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted([*sources, *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
 def _compile(sources, out: Path, verbose: bool) -> None:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    extra = ("-Xptxas", "-v") if verbose else ()
     objs = [BUILD_DIR / f"{out.stem}.{src.stem}.o" for src in sources]
+    # -Xptxas -v: registers, shared memory and spills of every kernel,
+    # kept beside the library (see ptxas_report)
     procs = [subprocess.Popen(
-        [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)],
+        [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o", str(obj)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src, obj in zip(sources, objs)]
     logs = [p.communicate()[0] for p in procs]
@@ -85,6 +92,8 @@ def _compile(sources, out: Path, verbose: bool) -> None:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
         if verbose and log.strip():
             print(f"[nvcc {src.name}]\n{log.strip()}", flush=True)
+    _report_path(out).write_text("".join(
+        f"[nvcc {src.name}]\n{log}" for src, log in zip(sources, logs)))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     link = subprocess.run(
         [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
@@ -99,7 +108,7 @@ def _compile(sources, out: Path, verbose: bool) -> None:
 def load(verbose: bool = False) -> ctypes.CDLL:
     """The kernels' shared library, built on first call. Raises when there
     is no ``nvcc`` or a source does not compile — callers never fall back."""
-    global _lib
+    global _lib, _lib_path
     with _lock:
         if _lib is not None:
             return _lib
@@ -114,8 +123,16 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        _lib = lib
+        _lib, _lib_path = lib, out
         return lib
+
+
+def ptxas_report() -> str:
+    """What ``-Xptxas -v`` printed when the loaded library was built (one
+    ``[nvcc <source>]`` section per source); builds it first if needed."""
+    load()
+    report = _report_path(_lib_path)
+    return report.read_text() if report.exists() else ""
 
 
 def check(code: int, what: str) -> None:

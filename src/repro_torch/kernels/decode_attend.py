@@ -1,13 +1,14 @@
-"""Fused single-token cluster decode attention: the hand-written CUDA
-kernel and its plain version.
+"""Single-token cluster decode attention: the hand-written CUDA kernels and
+their plain version.
 
-Counterpart of the reference's ``kernels/decode_attend.py`` (Pallas, TPU).
-One program per (batch member, kv head) runs the whole decode chain:
-centroid scoring of the group-mean query -> (plan mode) hole/future masks,
-the ``+1e4`` recency boost and the optional always-visible self column ->
-``n_sel`` rounds of first-argmax with mask-out (ties to the lowest index)
--> the selected tiles read straight from the caches -> one guarded softmax
-(``masked_softmax``) -> a ``(g, dv)`` output. Two static contracts:
+Counterpart of the reference's ``kernels/decode_attend.py`` (Pallas, TPU),
+which runs the whole decode chain in one program per (batch member, kv
+head): centroid scoring of the group-mean query -> (plan mode) hole/future
+masks, the ``+1e4`` recency boost and the optional always-visible self
+column -> ``n_sel`` rounds of first-argmax with mask-out (ties to the
+lowest index) -> the selected tiles read straight from the caches -> one
+guarded softmax (``masked_softmax``) -> a ``(g, dv)`` output. Two static
+contracts:
 
 * plain mode (``plan_mode=False``): ``core.clusterkv.decode_select`` +
   ``decode_attend`` over time-ordered caches;
@@ -15,8 +16,14 @@ the ``+1e4`` recency boost and the optional always-visible self column ->
   (the reference's ``_plan_decode_xla``) over plan-ordered caches.
 
 Those are the plain version. For a tensor on the CPU
-``decode_attend_fused`` returns it; for a CUDA tensor it launches
-``csrc/decode_attend.cu`` or raises. It counts its launches in
+``decode_attend_fused`` returns it; for a CUDA tensor it runs
+``csrc/decode_attend.cu`` or raises: three launches on the current stream
+(selection per (member, kv head); one block per (member, kv head, selected
+tile) plus one for the self column, each writing a partial softmax; their
+fixed-order combine), into one scratch buffer for the partials and the
+selection that the wrapper allocates. q and the centroids go in as they
+come (float32 or bfloat16) and the output comes out in q's dtype, so the
+call adds no casts around the launches. It counts one launch per call in
 ``decode_attend_fused.launches`` and, per contract, in
 ``decode_attend_fused.plain_mode_launches`` or ``plan_mode_launches``.
 """
@@ -30,7 +37,6 @@ from repro_torch.core import clusterkv as ckv
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_OUTPUTS = 1024          # g * dv a block accumulates in registers
 
 
 def decode_attend_plain(q, k, v, pos, cent, qpos, k_self=None, v_self=None,
@@ -55,7 +61,7 @@ def decode_attend_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         has_self: bool = False, window: int = 0,
                         sel_out: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-    """Fused select + gather + attend. q (B,Hq,dh); k/v (B,Hkv,S,dh|dv);
+    """Select + gather + attend. q (B,Hq,dh); k/v (B,Hkv,S,dh|dv);
     pos (B,Hkv,S) int32; cent (B,Hkv,S/bk,dh); qpos scalar or (B,);
     k_self/v_self (B,Hkv,dh|dv), read only when ``plan_mode`` and
     ``has_self``. Returns (B,Hq,dv) in q's dtype. ``sel_out`` (B,Hkv,n_sel)
@@ -88,15 +94,14 @@ def decode_attend_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{k.dtype}/{v.dtype}")
     if pos.dtype != torch.int32:
         raise TypeError(f"pos must be int32, got {pos.dtype}")
-    if g * dv > MAX_OUTPUTS:
-        raise ValueError(f"g * dv = {g * dv} exceeds the {MAX_OUTPUTS} "
-                         "outputs one block accumulates")
     for t in (k, v, pos):
         if not t.is_contiguous():
             raise ValueError("the CUDA kernel needs contiguous caches")
     dev = q.device
-    qf = q.reshape(b, hkv, g, dh).float().contiguous()
-    cf = cent.float().contiguous()
+    # q and the centroids in their own dtype where the kernels read it
+    qk = q if q.dtype in DTYPES else q.float()
+    qk = qk.reshape(b, hkv, g, dh).contiguous()
+    ck = (cent if cent.dtype in DTYPES else cent.float()).contiguous()
     qp = torch.as_tensor(qpos, device=dev).to(torch.int32).reshape(-1)
     qp = qp.expand(b).contiguous()
     use_self = bool(plan_mode and has_self)
@@ -107,23 +112,31 @@ def decode_attend_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 or not sel_out.is_contiguous()):
         raise ValueError("sel_out must be a contiguous (B, Hkv, n_sel) int32 "
                          "tensor")
-    out = torch.empty((b, hkv, g, dv), dtype=torch.float32, device=dev)
+    out = torch.empty((b, hq, dv), dtype=qk.dtype, device=dev)
+    # per (member, kv head, part, query row): max, live sum, (dv,) sums;
+    # then the selection as int32, unless it goes to sel_out
+    scratch = torch.empty(
+        b * hkv * ((n_sel + use_self) * g * (dv + 2)
+                   + (n_sel if sel_out is None else 0)),
+        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = _build.load().repro_decode_attend(
-            qf.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-            cf.data_ptr(), qp.data_ptr(),
+            qk.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+            ck.data_ptr(), qp.data_ptr(),
             None if ks is None else ks.data_ptr(),
             None if vs is None else vs.data_ptr(), out.data_ptr(),
             None if sel_out is None else sel_out.data_ptr(),
+            scratch.data_ptr(),
             b, hkv, g, s, dh, dv, bk, n_sel, int(plan_mode), int(use_self),
-            int(window), DTYPES[k.dtype], _build.current_stream())
+            int(window), DTYPES[k.dtype], DTYPES[qk.dtype], DTYPES[ck.dtype],
+            _build.current_stream())
     _build.check(code, "decode_attend_fused")
     decode_attend_fused.launches += 1
     if plan_mode:
         decode_attend_fused.plan_mode_launches += 1
     else:
         decode_attend_fused.plain_mode_launches += 1
-    return out.reshape(b, hq, dv).to(q.dtype)
+    return out if out.dtype == q.dtype else out.to(q.dtype)
 
 
 decode_attend_fused.launches = 0

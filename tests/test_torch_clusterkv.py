@@ -273,3 +273,214 @@ def test_b5_rejects_a_ragged_cache():
     with pytest.raises(ValueError, match="whole 48-tiles"):
         t_da.decode_attend_fused(tt(q), tt(k), tt(v), tt(pos), tt(cent), 5,
                                  n_sel=2, bk=48)
+
+
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("self_dtype", [torch.float32, torch.bfloat16])
+def test_b5_plan_mode_promotes_the_self_column_over_bf16_caches(self_dtype,
+                                                               g):
+    """ROADMAP C14: bf16 caches with a float32 self column. The reference's
+    concatenate promotes the column to float32; the port's plain version
+    and the kernel wrapper on a CPU tensor must not round it to bf16."""
+    b, hkv, s, dh, bk, n_sel = 2, 2, 256, 16, 32, 3
+    q, k, v, pos, cent = _decode_inputs(40 + g, b=b, hkv=hkv, g=g, s=s,
+                                        dh=dh, bk=bk, holes=True)
+    rng = _rng(41)
+    ks = rng.standard_normal((b, hkv, dh)).astype(np.float32) * 3.0
+    vs = rng.standard_normal((b, hkv, dh)).astype(np.float32) * 3.0
+    k16, v16 = tt(k).to(torch.bfloat16), tt(v).to(torch.bfloat16)
+    ks_t, vs_t = tt(ks).to(self_dtype), tt(vs).to(self_dtype)
+    cent = tn(t_ckv.block_centroids(k16.float(), bk))
+    qpos = np.array([200, 90], np.int32)
+    cfg = RCKV(enabled=True, block_k=bk, decode_clusters=n_sel,
+               local_window_blocks=1)
+    jdt = jnp.float32 if self_dtype == torch.float32 else jnp.bfloat16
+    want = r_attn._plan_decode_xla(
+        jnp.asarray(q), jnp.asarray(tn(k16.float())).astype(jnp.bfloat16),
+        jnp.asarray(tn(v16.float())).astype(jnp.bfloat16), jnp.asarray(pos),
+        jnp.asarray(cent), jnp.asarray(qpos), cfg,
+        k_self=jnp.asarray(tn(ks_t.float())).astype(jdt),
+        v_self=jnp.asarray(tn(vs_t.float())).astype(jdt))
+    kw = dict(n_sel=n_sel, bk=bk, window=bk)
+    got = t_ckv.plan_decode_plain(tt(q), k16, v16, tt(pos), tt(cent),
+                                  tt(qpos), k_self=ks_t, v_self=vs_t, **kw)
+    assert_close(got, want)
+    fused = t_da.decode_attend_fused(tt(q), k16, v16, tt(pos), tt(cent),
+                                     tt(qpos), ks_t, vs_t, plan_mode=True,
+                                     has_self=True, **kw)
+    assert_close(fused, want)
+
+
+# ---------------------------------------------------------------------------
+# the arithmetic of the CUDA kernels, emulated on the CPU (nothing on the
+# main path uses these emulations)
+# ---------------------------------------------------------------------------
+
+
+def _b6_emulation(q, k, v, kpos, qpos, idx, bq, bk, causal, split=True,
+                  chunk=32):
+    """B6's bf16 kernel in float32 PyTorch: logits in log2 units, an online
+    softmax over chunks of ``chunk`` keys, and P.V as two bf16 terms
+    (hi = bf16(p), lo = bf16(p - hi)) whose products are float32; with
+    ``split=False`` p is rounded to bf16 once. Returns float32."""
+    b, hq, s, dh = q.shape
+    hkv, s_k = k.shape[1], k.shape[2]
+    g, nqb, n_sel = hq // hkv, s // bq, idx.shape[-1]
+    scale_log2 = torch.tensor(1.4426950408889634 / dh ** 0.5)
+    qb = q.reshape(b, hkv, g, nqb, bq, dh).float()
+    kb = k.reshape(b, hkv, s_k // bk, bk, dh).float()
+    vb = v.reshape(b, hkv, s_k // bk, bk, dh).float()
+    pb = kpos.reshape(b, hkv, s_k // bk, bk)
+    qp = qpos.reshape(nqb, bq)
+    bi = torch.arange(b)[:, None, None]
+    hi_ = torch.arange(hkv)[None, :, None]
+    m = torch.full((b, hkv, g, nqb, bq), t_ckv.NEG_INF)
+    l = torch.zeros((b, hkv, g, nqb, bq))
+    acc = torch.zeros((b, hkv, g, nqb, bq, dh))
+    for j in range(n_sel):
+        t = idx[..., j].long()
+        for c0 in range(0, bk, chunk):
+            kt = kb[bi, hi_, t][..., c0:c0 + chunk, :]
+            vt = vb[bi, hi_, t][..., c0:c0 + chunk, :]
+            pt = pb[bi, hi_, t][..., c0:c0 + chunk]
+            x = torch.einsum("bhgqtd,bhqsd->bhgqts", qb, kt) * scale_log2
+            if causal:
+                ok = pt[:, :, None, :, None, :] <= qp[None, None, None, :, :,
+                                                      None]
+                x = torch.where(ok, x, t_ckv.NEG_INF)
+            m_new = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            hi = p.to(torch.bfloat16).float()
+            terms = [hi, (p - hi).to(torch.bfloat16).float()] if split \
+                else [hi]
+            acc = acc * alpha[..., None] + sum(
+                torch.einsum("bhgqts,bhqsd->bhgqtd", w, vt) for w in terms)
+            m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(b, hq, s, dh)
+
+
+def _c10_bound(want):
+    """2e-5 x max|want| plus one bf16 spacing at each element's magnitude
+    (ROADMAP C10)."""
+    _, e = torch.frexp(want)
+    return 2e-5 * float(want.abs().max()) + torch.where(
+        want == 0, 0.0, torch.ldexp(torch.ones_like(want), e - 8))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bq", [64, 128])
+def test_b6_hi_lo_split_stays_within_the_c10_bound(bq, causal):
+    """Phase 2's B6 shapes (S = 2048, 14 query / 2 kv heads, n_sel = 8,
+    bf16): the hi/lo split of P keeps the kernel's arithmetic within the
+    C10 bound of the plain version, where rounding p to bf16 once does not,
+    and its float32 error is far below that of the single rounding."""
+    s, n_sel = 2048, 8
+    q, k, v, kpos, qpos, idx = _tile_inputs(50 + bq + causal, b=1, hq=14,
+                                            hkv=2, s=s, dh=64, bq=bq, bk=bq,
+                                            n_sel=n_sel)
+    q16, k16, v16 = (tt(a).to(torch.bfloat16) for a in (q, k, v))
+    args = (q16, k16, v16, tt(kpos), tt(qpos), tt(idx))
+    want = t_ba.block_attention_plain(*args, bq=bq, bk=bq, causal=causal)
+    got = _b6_emulation(*args, bq, bq, causal)
+    bound = _c10_bound(want.float())
+    assert bool(((got.to(torch.bfloat16).float() - want.float()).abs()
+                 <= bound).all())
+    # p rounded to bf16 once would not be (the reason for the split)
+    once = _b6_emulation(*args, bq, bq, causal, split=False)
+    assert not bool(((once.to(torch.bfloat16).float() - want.float()).abs()
+                     <= bound).all())
+    # in float32, before the output's rounding: hi/lo against one rounding
+    exact = t_ckv.sparse_block_attention(q16.float(), k16.float(),
+                                         v16.float(), *args[3:], bq, bq,
+                                         causal=causal)
+    err_split = float((got - exact).abs().max())
+    err_once = float((once - exact).abs().max())
+    assert err_split <= 2e-5 * float(exact.abs().max())
+    assert err_once > 10 * err_split
+
+
+def _b5_partition_emulation(q, k, v, pos, cent, qpos, k_self, v_self, *,
+                            n_sel, bk, plan_mode, has_self, window):
+    """B5's split in float32 PyTorch: the selection, one partial softmax
+    (max m_i over the part's columns, masked at -1e30; live sum l_i;
+    accumulator acc_i) per selected tile and for the self column, then
+    the fixed-order combine M = max m_i, L = sum l_i e^(m_i - M),
+    out = sum acc_i e^(m_i - M) / max(L, 1e-30)."""
+    b, hq, dh = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    qp = torch.as_tensor(qpos).to(torch.int64).reshape(-1).expand(b)
+    if plan_mode:
+        sel = t_ckv.plan_select(q, pos, cent, qp, n_sel=n_sel, bk=bk,
+                                window=window)
+    else:
+        sel = t_ckv.decode_select(q.float(), cent.float(), n_sel).long()
+    qh = q.reshape(b, hkv, g, dh).float()
+    parts = []
+    for j in range(n_sel):
+        kt = t_ckv.gather_tiles(k, sel[..., j:j + 1], bk).float()
+        vt = t_ckv.gather_tiles(v, sel[..., j:j + 1], bk).float()
+        pt = t_ckv.gather_tiles(pos, sel[..., j:j + 1], bk).to(torch.int64)
+        parts.append((kt, vt, pt))
+    if plan_mode and has_self:
+        parts.append((k_self[:, :, None].float(), v_self[:, :, None].float(),
+                      qp[:, None, None].expand(b, hkv, 1)))
+    ms, ls, accs = [], [], []
+    for kt, vt, pt in parts:
+        live = (pt <= qp[:, None, None])[:, :, None, :]        # (b,hkv,1,c)
+        x = torch.where(live, t_ckv.decode_logits(qh, kt), t_ckv.NEG_INF)
+        m_i = x.amax(-1)
+        p = torch.where(live, torch.exp(x - m_i[..., None]), 0.0)
+        ms.append(m_i)
+        ls.append(p.sum(-1))
+        accs.append(p @ vt)
+    big_m = torch.stack(ms).amax(0)
+    total_l = torch.zeros_like(big_m)
+    out = torch.zeros_like(accs[0])
+    for m_i, l_i, acc_i in zip(ms, ls, accs):
+        w = torch.exp(m_i - big_m)
+        total_l = total_l + l_i * w
+        out = out + acc_i * w[..., None]
+    out = out / torch.clamp_min(total_l, 1e-30)[..., None]
+    return out.reshape(b, hq, -1).to(q.dtype)
+
+
+@pytest.mark.parametrize("mode", ["plain", "plan", "plan_self"])
+@pytest.mark.parametrize("n_sel", [1, 6, 16])
+def test_b5_partials_and_fixed_order_combine_equal_the_plain_version(n_sel,
+                                                                     mode):
+    """B5's partition into per-tile partials and their combine equals the
+    plain version: plain and plan mode, the self column, 20 % holes, and a
+    slot whose every entry is a hole (exact zeros without the self
+    column)."""
+    b, hkv, g, s, dh, bk = 3, 2, 3, 256, 16, 16
+    plan_mode, has_self = mode != "plain", mode == "plan_self"
+    rng = _rng(60 + n_sel)
+    q = rng.standard_normal((b, hkv * g, dh)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, s, dh)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, dh)).astype(np.float32)
+    nkb = s // bk
+    pos = np.stack([np.stack([(rng.permutation(nkb)[:, None] * bk
+                               + np.arange(bk)).reshape(-1)
+                              for _ in range(hkv)]) for _ in range(b)])
+    if plan_mode:
+        pos[rng.random(pos.shape) < 0.2] = BIG
+    pos[2] = BIG                                     # slot 2: only holes
+    pos = pos.astype(np.int32)
+    cent = k.reshape(b, hkv, nkb, bk, dh).mean(3)
+    ks = rng.standard_normal((b, hkv, dh)).astype(np.float32)
+    vs = rng.standard_normal((b, hkv, dh)).astype(np.float32)
+    qpos = np.array([200, 77, 150], np.int32)
+    args = tuple(map(tt, (q, k, v, pos, cent, qpos, ks, vs)))
+    kw = dict(n_sel=n_sel, bk=bk, plan_mode=plan_mode, has_self=has_self,
+              window=bk)
+    got = _b5_partition_emulation(*args, **kw)
+    want = t_da.decode_attend_plain(*args, **kw)
+    assert_close(got, want)
+    if has_self:
+        assert_close(got[2], np.repeat(vs[2], g, axis=0))
+    else:
+        assert (tn(got)[2] == 0).all() and (tn(want)[2] == 0).all()

@@ -463,3 +463,168 @@ def test_cuda_settings_asking_for_the_plain_path_raise(cuda_device):
                                      ClusterKVConfig(enabled=True,
                                                      decode_clusters=2,
                                                      decode_backend="plain"))
+
+
+def _b6_inputs(seed, b, hq, hkv, s, s_k, bq, n_sel, device, dtype):
+    """Queries at the last ``s`` of ``s_k`` positions (a prompt's suffix),
+    cluster-sorted keys with a permuted position each, and ``n_sel``
+    distinct key tiles per query tile."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, s, 64)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, s_k, 64)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s_k, 64)).astype(np.float32)
+    kpos = np.stack([np.stack([rng.permutation(s_k) for _ in range(hkv)])
+                     for _ in range(b)]).astype(np.int32)
+    idx = np.stack([np.stack([np.stack([
+        rng.choice(s_k // bq, n_sel, replace=False)
+        for _ in range(s // bq)]) for _ in range(hkv)]) for _ in range(b)]
+    ).astype(np.int32)
+    dev = dict(device=device)
+    return (tt(q).to(dtype=dtype, **dev), tt(k).to(dtype=dtype, **dev),
+            tt(v).to(dtype=dtype, **dev), tt(kpos).to(**dev),
+            torch.arange(s_k - s, s_k, dtype=torch.int32, **dev),
+            tt(idx).to(**dev))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n_sel", [1, 3, 16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bq", [32, 64, 128])
+def test_cuda_block_attention_bf16_tensor_cores_match_plain(cuda_device, bq,
+                                                            causal, n_sel):
+    """The bf16 path (mma.sync, cp.async ring, hi/lo P) with S_k != S, held
+    at the C10 bound, bit-equal run to run, one counter step per call."""
+    q, k, v, kpos, qpos, idx = _b6_inputs(bq + n_sel, 2, 14, 2, 4 * bq,
+                                          20 * bq, bq, n_sel, cuda_device,
+                                          torch.bfloat16)
+    n0 = t_ba.block_attention.launches
+    got = t_ba.block_attention(q, k, v, kpos, qpos, idx, bq=bq, bk=bq,
+                               causal=causal)
+    again = t_ba.block_attention(q, k, v, kpos, qpos, idx, bq=bq, bk=bq,
+                                 causal=causal)
+    torch.cuda.synchronize()
+    assert t_ba.block_attention.launches == n0 + 2
+    assert torch.equal(got, again)
+    want = t_ba.block_attention_plain(q, k, v, kpos, qpos, idx, bq=bq,
+                                      bk=bq, causal=causal)
+    _assert_kernel_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bq", [32, 64, 128])
+def test_cuda_block_attention_bf16_uniform_weights_when_all_keys_are_future(
+        cuda_device, bq):
+    """Query tile 0 selects only keys in its future: every logit is -1e30,
+    so each row averages the selected values (the reference's exp(0))."""
+    q, k, v, _, qpos, idx = _b6_inputs(5, 1, 4, 2, 2 * bq, 4 * bq, bq, 2,
+                                       cuda_device, torch.bfloat16)
+    kpos = torch.arange(4 * bq, dtype=torch.int32, device=cuda_device
+                        ).expand(1, 2, 4 * bq).contiguous()
+    qpos = torch.arange(2 * bq, dtype=torch.int32, device=cuda_device)
+    idx[:, :, 0] = torch.tensor([2, 3], dtype=torch.int32,
+                                device=cuda_device)
+    got = t_ba.block_attention(q, k, v, kpos, qpos, idx, bq=bq, bk=bq)
+    want = t_ba.block_attention_plain(q, k, v, kpos, qpos, idx, bq=bq, bk=bq)
+    _assert_kernel_close(got, want, torch.bfloat16)
+    mean = v[:, :, 2 * bq:].float().mean(dim=2)               # (1, 2, 64)
+    _assert_kernel_close(got[:, :, :bq], mean.repeat_interleave(2, dim=1)
+                         [:, :, None, :].expand(1, 4, bq, 64)
+                         .to(torch.bfloat16), torch.bfloat16)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_block_attention_bf16_skips_tile_ids_outside_the_cache(
+        cuda_device):
+    q, k, v, kpos, qpos, idx = _b6_inputs(6, 1, 4, 2, 512, 1024, 128, 3,
+                                          cuda_device, torch.bfloat16)
+    bad = torch.cat([torch.full_like(idx[..., :1], -1), idx,
+                     torch.full_like(idx[..., :1], 8)], dim=-1).contiguous()
+    got = t_ba.block_attention(q, k, v, kpos, qpos, bad, bq=128, bk=128)
+    want = t_ba.block_attention_plain(q, k, v, kpos, qpos, idx, bq=128,
+                                      bk=128)
+    _assert_kernel_close(got, want, torch.bfloat16)
+    # nothing inside the cache: l = 0 and the output is exact zeros
+    none = torch.full_like(idx, 8)
+    got = t_ba.block_attention(q, k, v, kpos, qpos, none, bq=128, bk=128)
+    assert bool((got == 0).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16,
+                                 torch.float16])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["plain", "plan_self"])
+def test_cuda_decode_attend_reads_q_and_centroids_in_their_dtype(
+        cuda_device, cache, qdt, cdt, mode):
+    """B5 reads q and the centroids in the caller's dtype and writes the
+    output in q's: the same bits as casting both to float32 first and
+    rounding the float32 output to q's dtype (float16 q takes that cast)."""
+    b, hkv, g, s, dh, bk, n_sel = 4, 2, 7, 2048, 64, 128, 6
+    plan_mode = mode != "plain"
+    q, k, v, pos, cent = _decode_inputs(5, b, hkv, g, s, dh, bk, cuda_device,
+                                        cache, holes=plan_mode)
+    qpos = torch.tensor([1500, 900, 2047, 40], dtype=torch.int32,
+                        device=cuda_device)
+    ks = torch.randn(b, hkv, dh, device=cuda_device)
+    vs = torch.randn(b, hkv, dh, device=cuda_device)
+    kw = dict(n_sel=n_sel, bk=bk, plan_mode=plan_mode, has_self=plan_mode,
+              window=bk)
+    qx, cx = q.float().to(qdt), cent.to(cdt)
+    got = t_da.decode_attend_fused(qx, k, v, pos, cx, qpos, ks, vs, **kw)
+    ref = t_da.decode_attend_fused(qx.float(), k, v, pos, cx.float(), qpos,
+                                   ks, vs, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == qdt
+    assert torch.equal(got, ref.to(qdt))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["plain", "plan", "plan_self"])
+@pytest.mark.parametrize("g", [1, 7])
+@pytest.mark.parametrize("n_sel", [1, 6, 16, 64])
+def test_cuda_decode_attend_split_matches_plain(cuda_device, n_sel, g, mode,
+                                                dtype):
+    """B5 split over (member, kv head, tile) blocks up to the covering
+    budget (64 tiles of 128 at S = 8192): the plain version's output at the
+    C10 bound and its selected set; slot 3 holds only holes (exact zeros,
+    or its own value with the self column); bit-equal run to run."""
+    b, hkv, s, dh, bk = 4, 2, 8192, 64, 128
+    plan_mode = mode != "plain"
+    has_self = mode == "plan_self"
+    q, k, v, pos, cent = _decode_inputs(n_sel + g, b, hkv, g, s, dh, bk,
+                                        cuda_device, dtype,
+                                        holes=plan_mode)
+    pos[3] = 2 ** 31 - 1
+    qpos = torch.tensor([8000, 3000, 8191, 40], dtype=torch.int32,
+                        device=cuda_device)
+    ks = torch.randn(b, hkv, dh, device=cuda_device).to(dtype)
+    vs = torch.randn(b, hkv, dh, device=cuda_device).to(dtype)
+    kw = dict(n_sel=n_sel, bk=bk, plan_mode=plan_mode, has_self=has_self,
+              window=bk)
+    fused = t_da.decode_attend_fused
+    sel = torch.empty((b, hkv, n_sel), dtype=torch.int32, device=cuda_device)
+    n0 = (fused.launches, fused.plain_mode_launches, fused.plan_mode_launches)
+    got = fused(q, k, v, pos, cent, qpos, ks, vs, sel_out=sel, **kw)
+    again = fused(q, k, v, pos, cent, qpos, ks, vs, **kw)
+    torch.cuda.synchronize()
+    assert (fused.launches, fused.plain_mode_launches,
+            fused.plan_mode_launches) == (n0[0] + 2,
+                                          n0[1] + 2 * (not plan_mode),
+                                          n0[2] + 2 * plan_mode)
+    assert torch.equal(got, again)
+    want = t_da.decode_attend_plain(q, k, v, pos, cent, qpos, ks, vs, **kw)
+    _assert_kernel_close(got, want, dtype)
+    if plan_mode:
+        want_sel = t_ckv.plan_select(q, pos, cent, qpos, n_sel=n_sel, bk=bk,
+                                     window=bk)
+    else:
+        want_sel = t_ckv.decode_select(q.float(), cent, n_sel)
+    assert torch.equal(sel.long().sort(-1).values,
+                       want_sel.long().sort(-1).values)
+    if has_self:
+        own = vs[3].float().repeat_interleave(g, dim=0).to(dtype)
+        _assert_kernel_close(got[3], own, dtype)
+    else:
+        assert bool((got[3] == 0).all())

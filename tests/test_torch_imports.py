@@ -1,8 +1,8 @@
 """The port stands alone: nothing under ``src/repro_torch`` (nor
-``chip_smoke.py``, nor the port's example) imports JAX or the reference
-package, and its modules import on a box with no ``nvcc``, no ``triton``
-and no GPU — kernels are built when they are first launched, never at
-import."""
+``chip_smoke.py``, nor the port's examples and tools) imports JAX or the
+reference package, and its modules import on a box with no ``nvcc``, no
+``triton`` and no GPU — kernels are built when they are first launched,
+never at import."""
 import ast
 import importlib
 import os
@@ -17,7 +17,8 @@ PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "tsne_torch.py",
-    ROOT / "examples" / "meanshift_torch.py"]
+    ROOT / "examples" / "meanshift_torch.py",
+    ROOT / "tools" / "time_decode.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 
 
