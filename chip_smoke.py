@@ -20,13 +20,14 @@ when it fails:
    scattered; B1/B2 also under padded masks — kept counts spread over
    0..16 as prefixes, holes anywhere, NaN tiles under the mask — and
    required to be bit-equal run to run), on random nonzero coordinates
-   and on random ELL affinity
-   patterns with a ragged last row block (t-SNE force, also run twice and
-   required to be bit-equal), the ClusterKV prefill kernel (causal and not,
-   g = 7, tiles of 128 and 64, float32 and bf16) and the decode kernel
-   (plain mode, plan mode with holes with and without the self column,
-   g = 1 and 7, float32 and bf16; the same tiles selected as the plain
-   path);
+   (γ, also at σ = 1, where far terms underflow) and on random ELL
+   affinity patterns with a ragged last row block (t-SNE force, also
+   under the same three kinds of padded mask, run twice and required to
+   be bit-equal), the ClusterKV prefill kernel (causal and not, g = 7,
+   tiles of 128 and 64, float32 and bf16) and the decode kernel (plain
+   mode, plan mode with holes with and without the self column, g = 1 and
+   7, float32 and bf16; the same tiles selected as the plain path; and
+   one NaN key tile, selected first as ``topk_stable`` ranks it);
 3. the main path at full size — per-stage build times, ``matvec`` through
    the ``cuda`` backend for (n,) and (n, 8) charges against the ``bsr``
    and ``csr`` reference paths, the single-plan kernel entry on the plan's
@@ -36,13 +37,18 @@ when it fails:
 5. each kernel's time at the main path's shapes beside its plain version,
    one library call and the least time the card could take (B1/B2 timed
    as the plan path launches them: with the plan's mask and no per-call
-   range check, which is timed apart; with GB/s of kept tiles);
+   range check, which is timed apart; with GB/s of kept tiles; B3's bound
+   from its exponentials at the card's SM count and highest SM clock,
+   both printed in phase 1);
 6. t-SNE attraction at full width: P calibrated to perplexity 30 over
    k = 90 neighbours (van der Maaten, JMLR 15, 2014), symmetrised, planned
    with ``InteractionPlan.from_coo`` ordered from the data; 20 attraction
-   steps through ``plan.tsne_attractive`` (the ``tsne_force`` kernel), held
-   against the plain path and a float64 edge-wise sum, then timed. Dense
-   repulsion at this n is not part of the package and is not run;
+   steps through ``plan.tsne_attractive`` (the ``tsne_force`` kernel over
+   the plan's kept tiles), held against the plain path, a float64
+   edge-wise sum and, bit for bit, the kernel over every slot, then timed
+   (the kernel as the plan launches it, with the direct entry's range
+   check apart). Dense repulsion at this n is not part of the package and
+   is not run;
 7. mean shift with the refresh tiers at full size: ``build_plan(t,
    sources=src)``, four ``plan.meanshift_step``s with a ``plan.refresh``
    between them — auto first, then each tier not yet taken, forced — each
@@ -113,10 +119,18 @@ FP32_FLOP_PER_S = 67e12
 # there (mma.sync, bf16 in, float32 accumulate), so its least time is
 # stated at this rate, not at the float32 one
 BF16_FLOP_PER_S = 989e12
-# float32 operations counted per γ pair term: 2 subtractions, 2 multiplies
-# and 1 add for the squared distance, the scale by -1/σ², the exponential
-# (counted as one), the weight multiply and the accumulate
-GAMMA_OPS_PER_PAIR = 9
+# γ's pair terms, counted by what they issue on an SM (CUDA C Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0): one
+# exponential on the special-function units, which take 16 ex2 a clock on
+# each SM, and 5 instructions on the FMA pipe, which takes 128 a clock on
+# each SM: two subtractions, a multiply and a fused multiply-add for
+# -|c_p - c_q|^2 over prescaled coordinates, and the weighted accumulate
+GAMMA_EX2_PER_CLOCK_SM = 16
+GAMMA_FMA_PER_CLOCK_SM = 128
+GAMMA_FMA_PER_PAIR = 5
+# the H100 SXM's SM count and its highest SM clock (MHz), used by the CPU
+# rehearsal only: on a card both are read from the card
+H100_SMS, H100_MAX_SM_MHZ = 132, 1980
 
 # float32 operations counted per t-SNE pair at embedding dimension d (a
 # multiply-add counts two): d subtractions, d multiply-adds for |diff|^2,
@@ -248,12 +262,21 @@ def spmv_bound(kept_tiles: int, bs: int, col_idx_numel: int, x_numel: int,
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def gamma_bound(n: int, bn: int, symmetric: bool):
+def gamma_bound(n: int, bn: int, symmetric: bool, sms: int, sm_mhz: float):
+    """Least time for the γ pair sum: the larger of its bytes (coordinates
+    and weights in, the sum out), its FMA-pipe instructions and its
+    exponentials, each at the card's rate for ``sms`` SMs at ``sm_mhz``.
+    Returns (ms, "bytes" | "operations", which rate binds)."""
     nb = n // bn
     pairs = (nb * (nb + 1) // 2 if symmetric else nb * nb) * bn * bn
+    clock = sms * sm_mhz * 1e6
     t_b = (n * 12 + 4) / HBM_BYTES_PER_S * 1e3
-    t_o = pairs * GAMMA_OPS_PER_PAIR / FP32_FLOP_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    t_f = pairs * GAMMA_FMA_PER_PAIR / (GAMMA_FMA_PER_CLOCK_SM * clock) * 1e3
+    t_e = pairs / (GAMMA_EX2_PER_CLOCK_SM * clock) * 1e3
+    t = max(t_b, t_f, t_e)
+    if t == t_b:
+        return t, "bytes", "HBM"
+    return t, "operations", "ex2" if t_e >= t_f else "FMA pipe"
 
 
 def tsne_bound(kept_tiles: int, bs: int, col_idx_numel: int, y_numel: int,
@@ -442,17 +465,37 @@ def phase_tsne(args, dev, timer, sync, x, rehearse, reset_counts,
         "scale)")
 
     yp = torch.nn.functional.pad(y, (0, 0, 0, b.n_cb * b.bs - n))
+    # the plan's force reads only kept tiles; skipping its zero tiles adds
+    # exact zeros in the same order, so every slot gives the same bits
+    every = k_tf.tsne_force(b.vals, b.col_idx, yp)[:n]
+    sync()
+    if not torch.equal(f, every):
+        raise AssertionError("the force through the plan's mask differs "
+                             "from the force over every slot")
     kept_plan = int(b.nbr_mask.sum())
     it_fast, it_slow = (2, 1) if rehearse else (20, 3)
-    ms = timer(lambda: k_tf.tsne_force(b.vals, b.col_idx, yp), it_fast)
-    plain_ms = timer(lambda: k_tf.tsne_force_plain(b.vals, b.col_idx, yp),
-                     it_slow)
+    # ms: as the plan path launches it (the plan's mask, indices checked
+    # where they were made); checked: the direct entry's per-call range
+    # check (a host sync) on top; every slot: no mask, as before the kept
+    # walk, padding streamed
+    ms = timer(lambda: k_tf.tsne_force(b.vals, b.col_idx, yp, b.nbr_mask,
+                                       indices_checked=True), it_fast)
+    checked_ms = timer(lambda: k_tf.tsne_force(b.vals, b.col_idx, yp,
+                                               b.nbr_mask), it_fast)
+    every_ms = timer(lambda: k_tf.tsne_force(b.vals, b.col_idx, yp,
+                                             indices_checked=True), it_fast)
+    plain_ms = timer(lambda: k_tf.tsne_force_plain(b.vals, b.col_idx, yp,
+                                                   b.nbr_mask), it_slow)
     step_ms = timer(lambda: plan.tsne_attractive(y), it_fast)
     bound, by = tsne_bound(kept_plan, b.bs, b.col_idx.numel(), yp.numel(),
                            b.n_rb * b.bs * 2, 2)
-    say(f"  tsne_force: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-        f"bound {bound:.3f} ms ({by}); plan.tsne_attractive end to end "
-        f"{step_ms:.3f} ms")
+    kept_gb_s = kept_plan * b.bs * b.bs * 4 / ms * 1e-6
+    say(f"  tsne_force: kernel {ms:.3f} ms as the plan launches it "
+        f"({kept_gb_s:.0f} GB/s of kept tiles; with range check "
+        f"{checked_ms:.3f} ms; every slot {every_ms:.3f} ms)  plain "
+        f"{plain_ms:.3f} ms  bound {bound:.3f} ms ({by}); "
+        f"plan.tsne_attractive end to end {step_ms:.3f} ms; force through "
+        "the mask equals the force over every slot bit for bit")
     entry = {
         "name": "tsne_force", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tsne_force.cu",
@@ -460,8 +503,10 @@ def phase_tsne(args, dev, timer, sync, x, rehearse, reset_counts,
         "launches": launches["tsne_force"],
         "shape": (f"p_vals ({b.n_rb}, {b.max_nbr}, {b.bs}, {b.bs}), "
                   f"{kept_plan} kept tiles, y ({yp.shape[0]}, 2)"),
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": by, "library_ms": None}
+        "max_abs_err": err, "ms": ms, "checked_ms": checked_ms,
+        "every_slot_ms": every_ms, "kept_tile_gb_s": kept_gb_s,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None}
     return {"n": n, "k": k, "perplexity": perplexity, "nnz": len(pv),
             "p_s": p_s, "from_coo_s": plan_s, "max_nbr": b.max_nbr,
             "kept_tiles": kept_plan, "tile_bytes": tile_bytes,
@@ -678,10 +723,10 @@ def decode_bound(b, hkv, g, s, dh, bk, n_sel, elem: int, plan_mode: bool):
 
 def check_attention_kernels(args, dev, rehearse, cases):
     """Phase 2, B5 and B6: each kernel against its plain version."""
-    from repro_torch.core.clusterkv import decode_select
+    from repro_torch.core.clusterkv import (block_centroids, decode_select,
+                                            plan_select)
     from repro_torch.kernels import block_attention as k_ba
     from repro_torch.kernels import decode_attend as k_da
-    from repro_torch.core.clusterkv import plan_select
 
     gen = torch.Generator(device=dev).manual_seed(args.seed + 20)
     s6 = 512 if rehearse else 2048
@@ -761,6 +806,58 @@ def check_attention_kernels(args, dev, rehearse, cases):
                     f"{mode:9s}: err {err:.2e} (scale {scale:.2f}, "
                     f"tolerance {tol}), selected tiles equal"
                     + ("" if ordered else " (order differs)"))
+    # ROADMAP C15: a key tile holding NaN scores NaN; the kernel must select
+    # it first, as topk_stable (and the reference's lax.top_k) rank it, and
+    # the rows of its kv head come out NaN as in the plain version
+    for dtype in (torch.float32, torch.bfloat16):
+        ulps = 0 if dtype == torch.float32 else BF16_ULPS
+        for mode in ("plain", "plan"):
+            plan_mode = mode == "plan"
+            q, k, v, pos, _ = decode_inputs(gen, b, 2, 7, s5, 64, bk, dtype,
+                                            dev, holes=0.2 if plan_mode
+                                            else 0.0)
+            k[1, 0, 3 * bk:4 * bk] = float("nan")
+            pos[1, 0, 3 * bk] = 0                 # one live entry at least
+            cent = block_centroids(k.float(), bk)
+            kw = dict(n_sel=n_sel, bk=bk, plan_mode=plan_mode,
+                      has_self=False, window=bk)
+            sel = torch.zeros((b, 2, n_sel), dtype=torch.int32, device=dev)
+            got = k_da.decode_attend_fused(q, k, v, pos, cent, qpos,
+                                           sel_out=None if rehearse else sel,
+                                           **kw)
+            want = k_da.decode_attend_plain(q, k, v, pos, cent, qpos, **kw)
+            if plan_mode:
+                want_sel = plan_select(q, pos, cent, qpos, n_sel=n_sel,
+                                       bk=bk, window=bk).long()
+            else:
+                want_sel = decode_select(q.float(), cent, n_sel).long()
+            if rehearse:
+                sel = want_sel.to(torch.int32)
+            nan = torch.isnan(want.float())
+            if not (nan[1, :7].all() and int(want_sel[1, 0, 0]) == 3):
+                raise AssertionError("the plain version did not select the "
+                                     "NaN tile first")
+            if int(sel[1, 0, 0]) != 3 or not torch.equal(
+                    sel.long().sort(-1).values, want_sel.sort(-1).values):
+                raise AssertionError(f"decode_attend {dtype} {mode} with a "
+                                     "NaN key tile: tile selection differs")
+            if not torch.equal(torch.isnan(got.float()), nan):
+                raise AssertionError(f"decode_attend {dtype} {mode} with a "
+                                     "NaN key tile: NaN rows differ")
+            err, scale = check_close(
+                f"decode_attend {dtype} {mode} NaN key tile",
+                torch.where(nan, 0.0, got.float()),
+                torch.where(nan, 0.0, want.float()), bf16_ulps=ulps)
+            cases.append({"kernel": "decode_attend_fused",
+                          "dtype": str(dtype), "S": s5, "B": b, "g": 7,
+                          "mode": mode, "nan_key_tile": True,
+                          "n_sel": n_sel, "max_abs_err": err,
+                          "scale": scale, "selection_equal": True,
+                          "nan_rows": int(nan.any(-1).sum())})
+            say(f"  B5 {str(dtype):14s} B={b} S={s5} g=7 {mode:9s} one NaN "
+                f"key tile: selected first, selected tiles equal, "
+                f"{int(nan.any(-1).sum())} NaN rows as in the plain "
+                f"version, err elsewhere {err:.2e}")
 
 
 def time_attention_kernels(args, dev, timer, rehearse, launches):
@@ -1144,6 +1241,7 @@ def main() -> int:
     say(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}")
     smi_line = "no nvidia-smi (CPU rehearsal)"
+    sms, sm_mhz = H100_SMS, H100_MAX_SM_MHZ
     ptxas = []
     if not rehearse:
         smi = subprocess.run(
@@ -1152,6 +1250,14 @@ def main() -> int:
             timeout=60, check=True)
         smi_line = smi.stdout.strip().splitlines()[0]
         say(f"card: {smi_line}")
+        clk = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True)
+        sm_mhz = float(clk.stdout.strip().splitlines()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        say(f"{sms} SMs, highest SM clock {sm_mhz:g} MHz (nvidia-smi "
+            "clocks.max.sm): the rates of B3's bound")
         say(f"matmul allow_tf32={torch.backends.cuda.matmul.allow_tf32}  "
             f"cudnn allow_tf32={torch.backends.cudnn.allow_tf32}")
         t0 = time.perf_counter()
@@ -1268,24 +1374,29 @@ def main() -> int:
     coords = torch.randint(0, 4096, (n_pairs, 2), generator=gen,
                            device=dev).float()
     wts = (torch.rand(n_pairs, generator=gen, device=dev) > 0.1).float()
-    for symmetric in (False, True):
-        got = k_gs.gamma_pairs(coords, exp.sigma, 256, weights=wts,
+    # σ = 1: terms between coordinates farther apart than about 10
+    # underflow (the kernel's ex2 flushes them to zero, the plain version
+    # keeps float32 denormals)
+    for sigma, symmetric in ((exp.sigma, False), (exp.sigma, True),
+                             (1.0, True)):
+        got = k_gs.gamma_pairs(coords, sigma, 256, weights=wts,
                                symmetric=symmetric)
-        again = k_gs.gamma_pairs(coords, exp.sigma, 256, weights=wts,
+        again = k_gs.gamma_pairs(coords, sigma, 256, weights=wts,
                                  symmetric=symmetric)
         sync()
-        want = k_gs.gamma_pairs_plain(coords, exp.sigma, 256, weights=wts,
+        want = k_gs.gamma_pairs_plain(coords, sigma, 256, weights=wts,
                                       symmetric=symmetric)
         err, scale = check_close(
-            f"gamma_pairs symmetric={symmetric}", got.reshape(1),
-            want.reshape(1))
+            f"gamma_pairs sigma={sigma:g} symmetric={symmetric}",
+            got.reshape(1), want.reshape(1))
         if got.item() != again.item():
             raise AssertionError("gamma_pairs is not reproducible run to run")
         micro_cases.append({"kernel": "gamma_pairs", "n": n_pairs,
-                            "bn": 256, "symmetric": symmetric,
-                            "max_abs_err": err, "scale": scale})
-        say(f"  B3 n={n_pairs} bn=256 symmetric={symmetric}: err {err:.2e} "
-            f"(sum {scale:.4e}), reproducible")
+                            "bn": 256, "sigma": sigma,
+                            "symmetric": symmetric, "max_abs_err": err,
+                            "scale": scale})
+        say(f"  B3 n={n_pairs} bn=256 sigma={sigma:g} symmetric="
+            f"{symmetric}: err {err:.2e} (sum {scale:.4e}), reproducible")
     for bs4 in (16, 32):
         for d4 in (2, 3):
             n4 = n_micro - 7                      # ragged last row block
@@ -1307,7 +1418,29 @@ def main() -> int:
             say(f"  B4 n={n4} bs={bs4} d={d4} nbr=16 (3 padding): err "
                 f"{err:.2e} (scale {scale:.2e}), bit-reproducible, padded "
                 "rows exactly 0")
-            del p4, c4, y4
+            padded = padded_masks(gen, c4.shape, dev)
+            nan4 = torch.where(padded["prefix"][..., None, None], p4,
+                               torch.full_like(p4, float("nan")))
+            for mname, mk, v in (("prefix", padded["prefix"], p4),
+                                 ("holes", padded["holes"], p4),
+                                 ("nan", padded["prefix"], nan4)):
+                got = k_tf.tsne_force(v, c4, y4, mk)
+                again = k_tf.tsne_force(v, c4, y4, mk, indices_checked=True)
+                sync()
+                err, scale = check_close(
+                    f"tsne_force bs={bs4} d={d4} mask {mname}", got,
+                    k_tf.tsne_force_plain(v, c4, y4, mk))
+                if not torch.equal(got, again):
+                    raise AssertionError("tsne_force is not reproducible "
+                                         "run to run under a mask")
+                micro_cases.append({"kernel": "tsne_force", "n": n4,
+                                    "bs": bs4, "d": d4, "nbr": 16,
+                                    "mask": mname, "kept": int(mk.sum()),
+                                    "max_abs_err": err, "scale": scale})
+                say(f"  B4 n={n4} bs={bs4} d={d4} mask {mname:6s} "
+                    f"({int(mk.sum())} of {mk.numel()} slots kept): err "
+                    f"{err:.2e} (scale {scale:.2e}), bit-reproducible")
+            del p4, c4, y4, padded, nan4
     check_attention_kernels(args, dev, rehearse, micro_cases)
 
     # ------------------------------------------------------------ 3 + 4 ---
@@ -1502,12 +1635,12 @@ def main() -> int:
     sync()
     err, scale = check_close("gamma_pairs plan pattern",
                              got.reshape(1), plain_gamma().reshape(1))
-    bound, by = gamma_bound(nnz + pad, 256, True)
+    bound, by, rate = gamma_bound(nnz + pad, 256, True, sms, sm_mhz)
     g_row = {"ms": timer(run_gamma, it_fast),
              "plain_ms": timer(plain_gamma, 1)}
     say(f"  gamma_pairs nnz={nnz}: err {err:.2e} (sum {scale:.4e})  kernel "
         f"{g_row['ms']:.3f} ms  plain {g_row['plain_ms']:.3f} ms  bound "
-        f"{bound:.3f} ms ({by})")
+        f"{bound:.3f} ms ({by}: {rate} at {sms} SMs x {sm_mhz:g} MHz)")
     entries.append({
         "name": "gamma_pairs", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gamma_pairs.cu",
@@ -1515,7 +1648,8 @@ def main() -> int:
         "launches": launches["gamma_pairs"],
         "shape": f"coords ({nnz + pad}, 2), bn=256, symmetric",
         "max_abs_err": err, "ms": g_row["ms"], "plain_ms": g_row["plain_ms"],
-        "bound_ms": bound, "bound_by": by, "library_ms": None})
+        "bound_ms": bound, "bound_by": by, "bound_rate": rate,
+        "sm_mhz": sm_mhz, "library_ms": None})
 
     del plan, b, vals1, col1, mask1, charges
     if dev.type == "cuda":

@@ -613,7 +613,9 @@ class InteractionPlan:
             name = "cuda" if self.device.type == "cuda" else "bsr"
         y = from_numpy(y, self.device, torch.float32)
         if name == "cuda":
-            return kernel_ops.tsne_force(b.vals, b.col_idx, y, self.n)
+            return kernel_ops.tsne_force(b.vals, b.col_idx, y, self.n,
+                                         nbr_mask=b.nbr_mask,
+                                         indices_checked=True)
         if name == "bsr":
             return interact.tsne_attractive(b.vals, b.col_idx, b.nbr_mask,
                                             y, self.n)

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.registry import register_backend, register_batched_backend
+from repro_torch.kernels.ref import drop_masked_slots
 
 
 # ---------------------------------------------------------------------------
@@ -213,13 +214,17 @@ def _row_chunk(n_rb: int, nbr: int, bs: int, d: int) -> int:
 
 
 def tsne_force_blocked(p_vals: torch.Tensor, col_idx: torch.Tensor,
-                       yp: torch.Tensor) -> torch.Tensor:
+                       yp: torch.Tensor,
+                       nbr_mask: torch.Tensor | None = None) -> torch.Tensor:
     """The t-SNE attractive force over padded coordinates, chunked.
 
     ``p_vals`` (n_rb, nbr, bs, bs) stored target x source, ``col_idx``
     (n_rb, nbr), ``yp`` (n_cb*bs, d) with n_cb >= n_rb. Returns
     (n_rb*bs, d): F_i = sum_j p_ij q_ij (y_i - y_j),
     q_ij = 1/(1 + |y_i - y_j|^2), in the reference's arithmetic order.
+    ``nbr_mask`` (n_rb, nbr) bool, or None for every slot, selects the
+    slots summed: a masked slot's tile becomes 0 and its column block 0
+    (selection, not multiplication: NaN x 0 is NaN), chunk by chunk.
     """
     n_rb, nbr, bs, _ = p_vals.shape
     d = yp.shape[1]
@@ -229,11 +234,14 @@ def tsne_force_blocked(p_vals: torch.Tensor, col_idx: torch.Tensor,
     out = []
     for r0 in range(0, n_rb, step):
         r1 = min(n_rb, r0 + step)
-        ysrc = yb[ci[r0:r1]]                             # (r, nbr, bs, d)
+        p, c, _ = drop_masked_slots(
+            p_vals[r0:r1], ci[r0:r1],
+            None if nbr_mask is None else nbr_mask[r0:r1])
+        ysrc = yb[c]                                     # (r, nbr, bs, d)
         ytgt = yb[r0:r1, None, :, None, :]               # (r, 1, bs, 1, d)
         diff = ytgt - ysrc[:, :, None, :, :]             # (r, nbr, t, s, d)
         q = 1.0 / (1.0 + (diff * diff).sum(-1))
-        w = p_vals[r0:r1] * q                # p tile is (target, source)
+        w = p * q                            # p tile is (target, source)
         out.append(torch.einsum("rnts,rntsd->rtd", w, diff))
     if not out:
         return yp.new_zeros((0, d))
@@ -248,11 +256,13 @@ def tsne_attractive(p_vals: torch.Tensor, col_idx: torch.Tensor,
     F_i = sum_j p_ij q_ij (y_i - y_j), q_ij = 1/(1 + |y_i - y_j|^2), with
     p the (fixed-profile) kNN-based affinity stored as dense tiles. Values
     p_ij q_ij are recomputed dense per tile from the current embedding y
-    (n, d). ``nbr_mask`` is not read: padding slots hold zero P tiles.
+    (n, d) over the slots ``nbr_mask`` keeps (None: every slot), as the
+    kernel reads them; on a plan the masked slots hold zero P tiles, so
+    the mask changes nothing there but what a masked slot may hold.
     """
     n_rb, nbr, bs, _ = p_vals.shape
     yp = _pad_rows(y, n_rb * bs)
-    return tsne_force_blocked(p_vals, col_idx, yp)[:n]
+    return tsne_force_blocked(p_vals, col_idx, yp, nbr_mask)[:n]
 
 
 def meanshift_step(w_pattern: torch.Tensor, col_idx: torch.Tensor,

@@ -83,30 +83,44 @@ def _check(vals, col_idx, xs, nbr_mask, batched: bool,
         raise TypeError(f"col_idx must be int32, got {col_idx.dtype}")
     if not (vals.device == col_idx.device == xs.device):
         raise ValueError("vals, col_idx and charges must share one device")
-    if nbr_mask is not None:
-        if tuple(nbr_mask.shape) != tuple(col_idx.shape):
-            raise ValueError(f"nbr_mask {tuple(nbr_mask.shape)} does not "
-                             f"match col_idx {tuple(col_idx.shape)}")
-        if nbr_mask.dtype != torch.bool:
-            raise TypeError(f"nbr_mask must be bool, got {nbr_mask.dtype}")
-        if nbr_mask.device != vals.device:
-            raise ValueError("nbr_mask must share the device of vals, "
-                             "col_idx and charges")
+    check_nbr_mask(nbr_mask, col_idx, "vals, col_idx and charges")
     n_cb = xs.shape[-2] // bs
     if not indices_checked:
-        live = col_idx if nbr_mask is None else col_idx[nbr_mask]
-        if live.numel():
-            lo, hi = torch.aminmax(live)
-            if int(lo) < 0 or int(hi) >= n_cb:
-                raise ValueError(
-                    f"col_idx range [{int(lo)}, {int(hi)}] outside the "
-                    f"{n_cb} column blocks of the charges")
+        check_kept_columns(col_idx, nbr_mask, n_cb, "the charges")
     return bs, n_cb
 
 
-def _check_cuda(bs, nbr_mask, *tensors):
-    if bs not in SUPPORTED_BS:
-        raise ValueError(f"the CUDA kernel supports bs in {SUPPORTED_BS}, "
+def check_nbr_mask(nbr_mask, col_idx, operands: str) -> None:
+    """An ELL slot mask, when given, is bool of ``col_idx``'s shape on its
+    device (``operands`` names the tensors it must share it with)."""
+    if nbr_mask is None:
+        return
+    if tuple(nbr_mask.shape) != tuple(col_idx.shape):
+        raise ValueError(f"nbr_mask {tuple(nbr_mask.shape)} does not "
+                         f"match col_idx {tuple(col_idx.shape)}")
+    if nbr_mask.dtype != torch.bool:
+        raise TypeError(f"nbr_mask must be bool, got {nbr_mask.dtype}")
+    if nbr_mask.device != col_idx.device:
+        raise ValueError(f"nbr_mask must share the device of {operands}")
+
+
+def check_kept_columns(col_idx, nbr_mask, n_cb: int, of: str) -> None:
+    """The kept slots' column blocks lie in [0, n_cb): reads them back to
+    the host (a device sync), so the plan paths skip it."""
+    live = col_idx if nbr_mask is None else col_idx[nbr_mask]
+    if live.numel():
+        lo, hi = torch.aminmax(live)
+        if int(lo) < 0 or int(hi) >= n_cb:
+            raise ValueError(f"col_idx range [{int(lo)}, {int(hi)}] outside "
+                             f"the {n_cb} column blocks of {of}")
+
+
+def check_cuda_operands(bs, supported, nbr_mask, *tensors) -> int:
+    """What the ELL kernels need of their operands on a card: a supported
+    tile size, contiguous 16-byte aligned tensors and a contiguous mask.
+    Returns the mask's pointer (one byte per slot), 0 for none."""
+    if bs not in supported:
+        raise ValueError(f"the CUDA kernel supports bs in {supported}, "
                          f"got {bs}")
     for t in tensors:
         if not t.is_contiguous():
@@ -117,7 +131,7 @@ def _check_cuda(bs, nbr_mask, *tensors):
         return 0                                  # null: every slot kept
     if not nbr_mask.is_contiguous():
         raise ValueError("the CUDA kernel needs contiguous tensors")
-    return nbr_mask.view(torch.uint8).data_ptr()  # one byte per slot
+    return nbr_mask.view(torch.uint8).data_ptr()
 
 
 def bsr_spmv_batched(vals: torch.Tensor, col_idx: torch.Tensor,
@@ -131,7 +145,8 @@ def bsr_spmv_batched(vals: torch.Tensor, col_idx: torch.Tensor,
     bs, n_cb = _check(vals, col_idx, xs, nbr_mask, True, indices_checked)
     if vals.device.type != "cuda":
         return bsr_spmv_batched_plain(vals, col_idx, xs, nbr_mask)
-    mask_ptr = _check_cuda(bs, nbr_mask, vals, col_idx, xs)
+    mask_ptr = check_cuda_operands(bs, SUPPORTED_BS, nbr_mask, vals, col_idx,
+                                   xs)
     B, n_rb, nbr = col_idx.shape
     f = xs.shape[-1]
     y = torch.empty((B, n_rb * bs, f), dtype=torch.float32, device=vals.device)
@@ -156,7 +171,8 @@ def bsr_spmv(vals: torch.Tensor, col_idx: torch.Tensor, x: torch.Tensor,
     bs, n_cb = _check(vals, col_idx, x, nbr_mask, False, indices_checked)
     if vals.device.type != "cuda":
         return bsr_spmv_plain(vals, col_idx, x, nbr_mask)
-    mask_ptr = _check_cuda(bs, nbr_mask, vals, col_idx, x)
+    mask_ptr = check_cuda_operands(bs, SUPPORTED_BS, nbr_mask, vals, col_idx,
+                                   x)
     n_rb, nbr = col_idx.shape
     f = x.shape[-1]
     y = torch.empty((n_rb * bs, f), dtype=torch.float32, device=vals.device)

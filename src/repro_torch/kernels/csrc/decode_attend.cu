@@ -9,9 +9,9 @@
 //   2. plan mode only: tiles with no position <= qpos (holes, INT32_MAX,
 //      and future entries) score -1e30, and a live tile whose largest live
 //      position is >= qpos - window gets +1e4 (the recency boost);
-//   3. the n_sel best tiles in descending order, ties to the lowest tile
-//      index (lax.top_k's order: n_sel rounds of first-argmax with
-//      mask-out);
+//   3. the n_sel best tiles in descending order, NaN first, ties to the
+//      lowest tile index (lax.top_k's order: n_sel rounds of first-argmax
+//      with mask-out);
 //   4. the selected (bk, dh|dv) k/v tiles read straight from the caches in
 //      device memory, plus, in plan mode with has_self, the current token's
 //      own k/v as one always-visible extra column at qpos;
@@ -81,6 +81,19 @@ __device__ __forceinline__ float load_f(const void* p, long long i,
               : static_cast<const float*>(p)[i];
 }
 
+// Does tile u (score y) rank before tile t (score x)? A total order:
+// scores descending with NaN above +inf and two NaNs equal, ties to the
+// lowest index: the order of the plain path's stable descending sort
+// (core/clusterkv.py topk_stable) and of the reference's lax.top_k, which
+// differs only in ordering -0 below +0 and a NaN with its sign bit set
+// last. Every rank below n_sel is taken by exactly one tile, and a NaN
+// tile is selected first, as in the reference.
+__device__ __forceinline__ bool ranks_above(float y, int u, float x, int t) {
+  const bool yn = isnan(y), xn = isnan(x);
+  if (yn != xn) return yn;
+  return (!yn && y > x) || ((yn || y == x) && u < t);
+}
+
 // (a) selection: sel (B, Hkv, n_sel) i32
 __global__ void __launch_bounds__(kThreads)
     decode_select_kernel(const void* __restrict__ q,
@@ -134,19 +147,16 @@ __global__ void __launch_bounds__(kThreads)
       else if (rec >= qp - window)
         sc = sc + 1e4f;
     }
-    // a NaN score ranks below every other tile: the order stays total, so
-    // every rank below n_sel is taken by exactly one tile
-    if (lane == 0) scores[t] = isnan(sc) ? -INFINITY : sc;
+    // an unmasked NaN score stays NaN (the +1e4 boost keeps it NaN) and
+    // is ranked by ranks_above below
+    if (lane == 0) scores[t] = sc;
   }
   __syncthreads();
 
   for (int t = tid; t < nkb; t += kThreads) {
     const float x = scores[t];
     int rank = 0;
-    for (int u = 0; u < nkb; ++u) {
-      const float y = scores[u];
-      rank += (y > x) || (y == x && u < t);
-    }
+    for (int u = 0; u < nkb; ++u) rank += ranks_above(scores[u], u, x, t);
     if (rank < n_sel) sel[(long long)bh * n_sel + rank] = t;
   }
 }

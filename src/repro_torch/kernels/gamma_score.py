@@ -12,14 +12,25 @@ pair sum; divide by ``sigma * nnz`` (or the weight mass) for the score.
 * ``symmetric=True`` — only tile pairs ``(i, j <= i)`` are evaluated and
   off-diagonal tiles count twice.
 
-The kernel (``csrc/gamma_pairs.cu``) writes one partial per tile pair and
-reduces them in a fixed order, so the result is reproducible bit for bit.
+The kernel (``csrc/gamma_pairs.cu``) takes each term as
+``w_q * 2^-(dx'^2 + dy'^2)`` over coordinates prescaled by
+:func:`exp2_scale` (the exponential on the special-function units), writes
+one partial per tile pair and reduces them in a fixed order, so the result
+is reproducible bit for bit.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.kernels import _build
+
+
+def exp2_scale(sigma: float) -> float:
+    """The factor the kernel multiplies the coordinates by, so that
+    ``exp(-d^2 / sigma^2) = 2^-(d * exp2_scale(sigma))^2``."""
+    return math.sqrt(math.log2(math.e)) / sigma
 
 
 def gamma_pairs_plain(coords: torch.Tensor, sigma: float, bn: int = 256,
@@ -77,6 +88,8 @@ def gamma_pairs(coords: torch.Tensor, sigma: float, bn: int = 256,
                          f"[32, 1024], got {bn}")
     if not (coords.is_contiguous() and weights.is_contiguous()):
         raise ValueError("the CUDA kernel needs contiguous tensors")
+    if coords.data_ptr() % 8:
+        raise ValueError("the CUDA kernel needs 8-byte aligned coordinates")
     nb = n // bn
     count = nb * (nb + 1) // 2 if symmetric else nb * nb
     partials = torch.empty(max(count, 1), dtype=torch.float32,
@@ -85,7 +98,7 @@ def gamma_pairs(coords: torch.Tensor, sigma: float, bn: int = 256,
     with torch.cuda.device(coords.device):
         code = _build.load().repro_gamma_pairs(
             coords.data_ptr(), weights.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), n, bn, float(sigma), int(symmetric),
+            out.data_ptr(), n, bn, exp2_scale(sigma), int(symmetric),
             _build.current_stream())
     _build.check(code, "gamma_pairs")
     gamma_pairs.launches += 1

@@ -109,16 +109,21 @@ def bsr_spmv_batched(vals: torch.Tensor, col_idx: torch.Tensor,
 
 
 def tsne_force(p_vals: torch.Tensor, col_idx: torch.Tensor, y: torch.Tensor,
-               n: int | None = None) -> torch.Tensor:
+               n: int | None = None, nbr_mask: torch.Tensor | None = None,
+               *, indices_checked: bool = False) -> torch.Tensor:
     """Blockwise t-SNE attractive force via the CUDA kernel: pads ``y``
     (n, d) to whole row blocks, casts to float32/int32 and slices the
-    force back to ``n`` rows. The kernel needs no tile-size argument: one
-    thread block per row block loops the whole ELL width."""
+    force back to ``n`` rows. The kernel needs no tile-size argument: each
+    warp walks the kept slots of its row block. ``nbr_mask`` (n_rb, nbr)
+    bool marks the kept slots (None: all); ``indices_checked=True`` (a
+    plan's own storage) launches without the range check of ``col_idx``
+    and its host sync."""
     n_rb, nbr, bs, _ = p_vals.shape
     yp = _pad_rows(y, n_rb * bs)
     f = _tf.tsne_force(p_vals.to(torch.float32).contiguous(),
                        col_idx.to(torch.int32).contiguous(),
-                       yp.to(torch.float32).contiguous())
+                       yp.to(torch.float32).contiguous(), _mask(nbr_mask),
+                       indices_checked=indices_checked)
     return f[:n] if n is not None else f
 
 

@@ -9,6 +9,17 @@ embedding. ``p_vals (n_rb, nbr, bs, bs)`` is the plan's ELL tile tensor
 ``y (n_cb*bs, d)`` the embedding padded to whole column blocks; the
 result is ``(n_rb*bs, d)``.
 
+An optional ``nbr_mask`` of ``col_idx``'s shape (bool) marks the kept
+slots: the kernel reads only their tiles (the plan's ELL padding is never
+streamed) and the plain version selects the masked slots away, so the two
+compute one function whatever a masked slot holds. Without a mask every
+slot is kept.
+
+Each call checks that the kept slots' ``col_idx`` lie inside ``y``'s
+column blocks, which reads the indices back to the host (a device sync).
+A plan's storage was checked where it was made, so the plan path passes
+``indices_checked=True`` and launches without that sync.
+
 For a tensor on the CPU ``tsne_force`` returns its plain version; for a
 CUDA tensor it launches ``csrc/tsne_force.cu`` or raises. It counts its
 launches in the plain integer attribute ``tsne_force.launches``.
@@ -19,19 +30,23 @@ import torch
 
 from repro_torch.core.interact import tsne_force_blocked
 from repro_torch.kernels import _build
+from repro_torch.kernels.bsr_spmv import (check_cuda_operands,
+                                          check_kept_columns, check_nbr_mask)
 
 SUPPORTED_BS = (8, 16, 32, 64)
 SUPPORTED_D = (1, 2, 3)
 
 
 def tsne_force_plain(p_vals: torch.Tensor, col_idx: torch.Tensor,
-                     y: torch.Tensor) -> torch.Tensor:
+                     y: torch.Tensor,
+                     nbr_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version: the blockwise-dense force of ``core.interact``,
-    chunked over row blocks (same arithmetic as the reference oracle)."""
-    return tsne_force_blocked(p_vals, col_idx, y)
+    chunked over row blocks (same arithmetic as the reference oracle),
+    over the kept slots only."""
+    return tsne_force_blocked(p_vals, col_idx, y, nbr_mask)
 
 
-def _check(p_vals, col_idx, y):
+def _check(p_vals, col_idx, y, nbr_mask, indices_checked: bool):
     if p_vals.ndim != 4 or col_idx.ndim != 2 or y.ndim != 2:
         raise ValueError(
             f"expected p_vals 4-D, col_idx 2-D, y 2-D; got "
@@ -57,35 +72,30 @@ def _check(p_vals, col_idx, y):
         raise TypeError(f"col_idx must be int32, got {col_idx.dtype}")
     if not (p_vals.device == col_idx.device == y.device):
         raise ValueError("p_vals, col_idx and y must share one device")
-    n_cb = y.shape[0] // bs
-    if col_idx.numel():
-        lo, hi = torch.aminmax(col_idx)
-        if int(lo) < 0 or int(hi) >= n_cb:
-            raise ValueError(f"col_idx range [{int(lo)}, {int(hi)}] outside "
-                             f"the {n_cb} column blocks of y")
+    check_nbr_mask(nbr_mask, col_idx, "p_vals, col_idx and y")
+    if not indices_checked:
+        check_kept_columns(col_idx, nbr_mask, y.shape[0] // bs, "y")
     return n_rb, nbr, bs, d
 
 
 def tsne_force(p_vals: torch.Tensor, col_idx: torch.Tensor,
-               y: torch.Tensor) -> torch.Tensor:
+               y: torch.Tensor, nbr_mask: torch.Tensor | None = None, *,
+               indices_checked: bool = False) -> torch.Tensor:
     """p_vals (n_rb, nbr, bs, bs) f32; col_idx (n_rb, nbr) i32;
-    y (n_cb*bs, d) f32 with n_cb >= n_rb, d in {1, 2, 3}.
-    Returns F (n_rb*bs, d)."""
-    n_rb, nbr, bs, d = _check(p_vals, col_idx, y)
+    y (n_cb*bs, d) f32 with n_cb >= n_rb, d in {1, 2, 3}; nbr_mask
+    (n_rb, nbr) bool or None (every slot kept). Returns F (n_rb*bs, d)
+    over the kept slots. ``indices_checked=True`` skips the range check of
+    ``col_idx`` (and its host sync) for indices made in range on the
+    host."""
+    n_rb, nbr, bs, d = _check(p_vals, col_idx, y, nbr_mask, indices_checked)
     if p_vals.device.type != "cuda":
-        return tsne_force_plain(p_vals, col_idx, y)
-    if bs not in SUPPORTED_BS:
-        raise ValueError(f"the CUDA kernel supports bs in {SUPPORTED_BS}, "
-                         f"got {bs}")
-    for t in (p_vals, col_idx, y):
-        if not t.is_contiguous():
-            raise ValueError("the CUDA kernel needs contiguous tensors")
-        if t.data_ptr() % 16:
-            raise ValueError("the CUDA kernel needs 16-byte aligned tensors")
+        return tsne_force_plain(p_vals, col_idx, y, nbr_mask)
+    mask_ptr = check_cuda_operands(bs, SUPPORTED_BS, nbr_mask, p_vals,
+                                   col_idx, y)
     f = torch.empty((n_rb * bs, d), dtype=torch.float32, device=y.device)
     with torch.cuda.device(y.device):
         code = _build.load().repro_tsne_force(
-            p_vals.data_ptr(), col_idx.data_ptr(), y.data_ptr(),
+            p_vals.data_ptr(), col_idx.data_ptr(), mask_ptr, y.data_ptr(),
             f.data_ptr(), n_rb, nbr, bs, d, _build.current_stream())
     _build.check(code, "tsne_force")
     tsne_force.launches += 1

@@ -52,6 +52,94 @@ def test_topk_stable_breaks_ties_like_lax_top_k():
     np.testing.assert_array_equal(got[0], [1, 2, 4, 0, 6, 3])
 
 
+# -- C15: B5's rank rule with NaN scores ---------------------------------
+
+
+def _b5_rank_select(scores, n_sel):
+    """NumPy emulation of B5's selection (``csrc/decode_attend.cu``,
+    ``ranks_above``): a tile's rank is the number of tiles before it under
+    NaN first, then descending, two NaNs equal, ties to the lowest index;
+    the tile of rank r < n_sel lands in slot r."""
+    s = np.asarray(scores, np.float32)
+    flat = s.reshape(-1, s.shape[-1])
+    idx = np.arange(flat.shape[1])
+    out = np.full((flat.shape[0], n_sel), -1, np.int64)
+    with np.errstate(invalid="ignore"):
+        for r, row in enumerate(flat):
+            nan = np.isnan(row)
+            for t in idx:
+                above = np.where(nan != nan[t], nan,
+                                 (~nan & (row > row[t]))
+                                 | ((nan | (row == row[t])) & (idx < t)))
+                rank = int(above.sum())
+                if rank < n_sel:
+                    out[r, rank] = t
+    assert (out >= 0).all()            # every rank below n_sel taken once
+    return out.reshape(s.shape[:-1] + (n_sel,))
+
+
+_NAN, _INF = float("nan"), float("inf")
+_NAN_SCORES = [
+    [1.0, _NAN, 2.0, -_INF, 0.5],                       # ROADMAP C15's row
+    [_NAN, 3.0, _INF, _NAN, 3.0, -1e30, _INF, -1e30, 3.0, -_INF, _NAN],
+    [-1e30, -1e30, _NAN, -1e30, 1e4 + 0.5, -_INF, 1e4 + 0.5, _NAN],
+    [_INF, -_INF, _INF, -_INF, 0.0],
+]
+
+
+@pytest.mark.parametrize("row", range(len(_NAN_SCORES)))
+def test_topk_stable_ranks_nan_and_infinities_like_lax_top_k(row):
+    """ROADMAP C15: NaN ranks above +inf, two NaNs tie, ties go to the
+    lowest index — in ``lax.top_k``, in ``topk_stable`` and in B5's rank
+    rule (emulated), for every k."""
+    import jax
+    scores = np.array([_NAN_SCORES[row]], np.float32)
+    for k in range(1, scores.shape[1] + 1):
+        got = tn(t_ckv.topk_stable(tt(scores), k))
+        _, want = jax.lax.top_k(jnp.asarray(scores), k)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        np.testing.assert_array_equal(_b5_rank_select(scores, k), got)
+    if row == 0:
+        np.testing.assert_array_equal(got[0, :3], [1, 2, 0])
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_b5_rank_rule_equals_topk_stable_and_lax_top_k(seed):
+    """Random scores drawn from a pool of NaN, +-inf, NEG_INF, boosted and
+    plain values (many ties), mixed with normal draws: the emulated rank
+    rule gives ``topk_stable``'s and ``lax.top_k``'s indices in their
+    order."""
+    import jax
+    rng = _rng(70 + seed)
+    pool = np.array([_NAN, _INF, -_INF, -1e30, 1e4, 0.5, -2.0, 3.0],
+                    np.float32)
+    scores = rng.choice(pool, (3, 2, 40))
+    scores = np.where(rng.random(scores.shape) < 0.3,
+                      rng.standard_normal(scores.shape), scores
+                      ).astype(np.float32)
+    for n_sel in (1, 7, 16, 40):
+        emu = _b5_rank_select(scores, n_sel)
+        np.testing.assert_array_equal(
+            emu, tn(t_ckv.topk_stable(tt(scores), n_sel)))
+        _, want = jax.lax.top_k(jnp.asarray(scores), n_sel)
+        np.testing.assert_array_equal(emu, np.asarray(want))
+
+
+def test_topk_stable_and_lax_top_k_differ_on_signed_zeros_and_negative_nan():
+    """ROADMAP C16: ``lax.top_k`` orders by IEEE 754's total order, -0
+    below +0 and a NaN with its sign bit set below -inf; ``topk_stable``
+    (a stable descending sort) and B5's rank rule take -0 == +0 (a tie,
+    to the lowest index) and every NaN above +inf."""
+    import jax
+    scores = np.array([[-0.0, 0.0, -np.float32(_NAN), 1.0]], np.float32)
+    assert np.signbit(scores[0, 2])
+    emu = _b5_rank_select(scores, 4)
+    np.testing.assert_array_equal(emu, tn(t_ckv.topk_stable(tt(scores), 4)))
+    np.testing.assert_array_equal(emu[0], [2, 3, 0, 1])
+    _, want = jax.lax.top_k(jnp.asarray(scores), 4)
+    np.testing.assert_array_equal(np.asarray(want)[0], [3, 1, 0, 2])
+
+
 @pytest.mark.parametrize("all_masked_row", [False, True])
 def test_masked_softmax_matches_reference(all_masked_row):
     rng = _rng(1)
@@ -263,6 +351,56 @@ def test_b5_plan_mode_matches_plan_decode_xla(has_self, g):
     assert_close(got, want)
     if not has_self:
         assert (tn(got)[2] == 0).all()            # guarded empty selection
+
+
+@pytest.mark.parametrize("mode", ["plain", "plan"])
+def test_b5_selects_a_nan_key_tile_like_the_reference(mode):
+    """ROADMAP C15: a key tile holding NaN scores NaN. The reference
+    (``lax.top_k``) and the port's plain path select it first, and the
+    query rows of its kv head come out NaN in both; B5's rank rule
+    (emulated over the kernel's scores and plan-mode masks) selects the
+    same tiles in the same order. A NaN tile with no live entry stays
+    masked at NEG_INF (plan mode)."""
+    b, hkv, g, s, dh, bk, n_sel = 3, 2, 2, 128, 16, 16, 3
+    plan = mode == "plan"
+    q, k, v, pos, _ = _decode_inputs(80, holes=plan)
+    nkb = s // bk
+    k[1, 0, 3 * bk:4 * bk] = np.nan        # tile 3 of (member 1, head 0)
+    k[0, 0, :bk, 0] = np.nan               # tile 0 of (0, 0): all holes
+    cent = k.reshape(b, hkv, nkb, bk, dh).mean(3)
+    qpos = np.array([127, 127, 60], np.int32)
+    scores = tn((tt(q).reshape(b, hkv, g, dh).mean(2)[:, :, None, :]
+                 * tt(cent)).sum(-1))
+    if plan:
+        pt = pos.reshape(b, hkv, nkb, bk)
+        live = pt <= qpos[:, None, None, None]
+        rec = np.where(live, pt, -1).max(-1)
+        scores = np.where(rec < 0, np.float32(-1e30),
+                          np.where(rec >= qpos[:, None, None] - bk,
+                                   scores + np.float32(1e4), scores))
+        port = tn(t_ckv.plan_select(tt(q), tt(pos), tt(cent), tt(qpos),
+                                    n_sel=n_sel, bk=bk, window=bk))
+        cfg = RCKV(enabled=True, block_k=bk, decode_clusters=n_sel,
+                   local_window_blocks=1)
+        want = r_attn._plan_decode_xla(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+            jnp.asarray(cent), jnp.asarray(qpos), cfg)
+        assert port[0, 0, 0] != 0          # the masked NaN tile: not first
+    else:
+        port = tn(t_ckv.decode_select(tt(q), tt(cent), n_sel))
+        ridx = r_ckv.decode_select(jnp.asarray(q), jnp.asarray(cent), n_sel)
+        np.testing.assert_array_equal(port, np.asarray(ridx))
+        qpos = np.int32(127)               # the reference's scalar qpos
+        want = r_ckv.decode_attend(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), jnp.asarray(pos),
+                                   jnp.asarray(qpos), ridx, bk)
+    assert port[1, 0, 0] == 3              # the live NaN tile: first
+    np.testing.assert_array_equal(_b5_rank_select(scores, n_sel), port)
+    got = tn(t_da.decode_attend_fused(
+        tt(q), tt(k), tt(v), tt(pos), tt(cent), tt(qpos), n_sel=n_sel,
+        bk=bk, plan_mode=plan, window=bk))
+    assert np.isnan(got[1, :g]).all() and np.isfinite(got[1, g:]).all()
+    assert_close(got, want)                # NaN where the reference is NaN
 
 
 def test_b5_rejects_a_ragged_cache():

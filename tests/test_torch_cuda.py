@@ -26,6 +26,7 @@ from repro_torch.kernels import block_attention as t_ba
 from repro_torch.kernels import bsr_spmv as t_bsr
 from repro_torch.kernels import decode_attend as t_da
 from repro_torch.kernels import gamma_score as t_gs
+from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import tsne_force as t_tf
 from repro_torch.models import attention as t_attn
 
@@ -177,15 +178,18 @@ def test_cuda_wrappers_reject_bad_masks(cuda_device):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("sigma", [7.5, 0.1])
 @pytest.mark.parametrize("symmetric", [False, True])
 def test_cuda_gamma_pairs_matches_plain_and_is_reproducible(cuda_device,
-                                                            symmetric):
+                                                            symmetric, sigma):
+    """sigma 0.1: every term between distinct coordinates underflows (the
+    kernel's ex2 flushes it to zero), only coincident ones count."""
     rows, cols = _pattern(5, 2048, 400)
     co = tt(np.stack([rows, cols], 1).astype(np.float32)).to(cuda_device)
     w = (torch.rand(2048, device=cuda_device) > 0.2).float()
-    got = t_gs.gamma_pairs(co, 7.5, 256, weights=w, symmetric=symmetric)
-    again = t_gs.gamma_pairs(co, 7.5, 256, weights=w, symmetric=symmetric)
-    want = t_gs.gamma_pairs_plain(co, 7.5, 256, weights=w,
+    got = t_gs.gamma_pairs(co, sigma, 256, weights=w, symmetric=symmetric)
+    again = t_gs.gamma_pairs(co, sigma, 256, weights=w, symmetric=symmetric)
+    want = t_gs.gamma_pairs_plain(co, sigma, 256, weights=w,
                                   symmetric=symmetric)
     assert_close(got, want, rtol=1e-5)
     assert got.item() == again.item()      # fixed reduction order
@@ -256,6 +260,65 @@ def test_cuda_tsne_force_matches_plain_and_is_reproducible(cuda_device, bs,
     assert_close(got, want, rtol=1e-5, atol=2e-5 * scale)
     assert torch.equal(got, again)            # no atomics: bit-reproducible
     assert (got[n_rb * bs - 5:] == 0).all()   # zero P rows: exactly zero
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_cuda_tsne_force_masked_matches_plain_and_is_reproducible(
+        cuda_device, bs, d):
+    """Only kept slots are read: every mask kind (none kept, all kept,
+    random prefixes, holes, NaN tiles under the mask) against the masked
+    plain version, bit-identical run to run. nbr = 37 makes each warp's
+    walk over the kept slots cross a 32-slot chunk."""
+    n_rb, nbr, n_cb = 13, 37, 40
+    vals, col = random_ell(bs * 10 + d, 1, n_rb, nbr, bs, n_cb=n_cb)
+    p = tt(np.abs(vals[0]) / (nbr * bs)).to(cuda_device)
+    c = tt(col[0]).to(cuda_device)
+    y = torch.randn((n_cb * bs, d), generator=torch.Generator(
+        device=cuda_device).manual_seed(d), device=cuda_device)
+    masks = {k: tt(m[0]).to(cuda_device)
+             for k, m in ell_masks(bs + d, 1, n_rb, nbr).items()}
+    cases = [(k, p, m) for k, m in masks.items()]
+    cases.append(("nan", torch.where(masks["prefix"][..., None, None], p,
+                                     torch.full_like(p, float("nan"))),
+                  masks["prefix"]))
+    unmasked = t_tf.tsne_force(p, c, y)
+    for kind, v, m in cases:
+        got = t_tf.tsne_force(v, c, y, m)
+        again = t_tf.tsne_force(v, c, y, m, indices_checked=True)
+        torch.cuda.synchronize()
+        _assert_within_scale(got, t_tf.tsne_force_plain(v, c, y, m))
+        assert torch.equal(got, again), kind
+        if kind == "none":
+            assert (got == 0).all()
+        if kind == "all":                  # same slots in the same order
+            assert torch.equal(got, unmasked)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_plan_tsne_attractive_issues_no_host_sync(cuda_device):
+    """The plan path launches the force kernel with the plan's mask and
+    without reading anything back to the host; skipping the masked (zero)
+    tiles gives the force over every slot bit for bit."""
+    x = feature_mixture(1024, 32, n_clusters=8, seed=3, spread=1.0)
+    plan = t_api.build_plan(x, k=8, bs=32, sb=4, ell_slack=4)
+    b = plan.bsr
+    assert not bool(b.nbr_mask.all())
+    y = torch.randn(1024, 2, device=cuda_device)
+    want = plan.tsne_attractive(y, backend="bsr")
+    plan.tsne_attractive(y)                # kernels loaded, memory cached
+    torch.cuda.synchronize()
+    n0 = t_tf.tsne_force.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        f = plan.tsne_attractive(y)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert t_tf.tsne_force.launches == n0 + 1
+    _assert_within_scale(f, want)
+    every = t_ops.tsne_force(b.vals, b.col_idx, y, plan.n)
+    assert torch.equal(f, every)
 
 
 @pytest.mark.requires_cuda
@@ -577,6 +640,52 @@ def test_cuda_decode_attend_reads_q_and_centroids_in_their_dtype(
     torch.cuda.synchronize()
     assert got.dtype == qdt
     assert torch.equal(got, ref.to(qdt))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["plain", "plan", "plan_self"])
+def test_cuda_decode_attend_selects_a_nan_key_tile_like_topk_stable(
+        cuda_device, mode, dtype):
+    """ROADMAP C15: one key tile holding NaN scores NaN and is selected
+    first, as ``topk_stable`` (and ``lax.top_k``) rank it; the query rows
+    of its kv head come out NaN as in the plain path, the others match it
+    at the C10 bound. A NaN tile whose every entry is a hole (plan mode)
+    stays masked; in plain mode it is selected but weighs nothing."""
+    b, hkv, g, s, dh, bk, n_sel = 4, 2, 7, 4096, 64, 128, 8
+    plan_mode = mode != "plain"
+    q, k, v, pos, _ = _decode_inputs(90, b, hkv, g, s, dh, bk, cuda_device,
+                                     dtype, holes=plan_mode)
+    k[1, 0, 5 * bk:6 * bk] = float("nan")  # tile 5 of (member 1, head 0)
+    k[0, 1, 2 * bk:3 * bk, 3] = float("nan")
+    pos[0, 1, 2 * bk:3 * bk] = 2 ** 31 - 1   # ... and all holes there
+    cent = t_ckv.block_centroids(k.float(), bk)
+    qpos = torch.tensor([4000, 4095, 2000, 3000], dtype=torch.int32,
+                        device=cuda_device)
+    ks = torch.randn(b, hkv, dh, device=cuda_device).to(dtype)
+    vs = torch.randn(b, hkv, dh, device=cuda_device).to(dtype)
+    kw = dict(n_sel=n_sel, bk=bk, plan_mode=plan_mode,
+              has_self=mode == "plan_self", window=bk)
+    sel = torch.empty((b, hkv, n_sel), dtype=torch.int32, device=cuda_device)
+    got = t_da.decode_attend_fused(q, k, v, pos, cent, qpos, ks, vs,
+                                   sel_out=sel, **kw)
+    torch.cuda.synchronize()
+    if plan_mode:
+        want_sel = t_ckv.plan_select(q, pos, cent, qpos, n_sel=n_sel, bk=bk,
+                                     window=bk)
+        assert int(sel[0, 1, 0]) != 2
+    else:
+        want_sel = t_ckv.decode_select(q.float(), cent, n_sel)
+        assert int(sel[0, 1, 0]) == 2
+    assert int(sel[1, 0, 0]) == 5 == int(want_sel[1, 0, 0])
+    assert torch.equal(sel.long().sort(-1).values,
+                       want_sel.long().sort(-1).values)
+    want = t_da.decode_attend_plain(q, k, v, pos, cent, qpos, ks, vs, **kw)
+    nan = torch.isnan(want.float())
+    assert nan[1, :g].all() and not nan[1, g:].any() and not nan[0].any()
+    assert torch.equal(torch.isnan(got.float()), nan)
+    _assert_kernel_close(torch.where(nan, 0.0, got.float()).to(dtype),
+                         torch.where(nan, 0.0, want.float()).to(dtype), dtype)
 
 
 @pytest.mark.requires_cuda

@@ -6,7 +6,8 @@
 * the t-SNE force kernel's plain version and wrapper on the CPU against
   ``repro.kernels.ref.tsne_force_ref`` and ``repro.kernels.ops.tsne_force``
   (the Pallas kernel in interpret mode, as ``tests/test_kernels.py`` runs
-  it);
+  it), and its mask contract: only the slots ``nbr_mask`` keeps are
+  summed, whatever a masked slot holds;
 * ``plan.tsne_attractive`` / ``plan.meanshift_step`` on a reference plan
   carried across;
 * the vectorised P calibration of ``examples/tsne_torch.py`` against the
@@ -170,6 +171,102 @@ def test_tsne_force_rejects_what_the_kernel_does_not_take():
         t_tf.tsne_force(tt(p), tt(col).long(), torch.zeros(16, 2))
     with pytest.raises(ValueError, match="outside"):
         t_tf.tsne_force(tt(p), tt(col) + 5, torch.zeros(16, 2))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's mask contract (plain version, CPU tensors)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bs,n", [(16, 300), (32, 300), (8, 123)])
+def test_masked_tsne_force_matches_reference_on_converted_plans(bs, n):
+    """On a reference plan carried across by ``convert``, the force over the
+    slots ``nbr_mask`` keeps equals the reference's Pallas kernel (interpret
+    mode) summing every slot: the reference's masked slots hold zero
+    tiles. Through the wrapper, ``ops.tsne_force`` and the plain path."""
+    x = feature_mixture(n, 16, n_clusters=6, seed=bs)
+    rng = np.random.default_rng(bs + 1)
+    rp = ref_api.build_plan(x, k=7, bs=bs, sb=4, backend="bsr",
+                            symmetrize=True,
+                            values=lambda r, c, d2: rng.random(len(r)))
+    b = _cross_over(rp).bsr
+    assert not bool(b.nbr_mask.all())            # there is padding to skip
+    y = rng.standard_normal((n, 2)).astype(np.float32)
+    want = ref_ops.tsne_force(jnp.asarray(rp.bsr.vals),
+                              jnp.asarray(rp.bsr.col_idx), jnp.asarray(y), n)
+    yp = torch.nn.functional.pad(tt(y), (0, 0, 0, b.n_cb * bs - n))
+    got = t_tf.tsne_force(b.vals, b.col_idx, yp, b.nbr_mask)[:n]
+    assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert_close(t_ops.tsne_force(b.vals, b.col_idx, tt(y), n,
+                                  nbr_mask=b.nbr_mask, indices_checked=True),
+                 want, rtol=2e-4, atol=2e-4)
+    _scaled(t_interact.tsne_attractive(b.vals, b.col_idx, b.nbr_mask, tt(y),
+                                       n), got)
+
+
+def test_masked_tsne_force_ignores_nan_and_stale_columns_under_the_mask():
+    """NaN tiles and out-of-range column blocks under a False bit never
+    reach the force: it is finite and equal to the force without those
+    slots, through the wrapper and the plain path."""
+    bs, n_rb, nbr, d = 8, 5, 4, 2
+    p, col = _affinities(21, n_rb, nbr, bs, n_rb * bs, pad_slots=2)
+    mask = np.ones((n_rb, nbr), bool)
+    mask[:, nbr - 2:] = False
+    y = np.random.default_rng(2).standard_normal((n_rb * bs, d)).astype(
+        np.float32)
+    clean = t_tf.tsne_force(tt(p), tt(col), tt(y))
+    poisoned = p.copy()
+    poisoned[:, nbr - 2:] = np.nan
+    stale = col.copy()
+    stale[:, nbr - 1] = n_rb + 7                 # outside y's column blocks
+    for got in (t_tf.tsne_force(tt(poisoned), tt(stale), tt(y), tt(mask)),
+                t_tf.tsne_force_plain(tt(poisoned), tt(stale), tt(y),
+                                      tt(mask)),
+                t_interact.tsne_attractive(tt(poisoned), tt(stale), tt(mask),
+                                           tt(y), n_rb * bs)):
+        assert np.isfinite(tn(got)).all()
+        np.testing.assert_array_equal(tn(got), tn(clean))
+
+
+def test_masked_tsne_force_row_block_without_kept_slot_is_exact_zero():
+    bs, n_rb, nbr, d = 16, 4, 3, 3
+    p, col = _affinities(22, n_rb, nbr, bs, n_rb * bs, pad_slots=0)
+    mask = np.ones((n_rb, nbr), bool)
+    mask[1] = False
+    y = np.random.default_rng(3).standard_normal((n_rb * bs, d)).astype(
+        np.float32)
+    got = tn(t_tf.tsne_force(tt(p), tt(col), tt(y), tt(mask)))
+    assert (got[bs:2 * bs] == 0.0).all()
+    assert np.abs(got[:bs]).max() > 0
+    got_all = tn(t_tf.tsne_force(tt(p), tt(col), tt(y),
+                                 tt(np.zeros_like(mask))))
+    assert (got_all == 0.0).all()
+
+
+def test_tsne_force_rejects_bad_masks_and_checks_kept_columns_only(
+        monkeypatch):
+    p, col = _affinities(23, 3, 2, 8, 24, pad_slots=0)
+    y = torch.zeros(24, 2)
+    mask = np.ones((3, 2), bool)
+    with pytest.raises(ValueError, match="nbr_mask"):
+        t_tf.tsne_force(tt(p), tt(col), y, tt(mask[:2]))
+    with pytest.raises(TypeError, match="bool"):
+        t_tf.tsne_force(tt(p), tt(col), y, tt(mask.astype(np.uint8)))
+    bad = col.copy()
+    bad[1, 1] = 3                          # only 3 column blocks: 0..2
+    with pytest.raises(ValueError, match="col_idx range"):
+        t_tf.tsne_force(tt(p), tt(bad), y, tt(mask))
+    mask[1, 1] = False                     # the stale slot is not kept
+    checked = []
+    aminmax = torch.aminmax
+    monkeypatch.setattr(torch, "aminmax",
+                        lambda t: checked.append(t.numel()) or aminmax(t))
+    f = t_tf.tsne_force(tt(p), tt(bad), y, tt(mask))
+    assert tuple(f.shape) == (24, 2)
+    assert checked == [5]                  # the 5 kept slots' columns only
+    # a plan's storage was checked where it was made: no check, no sync
+    t_tf.tsne_force(tt(p), tt(bad), y, tt(mask), indices_checked=True)
+    assert checked == [5]
 
 
 # ---------------------------------------------------------------------------

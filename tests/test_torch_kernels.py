@@ -21,6 +21,7 @@ from repro.kernels import ref as ref_ref
 from repro_torch import api as t_api
 from repro_torch import convert as t_convert
 from repro_torch.core import blocksparse as t_bs
+from repro_torch.data import pipeline as t_pipeline
 from repro_torch.kernels import bsr_spmv as t_bsr
 from repro_torch.kernels import gamma_score as t_gs
 from repro_torch.kernels import ops as t_ops
@@ -370,6 +371,58 @@ def test_gamma_pairs_symmetric_schedule_and_padding(symmetric):
                                 weights=jnp.asarray(w_p),
                                 symmetric=symmetric, interpret=True)
     assert_close(got_p, want_p)
+
+
+def _gamma_exp2_emulated(coords, sigma, bn, weights):
+    """float32 emulation of B3's arithmetic (``csrc/gamma_pairs.cu``):
+    coordinates prescaled by ``exp2_scale(sigma)``, a term
+    ``w_q 2^-(dx'^2 + dy'^2)``, each p row summed over its q tile, the rows
+    weighted and summed per tile pair, the symmetric schedule's partials
+    (off-diagonal tiles twice) added in double."""
+    c = coords * np.float32(t_gs.exp2_scale(sigma))
+    nb = c.shape[0] // bn
+    total = 0.0
+    for i in range(nb):
+        p, wp = c[i * bn:(i + 1) * bn], weights[i * bn:(i + 1) * bn]
+        for j in range(i + 1):
+            q, wq = c[j * bn:(j + 1) * bn], weights[j * bn:(j + 1) * bn]
+            dx = p[:, None, 0] - q[None, :, 0]
+            dy = p[:, None, 1] - q[None, :, 1]
+            acc = (wq[None, :] * torch.exp2(-(dx * dx) - dy * dy)).sum(1)
+            total += (2.0 if j < i else 1.0) * float((wp * acc).sum())
+    return total
+
+
+def _phase4_windows():
+    """Windows of 1024 nonzero coordinates of the ordered pattern that
+    ``chip_smoke.py``'s phase 4 scores (the paper's Table 1 size: n = 4096,
+    k = 30, coordinates up to 4096), plus the random coordinates of its
+    phase 2."""
+    plan = t_api.build_plan(t_pipeline.sift_like(4096, seed=0), k=30,
+                            with_bsr=False, sigma=15.0, device="cpu")
+    r, c, _ = plan.coo
+    co = np.stack([r, c], 1).astype(np.float32)
+    rng = np.random.default_rng(0)
+    return {f"ordered@{o}": co[o:o + 1024] for o in (0, 60000, len(co) - 1024)
+            } | {"random": rng.integers(0, 4096, (1024, 2)).astype(
+                np.float32)}
+
+
+@pytest.mark.parametrize("sigma", [15.0, 0.1])
+def test_b3_prescaled_exp2_term_stays_within_the_kernel_bound(sigma):
+    """The kernel's term over prescaled coordinates stays within
+    ``2e-5 x |plain|`` (chip_smoke.py's kernel-vs-plain bound) of
+    ``gamma_pairs_plain`` at the phase-4 pattern's scale: sigma 15 as
+    there, and sigma 0.1, where every term between distinct coordinates
+    underflows (the kernel flushes them to zero, the plain version keeps
+    float32 denormals)."""
+    for name, co in _phase4_windows().items():
+        w = np.ones(len(co), np.float32)
+        w[::10] = 0.0                          # zero-weight entries: inert
+        plain = float(t_gs.gamma_pairs_plain(tt(co), sigma, 256,
+                                             weights=tt(w), symmetric=True))
+        emu = _gamma_exp2_emulated(tt(co), sigma, 256, tt(w))
+        assert abs(emu - plain) <= 2e-5 * abs(plain), (name, emu, plain)
 
 
 def test_gamma_pairs_wrapper_rejects_bad_input():
