@@ -53,9 +53,10 @@ when it fails:
    sources=src)``, four ``plan.meanshift_step``s with a ``plan.refresh``
    between them — auto first, then each tier not yet taken, forced — each
    checked against a float64 edge-wise mean on sampled rows;
-8. the twin examples ``examples/tsne_torch.py`` and
-   ``examples/meanshift_torch.py`` on the card, which must print
-   "clusters separated OK" and "converged to modes OK";
+8. the twin examples ``examples/tsne_torch.py``,
+   ``examples/meanshift_torch.py`` and ``examples/stream_torch.py`` on
+   the card, which must print "clusters separated OK", "converged to
+   modes OK" and "streamed plan OK";
 9. batched plans: ``kv_plan_batch(k, with_bsr=True)`` over Qwen2-0.5B's
    prefilled keys (24 layers x 2 kv heads = 48 members), whose
    ``matvec(backend="cuda")`` must be ONE launch of the batched SpMV kernel
@@ -76,11 +77,32 @@ bf16 tensor-core rate); B5 also at the covering budget (64 tiles). B5's
 its ``device_ms``, one call replayed as a CUDA graph, is the launches'
 device time without the host's, which is the larger part of a call.
 
+11. streaming at the paper's widths: the SIFT plan of phases 3-5 built
+   with ``capacity = 1.1 n`` and ``ell_slack = 4``, the γ guard armed,
+   then steps of 1 % replaced (deletes plus inserts of points from the
+   same mixture), one delete-only step, then from that streamed plan one
+   ``defer_layout`` step (deletes past ``max_dead_frac``: a compaction
+   pending) run by ``apply_pending_layout``, and ``plan.compact()``.
+   After every step, on
+   the card: ``plan.matvec`` through B1 against the plain blockwise path
+   and the maintained COO (1e-4 x scale), B2 on the plan's storage
+   against the plain path, dead rows exactly 0, and the previous
+   generation's ``matvec`` bit-equal to what it gave before the step; the
+   compacted plan ``torch.equal`` to a fresh build on the survivors, γ
+   streamed / fresh within 0.9-1.1. Then ``build_plan_batch`` over 8
+   members of 24 000-32 768 points (capacity 32 768) and two lockstep
+   ``batch.update`` steps, each followed by ONE batched B1 launch held
+   against the plain batched path (1e-4 x scale) and bit for bit against
+   every member's own ``matvec``. Host seconds per step (with the
+   tier taken), ``matvec`` ms of the streamed plan against the fresh
+   build and γ streamed / fresh are printed.
+
 Launch counters are set to 0 just before each path (phases 3-4, 6, 7, 9,
-10) and read just after it; launches made to compare or time a kernel are
-not counted. Every kernel must have been launched by a path: B6 by the
+10, 11) and read just after it; launches made to compare or time a kernel
+are not counted. Every kernel must have been launched by a path: B6 by the
 prefills, B5 by the ticks (plan mode) and the scalar steps (plain mode),
-B1 once per 48-member ``PlanBatch.matvec``.
+B1 once per 48-member ``PlanBatch.matvec`` and by every streamed plan's
+``matvec``, B2 by the single-plan entry on the main and streamed plans.
 
 Needs a CUDA device and ``nvcc``; without a device it exits non-zero and
 prints no result. ``--rehearse-cpu`` walks the same phases at tiny sizes
@@ -96,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+from contextlib import contextmanager
 import json
 import re
 import subprocess
@@ -629,7 +652,9 @@ def phase_examples(rehearse: bool):
     for script, extra, ok in (
             ("tsne_torch.py", ["--n", "512", "--iters", "220", "--k", "16"]
              if rehearse else [], "clusters separated OK"),
-            ("meanshift_torch.py", [], "converged to modes OK")):
+            ("meanshift_torch.py", [], "converged to modes OK"),
+            ("stream_torch.py", ["--n", "2048", "--steps", "10"]
+             if rehearse else [], "streamed plan OK")):
         t0 = time.perf_counter()
         r = subprocess.run(
             [sys.executable, str(ROOT / "examples" / script), *cpu, *extra],
@@ -1157,6 +1182,297 @@ def phase_serve(args, dev, sync, cfg, params, rehearse, reset_counts,
             "scalar_decode_launches": launches_p,
             "check_tokens": outs["clusterkv"],
             "check_logit_err": [e for e, _ in errs]}
+
+
+@contextmanager
+def uncounted(*wrappers):
+    """Launches inside the block leave the wrappers' counts as they were:
+    a check of a path's result (a kernel against itself, a member against
+    the batch) or a timing is not the path's launch."""
+    saved = [w.launches for w in wrappers]
+    try:
+        yield
+    finally:
+        for w, n in zip(wrappers, saved):
+            w.launches = n
+
+
+def phase_stream(args, dev, timer, sync, rehearse, reset_counts,
+                 collect_counts, k_bsr):
+    """Phase 11: streaming at the paper's widths (the SIFT plan of phases
+    3-5 built with 10 % spare capacity), then a lockstep batch."""
+    from repro_torch import api
+    from repro_torch.data.pipeline import feature_mixture
+    from repro_torch.kernels import ops
+
+    n = 2048 if rehearse else args.n
+    k, bs, sb = (8 if rehearse else 30), 32, 8
+    m = max(n // 100, 1)                        # 1 % replaced per step
+    churn_steps = 2                 # cut from 3 to keep the phase ~90 s
+    n_clusters = max(8, n // 256)
+    t_phase = time.perf_counter()
+    say(f"== phase 11: streaming at n={n}, D=128, k={k}, bs {bs}, sb {sb}, "
+        f"capacity 1.1 n, ell_slack 4; {churn_steps} steps of {m} deletes "
+        f"+ {m} inserts, one delete-only step, one deferred step, compact")
+    t0 = time.perf_counter()
+    n_pool = n + (churn_steps + 2) * m
+    pool = feature_mixture(n_pool, 128, n_clusters=n_clusters,
+                           seed=args.seed + 11)
+    say(f"  data: {pool.shape} float32 mixture, the arrivals drawn from "
+        f"the same mixture ({time.perf_counter() - t0:.1f} s on the host)")
+    rng = np.random.default_rng(args.seed + 11)
+    wrappers = (k_bsr.bsr_spmv_batched, k_bsr.bsr_spmv)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    plan = api.build_plan(pool[:n], k=k, bs=bs, sb=sb, d=3, bits=10,
+                          leaf_size=64, backend="auto", ell_slack=4,
+                          capacity=int(1.1 * n), device=dev)
+    _ = plan.gamma                            # arms the γ-drift guard
+    sync()
+    build_s = time.perf_counter() - t0
+    say(f"  build_plan(capacity={plan.capacity}) {build_s:.2f} s: {plan}, "
+        f"ELL width {plan.bsr.max_nbr}")
+
+    def charges(p):
+        return torch.from_numpy(rng.standard_normal(
+            (p.n, 2)).astype(np.float32)).to(dev)
+
+    def check(p, ch, what):
+        """B1 (``plan.matvec``, cuda backend) against the plain blockwise
+        path and the maintained COO; B2 on the plan's storage against the
+        plain path; dead rows exactly 0. Returns B1's result."""
+        y = p.matvec(ch)
+        sync()
+        err_bsr, scale = check_close(f"{what}: matvec cuda vs bsr", y,
+                                     p.matvec(ch, backend="bsr"),
+                                     rel_tol=BACKEND_TOL)
+        err_csr, _ = check_close(f"{what}: matvec cuda vs COO", y,
+                                 p.matvec(ch, backend="csr"),
+                                 rel_tol=BACKEND_TOL)
+        b = p.bsr
+        xs = p.permute(ch)
+        y2 = ops.bsr_spmv(b.vals, b.col_idx, xs, p.n, nbr_mask=b.nbr_mask)
+        err_b2, _ = check_close(f"{what}: ops.bsr_spmv vs bsr", y2,
+                                p.apply(xs, backend="bsr"),
+                                rel_tol=BACKEND_TOL)
+        dead = torch.from_numpy(~p.alive).to(dev)
+        if bool(y[dead].any()):
+            raise AssertionError(f"{what}: a dead row is not exactly 0")
+        return y, {"err_bsr": err_bsr, "err_coo": err_csr,
+                   "err_b2": err_b2, "scale": scale,
+                   "dead_rows": int(dead.sum())}
+
+    ch = charges(plan)
+    y, _ = check(plan, ch, "build")
+    feed, rows = n, []
+
+    def advance(plan, ch, y, fn, label):
+        """One step: ``fn(plan)`` timed on the host, the successor checked
+        on the card, and the previous generation's matvec held bit-equal
+        to what it gave before the step (ROADMAP C6)."""
+        t0 = time.perf_counter()
+        new = fn(plan)
+        sync()
+        host_s = time.perf_counter() - t0
+        ch2 = charges(new)
+        y2, errs = check(new, ch2, label)
+        with uncounted(*wrappers):
+            same = torch.equal(plan.matvec(ch), y)
+        if not same:
+            raise AssertionError(f"{label}: the input plan's matvec "
+                                 "changed (copy-on-write broken)")
+        st = new.refresh_stats
+        row = {"step": label, "tier": st.last_action, "host_s": host_s,
+               "n_alive": new.n_alive, "capacity": new.capacity,
+               "max_nbr": new.bsr.max_nbr, "fill": new.fill,
+               "pending": new.host.pending_layout, **errs}
+        rows.append(row)
+        say(f"  {label:10s} {st.last_action:9s} {host_s:6.2f} s host  "
+            f"n={new.n_alive}/cap={new.capacity} ELL width "
+            f"{new.bsr.max_nbr} pending {new.host.pending_layout}; "
+            f"cuda vs bsr {errs['err_bsr']:.2e}, vs COO "
+            f"{errs['err_coo']:.2e}, B2 {errs['err_b2']:.2e} (scale "
+            f"{errs['scale']:.2f}); previous generation bit-equal")
+        return new, ch2, y2
+
+    def stream_step(plan, ch, y, n_del, n_ins, label, defer=False):
+        nonlocal feed
+        live = np.nonzero(plan.alive)[0]
+        kill = rng.choice(live, n_del, replace=False)
+        xin = pool[feed:feed + n_ins] if n_ins else None
+        feed += n_ins
+        return advance(plan, ch, y,
+                       lambda p: api.update_plan(p, insert=xin, delete=kill,
+                                                 defer_layout=defer), label)
+
+    for i in range(churn_steps):
+        plan, ch, y = stream_step(plan, ch, y, m, m, f"churn {i}")
+    plan, ch, y = stream_step(plan, ch, y, m, 0, "delete")
+    st = plan.refresh_stats
+    if st.last_action != "tombstone" or st.appends < churn_steps:
+        raise AssertionError(f"the steps did not stream: {st}")
+
+    survivors = plan.host.x[plan.alive]
+    t0 = time.perf_counter()
+    fresh = api.build_plan(survivors, config=plan.config, device=dev)
+    _ = fresh.gamma
+    sync()
+    fresh_s = time.perf_counter() - t0
+    gamma_ratio = plan.gamma / fresh.gamma
+    say(f"  fresh build on the {len(survivors)} survivors {fresh_s:.2f} s; "
+        f"gamma streamed {plan.gamma:.4f} / fresh {fresh.gamma:.4f} = "
+        f"{gamma_ratio:.4f}")
+    if not 0.9 <= gamma_ratio <= 1.1:
+        raise AssertionError(f"streamed locality decayed: {gamma_ratio}")
+
+    # a deferred step: the fewest deletes that take the debris (live
+    # points lost since the peak, over the capacity) past max_dead_frac,
+    # and 1 % inserts, stay on the in-place tiers with a compaction
+    # pending, which apply_pending_layout then runs
+    streamed, ch_s, y_s = plan, ch, y
+    peak = plan.host.peak_alive
+    n_big = int(plan.config.max_dead_frac * plan.capacity) + 1 + m \
+        - (peak - plan.n_alive)
+    deferred, ch_d, y_d = stream_step(plan, ch, y, n_big, m, "deferred",
+                                      defer=True)
+    if deferred.host.pending_layout != "compact" or \
+            deferred.capacity != streamed.capacity:
+        raise AssertionError("the deferred step did not stay in place with "
+                             "a compaction pending")
+    advance(deferred, ch_d, y_d, api.apply_pending_layout, "apply pending")
+    if rows[-1]["tier"] != "compact" or rows[-1]["pending"] is not None:
+        raise AssertionError(f"apply_pending_layout ran {rows[-1]}")
+    comp, ch, y = advance(streamed, ch_s, y_s, lambda p: p.compact(),
+                          "compact")
+    with uncounted(*wrappers):
+        y_fresh = fresh.matvec(ch)
+    equal = {name: bool(torch.equal(getattr(comp.bsr, name),
+                                    getattr(fresh.bsr, name)))
+             for name in ("col_idx", "nbr_mask", "vals")}
+    equal["pi"] = bool(torch.equal(comp.pi, fresh.pi))
+    equal["matvec"] = bool(torch.equal(y, y_fresh))
+    say(f"  compact vs fresh build on the survivors, torch.equal: {equal}")
+    if not all(equal.values()):
+        diff = float((y - y_fresh).abs().max()) if y.shape == \
+            y_fresh.shape else float("nan")
+        raise AssertionError(f"compact is not bit-equal to a fresh build: "
+                             f"{equal}, matvec max-abs {diff:.3e}")
+
+    # the lockstep batch: 8 members of 24 000-32 768 points (D = 128,
+    # k = 30), capacity the pow2 of the largest; two updates, each
+    # followed by ONE batched launch of B1 for the whole batch
+    n_mem = 4 if rehearse else 8
+    lo, hi = (300, 512) if rehearse else (24000, 32768)
+    sizes = rng.integers(lo, hi + 1, n_mem)
+    sizes[0] = hi
+    m_b = [max(int(s) // 100, 1) for s in sizes]
+    mem_pool = [feature_mixture(int(s) + 2 * mb, 128, n_clusters=32,
+                                seed=args.seed + 100 + i)
+                for i, (s, mb) in enumerate(zip(sizes, m_b))]
+    t0 = time.perf_counter()
+    batch = api.build_plan_batch([p[:int(s)] for p, s in
+                                  zip(mem_pool, sizes)], k=k, bs=bs, sb=sb,
+                                 backend="auto", ell_slack=4, device=dev)
+    sync()
+    batch_build_s = time.perf_counter() - t0
+    if batch.capacity != (512 if rehearse else 32768):
+        raise AssertionError(f"batch capacity {batch.capacity}")
+    say(f"  build_plan_batch over {n_mem} members of {sizes.tolist()} "
+        f"points: capacity {batch.capacity}, ELL width "
+        f"{batch.spec.max_nbr}, {batch_build_s:.2f} s")
+    xs = torch.from_numpy(rng.standard_normal(
+        (n_mem, batch.capacity)).astype(np.float32)).to(dev)
+    ys = batch.matvec(xs)
+    batch_rows = []
+    for step in range(2):
+        kills, ins = [], []
+        for i, p in enumerate(batch.members()):
+            live = np.nonzero(p.alive)[0]
+            kills.append(rng.choice(live, m_b[i], replace=False)
+                         if step == 0 else None)
+            s0 = int(sizes[i]) + step * m_b[i]
+            ins.append(None if step == 1 and i == n_mem - 1
+                       else mem_pool[i][s0:s0 + m_b[i]])
+        t0 = time.perf_counter()
+        new = batch.update(insert=ins, delete=kills)
+        sync()
+        host_s = time.perf_counter() - t0
+        # a member without free slots grows, and the batch re-unifies at
+        # the next pow2 capacity: new charges of the new shape then
+        xs_new = xs if new.capacity == batch.capacity else \
+            torch.from_numpy(rng.standard_normal(
+                (n_mem, new.capacity)).astype(np.float32)).to(dev)
+        n0 = k_bsr.bsr_spmv_batched.launches
+        ys_new = new.matvec(xs_new)
+        sync()
+        if not rehearse and k_bsr.bsr_spmv_batched.launches != n0 + 1:
+            raise AssertionError("batch.matvec was not one B1 launch")
+        with uncounted(*wrappers):
+            if not torch.equal(batch.matvec(xs), ys):
+                raise AssertionError("the input batch's matvec changed")
+            # B1 against the plain batched path on the same stacked
+            # (padded, grown, widened) storage
+            err_plain, scale = check_close(
+                f"batch.update {step}: matvec cuda vs bsr", ys_new,
+                new.matvec(xs_new, backend="bsr"), rel_tol=BACKEND_TOL)
+            errs = [check_close(f"batch member {i}", ys_new[i],
+                                mem.matvec(xs_new[i]),
+                                rel_tol=BACKEND_TOL)[0]
+                    for i, mem in enumerate(new.members())]
+        # on the card both are B1, at B = 8 and at B = 1 on a member
+        # view of the same stacked tensors: the same bits
+        if not rehearse and max(errs) != 0.0:
+            raise AssertionError(f"batch.update {step}: the batched launch "
+                                 f"differs from the members' own: {errs}")
+        row = {"step": step, "host_s": host_s,
+               "tiers": [h.refresh.last_action for h in new.hosts],
+               "n_alive": new.n_alive.tolist(),
+               "capacity": new.capacity, "max_nbr": new.spec.max_nbr,
+               "err_vs_plain": err_plain, "scale": scale,
+               "max_err_vs_members": max(errs)}
+        batch_rows.append(row)
+        say(f"  batch.update {step}: {host_s:.2f} s host, tiers "
+            f"{row['tiers']}, capacity {new.capacity}, ELL width "
+            f"{new.spec.max_nbr}; one B1 launch, vs the plain batched "
+            f"path max-abs {err_plain:.2e} (scale {scale:.2f}), vs each "
+            f"member's own matvec {max(errs):.2e}; input batch bit-equal")
+        batch, xs, ys = new, xs_new, ys_new
+    launches = collect_counts("streaming")
+    if not rehearse:
+        for name in ("bsr_spmv_batched", "bsr_spmv"):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was never launched by "
+                                     "the streaming path")
+
+    # matvec on the streamed plan (before compaction) against a fresh
+    # build on the same survivors: time per call, CUDA events
+    it = 2 if rehearse else 20
+    ch1 = ch_s[:, :1].contiguous()
+    ch1_f = ch[:, :1].contiguous()
+    ms = {"streamed": timer(lambda: streamed.matvec(ch_s), it),
+          "fresh": timer(lambda: fresh.matvec(ch), it),
+          "streamed_f1": timer(lambda: streamed.matvec(ch1), it),
+          "fresh_f1": timer(lambda: fresh.matvec(ch1_f), it)}
+    reset_counts()
+    kept = {"streamed": int(streamed.bsr.nbr_mask.sum()),
+            "fresh": int(fresh.bsr.nbr_mask.sum())}
+    say(f"  plan.matvec (n, 2): streamed {ms['streamed']:.3f} ms (capacity "
+        f"{streamed.capacity}, ELL width {streamed.bsr.max_nbr}, "
+        f"{kept['streamed']} kept tiles) vs fresh build "
+        f"{ms['fresh']:.3f} ms (n {fresh.n}, ELL width "
+        f"{fresh.bsr.max_nbr}, {kept['fresh']} kept tiles); (n, 1) "
+        f"{ms['streamed_f1']:.3f} vs {ms['fresh_f1']:.3f} ms")
+    phase_s = time.perf_counter() - t_phase
+    say(f"  phase 11 took {phase_s:.1f} s")
+    return {"n": n, "k": k, "m": m, "phase_s": phase_s,
+            "build_s": build_s, "steps": rows,
+            "fresh_build_s": fresh_s, "gamma_streamed": streamed.gamma,
+            "gamma_fresh": fresh.gamma, "gamma_ratio": gamma_ratio,
+            "compact_equal": equal, "matvec_ms": ms, "kept_tiles": kept,
+            "batch": {"sizes": sizes.tolist(), "capacity": batch.capacity,
+                      "build_s": batch_build_s, "steps": batch_rows},
+            "launches": launches}
 
 
 def main() -> int:
@@ -1687,6 +2003,13 @@ def main() -> int:
     entries += time_attention_kernels(args, dev, timer, rehearse,
                                       main_launches)
 
+    # --------------------------------------------------------------- 11 ---
+    stream = phase_stream(args, dev, timer, sync, rehearse, reset_counts,
+                          collect_counts, k_bsr)
+    for e in entries:
+        if e["name"] in ("bsr_spmv_batched", "bsr_spmv"):
+            e["launches_streaming"] = stream["launches"][e["name"]]
+
     say(f"  launches on all paths: {main_launches}")
     if not rehearse:
         for name, count in main_launches.items():
@@ -1708,7 +2031,8 @@ def main() -> int:
                           "gamma": {o: {"exact": g[0], "score": g[1]}
                                     for o, g in gammas.items()},
                           "tsne": tsne, "meanshift": meanshift,
-                          "plan_batch": plan_batch, "serve": serve})
+                          "plan_batch": plan_batch, "serve": serve,
+                          "stream": stream})
     kernels = json.dumps({"kernels": entries})
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
     if rehearse:

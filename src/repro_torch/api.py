@@ -46,17 +46,23 @@ CUDA device, through the plain blockwise path on the CPU or when the
 caller names ``backend="bsr"`` — and ``plan.meanshift_step`` one
 mean-shift iteration over the stored neighbor pattern. Both run in a loop
 with ``plan.refresh(x_new)``, which escalates through the reference's
-three tiers (patch / rebucket / rebuild) as the points move; a patch
-updates the plan's tile tensors in place (see :func:`refresh_plan`).
+three tiers (patch / rebucket / rebuild) as the points move.
+
+Streaming point sets: a plan distinguishes logical n from physical
+capacity (``build_plan(capacity=)``); ``plan.insert/delete/update`` and
+:func:`update_plan` stream arrivals and retirements through the tombstone,
+append, rebucket, restripe, grow and compact tiers, and
+:func:`apply_pending_layout` runs a layout repair that an update deferred.
+Every lifecycle call returns a new plan and leaves its input valid: the
+tiers that patch tiles patch a copy of the tile tensors.
 
 Batched plans: :class:`PlanBatch` stacks spec-identical plans (one per
 attention head in ClusterKV) and runs the whole batch through one batched
 call — for the ``cuda`` backend one launch of the batched SpMV kernel;
-``build_plan_batch`` builds the members and stacks them.
+``build_plan_batch`` builds the members and stacks them, and
+``PlanBatch.update`` streams every member in lockstep.
 
 Not ported yet, raising ``NotImplementedError`` with their ROADMAP item:
-the streaming half of the lifecycle (insert, delete, update, compact,
-``update_plan``, ``capacity > n``, batches of members of different sizes),
 sharding and the solvers.
 """
 from __future__ import annotations
@@ -73,7 +79,9 @@ import torch
 from repro_torch._device import DeviceLike, from_numpy, resolve_device, to_numpy
 from repro_torch.core import hierarchy, interact, knn, measures
 from repro_torch.core import ordering as ordering_mod
-from repro_torch.core.blocksparse import BSR, append_rows, build_bsr, patch_bsr
+from repro_torch.core.blocksparse import (BSR, append_rows, build_bsr,
+                                          index_mask, patch_bsr,
+                                          tombstone_rows)
 from repro_torch.core.embedding import apply_pca_map, embed, pca_map
 from repro_torch.core.hierarchy import Tree, build_tree
 from repro_torch.core.ordering import ORDERINGS  # noqa: F401  (re-export)
@@ -87,7 +95,7 @@ from repro_torch.kernels import ops as kernel_ops
 __all__ = [
     "PlanConfig", "PlanSpec", "PlanData", "InteractionPlan", "PlanBatch",
     "RefreshStats", "build_plan", "build_plan_batch", "refresh_plan",
-    "update_plan", "cluster_order", "ORDERINGS",
+    "update_plan", "apply_pending_layout", "cluster_order", "ORDERINGS",
     "register_backend", "register_batched_backend", "backend_names",
     "get_backend", "get_batched_backend", "preconditioner_names",
 ]
@@ -209,10 +217,9 @@ class PlanData:
 
 @dataclasses.dataclass
 class RefreshStats:
-    """Lifecycle telemetry of a plan lineage (mutable, host-side). The
-    refresh tiers move the first block of fields; the streaming counters
-    (appends ... deleted_total) cross over but nothing in the port moves
-    them yet."""
+    """Lifecycle telemetry of a plan lineage (mutable, host-side): the
+    refresh tiers move the first block of fields, the streaming tiers
+    (:func:`update_plan`) the counters from ``appends`` on."""
     builds: int = 1
     patches: int = 0
     rebuckets: int = 0
@@ -253,9 +260,28 @@ class _PlanHost:
     values_mode: str = "ones"            # ones | fn | static
     values_fn: Optional[Callable] = None
     refresh: RefreshStats = dataclasses.field(default_factory=RefreshStats)
-    x: Optional[np.ndarray] = None       # (capacity, D) original coords
+    x: Optional[np.ndarray] = None       # (capacity, D) original coords —
+    #   inserts kNN against these (dead rows are garbage, masked by alive)
     alive: Optional[np.ndarray] = None   # (capacity,) bool row validity;
     #   None means every physical slot holds a live point
+    codes: Optional[np.ndarray] = None   # (capacity,) uint64 Morton codes
+    #   in the frozen code box below (leaf placement of streamed inserts;
+    #   tombstoned slots keep their last code so holes stay localized)
+    code_lo: Optional[np.ndarray] = None  # (d,) frozen quantization box —
+    code_hi: Optional[np.ndarray] = None  # new points code comparably
+    last_inserted_idx: Optional[np.ndarray] = None  # physical slots the
+    #   last update_plan insert batch landed in (post-compact indices when
+    #   the batch triggered a compaction)
+    peak_alive: Optional[int] = None  # highest live count this layout has
+    #   held (None = never streamed): the compaction trigger measures
+    #   debris against this peak, so pre-allocated holes are not decay
+    compact_map: Optional[np.ndarray] = None  # (old_capacity,) old physical
+    #   slot -> new index after the last compaction, -1 for dead slots
+    last_patch_rb: Optional[np.ndarray] = None  # row-blocks the last patch
+    #   tier touched (None once the ordering or the ELL layout changed)
+    pending_layout: Optional[str] = None  # layout tier a defer_layout
+    #   update recorded instead of running ("rebucket" | "compact"):
+    #   apply_pending_layout runs it
     timings: dict = dataclasses.field(default_factory=dict)
     # ^ wall seconds of the build stages (knn, embedding, tree, build_bsr)
 
@@ -291,8 +317,10 @@ class InteractionPlan:
     (``pi``/``inv``), the γ profile score, and the two-level ELL-BSR
     storage on ``device``, plus host-side state (COO edges, tree).
     Compute (:meth:`matvec`/:meth:`apply`) dispatches through the backend
-    registry. A plan is never mutated: :meth:`with_values` returns a new
-    one.
+    registry. A plan is never mutated: :meth:`with_values`, the lifecycle
+    methods (:meth:`refresh`, :meth:`insert`/:meth:`delete`/:meth:`update`,
+    :meth:`compact`) all return new plans, and the input's tensors keep
+    what they held.
     """
 
     def __init__(self, config: PlanConfig, n: int, bsr: Optional[BSR],
@@ -653,6 +681,34 @@ class InteractionPlan:
             return 0.0
         return measures.gamma_drift(st.gamma0, g)
 
+    # -- streaming (insert / delete / compact) -----------------------------
+
+    def insert(self, x_new, *, policy: Optional[str] = None
+               ) -> Tuple["InteractionPlan", np.ndarray]:
+        """Insert points ``x_new`` (m, D); returns ``(plan, idx)`` where
+        ``idx`` are the physical slots the points landed in (their row
+        indices for ``matvec``/``delete``). See :func:`update_plan`."""
+        plan = update_plan(self, insert=x_new, policy=policy)
+        return plan, plan.host.last_inserted_idx
+
+    def delete(self, idx, *, policy: Optional[str] = None
+               ) -> "InteractionPlan":
+        """Tombstone the live points at physical slots ``idx``.
+        See :func:`update_plan`."""
+        return update_plan(self, delete=idx, policy=policy)
+
+    def update(self, *, insert=None, delete=None,
+               policy: Optional[str] = None) -> "InteractionPlan":
+        """See :func:`update_plan` (one batched insert+delete step)."""
+        return update_plan(self, insert=insert, delete=delete,
+                           policy=policy)
+
+    def compact(self) -> "InteractionPlan":
+        """Force the compaction tier: rebuild on the surviving points
+        (capacity shrinks to ``n_alive``; ``host.compact_map`` maps old
+        physical slots to new indices). See :func:`update_plan`."""
+        return update_plan(self, policy="compact")
+
     # -- not ported yet ------------------------------------------------------
 
     def solve(self, *args, **kwargs):
@@ -663,18 +719,6 @@ class InteractionPlan:
 
     def shard(self, *args, **kwargs):
         raise _not_ported("plan.shard", "A11")
-
-    def insert(self, *args, **kwargs):
-        raise _not_ported("plan.insert", "A6")
-
-    def delete(self, *args, **kwargs):
-        raise _not_ported("plan.delete", "A6")
-
-    def update(self, *args, **kwargs):
-        raise _not_ported("plan.update", "A6")
-
-    def compact(self, *args, **kwargs):
-        raise _not_ported("plan.compact", "A6")
 
     @property
     def refresh_stats(self) -> RefreshStats:
@@ -785,12 +829,17 @@ class PlanBatch:
     ``matvec``/``apply`` is one batched call (for the ``cuda`` backend one
     kernel launch) for the whole batch.
 
-    Members share one size: their ELL widths are padded to the widest
-    member's (the extra slots are empty, exactly ``ell_slack`` headroom), so
-    a member view (:meth:`member`) is a fully working single plan. Members
-    of different sizes, ``capacity`` beyond the member size and the
-    lockstep streaming of :meth:`update` need the streaming tiers and wait
-    for ROADMAP A6b.
+    Members are padded to the shared spec at construction: capacity is
+    the members' size, or pow2-quantized (:func:`_pow2_capacity`) when
+    sizes differ, with the spare slots living as tombstoned streaming
+    holes, and the ELL width is the widest member's (extra slots are
+    exactly ``ell_slack`` headroom). A member view (:meth:`member`) is a
+    fully working, streamable single plan.
+
+    Streaming runs in lockstep: :meth:`update` pushes per-member
+    insert/delete batches through the tiers of :func:`update_plan`
+    (escalation decided per member), then re-unifies the spec — capacity
+    and width only grow when some member outgrew the shared layout.
     """
 
     def __init__(self, spec: PlanSpec, data: PlanData,
@@ -808,9 +857,12 @@ class PlanBatch:
         """Stack shape-compatible plans into one batch.
 
         Every member must share one ``PlanConfig`` (the spec is shared, so
-        the knobs must be too), one device, one size and agree on
-        ``with_bsr``-ness. Narrower members are widened to the widest
-        member's ELL width by :func:`~repro_torch.core.blocksparse.append_rows`.
+        the knobs must be too), one device and agree on
+        ``with_bsr``-ness. Members are padded to a common capacity (given,
+        or the max member size pow2-quantized when sizes differ) by
+        :func:`_grow_plan` with the new holes spread through each member's
+        ordering, and narrower members are widened to the widest member's
+        ELL width by :func:`~repro_torch.core.blocksparse.append_rows`.
         """
         plans = list(plans)
         if not plans:
@@ -829,15 +881,26 @@ class PlanBatch:
                 raise ValueError("PlanBatch members must share one device; "
                                  f"got {p.device} and {plans[0].device}")
         ns = [p.n for p in plans]
-        if capacity is not None and capacity < max(ns):
-            raise ValueError(f"capacity={capacity} < largest member "
-                             f"n={max(ns)}")
-        if len(set(ns)) != 1:
-            raise _not_ported("PlanBatch of members of different sizes",
-                              "A6b")
-        if capacity is not None and capacity > ns[0]:
-            raise _not_ported("PlanBatch(capacity > n)", "A6b")
+        bs = plans[0].bsr.bs if has_bsr else cfg.bs
+        if capacity is None:
+            cap = ns[0] if len(set(ns)) == 1 else _pow2_capacity(max(ns), bs)
+        else:
+            if capacity < max(ns):
+                raise ValueError(f"capacity={capacity} < largest member "
+                                 f"n={max(ns)}")
+            cap = capacity
 
+        padded = []
+        for p in plans:
+            if p.n < cap:
+                p = _grow_plan(p, cap)
+                if p.host.embedding is not None:
+                    # interleave the new holes through the ordering, like
+                    # build_plan(capacity=): streamed inserts then land
+                    # near their Morton leaf instead of at the tail
+                    p = _spread_holes(p)
+            padded.append(p)
+        plans = padded
         if has_bsr:
             m = max(p.bsr.max_nbr for p in plans)
             plans = [
@@ -983,22 +1046,77 @@ class PlanBatch:
         permute/apply/unpermute around the one batched call)."""
         return self._dispatch(xs, backend, "matvec", serial)
 
-    # -- not ported yet ------------------------------------------------------
-
     def solve(self, *args, **kwargs):
         raise _not_ported("PlanBatch.solve", "A8")
 
-    def update(self, *args, **kwargs):
-        raise _not_ported("PlanBatch.update", "A6b")
+    # -- lockstep streaming (per-member tiers, one shared re-spec) ---------
 
-    def insert(self, *args, **kwargs):
-        raise _not_ported("PlanBatch.insert", "A6b")
+    @staticmethod
+    def _per_member(arg, B: int, what: str) -> list:
+        if arg is None:
+            return [None] * B
+        if isinstance(arg, (list, tuple)):
+            if len(arg) != B:
+                raise ValueError(f"{what} has {len(arg)} entries for a "
+                                 f"batch of {B}")
+            return list(arg)
+        arr = np.asarray(to_numpy(arg))
+        if arr.shape[0] != B:
+            raise ValueError(f"{what} leading axis {arr.shape[0]} != batch "
+                             f"{B} (pass a (B, ...) array or a length-B "
+                             "list, None entries to skip members)")
+        return [arr[i] for i in range(B)]
 
-    def delete(self, *args, **kwargs):
-        raise _not_ported("PlanBatch.delete", "A6b")
+    def update(self, *, insert=None, delete=None,
+               policy: Optional[str] = None) -> "PlanBatch":
+        """One lockstep streaming step over every member.
 
-    def compact(self, *args, **kwargs):
-        raise _not_ported("PlanBatch.compact", "A6b")
+        ``insert``: (B, m, D) array or length-B list of (m_i, D) arrays
+        (``None`` entries skip a member); ``delete`` likewise with
+        physical row indices. Each member escalates through its own tiers
+        (:func:`update_plan`), then the batch re-unifies: capacity and ELL
+        width grow only when some member outgrew the shared layout.
+        Returns a new
+        batch; the input batch stays valid (a member's update patches a
+        copy of its tiles, never the stacked tensors). Members skipped
+        with ``None`` entries are carried through untouched — their host
+        telemetry (``last_inserted_idx`` included) still reflects their
+        *previous* step (:meth:`insert` masks this for its return value).
+        """
+        B = self.batch
+        ins = self._per_member(insert, B, "insert")
+        dels = self._per_member(delete, B, "delete")
+        new = []
+        for i in range(B):
+            p = self.member(i)
+            if ins[i] is not None or dels[i] is not None \
+                    or policy == "compact":
+                p = update_plan(p, insert=ins[i], delete=dels[i],
+                                policy=policy)
+            new.append(p)
+        cap = max(p.n for p in new)
+        cap = (self.capacity if cap <= self.capacity
+               else _pow2_capacity(cap, self.spec.bs or self.spec.config.bs))
+        return PlanBatch.from_plans(new, capacity=cap)
+
+    def insert(self, xs) -> Tuple["PlanBatch", List[Optional[np.ndarray]]]:
+        """Lockstep insert; returns ``(batch, idx)`` with each member's
+        landed physical row indices (see ``InteractionPlan.insert``).
+        Members skipped with a ``None`` entry get ``None`` back."""
+        ins = self._per_member(xs, self.batch, "insert")
+        out = self.update(insert=xs)
+        return out, [out.hosts[i].last_inserted_idx
+                     if ins[i] is not None else None
+                     for i in range(self.batch)]
+
+    def delete(self, idxs) -> "PlanBatch":
+        """Lockstep tombstone of per-member physical row indices."""
+        return self.update(delete=idxs)
+
+    def compact(self) -> "PlanBatch":
+        """Force every member through the compaction tier (fresh build on
+        each member's survivors), then re-stack."""
+        return self.update(policy="compact")
 
     @property
     def refresh_stats(self) -> List[RefreshStats]:
@@ -1019,9 +1137,11 @@ def build_plan_batch(xs, *, k: int = 16, ordering: str = "dual_tree",
                      **cfg_overrides) -> PlanBatch:
     """Run the pipeline once per member and stack the results (§2.4 × B).
 
-    ``xs`` is a (B, n, D) array or tensor, or a sequence of (n, D) point
-    sets of one size (members of different sizes, and ``capacity`` beyond
-    it, wait for ROADMAP A6b). Every member shares one ``PlanConfig``;
+    ``xs`` is a (B, n, D) array or tensor, or a sequence of (n_i, D) point
+    sets (sizes may differ — members are padded to a shared pow2-quantized
+    capacity, or to ``capacity``, the spare slots living as streaming holes
+    interleaved through each member's leaves). Every member shares one
+    ``PlanConfig``;
     ``values`` must be ``None`` or a callable (a static per-member value
     array cannot ride the shared spec — dress members individually and use
     ``PlanBatch.from_plans`` for that). Runs on ``device`` (``None`` =
@@ -1056,22 +1176,20 @@ def build_plan_batch(xs, *, k: int = 16, ordering: str = "dual_tree",
     if not members:
         raise ValueError("build_plan_batch needs at least one point set")
     ns = [m.shape[0] for m in members]
-    if capacity is not None and capacity < max(ns):
-        raise ValueError(f"capacity={capacity} < largest member "
-                         f"n={max(ns)}")
-    if len(set(ns)) != 1:
-        raise _not_ported("build_plan_batch over members of different "
-                          "sizes", "A6b")
-    if capacity is not None and capacity > ns[0]:
-        raise _not_ported("build_plan_batch(capacity > n)", "A6b")
+    if capacity is None:
+        cap = ns[0] if len(set(ns)) == 1 else _pow2_capacity(max(ns),
+                                                             config.bs)
+    else:
+        if capacity < max(ns):
+            raise ValueError(f"capacity={capacity} < largest member "
+                             f"n={max(ns)}")
+        cap = capacity
     plans = [build_plan(x, config=config, values=values, sigma=sigma,
-                        with_bsr=with_bsr, device=dev)
+                        with_bsr=with_bsr,
+                        capacity=cap if cap > x.shape[0] else None,
+                        device=dev)
              for x in members]
-    return PlanBatch.from_plans(plans)
-
-
-def update_plan(*args, **kwargs):
-    raise _not_ported("update_plan", "A6")
+    return PlanBatch.from_plans(plans, capacity=cap)
 
 
 def cluster_order(x, *, ordering: str = "dual_tree", d: int = 3,
@@ -1118,8 +1236,9 @@ def build_plan(x, *, k: int = 16, ordering: str = "dual_tree", bs: int = 32,
     fixed-source-set pattern of §3.2: neighbors of the targets ``x`` among
     ``sources``; the target ordering is applied to both sides, so both must
     have n points. ``config`` overrides every individual knob at once.
-    ``capacity`` beyond ``len(x)`` (pre-allocated streaming slots) is not
-    ported yet and raises ``NotImplementedError``.
+    ``capacity`` pre-allocates physical row slots beyond ``len(x)``: the
+    extra slots are tombstoned (dead) holes, spread through the ordering,
+    until ``plan.insert`` claims them.
 
     Example:
         >>> import numpy as np
@@ -1142,11 +1261,8 @@ def build_plan(x, *, k: int = 16, ordering: str = "dual_tree", bs: int = 32,
         config = dataclasses.replace(config, **cfg_overrides)
     x = np.asarray(to_numpy(x), np.float32)
     n = x.shape[0]
-    if capacity is not None:
-        if capacity < n:
-            raise ValueError(f"capacity={capacity} < n={n} points")
-        if capacity > n:
-            raise _not_ported("build_plan(capacity > n)", "A6")
+    if capacity is not None and capacity < n:
+        raise ValueError(f"capacity={capacity} < n={n} points")
     if sources is not None:
         sources = np.asarray(to_numpy(sources), np.float32)
         if sources.shape[0] != n:
@@ -1192,6 +1308,8 @@ def build_plan(x, *, k: int = 16, ordering: str = "dual_tree", bs: int = 32,
         plan.host.values_fn = values
     elif values is not None:
         plan.host.values_mode = "static"
+    if capacity is not None and capacity > n:
+        plan = _spread_holes(_grow_plan(plan, capacity))
     return plan
 
 
@@ -1299,9 +1417,10 @@ def _patch_pattern(host: _PlanHost, cfg: PlanConfig, n: int,
 
 def _refresh_patch(plan: InteractionPlan, x_new, y_new, moved, stats,
                    moved_frac: float, drift_frac: float):
-    """Cheapest tier: permutation kept, migrated rows' tiles patched in
-    place. Returns None when a patched row-block overflows the pinned ELL
-    width (caller escalates to rebucket); the storage is then untouched."""
+    """Cheapest tier: permutation kept, migrated rows' tiles patched (in a
+    copy of the storage: ``plan`` keeps its tiles). Returns None when a
+    patched row-block overflows the pinned ELL width (caller escalates to
+    rebucket)."""
     host, cfg, n = plan.host, plan.config, plan.n
     rows_m = np.nonzero(moved)[0]
     refreshes_pattern = (host.pattern_from_knn
@@ -1316,7 +1435,8 @@ def _refresh_patch(plan: InteractionPlan, x_new, y_new, moved, stats,
         # pattern does not follow the coords (or nothing changed cells):
         # bookkeeping only; ordering drift keeps accumulating
         host2 = dataclasses.replace(host, y_last=y_new, refresh=stats,
-                                    x=x_new)
+                                    x=x_new, codes=None,
+                                    last_patch_rb=np.empty(0, np.int64))
         return InteractionPlan(cfg, n, plan.bsr, plan.pi, plan.inv, host2)
     r_all, c_all, v_all, dropped_rows = _patch_pattern(
         host, cfg, n, x_new, rows_m, device=plan.device)
@@ -1326,14 +1446,15 @@ def _refresh_patch(plan: InteractionPlan, x_new, y_new, moved, stats,
     touched_rb = np.unique(affected // cfg.bs)
     if bsr is not None:
         try:
-            bsr = patch_bsr(bsr, r2n, c2n, v_all, touched_rb)
+            bsr = _patch_copy(bsr, r2n, c2n, v_all, touched_rb)
         except ValueError:
             return None
         if measures.fill_drift(stats.fill0, bsr.fill) > cfg.drift_tol:
             stats = dataclasses.replace(stats, degraded=True)
     host2 = dataclasses.replace(host, coo=(r2n, c2n, v_all), coo_dev=None,
                                 gamma=None, y_last=y_new, refresh=stats,
-                                x=x_new)
+                                x=x_new, codes=None,
+                                last_patch_rb=touched_rb)
     return InteractionPlan(cfg, n, bsr, plan.pi, plan.inv, host2)
 
 
@@ -1378,7 +1499,8 @@ def _refresh_rebucket(plan: InteractionPlan, x_new, y_new, moved, stats,
         degraded=False)
     host2 = dataclasses.replace(
         host, pi=pi, inv=inv, coo=(r2n, c2n, v2), coo_dev=None, tree=tree,
-        embedding=y_new, y_last=y_new, gamma=None, refresh=stats, x=x_new)
+        embedding=y_new, y_last=y_new, gamma=None, refresh=stats, x=x_new,
+        codes=None, code_lo=None, code_hi=None, last_patch_rb=None)
     return InteractionPlan(cfg, n, bsr, from_numpy(pi, dev, torch.int64),
                            from_numpy(inv, dev, torch.int64), host2)
 
@@ -1420,7 +1542,8 @@ def refresh_plan(plan: InteractionPlan, x_new,
     jointly), and escalates through three tiers:
 
       patch     permutation kept; kNN recomputed for migrated rows only,
-                affected BSR row-block tiles patched in place
+                affected BSR row-block tiles patched (in a copy of the
+                tile tensors)
       rebucket  stable partial reorder + re-bucketed tree levels; storage
                 rebuilt, everything upstream reused
       rebuild   full ``build_plan`` pipeline
@@ -1435,11 +1558,9 @@ def refresh_plan(plan: InteractionPlan, x_new,
     externally fixed COO pattern refresh their *ordering* only. γ/fill of
     the result are recomputed lazily.
 
-    Returns a new plan. Where the reference's patch copies the tile
-    tensor, the port's patch tier updates it in place: the returned plan
-    shares its storage with ``plan``, whose tiles then describe the
-    refreshed pattern — carry on with the returned plan. The other tiers
-    leave ``plan`` as it was.
+    Returns a new plan; the input is not mutated (the patch tier writes a
+    copy of the tile tensors, so ``plan.matvec`` keeps giving what it
+    gave); γ/fill of the result are recomputed lazily.
     """
     host, cfg, dev = plan.host, plan.config, plan.device
     if host.embed_axes is None or host.embedding is None:
@@ -1516,3 +1637,790 @@ def refresh_plan(plan: InteractionPlan, x_new,
         return _refresh_rebucket(plan, x_new, y_new, moved, stats,
                                  moved_frac)
     return _refresh_rebuild(plan, x_new, stats, moved_frac)
+
+
+# ---------------------------------------------------------------------------
+# streaming point sets (lifecycle: growing/shrinking n, capacity layout)
+# ---------------------------------------------------------------------------
+
+
+def _round_up(v: int, q: int) -> int:
+    return -(-v // q) * q
+
+
+def _clone_storage(bsr: BSR) -> BSR:
+    """A BSR whose tensors are copies of ``bsr``'s: ``patch_bsr`` and
+    ``tombstone_rows`` write their input in place, and the streaming and
+    refresh tiers patch such a copy, so the input plan (or the batch a
+    member view slices) keeps its tiles."""
+    return dataclasses.replace(bsr, col_idx=bsr.col_idx.clone(),
+                               nbr_mask=bsr.nbr_mask.clone(),
+                               vals=bsr.vals.clone())
+
+
+def _patch_copy(bsr: BSR, rows, cols, vals, touched_rb) -> BSR:
+    """``patch_bsr`` on a copy of the storage (see :func:`_clone_storage`);
+    nothing to patch returns ``bsr`` itself."""
+    if np.asarray(touched_rb).size == 0:
+        return bsr
+    return patch_bsr(_clone_storage(bsr), rows, cols, vals, touched_rb)
+
+
+def _stream_codes(host: _PlanHost, cfg: PlanConfig,
+                  device: DeviceLike = None):
+    """Per-physical-slot Morton codes (``np.uint64``) in a frozen
+    quantization box.
+
+    Computed lazily on the first streamed insert of a lineage (and
+    invalidated by every refresh tier, whose coordinates supersede them):
+    live slots code their current embedding against the live bounding
+    box, on ``device``; holes are seeded with quantile codes
+    (:func:`_seed_hole_codes`) so they interleave through the ordering on
+    the next rebucket. The box is frozen so codes of points inserted later
+    are comparable — new points outside it clip to the boundary cells.
+    """
+    if host.codes is not None:
+        return host.codes.copy(), host.code_lo, host.code_hi
+    emb = host.embedding
+    alive = (np.ones(len(emb), bool) if host.alive is None
+             else host.alive)
+    live = emb[alive]
+    lo, hi = live.min(0), live.max(0)
+    codes = np.empty(len(emb), np.uint64)
+    codes[alive] = to_numpy(hierarchy.morton_codes_box(
+        live, lo, hi, cfg.bits, device)).astype(np.uint64)
+    holes = ~alive
+    if holes.any():
+        codes[holes] = _seed_hole_codes(codes[alive], int(holes.sum()))
+    return codes, lo, hi
+
+
+def _seed_hole_codes(live_codes: np.ndarray, n_holes: int) -> np.ndarray:
+    """Codes for unoccupied capacity: quantiles of the live code
+    distribution. On the next rebucket the holes interleave *uniformly
+    through the ordering* (proportional to point density), so streamed
+    inserts find a free slot close to their Morton leaf."""
+    qs = np.sort(live_codes)
+    idx = ((np.arange(n_holes) + 0.5) * len(qs) / n_holes).astype(np.int64)
+    return qs[np.clip(idx, 0, len(qs) - 1)]
+
+
+def _sq_dists(x: np.ndarray, a: np.ndarray, b: np.ndarray,
+              chunk: int = 1 << 20) -> np.ndarray:
+    """Squared distances ``|x[a] - x[b]|^2`` in float32: ``b`` is (m,),
+    one partner per row, or (m, c), ``c`` candidates per row. Computed in
+    blocks of rows of about ``chunk`` coordinates, so the gathered
+    operands stay in cache instead of materialising (m, c, D) arrays;
+    every block is the same numpy expression on the same array shape as
+    the whole, so the result is bit for bit the unblocked one."""
+    per_row = x.shape[1] * (b.shape[1] if b.ndim == 2 else 1)
+    step = max(1, chunk // max(per_row, 1))
+    out = np.empty(b.shape, np.float32)
+    for s in range(0, len(a), step):
+        xa, xb = x[a[s:s + step]], x[b[s:s + step]]
+        if b.ndim == 2:
+            out[s:s + step] = np.sum((xa[:, None, :] - xb) ** 2, axis=2)
+        else:
+            out[s:s + step] = np.sum((xa - xb) ** 2, axis=1)
+    return out
+
+
+def _route_dead_edges(r2, c2, v2, dead_cl, C, host, x, pi, cfg):
+    """Replacement edges for rows that lose a tombstoned neighbor.
+
+    Each broken edge (i -> j_dead) is *routed around the tombstone*: i
+    adopts the one of j's own surviving neighbors nearest to it (they are
+    already in the pattern and within one hop of the lost edge), so the
+    pattern stays near-k-full and local between compactions without a
+    distance scan per deletion. Pure numpy.
+
+    Returns cluster-space ``(rows, cols, vals)`` of the replacement edges
+    (both endpoints alive; deduplicated against existing edges).
+    """
+    empty = (np.empty(0, r2.dtype), np.empty(0, c2.dtype),
+             np.empty(0, np.float32))
+    dead_c = index_mask(c2, dead_cl, C)
+    dead_r = index_mask(r2, dead_cl, C)
+    lost = dead_c & ~dead_r             # surviving row -> dead neighbor
+    if not lost.any():
+        return empty
+    lost_r, lost_j = r2[lost], c2[lost]
+    sel = dead_r & ~dead_c              # dead row -> surviving neighbor
+    order = np.argsort(r2[sel], kind="stable")
+    j_s, nbr_s = r2[sel][order], c2[sel][order]
+    uj, ustart = np.unique(j_s, return_index=True)
+    if uj.size == 0:
+        return empty
+    counts = np.diff(np.append(ustart, len(j_s)))
+    kmax = int(counts.max(initial=0))
+    # candidate table: row g holds dead point uj[g]'s surviving neighbors
+    mat = np.full((len(uj), kmax), -1, np.int64)
+    grp = np.searchsorted(uj, j_s)
+    mat[grp, np.arange(len(j_s)) - ustart[grp]] = nbr_s
+    pos = np.searchsorted(uj, lost_j)
+    has = (pos < len(uj)) & (uj[np.clip(pos, 0, len(uj) - 1)] == lost_j)
+    if not has.any():
+        return empty
+    lost_r, pos = lost_r[has], pos[has]
+    cand = mat[pos]                                      # (L, kmax)
+    valid = (cand >= 0) & (cand != lost_r[:, None])
+    # a candidate i already points at is no replacement
+    kept_key = np.sort(r2[~(dead_r | dead_c)].astype(np.int64) * C
+                       + c2[~(dead_r | dead_c)])
+    ckey = lost_r[:, None].astype(np.int64) * C + np.clip(cand, 0, None)
+    if kept_key.size:                   # membership in the sorted keys
+        at = np.minimum(np.searchsorted(kept_key, ckey), kept_key.size - 1)
+        valid &= kept_key[at] != ckey
+    # nearest valid candidate, by actual distance
+    d2 = np.where(valid, _sq_dists(x, pi[lost_r], pi[np.clip(cand, 0, None)]),
+                  np.inf)
+    best = np.argmin(d2, axis=1)
+    bd2 = d2[np.arange(len(best)), best]
+    ok = np.isfinite(bd2)
+    if not ok.any():
+        return empty
+    rr = lost_r[ok]
+    cc = cand[np.arange(len(best)), best][ok]
+    dd2 = bd2[ok]
+    # two broken edges of one row may route to the same candidate
+    key = rr.astype(np.int64) * C + cc
+    _, first = np.unique(key, return_index=True)
+    rr, cc, dd2 = rr[first], cc[first], dd2[first]
+    if host.values_mode == "fn":
+        vv = np.asarray(host.values_fn(pi[rr], pi[cc], dd2), np.float32)
+    else:
+        vv = np.ones(rr.size, np.float32)
+    return rr, cc, vv
+
+
+def _guard_gamma(r2, c2, alive_sorted, sigma: float, C: int,
+                 device: DeviceLike = None) -> float:
+    """γ of the live pattern, for the streaming drift guard: the estimator
+    of ``plan.gamma`` (dead slots compacted away) scored at grid size
+    ``C`` (stable across steps, unlike the live count) on a coarse
+    256-cell grid, on ``device``. Only the *relative* drift matters to the
+    guard."""
+    if alive_sorted.all():
+        rr, cc = r2, c2
+    else:
+        rr, cc, _ = measures.compact_live(r2, c2, alive_sorted)
+    return float(measures.gamma_score(rr, cc, sigma, C, cells=256,
+                                      device=device))
+
+
+def _adopt_arrivals(r2, c2, v2, rn, cn, d2_fwd, host, x, pi, C,
+                    cfg: PlanConfig):
+    """Online reverse-kNN maintenance: existing rows adopt an arrival.
+
+    Each neighbor ``q`` of an arrival ``p`` adopts ``p`` iff ``d(q, p)``
+    beats ``q``'s current worst neighbor, which is then dropped, so rows
+    keep k edges and nnz stays balanced. One adoption per row per batch,
+    the closest arrival. Pure numpy.
+
+    ``(rn, cn, d2_fwd)`` are the arrivals' forward edges p -> q (cluster
+    space, squared distances). Returns the updated ``(r2, c2, v2)`` plus
+    the adopters' row set (their blocks join the patch).
+    """
+    no_rows = np.empty(0, np.int64)
+    # best arrival per adopter q (closest first occurrence)
+    order = np.lexsort((d2_fwd, cn))
+    uq, first = np.unique(cn[order], return_index=True)
+    chosen = order[first]
+    q_all, p_all, d2_all = cn[chosen], rn[chosen], d2_fwd[chosen]
+
+    # current worst neighbor of each candidate adopter (distances derived
+    # from coordinates — the pattern does not store them)
+    sel = np.nonzero(index_mask(r2, q_all, C))[0]
+    if sel.size == 0:
+        return r2, c2, v2, no_rows
+    er, ec = r2[sel], c2[sel]
+    ed2 = _sq_dists(x, pi[er], pi[ec])
+    worst_order = np.lexsort((-ed2, er))
+    wq, wfirst = np.unique(er[worst_order], return_index=True)
+    worst_idx = sel[worst_order[wfirst]]          # global COO index
+    worst_d2 = ed2[worst_order[wfirst]]
+
+    pos = np.searchsorted(wq, q_all)
+    hasq = (pos < len(wq)) & (wq[np.clip(pos, 0, max(len(wq) - 1, 0))]
+                              == q_all)
+    adopt = hasq & (d2_all < worst_d2[np.clip(pos, 0, max(len(wq) - 1, 0))])
+    if not adopt.any():
+        return r2, c2, v2, no_rows
+    q_a, p_a, d2_a = q_all[adopt], p_all[adopt], d2_all[adopt]
+    drop_idx = worst_idx[pos[adopt]]
+
+    keep = np.ones(len(r2), bool)
+    keep[drop_idx] = False
+    if host.values_mode == "fn":
+        va = np.asarray(host.values_fn(pi[q_a], pi[p_a], d2_a), np.float32)
+    else:
+        va = np.ones(q_a.size, np.float32)
+    r2 = np.concatenate([r2[keep], q_a])
+    c2 = np.concatenate([c2[keep], p_a])
+    v2 = np.concatenate([v2[keep], va])
+    return r2, c2, v2, np.unique(q_a)
+
+
+def _stream_rebucket(pi, codes, r2, c2, C: int):
+    """Stable re-sort of the physical slots by their maintained Morton
+    codes; relabels the cluster-space COO to match (see
+    :func:`repro_torch.core.ordering.stream_rebucket`)."""
+    return ordering_mod.stream_rebucket(pi, codes, r2, c2, C)
+
+
+def _spread_holes(plan: InteractionPlan) -> InteractionPlan:
+    """Interleave pre-allocated capacity through the ordering (build-time
+    only): seed the holes with quantile codes and rebucket once, so the
+    spare slots sit inside the leaves inserts will target."""
+    host, cfg, dev = plan.host, plan.config, plan.device
+    if host.embedding is None:
+        return plan            # no spatial ordering to interleave into
+    codes, lo, hi = _stream_codes(host, cfg, dev)
+    r2, c2, v2 = host.coo
+    pi, inv, r2n, c2n = _stream_rebucket(host.pi, codes, r2, c2, plan.n)
+    bsr = (build_bsr(r2n, c2n, v2, plan.n, bs=cfg.bs, sb=cfg.sb,
+                     slack=cfg.ell_slack, device=dev)
+           if plan.bsr is not None else None)
+    stats = host.refresh
+    if bsr is not None:
+        stats = dataclasses.replace(stats, fill0=bsr.fill)
+    host2 = dataclasses.replace(
+        host, pi=pi, inv=inv, coo=(r2n, c2n, v2), coo_dev=None, tree=None,
+        codes=codes, code_lo=lo, code_hi=hi, refresh=stats,
+        last_patch_rb=None)
+    return InteractionPlan(cfg, plan.n, bsr, from_numpy(pi, dev, torch.int64),
+                           from_numpy(inv, dev, torch.int64), host2)
+
+
+def _require_streamable(plan: InteractionPlan) -> None:
+    host = plan.host
+    if host.embed_axes is None or host.embedding is None:
+        raise ValueError(
+            "plan is not streamable: no stored embedding map (build with "
+            "ordering='dual_tree' and coordinates x)")
+    if host.x is None:
+        raise ValueError(
+            "plan is not streamable: original coordinates were not "
+            "retained (rebuild via build_plan, or restore a checkpoint "
+            "saved from a streamable plan)")
+    if not host.pattern_from_knn or host.values_mode == "static":
+        raise ValueError(
+            "plan is not streamable: its pattern/values are externally "
+            "fixed, so edges for inserted points cannot be derived "
+            "(build from points with values=None or a callable)")
+    if host.sources is not None:
+        raise ValueError(
+            "fixed-source plans (sources=) tie targets and sources to "
+            "one index space; streaming inserts/deletes are not "
+            "meaningful there")
+
+
+def _compact_plan(plan: InteractionPlan, alive: np.ndarray, x: np.ndarray,
+                  stats: RefreshStats, n_ins: int, n_del: int,
+                  inserted_phys: Optional[np.ndarray],
+                  grows: int) -> InteractionPlan:
+    """Compaction tier: full build on the surviving points (capacity
+    shrinks to the live count — identical, bit for bit, to a fresh
+    ``build_plan`` over those points on the same device) with lineage
+    telemetry carried and ``host.compact_map`` recording old physical slot
+    -> new index."""
+    host, cfg = plan.host, plan.config
+    values = host.values_fn if host.values_mode == "fn" else None
+    new = build_plan(x[alive], config=cfg, values=values, sigma=host.sigma,
+                     with_bsr=plan.bsr is not None, device=plan.device)
+    cmap = np.full(len(alive), -1, np.int64)
+    cmap[alive] = np.arange(int(alive.sum()))
+    new.host.compact_map = cmap
+    if inserted_phys is not None:
+        new.host.last_inserted_idx = cmap[inserted_phys]
+    if stats.gamma0 is not None or host.gamma is not None:
+        # the lineage had a γ reference: score the compacted plan so the
+        # guard stays armed. gamma0 itself is left None — the next
+        # update_plan re-derives the reference with the guard's own
+        # (coarse-grid) estimator, which is not comparable to this score.
+        _ = new.gamma
+    new.host.refresh = dataclasses.replace(
+        new.host.refresh, builds=stats.builds + 1, patches=stats.patches,
+        rebuckets=stats.rebuckets, rebuilds=stats.rebuilds,
+        appends=stats.appends + (1 if n_ins else 0),
+        tombstones=stats.tombstones + (1 if n_del else 0),
+        compactions=stats.compactions + 1, grows=grows,
+        restripes=stats.restripes,
+        inserted_total=stats.inserted_total + n_ins,
+        deleted_total=stats.deleted_total + n_del,
+        last_action="compact")
+    return new
+
+
+def _grow_plan(plan: InteractionPlan, capacity: int) -> InteractionPlan:
+    """Reallocate the physical layout to ``capacity`` slots: new slots
+    are appended at the tail of both index spaces as tombstoned (dead)
+    capacity — empty BSR row-blocks (``blocksparse.append_rows``), tail
+    permutation entries, seeded placement codes."""
+    host, dev = plan.host, plan.device
+    n0, grow = plan.n, capacity - plan.n
+    if grow <= 0:
+        return plan
+    pi = np.concatenate([host.pi, np.arange(n0, capacity)])
+    inv = np.concatenate([host.inv, np.arange(n0, capacity)])
+    alive = np.zeros(capacity, bool)
+    alive[:n0] = True if host.alive is None else host.alive
+    pad2 = ((0, grow), (0, 0))
+
+    def _pad_rows(a, fill=0.0):
+        return (None if a is None
+                else np.pad(a, pad2, constant_values=fill))
+
+    live_mask = (np.ones(n0, bool) if host.alive is None else host.alive)
+    codes = (None if host.codes is None
+             else np.concatenate([host.codes,
+                                  _seed_hole_codes(
+                                      host.codes[live_mask], grow)]))
+    host2 = dataclasses.replace(
+        host, pi=pi, inv=inv, alive=alive, x=_pad_rows(host.x),
+        embedding=_pad_rows(host.embedding), y_last=_pad_rows(host.y_last),
+        codes=codes, coo_dev=None, last_patch_rb=None)
+    bsr = (append_rows(plan.bsr, capacity)
+           if plan.bsr is not None else None)
+    return InteractionPlan(plan.config, capacity, bsr,
+                           from_numpy(pi, dev, torch.int64),
+                           from_numpy(inv, dev, torch.int64), host2)
+
+
+def update_plan(plan: InteractionPlan, *, insert=None, delete=None,
+                policy: Optional[str] = None,
+                defer_layout: bool = False) -> InteractionPlan:
+    """One streaming step: delete ``delete`` (physical row indices), then
+    insert ``insert`` (m, D) new points, escalating through the streaming
+    tiers of the drift policy:
+
+      tombstone  (deletes) rows are marked dead in the validity mask, the
+                 COO drops every edge touching them (broken edges are
+                 routed around the tombstone, see ``_route_dead_edges``),
+                 and only the row-blocks that held such an edge are
+                 re-dressed (``blocksparse.tombstone_rows``) — the
+                 permutation and every other block are untouched
+      append     (inserts) points re-embed through the stored PCA map,
+                 claim the free (tombstoned) cluster slot nearest their
+                 Morton leaf, kNN is computed for the new rows only (on
+                 the plan's device), and the affected row-blocks are
+                 patched; when no free slot remains, capacity grows by
+                 ``PlanConfig.grow_frac`` (tail slots, amortized O(1))
+      rebucket   once the lineage holds a γ reference (score the plan once
+                 to arm it), a γ drift beyond ``PlanConfig.gamma_tol``
+                 re-sorts the slots by their maintained Morton codes and
+                 restripes the storage
+      restripe   an append that overflows the pinned ELL width (slack
+                 from ``PlanConfig.ell_slack``) rebuilds the *storage
+                 only* from the maintained COO — ordering, permutation
+                 and kNN rows kept (counted in ``RefreshStats.restripes``)
+      compact    full rebuild on the surviving points — triggered when
+                 the capacity fraction lost since the lineage's live
+                 peak exceeds ``PlanConfig.max_dead_frac`` (pre-allocated
+                 holes never count) or an overflow restripe shows fill
+                 degradation beyond ``PlanConfig.drift_tol``; identical,
+                 bit for bit, to a fresh ``build_plan`` over the
+                 survivors on the same device, with ``host.compact_map``
+                 mapping old physical slots to new indices
+
+    ``policy`` forces a tier: ``"append"``/``"tombstone"`` pin the
+    in-place tiers (an ELL overflow then raises instead of restriping),
+    ``"compact"`` forces the rebuild, ``None``/``"auto"`` escalate as
+    above. Between compactions the pattern is maintained approximately
+    (γ telemetry and ``plan.dead_frac`` expose the decay). Returns a new
+    plan; the input is never mutated — the patch tiers write a copy of
+    its tile tensors, so its ``matvec`` keeps giving what it gave. The
+    inserted points' physical row indices land in
+    ``host.last_inserted_idx`` (see :meth:`InteractionPlan.insert`).
+
+    ``defer_layout=True`` keeps the step on the in-place tiers: the
+    *optional* layout repairs (γ-drift rebucket, debris/fill-drift
+    compaction) are detected but not run — the tier that fired is
+    recorded in ``host.pending_layout`` for :func:`apply_pending_layout`
+    to execute later. An ELL overflow still restripes synchronously, and
+    an explicit ``policy="compact"`` still runs.
+
+    Example:
+        >>> import numpy as np
+        >>> from repro_torch import api
+        >>> x = np.random.default_rng(0).standard_normal((64, 8))
+        >>> plan = api.build_plan(x, k=4, bs=8, sb=2, backend="bsr",
+        ...                       device="cpu")
+        >>> p2 = api.update_plan(plan, delete=[3, 11])
+        >>> p2.n_alive, p2.refresh_stats.last_action
+        (62, 'tombstone')
+        >>> api.update_plan(p2, insert=x[:2]).n_alive   # reuses the holes
+        64
+        >>> p3 = api.update_plan(plan, delete=list(range(24)),
+        ...                      defer_layout=True)     # past max_dead_frac
+        >>> p3.host.pending_layout
+        'compact'
+        >>> api.apply_pending_layout(p3).n_alive
+        40
+
+    Raises:
+        ValueError: on a non-streamable plan, out-of-range/already-dead
+            delete indices, mis-shaped inserts, too few surviving points
+            (``<= k``), an unknown ``policy``, or an ELL overflow under a
+            forced in-place policy.
+    """
+    if policy not in (None, "auto", "append", "tombstone", "compact"):
+        raise ValueError(f"unknown streaming policy {policy!r}; expected "
+                         "auto | append | tombstone | compact")
+    _require_streamable(plan)
+    host, cfg, dev = plan.host, plan.config, plan.device
+    stats = host.refresh
+
+    ins = None
+    if insert is not None:
+        ins = np.asarray(to_numpy(insert), np.float32)
+        if ins.ndim != 2 or ins.shape[1] != host.embed_axes.shape[0]:
+            raise ValueError(
+                f"insert expects (m, {host.embed_axes.shape[0]}) points, "
+                f"got shape {ins.shape}")
+        if ins.shape[0] == 0:
+            ins = None
+    del_idx = None
+    if delete is not None:
+        del_idx = np.unique(np.asarray(to_numpy(delete), np.int64))
+        if del_idx.size == 0:
+            del_idx = None
+    if ins is None and del_idx is None and policy != "compact":
+        return plan
+
+    grows = stats.grows
+
+    # -- copy-on-write streaming state (the input plan stays valid) --------
+    C = plan.n
+    alive = (np.ones(C, bool) if host.alive is None else host.alive.copy())
+    x = host.x.copy()
+    emb = host.embedding.copy()
+    y_last = (emb.copy() if host.y_last is None else host.y_last.copy())
+    pi, inv = host.pi, host.inv
+    r2, c2, v2 = host.coo
+    bsr = plan.bsr
+    touched_parts = []
+    overflow = False
+    restriped_del = False
+
+    n_del = 0
+    if del_idx is not None:
+        if del_idx.min(initial=0) < 0 or del_idx.max(initial=-1) >= C:
+            raise ValueError(
+                f"delete indices out of range for capacity {C}")
+        if not alive[del_idx].all():
+            dead = del_idx[~alive[del_idx]]
+            raise ValueError(
+                f"delete of already-dead rows {dead[:8].tolist()}"
+                f"{'...' if dead.size > 8 else ''}")
+        n_del = int(del_idx.size)
+        alive[del_idx] = False
+        if int(alive.sum()) <= cfg.k:
+            raise ValueError(
+                f"deleting {n_del} rows leaves {int(alive.sum())} live "
+                f"points <= k={cfg.k}; the kNN pattern needs more")
+        if not cfg.symmetrize:
+            # route broken edges around the tombstones before they are
+            # filtered (replacements touch the same blocks the drops do)
+            rr, cc, vv = _route_dead_edges(r2, c2, v2, inv[del_idx], C,
+                                           host, x, pi, cfg)
+            if rr.size:
+                r2 = np.concatenate([r2, rr])
+                c2 = np.concatenate([c2, cc])
+                v2 = np.concatenate([v2, vv])
+        if bsr is not None and ins is None:
+            # pure delete: the storage-level tombstone primitive, on a copy
+            # of the storage. The routed replacement edges above can push
+            # an ELL-full block over its width — restripe then.
+            try:
+                bsr, r2, c2, v2, touched_del = tombstone_rows(
+                    _clone_storage(bsr), r2, c2, v2, inv[del_idx])
+            except ValueError:
+                dead_cl = inv[del_idx]
+                drop = (index_mask(r2, dead_cl, C)
+                        | index_mask(c2, dead_cl, C))
+                r2, c2, v2 = r2[~drop], c2[~drop], v2[~drop]
+                if policy in ("append", "tombstone"):
+                    raise ValueError(
+                        "a routed tombstone edge overflowed the pinned "
+                        f"ELL width under policy={policy!r}; raise "
+                        "PlanConfig.ell_slack or let the auto policy "
+                        "restripe")
+                bsr = build_bsr(r2, c2, v2, C, bs=cfg.bs, sb=cfg.sb,
+                                slack=cfg.ell_slack, device=dev)
+                restriped_del = True
+                touched_del = np.empty(0, np.int64)
+        else:
+            # combined with an insert below: filter the pattern here and
+            # re-dress delete- and insert-touched blocks in ONE patch
+            dead_cl = inv[del_idx]
+            drop = (index_mask(r2, dead_cl, C)
+                    | index_mask(c2, dead_cl, C))
+            touched_del = np.unique(np.concatenate(
+                [r2[drop] // cfg.bs, dead_cl // cfg.bs]))
+            r2, c2, v2 = r2[~drop], c2[~drop], v2[~drop]
+        touched_parts.append(touched_del)
+
+    inserted_phys = None
+    n_ins = 0
+    codes = code_lo = code_hi = None
+    if ins is not None:
+        n_ins = int(ins.shape[0])
+        # codes from the *pre-delete* validity state: a slot tombstoned
+        # this very step keeps its point's code, so the hole it leaves
+        # advertises the leaf neighborhood it sits in
+        codes, code_lo, code_hi = _stream_codes(host, cfg, dev)
+        free_phys = np.nonzero(~alive)[0]
+        if n_ins > free_phys.size:
+            # grow capacity: reallocate with a chunk of tail slots so the
+            # amortized cost per insert is O(1)
+            need = n_ins - free_phys.size
+            grow = max(need, int(np.ceil(cfg.grow_frac * C)))
+            C2 = _round_up(C + grow, cfg.bs)
+            scratch = InteractionPlan(cfg, C, bsr, plan.pi, plan.inv,
+                                      dataclasses.replace(
+                                          host, alive=alive, x=x,
+                                          embedding=emb, y_last=y_last,
+                                          codes=codes, code_lo=code_lo,
+                                          code_hi=code_hi,
+                                          coo=(r2, c2, v2)))
+            grown = _grow_plan(scratch, C2)
+            h2 = grown.host
+            C, bsr = C2, grown.bsr
+            alive, x, emb, y_last = h2.alive, h2.x, h2.embedding, h2.y_last
+            pi, inv, codes = h2.pi, h2.inv, h2.codes
+            grows += 1
+
+        y_ins = to_numpy(apply_pca_map(ins, host.embed_mean, host.embed_axes,
+                                       device=dev))
+        codes_ins = to_numpy(hierarchy.morton_codes_box(
+            y_ins, code_lo, code_hi, cfg.bits, dev)).astype(np.uint64)
+
+        # claim the free cluster slot nearest each point's Morton leaf;
+        # claiming in code order keeps batch-mates from the same leaf in
+        # adjacent slots (tail blocks then see a compact column footprint)
+        free_pos = np.nonzero(~alive[pi])[0]
+        targets = hierarchy.insertion_positions(codes[pi], codes_ins)
+        order = np.argsort(codes_ins, kind="stable")
+        pos_sorted = ordering_mod.claim_free_slots(free_pos, targets[order])
+        pos = np.empty_like(pos_sorted)
+        pos[order] = pos_sorted
+        phys = np.asarray(pi[pos], np.int64)
+        alive[phys] = True
+        x[phys] = ins
+        emb[phys] = y_ins
+        y_last[phys] = y_ins
+        codes[phys] = codes_ins
+        inserted_phys = phys
+
+        if int(alive.sum()) <= cfg.k:
+            raise ValueError(
+                f"{int(alive.sum())} live points after insert but "
+                f"k={cfg.k}; the kNN pattern needs more")
+        nr, nc, nd2 = _knn_subset(x, phys, None, cfg.k, valid=alive,
+                                  device=dev)
+        nv = edge_values(host, nr, nc, nd2)
+        if cfg.symmetrize:
+            nr, nc, nv = _symmetrize_pattern(nr, nc, nv, C)
+        rn, cn = ordering_mod.apply_ordering(nr, nc, pi)
+        if not cfg.symmetrize:
+            # reverse maintenance: rows whose kNN the arrivals enter
+            # adopt them (dropping their previous worst neighbor), like
+            # a fresh build would point them at the new points
+            r2, c2, v2, adopters = _adopt_arrivals(
+                r2, c2, v2, rn, cn, nd2, host, x, pi, C, cfg)
+            if adopters.size:
+                touched_parts.append(np.unique(adopters // cfg.bs))
+        r2 = np.concatenate([r2, rn])
+        c2 = np.concatenate([c2, cn])
+        v2 = np.concatenate([v2, nv])
+        if cfg.symmetrize:   # mirrored edges may duplicate kept ones
+            key = r2.astype(np.int64) * C + c2
+            _, first = np.unique(key, return_index=True)
+            r2, c2, v2 = r2[first], c2[first], v2[first]
+        touched_ins = np.unique(rn // cfg.bs)
+        touched_parts.append(touched_ins)
+
+    # -- tier decision ------------------------------------------------------
+    # debris, not holes: the compaction trigger measures live points LOST
+    # since the layout's peak, so capacity pre-allocated as insert
+    # headroom (build_plan(capacity=) / PlanBatch pow2 padding) never
+    # reads as decay
+    n_alive_now = int(alive.sum())
+    prev_alive = plan.n if host.alive is None else int(host.alive.sum())
+    peak = max(host.peak_alive or 0, prev_alive, n_alive_now)
+    debris_frac = (peak - n_alive_now) / max(C, 1)
+    force_inplace = policy in ("append", "tombstone")
+    pending = host.pending_layout if defer_layout else None
+    if (policy == "compact" or debris_frac > cfg.max_dead_frac) \
+            and not force_inplace:
+        if defer_layout and policy != "compact":
+            pending = "compact"   # hygiene, not correctness: defer it
+        else:
+            return _compact_plan(plan, alive, x, stats, n_ins, n_del,
+                                 inserted_phys, grows)
+
+    # γ-drift guard (armed once the lineage holds a γ reference): displaced
+    # inserts decay the *ordering*, which a streaming rebucket repairs at
+    # build_bsr cost — a stable re-sort of the maintained per-slot Morton
+    # codes, no kNN, no re-embedding
+    g_now = None
+    rebucketed = False
+    alive_sorted = alive[pi]
+    if bsr is not None and n_ins and not force_inplace:
+        ref = stats.gamma0
+        if ref is None and host.gamma is not None:
+            # arm the guard: the reference must come from the same (cheap,
+            # coarse-grid) estimator the per-step evaluations use, so
+            # score the pre-update pattern once
+            r0, c0, _ = host.coo
+            prev_alive = (np.ones(plan.n, bool) if host.alive is None
+                          else host.alive)[host.pi]
+            ref = _guard_gamma(r0, c0, prev_alive, host.sigma, C, dev)
+        if ref is not None:
+            if stats.gamma0 is None:
+                stats = dataclasses.replace(stats, gamma0=ref)
+            g_now = _guard_gamma(r2, c2, alive_sorted, host.sigma, C, dev)
+            rebucketed = measures.gamma_drift(ref, g_now) > cfg.gamma_tol
+
+    gamma0_next = stats.gamma0
+    if rebucketed and (defer_layout or pending == "compact"):
+        # drift detected but the repair is deferred (a pending compact
+        # subsumes it); the step stays on the in-place patch below, and
+        # the reference is kept so the guard keeps firing until the
+        # repair lands
+        pending = pending or "rebucket"
+        rebucketed = False
+    if rebucketed:
+        pi, inv, r2, c2 = _stream_rebucket(pi, codes, r2, c2, C)
+        bsr = build_bsr(r2, c2, v2, C, bs=cfg.bs, sb=cfg.sb,
+                        slack=cfg.ell_slack, device=dev)
+        # re-score under the repaired ordering: the new γ is both the
+        # plan's score and the reference the guard stays armed with
+        g_now = _guard_gamma(r2, c2, alive[pi], host.sigma, C, dev)
+        gamma0_next = g_now
+    elif bsr is not None and touched_parts and ins is not None:
+        # in-place: delete- and insert-touched blocks re-dressed in ONE
+        # patch pass of a copy of the storage (pure deletes were patched
+        # by tombstone_rows); the ELL layout is kept
+        touched_now = np.unique(np.concatenate(touched_parts))
+        try:
+            bsr = _patch_copy(bsr, r2, c2, v2, touched_now)
+        except ValueError:
+            overflow = True   # pinned ELL width exhausted
+
+    restriped = restriped_del
+    if overflow:
+        # restripe: rebuild the *storage only* from the maintained COO —
+        # ordering, permutation, kNN rows all kept — re-deriving the ELL
+        # width (plus fresh slack). Never deferred: the patch failed, so
+        # stored tiles would not match the maintained COO.
+        if force_inplace:
+            raise ValueError(
+                "streamed insert overflowed the pinned ELL width under "
+                f"policy={policy!r}; raise PlanConfig.ell_slack or let "
+                "the auto policy restripe/compact")
+        bsr = build_bsr(r2, c2, v2, C, bs=cfg.bs, sb=cfg.sb,
+                        slack=cfg.ell_slack, device=dev)
+        restriped = True
+        if measures.fill_drift(stats.fill0, bsr.fill) > cfg.drift_tol:
+            # the restriped layout shows real locality decay: escalate
+            if defer_layout:
+                pending = "compact"
+            else:
+                return _compact_plan(plan, alive, x, stats, n_ins, n_del,
+                                     inserted_phys, grows)
+
+    layout_changed = rebucketed or restriped
+    stats2 = dataclasses.replace(
+        stats,
+        appends=stats.appends + (1 if n_ins else 0),
+        tombstones=stats.tombstones + (1 if n_del else 0),
+        grows=grows,
+        restripes=stats.restripes + (1 if restriped else 0),
+        rebuckets=stats.rebuckets + (1 if rebucketed else 0),
+        fill0=(bsr.fill if layout_changed and bsr is not None
+               else stats.fill0),
+        gamma0=gamma0_next,
+        inserted_total=stats.inserted_total + n_ins,
+        deleted_total=stats.deleted_total + n_del,
+        last_action="append" if n_ins else "tombstone")
+    touched = (np.unique(np.concatenate(touched_parts))
+               if touched_parts else np.empty(0, np.int64))
+    if layout_changed:
+        touched = None    # the ELL layout (or the ordering) changed whole
+    host2 = dataclasses.replace(
+        host, pi=pi, inv=inv, coo=(r2, c2, v2), coo_dev=None,
+        gamma=None,   # lazily rescored; the guard chain (gamma0) is kept
+        #   on its own capacity-grid estimator, see _guard_gamma
+        tree=None if rebucketed else host.tree,
+        embedding=emb, y_last=y_last, x=x, alive=alive,
+        codes=codes if codes is not None else host.codes,
+        code_lo=code_lo if codes is not None else host.code_lo,
+        code_hi=code_hi if codes is not None else host.code_hi,
+        refresh=stats2, last_patch_rb=touched, peak_alive=peak,
+        last_inserted_idx=inserted_phys, compact_map=None,
+        pending_layout=pending)
+    new_dev = C != plan.n or rebucketed
+    pi_dev = from_numpy(pi, dev, torch.int64) if new_dev else plan.pi
+    inv_dev = from_numpy(inv, dev, torch.int64) if new_dev else plan.inv
+    return InteractionPlan(cfg, C, bsr, pi_dev, inv_dev, host2)
+
+
+def _apply_stream_rebucket(plan: InteractionPlan) -> InteractionPlan:
+    """Run the streaming rebucket tier on ``plan`` as it stands: stable
+    re-sort of the physical slots by their maintained Morton codes, then
+    a restripe of the storage under the repaired ordering. A pure function
+    of the input plan."""
+    host, cfg, C, dev = plan.host, plan.config, plan.n, plan.device
+    stats = host.refresh
+    codes, lo, hi = _stream_codes(host, cfg, dev)
+    r2, c2, v2 = host.coo
+    pi, inv, r2n, c2n = _stream_rebucket(host.pi, codes, r2, c2, C)
+    bsr = (build_bsr(r2n, c2n, v2, C, bs=cfg.bs, sb=cfg.sb,
+                     slack=cfg.ell_slack, device=dev)
+           if plan.bsr is not None else None)
+    alive = np.ones(C, bool) if host.alive is None else host.alive
+    gamma0 = stats.gamma0
+    if gamma0 is not None:
+        # keep the guard armed with the repaired ordering's own score
+        gamma0 = _guard_gamma(r2n, c2n, alive[pi], host.sigma, C, dev)
+    stats2 = dataclasses.replace(
+        stats, rebuckets=stats.rebuckets + 1, last_action="rebucket",
+        fill0=bsr.fill if bsr is not None else stats.fill0,
+        gamma0=gamma0)
+    host2 = dataclasses.replace(
+        host, pi=pi, inv=inv, coo=(r2n, c2n, v2), coo_dev=None,
+        gamma=None, tree=None, codes=codes, code_lo=lo, code_hi=hi,
+        refresh=stats2, last_patch_rb=None, pending_layout=None)
+    return InteractionPlan(cfg, C, bsr, from_numpy(pi, dev, torch.int64),
+                           from_numpy(inv, dev, torch.int64), host2)
+
+
+def apply_pending_layout(plan: InteractionPlan) -> InteractionPlan:
+    """Run the layout tier a ``defer_layout`` update recorded.
+
+      ``"rebucket"``  γ drifted past ``PlanConfig.gamma_tol`` — re-sort
+                      the slots by their maintained Morton codes and
+                      restripe the storage under the repaired ordering
+      ``"compact"``   tombstone debris or fill drift — full rebuild on
+                      the survivors, bit-identical to a fresh
+                      ``build_plan`` over them (``host.compact_map``
+                      maps old physical slots to new indices)
+
+    Returns the successor plan (``pending_layout`` cleared; the input is
+    never mutated and keeps serving valid results while this runs), or
+    ``plan`` itself when nothing was pending.
+    """
+    kind = plan.host.pending_layout
+    if kind is None:
+        return plan
+    if kind == "rebucket":
+        return _apply_stream_rebucket(plan)
+    if kind == "compact":
+        host, stats = plan.host, plan.host.refresh
+        alive = (np.ones(plan.n, bool) if host.alive is None
+                 else host.alive)
+        return _compact_plan(plan, alive, host.x, stats, 0, 0, None,
+                             stats.grows)
+    raise ValueError(f"unknown pending layout tier {kind!r}")

@@ -62,7 +62,9 @@ def plan_from_reference_arrays(
         tree_levels: Optional[Sequence[np.ndarray]] = None,
         y_last=None, x=None, sources=None, pattern_from_knn: bool = False,
         values_mode: str = "ones", values_fn: Optional[Callable] = None,
-        refresh: Optional[dict] = None,
+        refresh: Optional[dict] = None, alive=None, codes=None,
+        code_lo=None, code_hi=None, peak_alive: Optional[int] = None,
+        pending_layout: Optional[str] = None,
         device: DeviceLike = None) -> InteractionPlan:
     """Build a port plan from a reference plan's state.
 
@@ -80,6 +82,13 @@ def plan_from_reference_arrays(
     reference plan's callable over numpy arrays) and ``refresh``, the
     ``RefreshStats`` fields as a dict (``dataclasses.asdict``); unknown
     fields are rejected.
+
+    So does the streaming state, so that a streamed reference plan goes on
+    streaming in the port: ``alive`` (the (n,) row-validity mask; ``None``
+    when every slot is live), ``codes`` (the per-slot Morton codes, kept
+    ``np.uint64``) with their frozen box ``code_lo``/``code_hi``,
+    ``peak_alive`` and ``pending_layout`` (``None``, ``"rebucket"`` or
+    ``"compact"``).
     """
     dev = resolve_device(device)
     known = {f.name for f in dataclasses.fields(PlanConfig)}
@@ -110,6 +119,18 @@ def plan_from_reference_arrays(
                          "ones | fn | static")
     if values_mode == "fn" and values_fn is None:
         raise ValueError("values_mode 'fn' needs values_fn")
+    if pending_layout not in (None, "rebucket", "compact"):
+        raise ValueError(f"unknown pending layout tier {pending_layout!r}")
+    if alive is not None:
+        alive = np.asarray(alive, bool)
+        if alive.shape != (n,):
+            raise ValueError(f"alive has shape {alive.shape}, expected "
+                             f"({n},)")
+    if codes is not None:
+        codes = np.asarray(codes).astype(np.uint64)
+        if codes.shape != (n,):
+            raise ValueError(f"codes has shape {codes.shape}, expected "
+                             f"({n},)")
 
     def arr(a, dtype=None):
         return None if a is None else np.asarray(a, dtype)
@@ -121,7 +142,10 @@ def plan_from_reference_arrays(
         y_last=embedding if y_last is None else np.asarray(y_last),
         x=arr(x, np.float32), sources=arr(sources, np.float32),
         pattern_from_knn=bool(pattern_from_knn), values_mode=values_mode,
-        values_fn=values_fn)
+        values_fn=values_fn, alive=alive, codes=codes,
+        code_lo=arr(code_lo), code_hi=arr(code_hi),
+        peak_alive=None if peak_alive is None else int(peak_alive),
+        pending_layout=pending_layout)
     if refresh is None:
         host.refresh.fill0 = bsr.fill if bsr is not None else None
     else:

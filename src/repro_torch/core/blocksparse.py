@@ -62,6 +62,16 @@ class BSR:
         return a[:self.n, :self.n]
 
 
+def index_mask(values: np.ndarray, members: np.ndarray,
+               size: int) -> np.ndarray:
+    """``np.isin(values, members)`` for indices in ``[0, size)``, through
+    one boolean lookup table: O(len(values) + size), where ``np.isin``
+    sorts or hashes all of ``values`` (seconds at millions of edges)."""
+    lut = np.zeros(size, bool)
+    lut[np.asarray(members)] = True
+    return lut[values]
+
+
 def build_bsr(rows: np.ndarray, cols: np.ndarray, vals: Optional[np.ndarray],
               n: int, bs: int = 32, sb: int = 8,
               max_nbr: Optional[int] = None, slack: int = 0,
@@ -173,7 +183,7 @@ def patch_bsr(bsr: BSR, rows: np.ndarray, cols: np.ndarray,
         raise ValueError(f"touched_rb out of range for n_rb={bsr.n_rb}")
 
     rb_all = rows // bs
-    sel = np.isin(rb_all, touched)
+    sel = index_mask(rb_all, touched, bsr.n_rb)
     r_t, c_t, v_t = rows[sel], cols[sel], vals[sel]
     rb, cb = r_t // bs, c_t // bs
 
@@ -226,6 +236,36 @@ def patch_bsr(bsr: BSR, rows: np.ndarray, cols: np.ndarray,
                fill=fill, max_nbr=m)
 
 
+def tombstone_rows(bsr: BSR, rows: np.ndarray, cols: np.ndarray,
+                   vals: Optional[np.ndarray], dead: np.ndarray):
+    """Remove points ``dead`` (cluster-order indices) from the matrix:
+    their rows *and* the edges referencing them as columns vanish.
+
+    Built on :func:`patch_bsr`: the COO ``(rows, cols, vals)`` — the same
+    full cluster-order pattern the BSR was built from — is filtered of
+    every edge touching a dead point, and only the row-blocks that held
+    such an edge are re-dressed. Like ``patch_bsr`` it writes the resident
+    tensors **in place** (callers that must keep the input valid patch a
+    copy). Returns ``(bsr', rows', cols', vals', touched_rb)``: the
+    filtered COO (so the caller's pattern stays in sync with storage) and
+    the row-blocks that were re-dressed.
+    """
+    rows = np.asarray(rows)
+    cols = np.asarray(cols)
+    vals = (np.ones(len(rows), np.float32) if vals is None
+            else np.asarray(vals, np.float32))
+    dead = np.unique(np.asarray(dead))
+    if dead.size == 0:
+        return bsr, rows, cols, vals, np.empty(0, np.int64)
+    if dead.min(initial=0) < 0 or dead.max(initial=-1) >= bsr.n:
+        raise ValueError(f"dead indices out of range for n={bsr.n}")
+    drop = index_mask(rows, dead, bsr.n) | index_mask(cols, dead, bsr.n)
+    r2, c2, v2 = rows[~drop], cols[~drop], vals[~drop]
+    touched = np.unique(np.concatenate([rows[drop] // bsr.bs,
+                                        dead // bsr.bs]))
+    return patch_bsr(bsr, r2, c2, v2, touched), r2, c2, v2, touched
+
+
 def random_bsr(key_seed: int, n: int, bs: int, nbr: int, *, sb: int = 8,
                banded: bool = False, device: DeviceLike = None) -> BSR:
     """Synthetic BSR with exactly ``nbr`` dense tiles per row-block — the
@@ -261,8 +301,10 @@ def append_rows(bsr: BSR, n_new: int, extra_nbr: int = 0) -> BSR:
 
     Appended rows and slots carry no tiles (mask False, column 0, zero
     values). ``PlanBatch.from_plans`` widens narrower members to the
-    widest one's ELL width through this. The column dimension grows in
-    lockstep (``n_cb == n_rb``), which existing tiles are agnostic to.
+    widest one's ELL width through this, and a streaming plan that runs
+    out of free slots grows its capacity through it. The column dimension
+    grows in lockstep (``n_cb == n_rb``), which existing tiles are
+    agnostic to.
     ``fill`` is unchanged: no kept tile was added or removed.
     """
     if n_new < bsr.n:

@@ -89,7 +89,9 @@ def kv_plan_batch(k, *, d: int = 3, bits: int = 10, leaf_size: int = 64,
     Built on ``device`` (a tensor's own device when ``None``).
     ``with_bsr=True`` additionally dresses each head's kNN pattern into
     storage, so the same batch serves batched near-neighbor matvecs over
-    the key sets. ``capacity`` beyond S waits for ROADMAP A6b.
+    the key sets. ``capacity`` over-allocates every member to the given
+    slot count with Morton-spread holes, so generated tokens stream in
+    through ``api.update_plan``'s insert tier instead of re-sorting.
     """
     from repro_torch import api
 

@@ -177,6 +177,27 @@ def build_tree(y, bits: int = 0, leaf_size: int = 64, max_levels: int = 0,
     return tree_from_codes(codes, perm, d, bits, leaf_size, max_levels)
 
 
+def insertion_positions(codes_in_order: np.ndarray,
+                        new_codes: np.ndarray) -> np.ndarray:
+    """Cluster-order positions where new Morton codes belong.
+
+    ``codes_in_order`` are the existing points' codes *in cluster order*
+    (``codes[pi]``), ``np.uint64`` on the host like ``new_codes``: mixing
+    them with signed integers would make numpy compare in float64. A
+    freshly built ordering lists them non-decreasing, but a streamed
+    lineage drifts (tombstoned slots keep their last point's code), so
+    the monotone envelope (running max) is searched: each new code lands
+    at the position of the leaf cell it falls into, and the streaming
+    insert claims the nearest *free* slot to it. A locality heuristic,
+    never a correctness requirement.
+    """
+    codes_in_order = np.asarray(codes_in_order)
+    if codes_in_order.size == 0:
+        return np.zeros(len(np.asarray(new_codes)), np.int64)
+    env = np.maximum.accumulate(codes_in_order)
+    return np.searchsorted(env, np.asarray(new_codes)).astype(np.int64)
+
+
 def rebucket(y_new, prev: Tree, leaf_size: int = 64, max_levels: int = 0,
              device: DeviceLike = None) -> Tree:
     """Incremental re-bucket for moved points (plan refresh).

@@ -89,6 +89,54 @@ def stable_partial_reorder(pi_old: np.ndarray,
     return pi_old[order]
 
 
+def stream_rebucket(pi: np.ndarray, codes: np.ndarray, rows: np.ndarray,
+                    cols: np.ndarray, n: int):
+    """Streaming rebucket: stable re-sort of the physical slots by their
+    maintained Morton ``codes`` (indexed by physical slot), relabeling
+    the cluster-space COO to match.
+
+    Points (and holes) whose code did not change keep their relative
+    order, so the reordering perturbs only what actually drifted. Pure
+    numpy. Returns ``(pi2, inv2, rows2, cols2)``.
+    """
+    old_pi = np.asarray(pi)
+    pi2 = stable_partial_reorder(old_pi, codes)
+    inv2 = np.empty_like(pi2)
+    inv2[pi2] = np.arange(n)
+    return pi2, inv2, inv2[old_pi[rows]], inv2[old_pi[cols]]
+
+
+def claim_free_slots(free_pos: np.ndarray,
+                     targets: np.ndarray) -> np.ndarray:
+    """Assign each target position the nearest remaining free slot.
+
+    ``free_pos`` are the cluster-order positions of tombstoned (dead)
+    slots, sorted ascending; ``targets`` are the positions where inserted
+    points ideally belong
+    (:func:`repro_torch.core.hierarchy.insertion_positions`).
+    Greedy: targets claim slots in input order, each taking the closest
+    slot still unclaimed (ties to the lower position), so inserts land in
+    or next to the Morton leaf of their neighbors. Raises when there are
+    more targets than free slots (the caller grows capacity first).
+    """
+    import bisect
+
+    free = list(np.asarray(free_pos))
+    targets = np.asarray(targets)
+    if len(targets) > len(free):
+        raise ValueError(f"{len(targets)} inserts but only {len(free)} "
+                         "free slots; grow capacity before claiming")
+    out = np.empty(len(targets), np.int64)
+    for i, t in enumerate(targets):
+        j = bisect.bisect_left(free, t)
+        if j == len(free):
+            j -= 1
+        elif j > 0 and t - free[j - 1] <= free[j] - t:
+            j -= 1
+        out[i] = free.pop(j)
+    return out
+
+
 def apply_ordering(rows: np.ndarray, cols: np.ndarray,
                    pi_t: np.ndarray, pi_s: Optional[np.ndarray] = None):
     """Relabel COO indices under row/col orderings (targets pi_t, sources pi_s)."""

@@ -15,9 +15,11 @@ tile holds. Without a mask every slot is kept.
 Each call checks that the kept slots' ``col_idx`` lie inside the charges'
 column blocks, which reads the indices back to the host (a device sync).
 Callers whose indices were made in range on the host — a plan's storage:
-``build_bsr``, ``patch_bsr``, ``append_rows``, ``random_bsr``,
-``convert.bsr_from_arrays`` — pass ``indices_checked=True`` and launch
-without that sync.
+``build_bsr``, ``patch_bsr``, ``tombstone_rows``, ``append_rows``,
+``random_bsr``, ``convert.bsr_from_arrays`` (and ``clone`` of their
+tensors, which the streaming tiers patch) — pass ``indices_checked=True``
+and launch without that sync. No other host write reaches a plan's
+``col_idx``.
 
 For a tensor on the CPU a wrapper returns its plain version; for a CUDA
 tensor it launches the kernel or raises. Each wrapper counts its launches

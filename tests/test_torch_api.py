@@ -328,22 +328,37 @@ def test_plan_config_fields_and_preconditioner_names():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda p: p.insert(None), "A6"),
-    (lambda p: p.delete([0]), "A6"), (lambda p: p.update(insert=None), "A6"),
-    (lambda p: p.compact(), "A6"), (lambda p: p.shard(), "A11"),
+    (lambda p: p.shard(), "A11"),
     (lambda p: p.solve(None), "A8"), (lambda p: p.eigs(2), "A8"),
-    (lambda p: t_api.build_plan_batch(
-        [p.host.x, p.host.x[:-8]], k=4, device="cpu"), "A6b"),
-    (lambda p: t_api.build_plan_batch([p.host.x], k=4, capacity=p.n + 8,
-                                      device="cpu"), "A6b"),
-    (lambda p: t_api.update_plan(p), "A6"),
-    (lambda p: t_api.build_plan(p.host.x, k=4, capacity=p.n + 8,
-                                device="cpu"), "A6"),
 ])
 def test_not_yet_ported_entry_points_raise(own_plan, call, item):
     _, plan = own_plan
     with pytest.raises(NotImplementedError, match=item):
         call(plan)
+
+
+@pytest.mark.parametrize("call,check", [
+    (lambda p: p.insert(None), lambda p, out: out == (p, None)),
+    (lambda p: p.delete([0]), lambda p, out: out.n_alive == p.n - 1),
+    (lambda p: p.update(insert=None), lambda p, out: out is p),
+    (lambda p: p.compact(), lambda p, out: out.refresh_stats.compactions == 1),
+    (lambda p: t_api.build_plan_batch(
+        [p.host.x, p.host.x[:-8]], k=4, device="cpu"),
+     lambda p, out: out.capacity == 512 and
+     out.n_alive.tolist() == [p.n, p.n - 8]),
+    (lambda p: t_api.build_plan_batch([p.host.x], k=4, capacity=p.n + 8,
+                                      device="cpu"),
+     lambda p, out: out.capacity == p.n + 8),
+    (lambda p: t_api.update_plan(p), lambda p, out: out is p),
+    (lambda p: t_api.build_plan(p.host.x, k=4, capacity=p.n + 8,
+                                device="cpu"),
+     lambda p, out: out.capacity == p.n + 8 and out.n_alive == p.n),
+])
+def test_streaming_entry_points_are_ported(own_plan, call, check):
+    """The streaming entry points that raised before the port's fourth
+    slice now run on the CPU."""
+    _, plan = own_plan
+    assert check(plan, call(plan))
 
 
 def test_device_none_without_a_card_raises():

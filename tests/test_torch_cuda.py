@@ -737,3 +737,56 @@ def test_cuda_decode_attend_split_matches_plain(cuda_device, n_sel, g, mode,
         _assert_kernel_close(got[3], own, dtype)
     else:
         assert bool((got[3] == 0).all())
+
+
+@pytest.mark.requires_cuda
+def test_cuda_streamed_plans_run_through_the_spmv_kernel(cuda_device):
+    """Every streaming tier on a CUDA plan keeps it on the card; B1 (the
+    ``cuda`` backend) agrees with the plain path and the maintained COO on
+    the storage only streaming makes (tombstoned rows, claimed holes,
+    grown tail blocks, restriped and rebucketed layouts), dead rows come
+    out exactly 0, and the input plan keeps its products (copy-on-write)."""
+    x = feature_mixture(2048, 32, n_clusters=8, seed=3, spread=1.0)
+    plan = t_api.build_plan(x, k=8, bs=32, sb=4, ell_slack=2,
+                            capacity=2200, gamma_tol=1e-4)
+    _ = plan.gamma
+    rng = np.random.default_rng(4)
+    ch = rng.standard_normal((4096, 2)).astype(np.float32)
+    pool = feature_mixture(4096, 32, n_clusters=8, seed=5, spread=1.0)
+    feed, seen = 0, set()
+    steps = [dict(m=64), dict(m=64), dict(m=256, grow=True),
+             dict(m=64, delete_only=True), dict(m=64, defer=True)]
+    for s in steps:
+        live = np.nonzero(plan.alive)[0]
+        kill = rng.choice(live, s["m"], replace=False)
+        ins = None
+        if not s.get("delete_only"):
+            extra = 300 if s.get("grow") else 0
+            ins = pool[feed:feed + s["m"] + extra]
+            feed += len(ins)
+        before = plan.matvec(ch[:plan.n]).clone()
+        n0 = t_bsr.bsr_spmv_batched.launches
+        new = t_api.update_plan(plan, insert=ins, delete=kill,
+                                defer_layout=bool(s.get("defer")))
+        if new.host.pending_layout:
+            new = t_api.apply_pending_layout(new)
+        assert new.device.type == "cuda" and new.bsr.vals.is_cuda
+        y = new.matvec(ch[:new.n])
+        assert t_bsr.bsr_spmv_batched.launches > n0
+        scale = float(y.abs().max())
+        assert_close(y, new.matvec(ch[:new.n], backend="bsr"), rtol=0,
+                     atol=1e-4 * scale)
+        assert_close(y, new.matvec(ch[:new.n], backend="csr"), rtol=0,
+                     atol=1e-4 * scale)
+        dead = torch.from_numpy(~new.alive).to(cuda_device)
+        assert not y[dead].any()
+        assert torch.equal(plan.matvec(ch[:plan.n]), before)
+        seen.add(new.refresh_stats.last_action)
+        plan = new
+    assert plan.refresh_stats.grows >= 1
+    assert {"append", "tombstone"} <= seen
+    fresh = t_api.build_plan(plan.host.x[plan.alive], config=plan.config)
+    comp = plan.compact()
+    for name in ("col_idx", "nbr_mask", "vals"):
+        assert torch.equal(getattr(comp.bsr, name), getattr(fresh.bsr, name))
+    assert torch.equal(comp.matvec(ch[:comp.n]), fresh.matvec(ch[:comp.n]))

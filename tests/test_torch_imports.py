@@ -18,7 +18,9 @@ FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "tsne_torch.py",
     ROOT / "examples" / "meanshift_torch.py",
-    ROOT / "tools" / "time_decode.py"]
+    ROOT / "examples" / "stream_torch.py",
+    ROOT / "tools" / "time_decode.py",
+    ROOT / "tools" / "profile_stream.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 
 

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_close, tn, tt
+from _torch_parity import stream_plan_from_reference as cross_over
 
 from repro import api as ref_api
 from repro.core import blocksparse as ref_bs
@@ -68,26 +69,6 @@ def _teleport(x, frac, seed=1):
     x2[mv] += 0.01 * rng.standard_normal((len(mv), x.shape[1])
                                          ).astype(np.float32)
     return x2
-
-
-def cross_over(rp):
-    """Reference plan -> port plan with its lifecycle state, through numpy
-    arrays (and the plan's values callable, which takes numpy arrays)."""
-    b, h = rp.bsr, rp.host
-    return t_convert.plan_from_reference_arrays(
-        dataclasses.asdict(rp.config), rp.n, np.asarray(h.pi),
-        np.asarray(h.inv), tuple(np.asarray(a) for a in h.coo),
-        None if b is None else np.asarray(b.col_idx),
-        None if b is None else np.asarray(b.nbr_mask),
-        None if b is None else np.asarray(b.vals),
-        h.sigma, fill=0.0 if b is None else b.fill,
-        embedding=h.embedding, embed_mean=h.embed_mean,
-        embed_axes=h.embed_axes,
-        tree_levels=None if h.tree is None else h.tree.levels,
-        y_last=h.y_last, x=h.x, sources=h.sources,
-        pattern_from_knn=h.pattern_from_knn, values_mode=h.values_mode,
-        values_fn=h.values_fn, refresh=dataclasses.asdict(h.refresh),
-        device="cpu")
 
 
 def _projections(rp, tp, x_new):
@@ -383,6 +364,8 @@ def test_refresh_sources_mode_matches_reference():
     mv = rng.choice(N, 12, replace=False)
     t2[mv] = x[(mv + N // 2) % N]
     _masks_agree(rp, tp, t2)
+    # tp is refreshed by both policies in turn: the patch tier leaves its
+    # input plan valid (ROADMAP C6)
     for policy in ("patch", None):
         r2 = rp.refresh(t2, policy=policy)
         t2p = tp.refresh(t2, policy=policy)
@@ -393,7 +376,6 @@ def test_refresh_sources_mode_matches_reference():
         got = t2p.meanshift_step(t2p.permute(tt(t2)), t2p.permute(tt(src)),
                                  2.0)
         _scaled(got, want)
-        tp = cross_over(rp)              # the patch above updated in place
 
 
 @pytest.mark.parametrize("policy,frac", [(None, 0.3), ("rebucket", 0.05),
