@@ -24,7 +24,8 @@ when it fails:
    affinity patterns with a ragged last row block (t-SNE force, also
    under the same three kinds of padded mask, run twice and required to
    be bit-equal), the ClusterKV prefill kernel (causal and not, g = 7,
-   tiles of 128 and 64, float32 and bf16) and the decode kernel (plain
+   tiles of 128 and 64, float32 and bf16; float32 also at tiles of 32 and
+   head dim 16, the reduced model's) and the decode kernel (plain
    mode, plan mode with holes with and without the self column, g = 1 and
    7, float32 and bf16; the same tiles selected as the plain path; and
    one NaN key tile, selected first as ``topk_stable`` ranks it);
@@ -54,9 +55,10 @@ when it fails:
    between them — auto first, then each tier not yet taken, forced — each
    checked against a float64 edge-wise mean on sampled rows;
 8. the twin examples ``examples/tsne_torch.py``,
-   ``examples/meanshift_torch.py`` and ``examples/stream_torch.py`` on
-   the card, which must print "clusters separated OK", "converged to
-   modes OK" and "streamed plan OK";
+   ``examples/meanshift_torch.py``, ``examples/stream_torch.py`` and
+   ``examples/serve_clusterkv_torch.py`` on the card, which must print
+   "clusters separated OK", "converged to modes OK", "streamed plan OK"
+   and "service tokens match dense decode";
 9. batched plans: ``kv_plan_batch(k, with_bsr=True)`` over Qwen2-0.5B's
    prefilled keys (24 layers x 2 kv heads = 48 members), whose
    ``matvec(backend="cuda")`` must be ONE launch of the batched SpMV kernel
@@ -69,6 +71,21 @@ when it fails:
    plain mode); and a float32 run with budgets covering every tile that
    must give the flash engine's greedy tokens and first-token logits
    within 1e-3 x scale;
+12. (run right after phase 10, with its weights) the ClusterKV decode
+   service, ``ClusterKVEngine(mode="plan", knn=8, plan_prefill=True)``, on
+   phase 10's traffic (the same prompts): B5 in plan mode with the self
+   column once per layer per tick, B6 once per layer per admission (plan
+   prefill), no SpMV; after 8 ticks one session loses a prompt and a
+   generated position (``trim``) and another is rebucketed, and decode
+   goes on with one decode signature and the insert-tier telemetry exact
+   (appends = inserts x 48, flushed edges = appends x knn); B5 on tick 8's
+   real state (every layer) against ``plan_decode_plain`` within C10 with
+   the same tiles; seconds per admission split into flash prefill, the 24
+   ``kv_plan_batch`` builds, staging with ``attach`` and the plan prefill,
+   tick ms, tokens/s and the host claim against the decode step, beside
+   phase 10's; then a float32 covering-budget check: the service's tokens
+   equal the flash engine's, and a snapshot after 3 ticks resumed in a
+   fresh engine gives the same tokens;
 
 then B5 and B6 are timed at the serving path's shapes beside their plain
 versions, SDPA with the equivalent mask (B6) and their bounds (B6's at the
@@ -98,11 +115,12 @@ device time without the host's, which is the larger part of a call.
    build and γ streamed / fresh are printed.
 
 Launch counters are set to 0 just before each path (phases 3-4, 6, 7, 9,
-10, 11) and read just after it; launches made to compare or time a kernel
-are not counted. Every kernel must have been launched by a path: B6 by the
-prefills, B5 by the ticks (plan mode) and the scalar steps (plain mode),
-B1 once per 48-member ``PlanBatch.matvec`` and by every streamed plan's
-``matvec``, B2 by the single-plan entry on the main and streamed plans.
+10, 11, 12) and read just after it; launches made to compare or time a
+kernel are not counted. Every kernel must have been launched by a path: B6
+by the prefills and the service's plan prefills, B5 by the ticks of both
+engines (plan mode) and the scalar steps (plain mode), B1 once per
+48-member ``PlanBatch.matvec`` and by every streamed plan's ``matvec``, B2
+by the single-plan entry on the main and streamed plans.
 
 Needs a CUDA device and ``nvcc``; without a device it exits non-zero and
 prints no result. ``--rehearse-cpu`` walks the same phases at tiny sizes
@@ -654,7 +672,9 @@ def phase_examples(rehearse: bool):
              if rehearse else [], "clusters separated OK"),
             ("meanshift_torch.py", [], "converged to modes OK"),
             ("stream_torch.py", ["--n", "2048", "--steps", "10"]
-             if rehearse else [], "streamed plan OK")):
+             if rehearse else [], "streamed plan OK"),
+            ("serve_clusterkv_torch.py", [],
+             "service tokens match dense decode")):
         t0 = time.perf_counter()
         r = subprocess.run(
             [sys.executable, str(ROOT / "examples" / script), *cpu, *extra],
@@ -778,6 +798,23 @@ def check_attention_kernels(args, dev, rehearse, cases):
                 say(f"  B6 {str(dtype):14s} S={s6} g=7 dh=64 bq=bk={bq} "
                     f"causal={causal!s:5s}: err {err:.2e} (scale "
                     f"{scale:.2f}, tolerance {tol})")
+    # the float32 instance at the reduced model's head dim (the twin
+    # example's plan prefill): tiles of 32, dh = 16, g = 2
+    for causal in (True, False):
+        q, k, v, kpos, qpos, idx = attention_inputs(
+            gen, 2, 4, 2, 256, 16, 32, 3, torch.float32, dev)
+        got = k_ba.block_attention(q, k, v, kpos, qpos, idx, bq=32, bk=32,
+                                   causal=causal)
+        err, scale = check_close(
+            f"block_attention float32 dh=16 causal={causal}", got,
+            k_ba.block_attention_plain(q, k, v, kpos, qpos, idx, bq=32,
+                                       bk=32, causal=causal))
+        cases.append({"kernel": "block_attention", "dtype": "torch.float32",
+                      "S": 256, "g": 2, "dh": 16, "bq": 32, "n_sel": 3,
+                      "causal": causal, "max_abs_err": err, "scale": scale,
+                      "tolerance": f"{REL_TOL:g} x scale"})
+        say(f"  B6 torch.float32  S=256 g=2 dh=16 bq=bk=32 causal="
+            f"{causal!s:5s}: err {err:.2e} (scale {scale:.2f})")
     b, s5, bk, n_sel = 4, (2048 if rehearse else 8192), 128, 16
     qpos = torch.tensor([s5 - 500, s5 // 3, s5 - 1, 40], dtype=torch.int32,
                         device=dev)
@@ -1055,6 +1092,25 @@ def phase_plan_batch(args, dev, sync, cfg, params, rehearse, reset_counts,
             "err_plan_prefill": err_pf, "launches": launches}
 
 
+def serve_traffic(args, cfg, rehearse):
+    """The serving traffic of phases 10 and 12: the sizes, and the requests
+    drawn from ``--seed`` (the same prompts for both engines), with the
+    generator they were drawn from."""
+    from repro_torch.train.serve_loop import Request
+
+    if rehearse:
+        slots, max_seq, bucket, n_req, max_new = 2, 256, 64, 4, 6
+        lo, hi = 16, 120
+    else:
+        slots, max_seq, bucket, n_req, max_new = 4, 8192, 1024, 8, 32
+        lo, hi = 2048, 6144
+    rng = np.random.default_rng(args.seed + 10)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab, int(
+        rng.integers(lo, hi + 1))).astype(np.int64), max_new=max_new)
+        for i in range(n_req)]
+    return (slots, max_seq, bucket, n_req, max_new, lo, hi), reqs, rng
+
+
 def phase_serve(args, dev, sync, cfg, params, rehearse, reset_counts,
                 collect_counts):
     """Phase 10: serving Qwen2-0.5B through ``Engine(backend="clusterkv")``."""
@@ -1063,20 +1119,12 @@ def phase_serve(args, dev, sync, cfg, params, rehearse, reset_counts,
     from repro_torch.models import transformer as tf
     from repro_torch.train.serve_loop import Engine, Request
 
-    if rehearse:
-        slots, max_seq, bucket, n_req, max_new = 2, 256, 64, 4, 6
-        lo, hi = 16, 120
-    else:
-        slots, max_seq, bucket, n_req, max_new = 4, 8192, 1024, 8, 32
-        lo, hi = 2048, 6144
+    sizes, reqs, rng = serve_traffic(args, cfg, rehearse)
+    slots, max_seq, bucket, n_req, max_new, lo, hi = sizes
     say(f"== phase 10: serving {cfg.name} ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.dtype}) through Engine(backend='clusterkv'): "
         f"slots={slots}, max_seq={max_seq}, bucket={bucket}, {n_req} "
         f"requests of {lo}-{hi} tokens, max_new={max_new}")
-    rng = np.random.default_rng(args.seed + 10)
-    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab, int(
-        rng.integers(lo, hi + 1))).astype(np.int64), max_new=max_new)
-        for i in range(n_req)]
     eng = Engine(cfg, params, slots=slots, max_seq=max_seq,
                  prefill_bucket=bucket, backend="clusterkv", device=dev)
     for r in reqs:
@@ -1184,17 +1232,328 @@ def phase_serve(args, dev, sync, cfg, params, rehearse, reset_counts,
             "check_logit_err": [e for e, _ in errs]}
 
 
+COUNTERS = ("launches", "plain_mode_launches", "plan_mode_launches")
+
+
 @contextmanager
 def uncounted(*wrappers):
-    """Launches inside the block leave the wrappers' counts as they were:
-    a check of a path's result (a kernel against itself, a member against
-    the batch) or a timing is not the path's launch."""
-    saved = [w.launches for w in wrappers]
+    """Launches inside the block leave the wrappers' counts (B5's per
+    contract too) as they were: a check of a path's result (a kernel
+    against itself, a member against the batch) or a timing is not the
+    path's launch."""
+    saved = [{a: getattr(w, a) for a in COUNTERS if hasattr(w, a)}
+             for w in wrappers]
     try:
         yield
     finally:
-        for w, n in zip(wrappers, saved):
-            w.launches = n
+        for w, counts in zip(wrappers, saved):
+            for a, n in counts.items():
+                setattr(w, a, n)
+
+
+class MemoryCheckpointer:
+    """In-memory stand-in with the ``save_plan`` / ``restore_plan`` surface
+    ``ClusterKVEngine.snapshot`` hands its ``SessionStore`` to: it keeps a
+    deep copy (the on-disk ``Checkpointer`` is ROADMAP A10)."""
+
+    def __init__(self):
+        self.saved = {}
+
+    def save_plan(self, step, plan, name="plan", blocking=False):
+        import copy
+        self.saved[name] = (copy.deepcopy(plan), step)
+
+    def restore_plan(self, name="plan"):
+        import copy
+        plan, step = self.saved[name]
+        return copy.deepcopy(plan), step
+
+
+def phase_service(args, dev, sync, cfg, params, rehearse, reset_counts,
+                  collect_counts, serve):
+    """Phase 12: the ClusterKV decode service (``ClusterKVEngine``, plan
+    mode, ``plan_prefill``) on phase 10's traffic, then a covering-budget
+    float32 check with snapshot/resume. ``serve`` is phase 10's result (the
+    per-call baseline of the same call)."""
+    import dataclasses
+    from repro_torch.core.clusterkv import plan_decode_plain, plan_select
+    from repro_torch.kernels import block_attention as k_ba
+    from repro_torch.kernels import decode_attend as k_da
+    from repro_torch.models import attention as attn
+    from repro_torch.serve import ClusterKVEngine
+    from repro_torch.train.serve_loop import Engine, Request
+
+    t_phase = time.perf_counter()
+    sizes, reqs, rng = serve_traffic(args, cfg, rehearse)
+    slots, max_seq, bucket, n_req, max_new, lo, hi = sizes
+    knn, surgery_tick = 8, (2 if rehearse else 8)
+    ck = cfg.clusterkv
+    say(f"== phase 12: the decode service, ClusterKVEngine(mode='plan', "
+        f"knn={knn}, plan_prefill=True), serving {cfg.name} on phase 10's "
+        f"traffic: slots={slots}, max_seq={max_seq}, bucket={bucket}, "
+        f"{n_req} requests of {lo}-{hi} tokens, max_new={max_new}; tiles "
+        f"{ck.block_k}, {ck.blocks_per_query} blocks per query tile, "
+        f"{ck.decode_clusters} decode clusters, window "
+        f"{ck.local_window_blocks} tile, embed_dim {ck.embed_dim}")
+    eng = ClusterKVEngine(cfg, params, slots=slots, max_seq=max_seq,
+                          prefill_bucket=bucket, mode="plan", knn=knn,
+                          plan_prefill=True, device=dev)
+    for r in reqs:
+        eng.submit(r)
+    sync()
+    seen = []
+    real_decode = attn.clusterkv_plan_decode
+
+    def record(q, ks, vs, ps, cent, qpos, ccfg, *, k_self=None,
+               v_self=None):
+        # one tick's real state, every layer: the inputs B5 is called with
+        seen.append(tuple(a.clone() for a in (q, ks, vs, ps, cent, qpos,
+                                              k_self, v_self)))
+        return real_decode(q, ks, vs, ps, cent, qpos, ccfg, k_self=k_self,
+                           v_self=v_self)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    surgery = None
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        if eng.ticks == surgery_tick - 1:
+            attn.clusterkv_plan_decode = record
+        try:
+            eng.step()
+        finally:
+            attn.clusterkv_plan_decode = real_decode
+        eng._retire()
+        if eng.ticks == surgery_tick and surgery is None:
+            # trim one prompt position and one generated position of the
+            # session in slot 0, rebucket the session in slot 1
+            live = [eng._slot_sess[s] for s in range(2)]
+            if any(x is None for x in live):
+                raise AssertionError("slots 0 and 1 are not both live at "
+                                     f"tick {surgery_tick}")
+            gen_pos = sorted(live[0].phys_hist)[0]
+            c0 = dict(eng.store.counters)
+            t_s = time.perf_counter()
+            eng.trim(live[0].rid, [3, gen_pos])
+            sync()
+            trim_s = time.perf_counter() - t_s
+            t_s = time.perf_counter()
+            eng.rebucket(live[1].rid)
+            sync()
+            surgery = {"trim_s": trim_s,
+                       "rebucket_s": time.perf_counter() - t_s,
+                       "trimmed": [3, gen_pos],
+                       "trim_rid": live[0].rid, "rebucket_rid": live[1].rid}
+            c1 = eng.store.counters
+            if (c1["deletes"] - c0["deletes"], c1["rebuckets"]
+                    - c0["rebuckets"]) != (2, 1):
+                raise AssertionError(f"trim/rebucket counters {c0} -> {c1}")
+            ps = eng.pstate["ps"][:, live[0].slot]
+            if bool(((ps == 3) | (ps == gen_pos)).any()):
+                raise AssertionError("trimmed positions still in the cache")
+    sync()
+    wall = time.perf_counter() - t0
+    launches = collect_counts("decode service")
+    ticks = eng.ticks
+    if surgery is None:
+        raise AssertionError(f"the run ended before tick {surgery_tick}")
+    n_layers = cfg.n_layers
+    plan_mode = launches["decode_attend_fused.plan_mode"]
+    if not rehearse:
+        if plan_mode != n_layers * ticks or \
+                launches["decode_attend_fused"] != plan_mode:
+            raise AssertionError(f"{ticks} service ticks launched the "
+                                 f"plan-mode decode kernel {plan_mode} times "
+                                 f"({launches['decode_attend_fused']} in "
+                                 "all)")
+        if launches["block_attention"] != n_layers * n_req:
+            raise AssertionError(f"{n_req} plan prefills launched "
+                                 f"block_attention "
+                                 f"{launches['block_attention']} times")
+        if launches["bsr_spmv_batched"] or launches["bsr_spmv"]:
+            raise AssertionError(f"the service launched the SpMV kernels: "
+                                 f"{launches}")
+    for r in reqs:
+        if len(r.output) != max_new or not all(0 <= t < cfg.vocab
+                                               for t in r.output):
+            raise AssertionError(f"service request {r.rid}: output "
+                                 f"{r.output}")
+    for rid, lg in eng.first_logits.items():
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"service request {rid}: non-finite "
+                                 "first-token logits")
+    rep = eng.report()
+    if rep["decode_traces"] != 1 or rep["specs_seen"] != 1:
+        raise AssertionError(f"decode_traces {rep['decode_traces']}, "
+                             f"specs_seen {rep['specs_seen']}")
+    members = n_layers * cfg.n_kv_heads
+    inserts = rep["counters"]["inserts"]
+    appends = rep["insert_tiers"]["appends"]
+    if inserts != sum(len(r.output) - 1 for r in reqs) or \
+            appends != inserts * members or \
+            rep["counters"]["flushed_edges"] != appends * knn:
+        raise AssertionError(f"insert telemetry: {rep['counters']}, "
+                             f"{rep['insert_tiers']}")
+    if rep["insert_tiers"]["tombstones"] != members or \
+            rep["insert_tiers"]["rebuckets"] != members:
+        raise AssertionError(f"tiers taken: {rep['insert_tiers']}")
+
+    # B5 through the cuda backend against plan_decode_plain on the
+    # recorded tick's state (uncounted): C10 bound, the same tiles
+    n_sel = min(ck.decode_clusters, max_seq // eng.bk)
+    window = ck.local_window_blocks * eng.bk
+    if len(seen) != n_layers:
+        raise AssertionError(f"recorded {len(seen)} layers of a tick")
+    b5_err, b5_scale, same_tiles = 0.0, 0.0, True
+    with uncounted(k_da.decode_attend_fused):
+        for q, ks, vs, ps, cent, qpos, k1, v1 in seen:
+            sel = (torch.empty((slots, cfg.n_kv_heads, n_sel),
+                               dtype=torch.int32, device=dev)
+                   if not rehearse else None)
+            got = k_da.decode_attend_fused(
+                q, ks, vs, ps, cent, qpos, k1, v1, n_sel=n_sel, bk=eng.bk,
+                plan_mode=True, has_self=True, window=window, sel_out=sel)
+            want = plan_decode_plain(q, ks, vs, ps, cent, qpos, n_sel=n_sel,
+                                     bk=eng.bk, window=window, k_self=k1,
+                                     v_self=v1)
+            err, scale = check_close(
+                "B5 on a service tick vs plan_decode_plain", got.float(),
+                want.float(), bf16_ulps=BF16_ULPS
+                if got.dtype == torch.bfloat16 else 0)
+            b5_err, b5_scale = max(b5_err, err), max(b5_scale, scale)
+            if sel is not None:
+                want_sel = plan_select(q, ps, cent, qpos, n_sel=n_sel,
+                                       bk=eng.bk, window=window)
+                same_tiles &= torch.equal(sel.long().sort(-1).values,
+                                          want_sel.sort(-1).values)
+    if not same_tiles:
+        raise AssertionError("B5 selected other tiles than plan_select on "
+                             "the service's state")
+    del seen
+
+    generated = sum(len(r.output) for r in reqs)
+    t = eng.timings
+    builds, stages, pps = t["plan_build_s"], t["stage_s"], t["plan_prefill_s"]
+    flash = [a - b - c - d for a, b, c, d in zip(t["prefill_s"], builds,
+                                                  stages, pps)]
+    tick = [x * 1e3 for x in t["tick_s"]]
+    say(f"  {n_req} requests, {generated} tokens in {wall:.2f} s: "
+        f"{generated / wall:.1f} tokens/s; {ticks} ticks (phase 10, "
+        f"per-call, same traffic: {serve['tokens_per_s']:.1f} tokens/s, "
+        f"{serve['ticks']} ticks)")
+    say(f"  admission s (prompt -> flash prefill + {n_layers} "
+        "kv_plan_batch + stage and attach + plan prefill = total): "
+        + "; ".join(
+            f"{len(r.tokens)} -> {f:.3f} + {b:.3f} + {s_:.3f} + {p:.3f} = "
+            f"{a:.3f}" for r, f, b, s_, p, a in zip(
+                reqs, flash, builds, stages, pps, t["prefill_s"])))
+    say(f"  tick ms: median {float(np.median(tick)):.2f}, min "
+        f"{min(tick):.2f}, max {max(tick):.2f} (phase 10 per-call: median "
+        f"{serve['tick_ms_median']:.2f}, min {min(serve['tick_ms']):.2f}, "
+        f"max {max(serve['tick_ms']):.2f})")
+    say(f"  host claim {rep['host_claim_s']:.3f} s against decode step "
+        f"{rep['device_tick_s']:.3f} s over {ticks} ticks "
+        f"({rep['host_claim_s'] / ticks * 1e3:.2f} / "
+        f"{rep['device_tick_s'] / ticks * 1e3:.2f} ms a tick)")
+    say(f"  trim of positions {surgery['trimmed']} of request "
+        f"{surgery['trim_rid']} {surgery['trim_s']:.3f} s, rebucket of "
+        f"request {surgery['rebucket_rid']} {surgery['rebucket_s']:.3f} s; "
+        f"decode went on, decode_traces {rep['decode_traces']}, specs_seen "
+        f"{rep['specs_seen']}; counters {rep['counters']}; tiers "
+        f"{rep['insert_tiers']}")
+    say(f"  B5 on tick {surgery_tick}'s state, {n_layers} layers, self "
+        f"column: max-abs {b5_err:.2e} (scale {b5_scale:.2f}) against "
+        f"plan_decode_plain, tolerance {BF16_TOL_TEXT}; the same tiles")
+    del eng
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # covering budgets, float32: exact attention, so the service gives the
+    # flash engine's tokens; snapshot after 3 ticks and resume in a fresh
+    # engine gives the uninterrupted run's tokens
+    cover = max_seq // ck.block_k
+    cfgc = cfg.with_(dtype="float32", clusterkv=dataclasses.replace(
+        ck, blocks_per_query=cover, decode_clusters=cover))
+    rng_c = np.random.default_rng(args.seed + 12)
+    new_chk = 8
+    chk = [rng_c.integers(0, cfg.vocab, int(n)).astype(np.int64)
+           for n in ((40, 70) if rehearse else (2048, 3000))]
+
+    def run(e, steps=None):
+        rs = [Request(rid=i, tokens=p, max_new=new_chk)
+              for i, p in enumerate(chk)]
+        for r in rs:
+            e.submit(r)
+        if steps is None:
+            e.run()
+        else:
+            for _ in range(steps):
+                e.step()
+                e._retire()
+        return rs
+
+    def service():
+        return ClusterKVEngine(cfgc, params, slots=len(chk),
+                               max_seq=max_seq, prefill_bucket=bucket,
+                               knn=knn, plan_prefill=True, device=dev)
+
+    reset_counts()
+    fl = Engine(cfgc, params, slots=len(chk), max_seq=max_seq,
+                prefill_bucket=bucket, backend="flash", device=dev)
+    want = [r.output for r in run(fl)]
+    full = service()
+    got = [r.output for r in run(full)]
+    if got != want:
+        raise AssertionError(f"service tokens {got} != flash engine tokens "
+                             f"{want}")
+    errs = [check_close(f"service first-token logits request {i}",
+                        full.first_logits[i], fl.first_logits[i],
+                        rel_tol=SERVE_TOL) for i in range(len(chk))]
+    if full.report()["decode_traces"] != 1:
+        raise AssertionError("the covering service changed its signature")
+    del fl, full
+    part = service()
+    run(part, steps=3)
+    ckpt = MemoryCheckpointer()
+    part.snapshot(ckpt, step=3)
+    store, step = ckpt.restore_plan(name="sessions")
+    del part
+    resumed = service()
+    resumed.resume(store)
+    rs = {r.rid: r for r in resumed.slot_req if r is not None}
+    resumed.run()
+    back = [rs[i].output for i in range(len(chk))]
+    if step != 3 or back != want:
+        raise AssertionError(f"resumed tokens {back} != {want}")
+    launches_c = collect_counts("covering-budget check (service)")
+    del resumed, store, ckpt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    say(f"  covering budgets (blocks_per_query = decode_clusters = {cover}), "
+        f"float32, plan_prefill: {len(chk)} requests x {new_chk} tokens "
+        f"equal the flash engine's token for token; first-token logits "
+        f"max-abs " + ", ".join(f"{e:.2e} (scale {s_:.2f})" for e, s_ in errs)
+        + f", tolerance {SERVE_TOL:g} x scale; snapshot after 3 ticks -> "
+        f"resume in a fresh engine: the same tokens")
+    phase_s = time.perf_counter() - t_phase
+    say(f"  phase 12 took {phase_s:.1f} s")
+    return {"slots": slots, "max_seq": max_seq, "bucket": bucket,
+            "requests": n_req, "max_new": max_new, "knn": knn,
+            "prompt_tokens": [len(r.tokens) for r in reqs],
+            "generated": generated, "wall_s": wall,
+            "tokens_per_s": generated / wall, "ticks": ticks,
+            "admission_s": t["prefill_s"], "flash_prefill_s": flash,
+            "plan_build_s": builds, "stage_s": stages,
+            "plan_prefill_s": pps, "tick_ms": tick,
+            "tick_ms_median": float(np.median(tick)),
+            "host_claim_s": rep["host_claim_s"],
+            "device_tick_s": rep["device_tick_s"], "report": rep,
+            "surgery": surgery, "b5_tick_err": b5_err,
+            "b5_tick_scale": b5_scale, "launches": launches,
+            "covering_launches": launches_c, "check_tokens": got,
+            "check_logit_err": [e for e, _ in errs],
+            "percall_tick_ms_median": serve["tick_ms_median"],
+            "percall_tokens_per_s": serve["tokens_per_s"],
+            "phase_s": phase_s}
 
 
 def phase_stream(args, dev, timer, sync, rehearse, reset_counts,
@@ -1518,7 +1877,7 @@ def main() -> int:
     # the decode kernel's wrapper also counts its launches per contract
     mode_counters = {"decode_attend_fused.plain_mode": "plain_mode_launches",
                      "decode_attend_fused.plan_mode": "plan_mode_launches"}
-    # launches by the paths (phases 3-4, 6, 7, 9, 10): counters are set to 0
+    # launches by the paths (phases 3-4, 6, 7, 9-12): counters are set to 0
     # just before a path and read just after it
     main_launches = dict.fromkeys(wrappers, 0)
 
@@ -1996,6 +2355,9 @@ def main() -> int:
                                   reset_counts, collect_counts, k_bsr)
     serve = phase_serve(args, dev, sync, cfg, params, rehearse, reset_counts,
                         collect_counts)
+    # ------------------------------------------------- 12 (with 10's weights)
+    service = phase_service(args, dev, sync, cfg, params, rehearse,
+                            reset_counts, collect_counts, serve)
     del params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2009,6 +2371,8 @@ def main() -> int:
     for e in entries:
         if e["name"] in ("bsr_spmv_batched", "bsr_spmv"):
             e["launches_streaming"] = stream["launches"][e["name"]]
+        if e["name"] in ("decode_attend_fused", "block_attention"):
+            e["launches_service"] = service["launches"][e["name"]]
 
     say(f"  launches on all paths: {main_launches}")
     if not rehearse:
@@ -2032,7 +2396,7 @@ def main() -> int:
                                     for o, g in gammas.items()},
                           "tsne": tsne, "meanshift": meanshift,
                           "plan_batch": plan_batch, "serve": serve,
-                          "stream": stream})
+                          "service": service, "stream": stream})
     kernels = json.dumps({"kernels": entries})
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
     if rehearse:

@@ -22,8 +22,10 @@ import torch
 from repro_torch.core.clusterkv import sparse_block_attention
 from repro_torch.kernels import _build
 
-# (bq == bk, dh == dv) the CUDA kernel is instantiated for
+# (bq == bk, dh == dv) the CUDA kernel is instantiated for, per dtype: the
+# float32 CUDA-core kernel also at the reduced model's head dim 16
 SUPPORTED = {(128, 64), (64, 64), (32, 64)}
+SUPPORTED_F32 = SUPPORTED | {(32, 16)}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -81,10 +83,11 @@ def block_attention(q: torch.Tensor, k_sorted: torch.Tensor,
     if q.device.type != "cuda":
         return block_attention_plain(q, k_sorted, v_sorted, kpos, qpos, idx,
                                      bq=bq, bk=bk, causal=causal)
-    if bq != bk or dv != dh or (bq, dh) not in SUPPORTED:
+    shapes = SUPPORTED_F32 if q.dtype == torch.float32 else SUPPORTED
+    if bq != bk or dv != dh or (bq, dh) not in shapes:
         raise ValueError(f"the CUDA kernel supports (bq == bk, dh == dv) in "
-                         f"{sorted(SUPPORTED)}, got bq={bq}, bk={bk}, "
-                         f"dh={dh}, dv={dv}")
+                         f"{sorted(shapes)} for {q.dtype}, got bq={bq}, "
+                         f"bk={bk}, dh={dh}, dv={dv}")
     if q.dtype not in DTYPES or k_sorted.dtype != q.dtype \
             or v_sorted.dtype != q.dtype:
         raise TypeError(f"q/k/v must share one dtype of {list(DTYPES)}; got "

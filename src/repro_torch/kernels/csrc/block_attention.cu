@@ -565,7 +565,9 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
 // q (B, Hq, S, dh); k/v (B, Hkv, S_k, dh) cluster-sorted; kpos (B, Hkv, S_k)
 // i32; qpos (S,) i32; idx (B, Hkv, S/bq, n_sel) i32 key tiles; out
 // (B, Hq, S, dh). dtype 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
-// cores); q, k, v and out alike. bq == bk in {32, 64, 128}, dh = 64.
+// cores); q, k, v and out alike. bq == bk in {32, 64, 128}, dh = 64; and
+// float32 at bq == bk == 32, dh = 16 (the reduced model configuration of
+// the tests and the twin example).
 extern "C" int repro_block_attention(const void* q, const void* k,
                                      const void* v, const void* kpos,
                                      const void* qpos, const void* idx,
@@ -575,6 +577,11 @@ extern "C" int repro_block_attention(const void* q, const void* k,
                                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (b == 0 || s == 0) return (int)cudaSuccess;
+  if (bq == 32 && bk == 32 && dh == 16 && dtype == 0)
+    return launch_f32<32, 32, 16>(
+        (const float*)q, (const float*)k, (const float*)v, (const int*)kpos,
+        (const int*)qpos, (const int*)idx, (float*)out, b, hq, hkv, s, s_k,
+        n_sel, causal, st);
   if (bq != bk || dh != 64 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
 #define REPRO_BA_CASE(BT)                                                    \

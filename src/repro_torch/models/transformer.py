@@ -5,8 +5,7 @@ Parameters are plain nested dicts of tensors in the reference's layout
 (``models/param.py``); layers are stacked ``(L, ...)`` and applied by a
 Python loop (the reference's ``lax.scan``). Everything runs eagerly. The
 MoE FFN and MLA attention of the reference's other families wait for
-ROADMAP A12; the plan-ordered decode step of the ClusterKV service
-(``plan_decode_step``) waits for A7.
+ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -228,14 +227,22 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
     mask_qpos = qpos[:, None, None, None] if per_slot else qpos
     bi = torch.arange(b, device=dev)
     qi = qpos.long()
+    if per_slot:
+        # a slot at position S (a prompt whose bucket filled the cache)
+        # writes nothing, as the reference's out-of-range scatter drops it:
+        # it writes back what row S - 1 holds
+        fits = (qi < s_max)[:, None, None]
+        qi = qi.clamp(max=s_max - 1)
     for i in range(cfg.n_layers):
         lp = pm.layer(p["layers"], i)
         kc, vc = cache["k"][i], cache["v"][i]          # (B,Hkv,S,dh) views
         hn = pm.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps)
         q, k, v = _project_qkv(lp["attn"], hn, cfg, rope_pos)
         if per_slot:
-            kc[bi, :, qi] = k[:, :, 0].to(kc.dtype)
-            vc[bi, :, qi] = v[:, :, 0].to(vc.dtype)
+            kc[bi, :, qi] = torch.where(fits, k[:, :, 0].to(kc.dtype),
+                                        kc[bi, :, qi])
+            vc[bi, :, qi] = torch.where(fits, v[:, :, 0].to(vc.dtype),
+                                        vc[bi, :, qi])
         else:
             kc[:, :, qi] = k[:, :, 0].to(kc.dtype)
             vc[:, :, qi] = v[:, :, 0].to(vc.dtype)
@@ -283,3 +290,98 @@ def plan_prefill(p, cfg: ModelConfig, batch, perms) -> torch.Tensor:
         hn = pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps)
         h = h + _apply_mlp(lp["ffn"], hn)
     return _logits(p, cfg, h[:, -1])
+
+
+def plan_decode_step(p, cfg: ModelConfig, pstate, pend, tokens, slot_pos
+                     ) -> Tuple[torch.Tensor, Dict, torch.Tensor,
+                                torch.Tensor]:
+    """One decode tick over PLAN-ORDERED caches (the ClusterKV service).
+
+    Instead of the time-ordered cache of :func:`decode_step`, the serving
+    state keeps each layer's keys/values in their session plan's cluster
+    order plus the bookkeeping the sparse decode needs:
+
+      pstate = {"ks","vs": (L,B,Hkv,S,dh) plan-ordered caches,
+                "ps": (L,B,Hkv,S) int32 time position per plan slot
+                      (INT32_MAX marks capacity holes),
+                "cent": (L,B,Hkv,S/bk,dh) float32 per-tile centroids}
+      pend   = {"k","v": (L,B,Hkv,dh) LAST tick's key/value,
+                "slot": (L,B,Hkv) int plan slot the host-side inserter
+                        claimed for it (sentinel S = nothing pending),
+                "pos": (B,) int its time position}
+
+    The step lands the pending k/v rows at their claimed slots, refreshes
+    the one centroid tile each landing touched, and attends through
+    :func:`~repro_torch.models.attention.clusterkv_plan_decode` with the
+    current token's own k/v carried as an extra column (so self-attention
+    never waits on the landing). tokens (B,1); slot_pos (B,). Returns
+    ``(logits, pstate, k_new, v_new)`` where k_new/v_new (L,B,Hkv,dh) are
+    THIS tick's rows for the host to claim slots for.
+
+    Where the reference returns a new ``pstate``, the port writes the
+    landing and the centroid refresh into ``pstate``'s tensors in place
+    and returns the same dict. The reference scatters with the
+    out-of-bounds sentinel dropped; PyTorch has no drop mode (and an
+    out-of-range index is a device-side assert on CUDA), so every lane
+    writes at its slot clamped into range and a lane with nothing pending
+    writes back what its slot held: its ``ks/vs/ps/cent`` stay bit-equal
+    (the reference recomputes the clamped tile's centroid there, equal up
+    to rounding).
+    """
+    _check_dense(cfg)
+    if cfg.embedding_inputs:
+        raise NotImplementedError(
+            "plan decode serves token decoder-only models")
+    ckv_cfg = cfg.clusterkv
+    dt = compute_dtype(cfg)
+    h = p["embed"]["table"][tokens.long()].to(dt)
+    b = h.shape[0]
+    dev = h.device
+    ks, vs, ps, cent = pstate["ks"], pstate["vs"], pstate["ps"], \
+        pstate["cent"]
+    nl, _, hkv, s_cap, _ = ks.shape
+    bk = min(ckv_cfg.block_k, s_cap)
+    qpos = torch.as_tensor(slot_pos, device=dev).to(torch.int32)
+    rope_pos = qpos[:, None, None]
+    li = torch.arange(nl, device=dev)[:, None, None]
+    bi = torch.arange(b, device=dev)[None, :, None]
+    hi = torch.arange(hkv, device=dev)[None, None, :]
+
+    # land last tick's pending token at its claimed plan slot, one scatter
+    # across all layers before the layer loop
+    pslot = torch.as_tensor(pend["slot"], device=dev).long()
+    live = pslot < s_cap                                    # (L,B,Hkv)
+    slot = pslot.clamp(max=s_cap - 1)
+    ppos = torch.as_tensor(pend["pos"], device=dev).to(ps.dtype)
+    ppos = ppos[None, :, None].expand(nl, b, hkv)
+    ks[li, bi, hi, slot] = torch.where(live[..., None],
+                                       pend["k"].to(ks.dtype),
+                                       ks[li, bi, hi, slot])
+    vs[li, bi, hi, slot] = torch.where(live[..., None],
+                                       pend["v"].to(vs.dtype),
+                                       vs[li, bi, hi, slot])
+    ps[li, bi, hi, slot] = torch.where(live, ppos, ps[li, bi, hi, slot])
+    # refresh the ONE centroid tile each landing touched: gather the tile
+    # first, then widen (never cast the whole cache)
+    tile = slot // bk                                       # (L,B,Hkv)
+    seg = ks[li[..., None], bi[..., None], hi[..., None],
+             tile[..., None] * bk + torch.arange(bk, device=dev)]
+    cent[li, bi, hi, tile] = torch.where(live[..., None],
+                                         seg.float().mean(3),
+                                         cent[li, bi, hi, tile])
+
+    nks, nvs = [], []
+    for i in range(nl):
+        lp = pm.layer(p["layers"], i)
+        hn = pm.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps)
+        q, k, v = _project_qkv(lp["attn"], hn, cfg, rope_pos)
+        q1, k1, v1 = q[:, :, 0], k[:, :, 0], v[:, :, 0]
+        o = attn.clusterkv_plan_decode(q1, ks[i], vs[i], ps[i], cent[i],
+                                       qpos, ckv_cfg, k_self=k1, v_self=v1)
+        h = h + pm.apply_linear(lp["attn"]["wo"], o.reshape(b, 1, -1))
+        hn = pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps)
+        h = h + _apply_mlp(lp["ffn"], hn)
+        nks.append(k1)
+        nvs.append(v1)
+    return (_logits(p, cfg, h[:, 0]), pstate, torch.stack(nks),
+            torch.stack(nvs))

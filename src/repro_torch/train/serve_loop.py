@@ -78,13 +78,26 @@ class Engine:
         req.t_submit = time.time()
         self.queue.append(req)
 
-    def _install(self, s: int, req: Request, cache_1, blen: int) -> None:
-        """Copy an admitted request's prefilled cache into slot ``s`` (every
-        seq-scaling entry, along its sequence axis)."""
+    def _decode_step(self, params, cache, tokens, slot_pos):
+        """One token for every slot, each writing and masking at ITS OWN
+        position (``cache['pos']`` as a (slots,) vector — decode_step's
+        continuous-batching contract)."""
+        return self.mod.decode_step(params, self.cfg,
+                                    dict(cache, pos=slot_pos), tokens,
+                                    self.backend)
+
+    def _install(self, s: int, req: Request, cache_1, blen: int):
+        """Install an admitted request's prefilled state into slot ``s``.
+
+        The base engine copies every seq-scaling cache entry (along its
+        sequence axis) into the slot's cache region. Subclasses may stage
+        entirely different serving state and return replacement
+        first-token logits (else None to keep the prefill's)."""
         for key, ax in self._seq_axes.items():
             seg = cache_1[key][:, 0]             # e.g. (L, H, blen, dh)
             dst = self.cache[key].select(1, s)   # slot on the batch axis
             dst.narrow(ax - 1, 0, blen).copy_(seg)
+        return None
 
     def _release(self, s: int, req: Request) -> None:
         """Hook: slot ``s`` just retired ``req``."""
@@ -107,7 +120,9 @@ class Engine:
                 self.params, self.cfg,
                 {"tokens": torch.from_numpy(padded[None]).to(self.device)},
                 self.backend)
-            self._install(s, req, cache_1, blen)
+            override = self._install(s, req, cache_1, blen)
+            if override is not None:
+                logits = override
             tok = int(torch.argmax(logits[0]))
             self.timings["prefill_s"].append(time.perf_counter() - t0)
             self.first_logits[req.rid] = logits[0].cpu()
@@ -140,12 +155,10 @@ class Engine:
         for s in active:
             tokens[s, 0] = self.slot_req[s].output[-1]
         t0 = time.perf_counter()
-        cache = dict(self.cache,
-                     pos=torch.from_numpy(self.slot_pos.copy()).to(
-                         self.device))
-        logits, new_cache = self.mod.decode_step(
-            self.params, self.cfg, cache,
-            torch.from_numpy(tokens).to(self.device), self.backend)
+        logits, new_cache = self._decode_step(
+            self.params, self.cache,
+            torch.from_numpy(tokens).to(self.device),
+            torch.from_numpy(self.slot_pos.copy()).to(self.device))
         self.cache = dict(new_cache, pos=self.cache["pos"])
         nxt = torch.argmax(logits, -1).cpu().numpy()
         self.timings["tick_s"].append(time.perf_counter() - t0)

@@ -29,6 +29,7 @@ from repro_torch.kernels import gamma_score as t_gs
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import tsne_force as t_tf
 from repro_torch.models import attention as t_attn
+from repro_torch.models import transformer as t_model
 
 
 def _pattern(seed, nnz, n):
@@ -481,6 +482,28 @@ def test_cuda_decode_attend_matches_plain(cuda_device, g, mode, dtype):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_block_attention_f32_head_dim_16_matches_plain(cuda_device,
+                                                           causal):
+    """The float32 kernel at the reduced model's shape (tiles of 32, head
+    dim 16: the service's plan prefill in the tests and the twin example);
+    bf16 has no such instance and raises."""
+    q, k, v, kpos, qpos, idx = _attention_inputs(
+        7, 2, 4, 2, 128, 16, 32, 3, cuda_device, torch.float32)
+    n0 = t_ba.block_attention.launches
+    got = t_ba.block_attention(q, k, v, kpos, qpos, idx, bq=32, bk=32,
+                               causal=causal)
+    torch.cuda.synchronize()
+    assert t_ba.block_attention.launches == n0 + 1
+    want = t_ba.block_attention_plain(q, k, v, kpos, qpos, idx, bq=32,
+                                      bk=32, causal=causal)
+    _assert_kernel_close(got, want, torch.float32)
+    with pytest.raises(ValueError, match="supports"):
+        t_ba.block_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), kpos,
+                             qpos, idx, bq=32, bk=32)
+
+
+@pytest.mark.requires_cuda
 def test_cuda_attention_wrappers_reject_what_the_kernels_do_not_take(
         cuda_device):
     q, k, v, kpos, qpos, idx = _attention_inputs(0, 1, 4, 2, 96, 64, 48, 1,
@@ -790,3 +813,127 @@ def test_cuda_streamed_plans_run_through_the_spmv_kernel(cuda_device):
     for name in ("col_idx", "nbr_mask", "vals"):
         assert torch.equal(getattr(comp.bsr, name), getattr(fresh.bsr, name))
     assert torch.equal(comp.matvec(ch[:comp.n]), fresh.matvec(ch[:comp.n]))
+
+
+def _service_model(device, dtype="float32", clusters=8):
+    """The reduced Qwen config with tiles of 32 (``MAX_SEQ`` 128: 4 tiles;
+    8 decode clusters cover them all), random weights from a seed."""
+    from repro_torch.configs import ClusterKVConfig, reduced_config
+    from repro_torch.models import model_api
+    cfg = reduced_config("qwen2-0.5b").with_(
+        dtype=dtype,
+        clusterkv=ClusterKVConfig(enabled=True, block_q=32, block_k=32,
+                                  blocks_per_query=8,
+                                  decode_clusters=clusters))
+    params = model_api.init(cfg, torch.Generator(device=device).manual_seed(0),
+                            device=device)
+    return cfg, params
+
+
+def _service_requests(cfg, lengths, max_new=6):
+    from repro_torch.train.serve_loop import Request
+    rng = np.random.default_rng(7)
+    return [Request(rid=i, tokens=rng.integers(1, cfg.vocab, n).astype(
+        np.int64), max_new=max_new) for i, n in enumerate(lengths)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("plan_prefill", [False, True])
+def test_cuda_service_matches_flash_engine_through_b5(cuda_device,
+                                                      plan_prefill):
+    """The decode service on the card gives the flash engine's tokens at
+    covering budgets; every tick launches B5 in plan mode once per layer
+    (and nothing else of B5), and each plan prefill launches B6 once per
+    layer."""
+    from repro_torch.serve import ClusterKVEngine
+    from repro_torch.train.serve_loop import Engine
+    cfg, params = _service_model(cuda_device)
+    lengths = [20, 35, 17, 40]
+    flash = Engine(cfg, params, slots=2, max_seq=128, prefill_bucket=32,
+                   device=cuda_device)
+    want = _service_requests(cfg, lengths)
+    for r in want:
+        flash.submit(r)
+    flash.run()
+    svc = ClusterKVEngine(cfg, params, slots=2, max_seq=128,
+                          prefill_bucket=32, plan_prefill=plan_prefill,
+                          device=cuda_device)
+    got = _service_requests(cfg, lengths)
+    for r in got:
+        svc.submit(r)
+    fused, ba = t_da.decode_attend_fused, t_ba.block_attention
+    n0 = (fused.launches, fused.plan_mode_launches, ba.launches)
+    svc.run()
+    torch.cuda.synchronize()
+    assert [r.output for r in got] == [r.output for r in want]
+    assert fused.plan_mode_launches - n0[1] == cfg.n_layers * svc.ticks
+    assert fused.launches - n0[0] == cfg.n_layers * svc.ticks
+    assert ba.launches - n0[2] == (cfg.n_layers * len(lengths)
+                                   if plan_prefill else 0)
+    rep = svc.report()
+    assert rep["decode_traces"] == 1 and rep["specs_seen"] == 1
+    assert svc.pstate["ks"].is_cuda and svc.inserter._x.is_cuda
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_service_tick_b5_matches_plain_on_its_state(cuda_device,
+                                                         dtype, monkeypatch):
+    """B5 through the ``cuda`` decode backend against
+    ``plan_decode_plain`` on the service's own state of one tick (every
+    layer's plan-ordered caches, centroids, self column), at a budget of
+    2 of 4 tiles: within the C10 bound, the same tiles selected."""
+    from repro_torch.serve import ClusterKVEngine
+    cfg, params = _service_model(cuda_device, dtype, clusters=2)
+    seen = []
+    real = t_attn.clusterkv_plan_decode
+
+    def record(q, ks, vs, ps, cent, qpos, ccfg, *, k_self=None,
+               v_self=None):
+        seen.append([a.clone() for a in (q, ks, vs, ps, cent, qpos, k_self,
+                                         v_self)])
+        return real(q, ks, vs, ps, cent, qpos, ccfg, k_self=k_self,
+                    v_self=v_self)
+
+    svc = ClusterKVEngine(cfg, params, slots=2, max_seq=128,
+                          prefill_bucket=32, device=cuda_device)
+    for r in _service_requests(cfg, [40, 70], max_new=8):
+        svc.submit(r)
+    for _ in range(3):
+        svc.step()
+    monkeypatch.setattr(t_attn, "clusterkv_plan_decode", record)
+    svc.step()
+    assert len(seen) == cfg.n_layers
+    dt = t_model.DTYPES[dtype]
+    for q, ks, vs, ps, cent, qpos, k1, v1 in seen:
+        sel = torch.empty((2, cfg.n_kv_heads, 2), dtype=torch.int32,
+                          device=cuda_device)
+        got = t_da.decode_attend_fused(
+            q, ks, vs, ps, cent, qpos, k1, v1, n_sel=2, bk=32,
+            plan_mode=True, has_self=True, window=32, sel_out=sel)
+        want = t_ckv.plan_decode_plain(q, ks, vs, ps, cent, qpos, n_sel=2,
+                                       bk=32, window=32, k_self=k1,
+                                       v_self=v1)
+        assert q.dtype == ks.dtype == dt
+        _assert_kernel_close(got, want, dt)
+        want_sel = t_ckv.plan_select(q, ps, cent, qpos, n_sel=2, bk=32,
+                                     window=32)
+        assert torch.equal(sel.long().sort(-1).values,
+                           want_sel.sort(-1).values)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_service_with_the_plain_decode_backend_raises(cuda_device):
+    """``decode_backend="plain"`` asks for the plain path, which runs on CPU
+    tensors only: a service on the card raises at its first tick."""
+    import dataclasses
+    from repro_torch.serve import ClusterKVEngine
+    cfg, params = _service_model(cuda_device)
+    cfg = cfg.with_(clusterkv=dataclasses.replace(cfg.clusterkv,
+                                                  decode_backend="plain"))
+    svc = ClusterKVEngine(cfg, params, slots=1, max_seq=128,
+                          prefill_bucket=32, device=cuda_device)
+    for r in _service_requests(cfg, [20]):
+        svc.submit(r)
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        svc.step()

@@ -19,8 +19,10 @@ FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "examples" / "tsne_torch.py",
     ROOT / "examples" / "meanshift_torch.py",
     ROOT / "examples" / "stream_torch.py",
+    ROOT / "examples" / "serve_clusterkv_torch.py",
     ROOT / "tools" / "time_decode.py",
-    ROOT / "tools" / "profile_stream.py"]
+    ROOT / "tools" / "profile_stream.py",
+    ROOT / "tools" / "profile_service.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 
 
@@ -60,7 +62,9 @@ def test_port_has_the_expected_modules():
                  "kernels/block_attention.py", "kernels/decode_attend.py",
                  "models/attention.py", "models/param.py",
                  "models/model_api.py", "models/transformer.py",
-                 "train/serve_loop.py"):
+                 "train/serve_loop.py", "serve/__init__.py",
+                 "serve/session.py", "serve/streaming.py",
+                 "serve/engine.py"):
         assert must in names, must
     cu = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert cu == {"bsr_spmv.cu", "gamma_pairs.cu", "tsne_force.cu",
