@@ -55,10 +55,12 @@ when it fails:
    between them — auto first, then each tier not yet taken, forced — each
    checked against a float64 edge-wise mean on sampled rows;
 8. the twin examples ``examples/tsne_torch.py``,
-   ``examples/meanshift_torch.py``, ``examples/stream_torch.py`` and
-   ``examples/serve_clusterkv_torch.py`` on the card, which must print
-   "clusters separated OK", "converged to modes OK", "streamed plan OK"
-   and "service tokens match dense decode";
+   ``examples/meanshift_torch.py``, ``examples/stream_torch.py``,
+   ``examples/serve_clusterkv_torch.py``, ``examples/krr_torch.py`` and
+   ``examples/spectral_torch.py`` on the card, which must print
+   "clusters separated OK", "converged to modes OK", "streamed plan OK",
+   "service tokens match dense decode" and "OK" (after the dense scipy
+   check and the planted-cluster recovery);
 9. batched plans: ``kv_plan_batch(k, with_bsr=True)`` over Qwen2-0.5B's
    prefilled keys (24 layers x 2 kv heads = 48 members), whose
    ``matvec(backend="cuda")`` must be ONE launch of the batched SpMV kernel
@@ -98,9 +100,13 @@ device time without the host's, which is the larger part of a call.
    with ``capacity = 1.1 n`` and ``ell_slack = 4``, the γ guard armed,
    then steps of 1 % replaced (deletes plus inserts of points from the
    same mixture), one delete-only step, then from that streamed plan one
-   ``defer_layout`` step (deletes past ``max_dead_frac``: a compaction
-   pending) run by ``apply_pending_layout``, and ``plan.compact()``.
-   After every step, on
+   step through a ``DoubleBufferedPlan`` (deletes past ``max_dead_frac``
+   applied in place, the compaction they leave pending built on a
+   background thread while mid-build ``dbp.matvec`` through B1 stays
+   ``torch.equal`` to the old generation and a 1 % churn is queued,
+   remapped through ``compact_map`` and replayed after the swap, the
+   successor ``torch.equal`` to ``apply_pending_layout`` run inline), and
+   ``plan.compact()``. After every step, on
    the card: ``plan.matvec`` through B1 against the plain blockwise path
    and the maintained COO (1e-4 x scale), B2 on the plan's storage
    against the plain path, dead rows exactly 0, and the previous
@@ -112,15 +118,34 @@ device time without the host's, which is the larger part of a call.
    against the plain batched path (1e-4 x scale) and bit for bit against
    every member's own ``matvec``. Host seconds per step (with the
    tier taken), ``matvec`` ms of the streamed plan against the fresh
-   build and γ streamed / fresh are printed.
+   build and γ streamed / fresh are printed;
+13. the iterative solvers at the same widths: the SIFT generator and
+   widths (with its own seed) built with ``symmetrize=True, values=RBFValues()``; a KRR
+   fit (``krr_fit``, lam 0.5, block-Jacobi, the config's ``cg_tol`` and
+   ``cg_maxiter``, ``y = tanh(x @ w)``) with every lane converged, the
+   true residual through the plain path within 10 x ``cg_tol``, the same
+   fit through ``bsr`` within 1e-3 x max|alpha| and 2 iterations, B1
+   launched once per CG iteration plus the Gershgorin apply and held
+   against the plain path on this plan,
+   ``predict`` on 1024 held-out points, block-Jacobi against identity,
+   ``check_every`` 1 against 8 (the same bits, both timed), B1's share of
+   an iteration and the card's busy share of a solve (``torch.profiler``);
+   ``krr_fit_batch`` over 8 members of 24 000-32 768 points with ONE
+   batched B1 launch per iteration, held against the plain batched path
+   at these shapes, each lane held against its member's own fit; ``plan.eigs(k=6, m=32)`` and ``spectral_embedding(plan=,
+   bandwidth=0, m=32)`` with one B1 launch per Lanczos iteration, the
+   eigenvalues through ``cuda`` and ``bsr`` from one start vector within
+   1e-4 x scale, the spectral Ritz residuals through the plain path
+   within 1e-3 and the Ritz vectors orthonormal within 1e-4.
 
 Launch counters are set to 0 just before each path (phases 3-4, 6, 7, 9,
-10, 11, 12) and read just after it; launches made to compare or time a
+10, 11, 12, 13) and read just after it; launches made to compare or time a
 kernel are not counted. Every kernel must have been launched by a path: B6
 by the prefills and the service's plan prefills, B5 by the ticks of both
 engines (plan mode) and the scalar steps (plain mode), B1 once per
-48-member ``PlanBatch.matvec`` and by every streamed plan's ``matvec``, B2
-by the single-plan entry on the main and streamed plans.
+48-member ``PlanBatch.matvec``, by every streamed plan's and every
+double-buffered ``matvec`` (phase 11) and by every solver iteration
+(phase 13), B2 by the single-plan entry on the main and streamed plans.
 
 Needs a CUDA device and ``nvcc``; without a device it exits non-zero and
 prints no result. ``--rehearse-cpu`` walks the same phases at tiny sizes
@@ -674,7 +699,9 @@ def phase_examples(rehearse: bool):
             ("stream_torch.py", ["--n", "2048", "--steps", "10"]
              if rehearse else [], "streamed plan OK"),
             ("serve_clusterkv_torch.py", [],
-             "service tokens match dense decode")):
+             "service tokens match dense decode"),
+            ("krr_torch.py", [], "dense scipy reference: max rel err"),
+            ("spectral_torch.py", [], "planted-cluster recovery")):
         t0 = time.perf_counter()
         r = subprocess.run(
             [sys.executable, str(ROOT / "examples" / script), *cpu, *extra],
@@ -1561,6 +1588,7 @@ def phase_stream(args, dev, timer, sync, rehearse, reset_counts,
     """Phase 11: streaming at the paper's widths (the SIFT plan of phases
     3-5 built with 10 % spare capacity), then a lockstep batch."""
     from repro_torch import api
+    from repro_torch.core.doublebuf import DoubleBufferedPlan
     from repro_torch.data.pipeline import feature_mixture
     from repro_torch.kernels import ops
 
@@ -1572,7 +1600,8 @@ def phase_stream(args, dev, timer, sync, rehearse, reset_counts,
     t_phase = time.perf_counter()
     say(f"== phase 11: streaming at n={n}, D=128, k={k}, bs {bs}, sb {sb}, "
         f"capacity 1.1 n, ell_slack 4; {churn_steps} steps of {m} deletes "
-        f"+ {m} inserts, one delete-only step, one deferred step, compact")
+        f"+ {m} inserts, one delete-only step, one deferred step through "
+        f"the double buffer, compact")
     t0 = time.perf_counter()
     n_pool = n + (churn_steps + 2) * m
     pool = feature_mixture(n_pool, 128, n_clusters=n_clusters,
@@ -1581,6 +1610,7 @@ def phase_stream(args, dev, timer, sync, rehearse, reset_counts,
         f"the same mixture ({time.perf_counter() - t0:.1f} s on the host)")
     rng = np.random.default_rng(args.seed + 11)
     wrappers = (k_bsr.bsr_spmv_batched, k_bsr.bsr_spmv)
+    b1 = k_bsr.bsr_spmv_batched
 
     reset_counts()
     t0 = time.perf_counter()
@@ -1627,13 +1657,16 @@ def phase_stream(args, dev, timer, sync, rehearse, reset_counts,
     feed, rows = n, []
 
     def advance(plan, ch, y, fn, label):
-        """One step: ``fn(plan)`` timed on the host, the successor checked
-        on the card, and the previous generation's matvec held bit-equal
-        to what it gave before the step (ROADMAP C6)."""
+        """One step: ``fn(plan)`` timed on the host, then :func:`record`."""
         t0 = time.perf_counter()
         new = fn(plan)
         sync()
-        host_s = time.perf_counter() - t0
+        return record(plan, ch, y, new, time.perf_counter() - t0, label)
+
+    def record(plan, ch, y, new, host_s, label):
+        """The successor ``new`` of a step checked on the card, and the
+        previous generation's matvec held bit-equal to what it gave before
+        the step (ROADMAP C6)."""
         ch2 = charges(new)
         y2, errs = check(new, ch2, label)
         with uncounted(*wrappers):
@@ -1685,23 +1718,129 @@ def phase_stream(args, dev, timer, sync, rehearse, reset_counts,
     if not 0.9 <= gamma_ratio <= 1.1:
         raise AssertionError(f"streamed locality decayed: {gamma_ratio}")
 
-    # a deferred step: the fewest deletes that take the debris (live
-    # points lost since the peak, over the capacity) past max_dead_frac,
-    # and 1 % inserts, stay on the in-place tiers with a compaction
-    # pending, which apply_pending_layout then runs
+    # a deferred step through the double buffer: the fewest deletes that
+    # take the debris (live points lost since the peak, over the capacity)
+    # past max_dead_frac, and 1 % inserts, stay on the in-place tiers; the
+    # compaction they leave pending builds on a background thread while
+    # dbp.matvec serves the old generation through B1 and a 1 % churn is
+    # queued, to be remapped through compact_map and replayed at the swap
     streamed, ch_s, y_s = plan, ch, y
     peak = plan.host.peak_alive
     n_big = int(plan.config.max_dead_frac * plan.capacity) + 1 + m \
         - (peak - plan.n_alive)
-    deferred, ch_d, y_d = stream_step(plan, ch, y, n_big, m, "deferred",
-                                      defer=True)
-    if deferred.host.pending_layout != "compact" or \
-            deferred.capacity != streamed.capacity:
-        raise AssertionError("the deferred step did not stay in place with "
-                             "a compaction pending")
-    advance(deferred, ch_d, y_d, api.apply_pending_layout, "apply pending")
+    kill = rng.choice(np.nonzero(plan.alive)[0], n_big, replace=False)
+    xin, churn_ins = pool[feed:feed + m], pool[feed + m:feed + 2 * m]
+    feed += 2 * m
+    dbp = DoubleBufferedPlan(streamed)
+    t0 = time.perf_counter()
+    state = dbp.update(insert=xin, delete=kill)
+    t_launch = time.perf_counter()
+    step_s = t_launch - t0
+    snap = dbp.plan
+    if state != "applied" or not dbp.building or \
+            snap.host.pending_layout != "compact" or \
+            snap.capacity != streamed.capacity:
+        raise AssertionError(f"the deferred step did not stay in place with "
+                             f"a compaction building: {state}, building "
+                             f"{dbp.building}, pending "
+                             f"{snap.host.pending_layout}")
+    churn_del = rng.choice(np.nonzero(snap.alive)[0], m, replace=False)
+    if dbp.update(insert=churn_ins, delete=churn_del) != "queued":
+        raise AssertionError("a churn update mid-build was not queued")
+    ch_d = charges(snap)
+    y_pre = dbp.matvec(ch_d)
+    sync()
+    n0, mid_ms = b1.launches, []
+    while dbp.building:
+        t0 = time.perf_counter()
+        y_mid = dbp.matvec(ch_d)
+        sync()
+        mid_ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.equal(y_mid, y_pre):
+            raise AssertionError("a mid-build matvec differs from the old "
+                                 "generation's")
+    build_bg_s = time.perf_counter() - t_launch
+    if not mid_ms:
+        raise AssertionError("the build ended before a mid-build matvec")
+    if not rehearse and b1.launches - n0 != len(mid_ms):
+        raise AssertionError("the mid-build matvecs did not go through B1")
+    replay_s = []
+    real_update = api.update_plan
+
+    def timed_update(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_update(*a, **kw)
+        sync()
+        replay_s.append(time.perf_counter() - t0)
+        return out
+
+    api.update_plan = timed_update
+    try:
+        t0 = time.perf_counter()
+        dbp.wait()
+        sync()
+        wait_s = time.perf_counter() - t0
+    finally:
+        api.update_plan = real_update
+    swap_ms = (wait_s - sum(replay_s)) * 1e3
+    snapshot, successor, kind = dbp.last_swap
+    final = dbp.plan
+    if dbp.generation != 1 or kind != "compact" or snapshot is not snap \
+            or dbp.queued or len(replay_s) != 1:
+        raise AssertionError(f"swap: generation {dbp.generation}, kind "
+                             f"{kind}, queued {dbp.queued}, replays "
+                             f"{len(replay_s)}")
+    if dbp.events[-2][:2] != ("swap", "compact") or \
+            dbp.events[-1][0] != "apply":
+        raise AssertionError(f"events {[e[:2] for e in dbp.events[-3:]]}")
+    # every queued delete maps to a live slot of the successor, and after
+    # the replay that slot is dead or holds one of the queued arrivals
+    remapped = successor.host.compact_map[churn_del]
+    landed = final.host.last_inserted_idx
+    if (remapped < 0).any() or not successor.alive[remapped].all() or \
+            (final.alive[remapped] & ~np.isin(remapped, landed)).any() or \
+            final.n_alive != successor.n_alive or len(landed) != m:
+        raise AssertionError("the queued deletes were not remapped through "
+                             "compact_map and replayed")
+    record(streamed, ch_s, y_s, snap, step_s, "deferred")
+    rec_succ = record(snap, ch_d, y_pre, successor, build_bg_s,
+                      "background")
     if rows[-1]["tier"] != "compact" or rows[-1]["pending"] is not None:
-        raise AssertionError(f"apply_pending_layout ran {rows[-1]}")
+        raise AssertionError(f"the background repair ran {rows[-1]}")
+    record(successor, rec_succ[1], rec_succ[2], final, sum(replay_s),
+           "replayed")
+    with uncounted(*wrappers):
+        redo = api.apply_pending_layout(snapshot)
+        db_equal = {"pi": bool(torch.equal(successor.pi, redo.pi))}
+        db_equal.update({f: bool(torch.equal(getattr(successor.bsr, f),
+                                             getattr(redo.bsr, f)))
+                         for f in ("col_idx", "nbr_mask", "vals")})
+        if not all(db_equal.values()):
+            raise AssertionError(f"the swapped successor differs from the "
+                                 f"repair run inline: {db_equal}")
+        idle_ms = []
+        for _ in range(max(len(mid_ms), 5)):
+            t0 = time.perf_counter()
+            snap.matvec(ch_d)
+            sync()
+            idle_ms.append((time.perf_counter() - t0) * 1e3)
+    say(f"  double buffer: {n_big} deletes + {m} inserts applied in place "
+        f"in {step_s:.2f} s, compaction in the background "
+        f"{build_bg_s:.2f} s; {len(mid_ms)} mid-build dbp.matvec "
+        f"torch.equal to the old generation, "
+        f"{float(np.median(mid_ms)):.3f} ms median (no build in flight "
+        f"{float(np.median(idle_ms)):.3f} ms); a 1 % churn ({m} + {m}) "
+        f"queued; swap {swap_ms:.2f} ms + the queued churn replayed "
+        f"{sum(replay_s):.2f} s; generation 1, deletes remapped through "
+        f"compact_map; successor torch.equal to the inline repair "
+        f"{db_equal}")
+    del redo, final
+    doublebuf = {"deletes": n_big, "inserts": m, "step_s": step_s,
+                 "build_s": build_bg_s, "swap_ms": swap_ms,
+                 "replay_s": sum(replay_s),
+                 "mid_build_matvecs": len(mid_ms),
+                 "matvec_ms_mid_build": mid_ms, "matvec_ms_idle": idle_ms,
+                 "equal": db_equal}
     comp, ch, y = advance(streamed, ch_s, y_s, lambda p: p.compact(),
                           "compact")
     with uncounted(*wrappers):
@@ -1829,9 +1968,375 @@ def phase_stream(args, dev, timer, sync, rehearse, reset_counts,
             "fresh_build_s": fresh_s, "gamma_streamed": streamed.gamma,
             "gamma_fresh": fresh.gamma, "gamma_ratio": gamma_ratio,
             "compact_equal": equal, "matvec_ms": ms, "kept_tiles": kept,
+            "doublebuf": doublebuf,
             "batch": {"sizes": sizes.tolist(), "capacity": batch.capacity,
                       "build_s": batch_build_s, "steps": batch_rows},
             "launches": launches}
+
+
+def cg_trips(iters_max: int, check_every: int, maxiter: int) -> int:
+    """Loop trips of ``solvers.cg`` (one operator call each): it stops at
+    the first multiple of ``check_every`` where no lane is active, so it
+    runs the most iterations any lane ran, rounded up to that multiple,
+    and at most ``maxiter``."""
+    return min(maxiter, -(-iters_max // check_every) * check_every)
+
+
+def phase_solvers(args, dev, timer, sync, rehearse, reset_counts,
+                  collect_counts, k_bsr):
+    """Phase 13: the iterative solvers at the paper's widths, B1 under
+    every solver iteration."""
+    from repro_torch import api
+    from repro_torch.core.registry import get_preconditioner
+    from repro_torch.data.pipeline import feature_mixture
+    from repro_torch.solvers import (RBFValues, cg, krr_fit, krr_fit_batch,
+                                     normalized_operator,
+                                     spectral_embedding)
+    from repro_torch.solvers.cg import CHECK_EVERY
+    from repro_torch.solvers.krr import _plan_backend
+
+    n = 2048 if rehearse else args.n
+    # the paper's k in the rehearsal too: at k = 8 the small graph's
+    # components join, and the spectral Ritz pairs need more than m
+    # iterations
+    k, bs, sb = 30, 32, 8
+    n_test = 128 if rehearse else 1024
+    n_clusters = max(8, n // 256)
+    lam, m_lanczos = 0.5, 32
+    wrappers = (k_bsr.bsr_spmv_batched, k_bsr.bsr_spmv)
+    b1 = k_bsr.bsr_spmv_batched
+    t_phase = time.perf_counter()
+    say(f"== phase 13: solvers at n={n}, D=128, "
+        f"k={k}, bs {bs}, sb {sb}, symmetrized, RBF values")
+    x = feature_mixture(n + n_test, 128, n_clusters=n_clusters,
+                        seed=args.seed + 13)
+    x_train, x_test = x[:n], x[n:]
+    rng = np.random.default_rng(args.seed + 13)
+    w_true = rng.standard_normal(128).astype(np.float32)
+    y = np.tanh(x_train @ w_true).astype(np.float32)
+    y_dev = torch.from_numpy(y).to(dev)
+
+    t0 = time.perf_counter()
+    plan = api.build_plan(x_train, k=k, bs=bs, sb=sb, d=3, bits=10,
+                          leaf_size=64, backend="auto", symmetrize=True,
+                          values=RBFValues(), device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    b = plan.bsr
+    kept = int(b.nbr_mask.sum())
+    cfg = plan.config
+    say(f"  build_plan(symmetrize=True, values=RBFValues()) {build_s:.2f} s:"
+        f" {b.n_rb} row blocks, ELL width {b.max_nbr}, {kept} kept tiles, "
+        f"tile tensor {b.vals.numel() * 4 / 1e9:.3f} GB; RBF bandwidth "
+        f"{plan.host.values_fn.bandwidth:.4f}")
+    want = "bsr" if rehearse else "cuda"
+    if _plan_backend(plan, None) != want:
+        raise AssertionError(f"the solvers resolved backend "
+                             f"{_plan_backend(plan, None)!r}, not {want!r}")
+
+    # -- KRR: block-Jacobi CG, B1 once per iteration + the Gershgorin apply
+    reset_counts()
+    t0 = time.perf_counter()
+    model = krr_fit(plan, y_dev, lam=lam, precond="block_jacobi")
+    sync()
+    fit_s = time.perf_counter() - t0
+    res = model.result
+    iters = int(res.iters)
+    trips = cg_trips(iters, CHECK_EVERY, cfg.cg_maxiter)
+    launches_fit = collect_counts("KRR fit")
+    if not bool(res.converged.all()):
+        raise AssertionError(f"KRR did not converge in {iters} iterations")
+    if not rehearse and launches_fit["bsr_spmv_batched"] != trips + 1:
+        raise AssertionError(
+            f"KRR fit launched B1 {launches_fit['bsr_spmv_batched']} times "
+            f"for {trips} CG iterations + 1 Gershgorin apply")
+    shift = float(model.self_weight) + lam
+    with uncounted(*wrappers):
+        # B1 on this plan (what every iteration runs) against the plain
+        # path on the same input
+        v = torch.from_numpy(rng.standard_normal(plan.n).astype(
+            np.float32)).to(dev)
+        err_apply, _ = check_close("plan.apply cuda vs bsr", plan.apply(v),
+                                   plan.apply(v, backend="bsr"),
+                                   rel_tol=BACKEND_TOL)
+        a_cl = plan.permute(model.alpha)
+        y_cl = plan.permute(y_dev)
+        r_true = y_cl - (plan.apply(a_cl, backend="bsr") + shift * a_cl)
+        true_rel = float(torch.linalg.vector_norm(r_true)
+                         / torch.linalg.vector_norm(y_cl))
+        if true_rel > 10 * cfg.cg_tol:
+            raise AssertionError(f"true relative residual {true_rel:.3e} "
+                                 f"> 10 x cg_tol {cfg.cg_tol:g}")
+        model_b = krr_fit(plan, y_dev, lam=lam, precond="block_jacobi",
+                          backend="bsr")
+        err_b, scale_a = check_close("KRR alpha cuda vs bsr", model.alpha,
+                                     model_b.alpha, rel_tol=1e-3)
+        iters_b = int(model_b.result.iters)
+        if abs(iters_b - iters) > 2:
+            raise AssertionError(f"KRR iterations cuda {iters} vs bsr "
+                                 f"{iters_b}")
+        pred = model.predict(x_test)
+        if tuple(pred.shape) != (n_test,) or \
+                not bool(torch.isfinite(pred).all()):
+            raise AssertionError("predict(x_new) is not finite of shape "
+                                 f"({n_test},)")
+        test_mse = float(((pred.cpu().numpy()
+                           - np.tanh(x_test @ w_true)) ** 2).mean())
+        res_id = krr_fit(plan, y_dev, lam=lam, precond="identity").result
+        iters_id = int(res_id.iters)
+    # the Gershgorin shift makes this system well conditioned (a handful
+    # of iterations either way), so block-Jacobi may tie identity in
+    # iterations; it must not take more, and its residual after each
+    # iteration must be the lower one
+    hist_bj = res.history[1:min(iters, iters_id) + 1].cpu()
+    hist_id = res_id.history[1:min(iters, iters_id) + 1].cpu()
+    if iters > iters_id or not bool((hist_bj < hist_id).all()):
+        raise AssertionError(
+            f"block-Jacobi took {iters} iterations, identity {iters_id}; "
+            f"residuals {hist_bj.tolist()} vs {hist_id.tolist()}")
+    say(f"  krr_fit (lam {lam}, block_jacobi, tol {cfg.cg_tol:g}): "
+        f"{fit_s:.3f} s, {iters} CG iterations, B1 launches "
+        f"{launches_fit['bsr_spmv_batched']} (= iterations + 1; plan.apply"
+        f" vs bsr {err_apply:.2e}), self "
+        f"weight {shift - lam:.4f}; true relative residual (plain path) "
+        f"{true_rel:.2e}; alpha vs the bsr fit {err_b:.2e} (scale "
+        f"{scale_a:.3f}), bsr {iters_b} iterations; identity "
+        f"{iters_id} iterations (residual after each iteration, "
+        f"block-Jacobi / identity: "
+        f"{[f'{a:.2e}/{b:.2e}' for a, b in zip(hist_bj.tolist(), hist_id.tolist())]}"
+        f"); predict({n_test} held-out) mse {test_mse:.4f}")
+
+    # -- where a solve's time goes: the block-Jacobi factorization, then
+    # the CG loop (check_every 1 against 8: the same bits), B1's share of
+    # an iteration, and the card's busy share of a whole solve and of the
+    # loop alone (torch.profiler)
+    shift_t = model.self_weight + lam
+    factor = get_preconditioner("block_jacobi")
+
+    def A(v):                            # what plan.solve iterates on
+        return plan.apply(v) + shift_t * v
+
+    def host_ms(fn, reps=3):
+        out = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return sorted(out)[reps // 2]
+
+    with uncounted(*wrappers):
+        M = factor(plan.spec, plan.data, shift_t)
+        factor_ms = host_ms(lambda: factor(plan.spec, plan.data, shift_t))
+        solve_ms = host_ms(lambda: plan.solve(y_dev, shift=shift_t))
+        loop_s, loops = {1: [], 8: []}, {}
+        for every in (1, 8, 8, 1):
+            sync()
+            t0 = time.perf_counter()
+            loops[every] = cg(A, y_cl, M=M, tol=cfg.cg_tol,
+                              maxiter=cfg.cg_maxiter, check_every=every)
+            sync()
+            loop_s[every].append(time.perf_counter() - t0)
+        r1, r8 = loops[1], loops[8]
+        same = all(torch.equal(getattr(r1, f), getattr(r8, f))
+                   for f in ("x", "iters", "resid", "bnorm", "converged"))
+        same = same and torch.equal(torch.nan_to_num(r1.history, 7.0),
+                                    torch.nan_to_num(r8.history, 7.0))
+        if not same or not torch.equal(plan.unpermute(r1.x), res.x):
+            raise AssertionError("check_every 1 and 8 differ, or the loop "
+                                 "is not krr_fit's")
+        xs1 = torch.from_numpy(rng.standard_normal(
+            (1, b.n_cb * bs, 1)).astype(np.float32)).to(dev)
+        b1_ms = timer(lambda: b1(b.vals[None], b.col_idx[None], xs1,
+                                 b.nbr_mask[None], indices_checked=True),
+                      2 if rehearse else 20)
+    loop_ms = {e: sorted(v)[0] * 1e3 for e, v in loop_s.items()}
+    iter_ms = {e: loop_ms[e] / cg_trips(iters, e, cfg.cg_maxiter)
+               for e in loop_ms}
+    b1_share = b1_ms / iter_ms[CHECK_EVERY]
+    say(f"  plan.solve {solve_ms:.3f} ms: block-Jacobi factorization "
+        f"{factor_ms:.3f} ms; the CG loop with check_every 1 "
+        f"{loop_ms[1]:.3f} ms ({iter_ms[1]:.3f} ms an iteration), with 8 "
+        f"{loop_ms[8]:.3f} ms ({iter_ms[8]:.3f} ms a trip, "
+        f"{cg_trips(iters, 8, cfg.cg_maxiter)} trips); results torch.equal;"
+        f" B1 at this plan {b1_ms:.4f} ms = {b1_share:.3f} of an iteration")
+    busy = None
+    if not rehearse:
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        busy = {}
+        for what, fn in (
+                ("solve", lambda: plan.solve(y_dev, shift=shift_t)),
+                ("loop", lambda: cg(A, y_cl, M=M, tol=cfg.cg_tol,
+                                    maxiter=cfg.cg_maxiter))):
+            with uncounted(*wrappers):
+                sync()
+                with torch.profiler.profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    fn()
+                    sync()
+                    wall_p = time.perf_counter() - t0
+            rows = sorted(((e.self_device_time_total, e.key, e.count)
+                           for e in prof.key_averages()
+                           if e.device_type ==
+                           torch.autograd.DeviceType.CUDA), reverse=True)
+            busy_ms = sum(us for us, _, _ in rows) / 1e3
+            busy[what] = {"wall_ms": wall_p * 1e3, "busy_ms": busy_ms,
+                          "share": busy_ms / (wall_p * 1e3),
+                          "top": [{"kernel": key[:80], "ms": us / 1e3,
+                                   "count": n_}
+                                  for us, key, n_ in rows[:6]]}
+            say(f"  one {what} under torch.profiler: {wall_p * 1e3:.2f} ms,"
+                f" the card busy {busy_ms:.3f} ms = "
+                f"{busy[what]['share']:.3f}; top: "
+                + "; ".join(f"{r['kernel'][:40]} {r['ms']:.3f} ms "
+                            f"x{r['count']}" for r in busy[what]["top"][:4]))
+
+    # -- batched KRR: ONE batched B1 launch per iteration for all members
+    n_mem = 4 if rehearse else 8
+    lo, hi = (300, 512) if rehearse else (24000, 32768)
+    sizes = rng.integers(lo, hi + 1, n_mem)
+    sizes[0] = hi
+    mem_x = [feature_mixture(int(s), 128, n_clusters=32,
+                             seed=args.seed + 130 + i)
+             for i, s in enumerate(sizes)]
+    t0 = time.perf_counter()
+    batch = api.build_plan_batch(mem_x, k=k, bs=bs, sb=sb, backend="auto",
+                                 symmetrize=True, values=RBFValues(),
+                                 device=dev)
+    sync()
+    batch_build_s = time.perf_counter() - t0
+    if batch.capacity != hi:
+        raise AssertionError(f"batch capacity {batch.capacity}")
+    ys = batch.pad_charges([np.tanh(xm @ w_true) for xm in mem_x])
+    reset_counts()
+    t0 = time.perf_counter()
+    mb = krr_fit_batch(batch, ys, lam=lam)
+    sync()
+    batch_fit_s = time.perf_counter() - t0
+    launches_batch = collect_counts("batched KRR fit")
+    iters_lanes = mb.result.iters.cpu().tolist()
+    trips_b = cg_trips(max(iters_lanes), CHECK_EVERY, cfg.cg_maxiter)
+    if not bool(mb.result.converged.all()):
+        raise AssertionError(f"batched KRR lanes did not converge: "
+                             f"{iters_lanes}")
+    if not rehearse and launches_batch["bsr_spmv_batched"] != trips_b + 1:
+        raise AssertionError(
+            f"batched KRR launched B1 {launches_batch['bsr_spmv_batched']} "
+            f"times for {trips_b} iterations + 1")
+    lane_errs = []
+    with uncounted(*wrappers):
+        # the batched B1 launch at these shapes against the plain batched
+        # path on the same input
+        v = torch.from_numpy(rng.standard_normal(
+            (n_mem, batch.capacity)).astype(np.float32)).to(dev)
+        err_batch_apply, _ = check_close(
+            "batch.apply cuda vs bsr", batch.apply(v),
+            batch.apply(v, backend="bsr"), rel_tol=BACKEND_TOL)
+        for i, mem in enumerate(batch.members()):
+            own = krr_fit(mem, ys[i], lam=lam)
+            lane_errs.append(check_close(f"batch lane {i} vs its own fit",
+                                         mb.alpha[i], own.alpha,
+                                         rel_tol=BACKEND_TOL)[0])
+    say(f"  krr_fit_batch over {n_mem} members of {sizes.tolist()} points "
+        f"(capacity {batch.capacity}, ELL width {batch.spec.max_nbr}, built "
+        f"in {batch_build_s:.2f} s): {batch_fit_s:.3f} s, lane iterations "
+        f"{iters_lanes}, B1 launches {launches_batch['bsr_spmv_batched']} "
+        f"(one per iteration + 1; batch.apply vs bsr "
+        f"{err_batch_apply:.2e}); each lane vs its member's own fit "
+        f"max-abs {max(lane_errs):.2e}")
+
+    # -- Lanczos: plan.eigs and the spectral embedding, B1 per iteration
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
+    v0 = torch.randn(plan.n, generator=gen, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    w, U = plan.eigs(k=6, m=m_lanczos, v0=v0)
+    sync()
+    eigs_s = time.perf_counter() - t0
+    launches_eigs = collect_counts("Lanczos (plan.eigs)")
+    if not rehearse and launches_eigs["bsr_spmv_batched"] != m_lanczos:
+        raise AssertionError(f"plan.eigs launched B1 "
+                             f"{launches_eigs['bsr_spmv_batched']} times "
+                             f"in {m_lanczos} iterations")
+    reset_counts()
+    t0 = time.perf_counter()
+    ws, Y = spectral_embedding(plan=plan, bandwidth=0, m=m_lanczos,
+                               seed=args.seed + 13)
+    sync()
+    spec_s = time.perf_counter() - t0
+    launches_spec = collect_counts("spectral embedding")
+    if not rehearse and \
+            launches_spec["bsr_spmv_batched"] != m_lanczos + 1:
+        raise AssertionError(f"spectral_embedding launched B1 "
+                             f"{launches_spec['bsr_spmv_batched']} times")
+    with uncounted(*wrappers):
+        w_b, _ = plan.eigs(k=6, m=m_lanczos, v0=v0, backend="bsr")
+        err_w, scale_w = check_close("eigs cuda vs bsr", w, w_b,
+                                     rel_tol=BACKEND_TOL)
+        n_plain, _ = normalized_operator(plan, backend="bsr")
+        Yc = plan.permute(Y)
+        ritz = [float(torch.linalg.vector_norm(
+            n_plain(Yc[:, j].contiguous()) - ws[j] * Yc[:, j]))
+            for j in range(Yc.shape[1])]
+        eye = torch.eye(6, device=dev)
+        ortho = {"eigs": float((U.T @ U - eye).abs().max()),
+                 "spectral": float((Y.T @ Y - eye[:2, :2]).abs().max())}
+        ritz_w = [float(torch.linalg.vector_norm(c)) for c in
+                  (plan.matvec(U, backend="bsr") - U * w).T]
+        g2 = torch.Generator(device=dev).manual_seed(args.seed + 13)
+        v0s = torch.randn(plan.n, generator=g2, device=dev)
+        ws_b, _ = spectral_embedding(plan=plan, bandwidth=0, m=m_lanczos,
+                                     v0=v0s, backend="bsr")
+        err_s, _ = check_close("spectral eigenvalues cuda vs bsr", ws, ws_b,
+                               rel_tol=BACKEND_TOL)
+    if max(ritz) > 1e-3 or max(ortho.values()) > 1e-4:
+        raise AssertionError(f"spectral Ritz residuals {ritz}, U^T U - I "
+                             f"{ortho}")
+    say(f"  plan.eigs(k=6, m={m_lanczos}): {eigs_s:.3f} s "
+        f"({eigs_s * 1e3 / m_lanczos:.3f} ms an iteration), B1 launches "
+        f"{launches_eigs['bsr_spmv_batched']}; w {[round(v, 4) for v in w.tolist()]}"
+        f", cuda vs bsr (same v0) {err_w:.2e} (scale {scale_w:.3f}); "
+        f"|A u - w u| (plain) {[f'{r:.1e}' for r in ritz_w]}; |U^T U - I| "
+        f"{ortho['eigs']:.1e}")
+    say(f"  spectral_embedding(plan, bandwidth=0, m={m_lanczos}): "
+        f"{spec_s:.3f} s, B1 launches {launches_spec['bsr_spmv_batched']}; "
+        f"w {[round(v, 6) for v in ws.tolist()]}, cuda vs bsr {err_s:.2e}; "
+        f"|N u - w u| (plain) {[f'{r:.1e}' for r in ritz]}; |U^T U - I| "
+        f"{ortho['spectral']:.1e}")
+    solver_plan = {"max_nbr": b.max_nbr, "kept_tiles": kept,
+                   "bandwidth": plan.host.values_fn.bandwidth}
+    phase_s = time.perf_counter() - t_phase
+    say(f"  phase 13 took {phase_s:.1f} s")
+    launches = {name: launches_fit[name] + launches_batch[name]
+                + launches_eigs[name] + launches_spec[name]
+                for name in launches_fit}
+    return {"n": n, "k": k, "build_s": build_s, **solver_plan,
+            "krr": {"fit_s": fit_s, "iters": iters,
+                    "apply_vs_bsr": err_apply,
+                    "b1_launches": launches_fit["bsr_spmv_batched"],
+                    "self_weight": shift - lam, "true_rel_resid": true_rel,
+                    "alpha_vs_bsr": err_b, "iters_bsr": iters_b,
+                    "iters_identity": iters_id, "test_mse": test_mse,
+                    "history_bj": res.history[:iters + 1].tolist(),
+                    "history_identity": res_id.history[
+                        :iters_id + 1].tolist(),
+                    "solve_ms": solve_ms, "factor_ms": factor_ms,
+                    "loop_ms": loop_ms, "iter_ms": iter_ms,
+                    "check_every": CHECK_EVERY, "b1_ms": b1_ms,
+                    "b1_share": b1_share, "profile": busy},
+            "batch": {"sizes": sizes.tolist(), "build_s": batch_build_s,
+                      "apply_vs_bsr": err_batch_apply,
+                      "fit_s": batch_fit_s, "iters": iters_lanes,
+                      "b1_launches": launches_batch["bsr_spmv_batched"],
+                      "max_err_vs_members": max(lane_errs)},
+            "lanczos": {"eigs_s": eigs_s, "w": w.tolist(),
+                        "ms_per_iter": eigs_s * 1e3 / m_lanczos,
+                        "cuda_vs_bsr": err_w, "ritz_eigs": ritz_w,
+                        "spectral_s": spec_s, "w_spectral": ws.tolist(),
+                        "ritz_spectral": ritz, "ortho": ortho},
+            "phase_s": phase_s, "launches": launches}
 
 
 def main() -> int:
@@ -1877,7 +2382,7 @@ def main() -> int:
     # the decode kernel's wrapper also counts its launches per contract
     mode_counters = {"decode_attend_fused.plain_mode": "plain_mode_launches",
                      "decode_attend_fused.plan_mode": "plan_mode_launches"}
-    # launches by the paths (phases 3-4, 6, 7, 9-12): counters are set to 0
+    # launches by the paths (phases 3-4, 6, 7, 9-13): counters are set to 0
     # just before a path and read just after it
     main_launches = dict.fromkeys(wrappers, 0)
 
@@ -2368,9 +2873,13 @@ def main() -> int:
     # --------------------------------------------------------------- 11 ---
     stream = phase_stream(args, dev, timer, sync, rehearse, reset_counts,
                           collect_counts, k_bsr)
+    # --------------------------------------------------------------- 13 ---
+    solvers = phase_solvers(args, dev, timer, sync, rehearse, reset_counts,
+                            collect_counts, k_bsr)
     for e in entries:
         if e["name"] in ("bsr_spmv_batched", "bsr_spmv"):
             e["launches_streaming"] = stream["launches"][e["name"]]
+            e["launches_solvers"] = solvers["launches"][e["name"]]
         if e["name"] in ("decode_attend_fused", "block_attention"):
             e["launches_service"] = service["launches"][e["name"]]
 
@@ -2396,7 +2905,8 @@ def main() -> int:
                                     for o, g in gammas.items()},
                           "tsne": tsne, "meanshift": meanshift,
                           "plan_batch": plan_batch, "serve": serve,
-                          "service": service, "stream": stream})
+                          "service": service, "stream": stream,
+                          "solvers": solvers})
     kernels = json.dumps({"kernels": entries})
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
     if rehearse:

@@ -62,8 +62,13 @@ call — for the ``cuda`` backend one launch of the batched SpMV kernel;
 ``build_plan_batch`` builds the members and stacks them, and
 ``PlanBatch.update`` streams every member in lockstep.
 
+Solvers (``repro_torch.solvers``): ``plan.solve`` / ``PlanBatch.solve``
+run preconditioned CG on ``(A + shift*I) x = b`` and ``plan.eigs`` runs
+Lanczos, each iteration one ``apply`` — on a CUDA plan one launch of the
+SpMV kernel, for the whole batch in a ``PlanBatch`` solve.
+
 Not ported yet, raising ``NotImplementedError`` with their ROADMAP item:
-sharding and the solvers.
+sharding.
 """
 from __future__ import annotations
 
@@ -87,9 +92,11 @@ from repro_torch.core.hierarchy import Tree, build_tree
 from repro_torch.core.ordering import ORDERINGS  # noqa: F401  (re-export)
 from repro_torch.core.registry import (backend_names,  # noqa: F401
                                        get_backend, get_batched_backend,
+                                       get_preconditioner,
                                        preconditioner_names,
                                        register_backend,
-                                       register_batched_backend)
+                                       register_batched_backend,
+                                       register_preconditioner)
 from repro_torch.kernels import ops as kernel_ops
 
 __all__ = [
@@ -98,6 +105,7 @@ __all__ = [
     "update_plan", "apply_pending_layout", "cluster_order", "ORDERINGS",
     "register_backend", "register_batched_backend", "backend_names",
     "get_backend", "get_batched_backend", "preconditioner_names",
+    "get_preconditioner", "register_preconditioner",
 ]
 
 
@@ -112,9 +120,8 @@ class PlanConfig:
     """Static knobs of an interaction plan (hashable).
 
     Validated at construction: a bad threshold raises a ``ValueError``
-    here, not deep inside a later stage. The lifecycle and solver knobs
-    are kept (and validated) so a config crosses over from the reference
-    unchanged, though the port does not act on them yet.
+    here, not deep inside a later stage. The knobs are the reference's,
+    so a config crosses over from it unchanged.
     """
     k: int = 16                  # neighbors per target (Eq. 1 pattern)
     ordering: str = "dual_tree"  # one of core.ordering.ORDERINGS
@@ -709,13 +716,39 @@ class InteractionPlan:
         physical slots to new indices). See :func:`update_plan`."""
         return update_plan(self, policy="compact")
 
+    # -- iterative solvers (repro_torch.solvers rides the matvec) ----------
+
+    def solve(self, b, *, shift: float = 0.0,
+              backend: Optional[str] = None, precond: Optional[str] = None,
+              tol: Optional[float] = None, maxiter: Optional[int] = None):
+        """Solve ``(A + shift*I) x = b`` by preconditioned CG on this
+        plan's matvec (original index order; symmetric pattern required).
+        Knobs default to the config's ``cg_tol``/``cg_maxiter``/
+        ``precond``; returns :class:`repro_torch.solvers.CGResult` with
+        per-iteration telemetry. Each iteration is one ``apply`` (one
+        launch of the SpMV kernel on a CUDA plan)."""
+        from repro_torch.solvers.krr import solve as _solve
+        return _solve(self, b, shift=shift, backend=backend,
+                      precond=precond, tol=tol, maxiter=maxiter)
+
+    def eigs(self, k: int = 6, *, m: int = 0, seed: int = 0,
+             backend: Optional[str] = None, largest: bool = True,
+             v0=None):
+        """Top (or bottom) ``k`` eigenpairs of the symmetric plan
+        operator by Lanczos on the matvec — ``(w, U)`` with ``U``
+        ``(capacity, k)`` in original index order. ``v0`` (cluster
+        order) replaces the start vector drawn with ``seed`` on the
+        plan's device."""
+        from repro_torch.solvers.krr import _plan_backend
+        from repro_torch.solvers.lanczos import lanczos_eigsh
+        self._require_bsr()
+        name = _plan_backend(self, backend)
+        w, U = lanczos_eigsh(lambda v: self.apply(v, backend=name),
+                             self.n, k, m=m, seed=seed, v0=v0,
+                             largest=largest, device=self.device)
+        return w, self.unpermute(U)
+
     # -- not ported yet ------------------------------------------------------
-
-    def solve(self, *args, **kwargs):
-        raise _not_ported("plan.solve", "A8")
-
-    def eigs(self, *args, **kwargs):
-        raise _not_ported("plan.eigs", "A8")
 
     def shard(self, *args, **kwargs):
         raise _not_ported("plan.shard", "A11")
@@ -1046,8 +1079,20 @@ class PlanBatch:
         permute/apply/unpermute around the one batched call)."""
         return self._dispatch(xs, backend, "matvec", serial)
 
-    def solve(self, *args, **kwargs):
-        raise _not_ported("PlanBatch.solve", "A8")
+    def solve(self, bs, *, shift=0.0,
+              backend: Optional[str] = None, precond: Optional[str] = None,
+              tol: Optional[float] = None, maxiter: Optional[int] = None):
+        """Solve all B member systems ``(A_b + shift*I) x_b = b_b`` in
+        lockstep — each CG iteration ONE batched apply (one launch of the
+        batched SpMV kernel for the whole batch on the ``cuda`` backend),
+        batched-Cholesky preconditioning, per-lane early freeze.
+        ``bs``: (B, capacity) or (B, capacity, t), original order, zeros
+        on hole slots; ``shift`` a number or a per-lane (B,) tensor.
+        Returns :class:`repro_torch.solvers.CGResult` with per-lane
+        telemetry."""
+        from repro_torch.solvers.krr import solve as _solve
+        return _solve(self, bs, shift=shift, backend=backend,
+                      precond=precond, tol=tol, maxiter=maxiter)
 
     # -- lockstep streaming (per-member tiers, one shared re-spec) ---------
 

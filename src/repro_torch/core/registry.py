@@ -17,8 +17,8 @@ backends register themselves on first use:
 beside the kernel; they run on any device. ``cuda`` launches the kernel
 for a plan on the card and uses its plain version for a plan on the CPU.
 User code can ``register_backend`` custom paths and they become visible to
-``plan.apply`` immediately. The decode-attention backends of ClusterKV
-have a registry of their own at the end of this module.
+``plan.apply`` immediately. The solvers' preconditioners and the
+decode-attention backends of ClusterKV have registries of their own below.
 """
 from __future__ import annotations
 
@@ -31,9 +31,11 @@ _DEFAULTS_LOADED = False
 # modules that register the built-in backends at import time
 _DEFAULT_PROVIDERS = ("repro_torch.core.interact", "repro_torch.kernels.ops")
 
-# preconditioner names PlanConfig validates against; the factories
-# themselves arrive with the solver subsystem
-PRECONDITIONERS: Tuple[str, ...] = ("block_jacobi", "jacobi", "identity")
+_PRECOND: Dict[str, Callable] = {}
+_PRECOND_LOADED = False
+# the module that registers the built-in preconditioners at import time; it
+# imports no ``api``, so PlanConfig's validation may load it lazily
+_PRECOND_PROVIDERS = ("repro_torch.solvers.precond",)
 
 
 def register_backend(name: str, fn: Callable | None = None, *,
@@ -122,8 +124,78 @@ def backend_names() -> Tuple[str, ...]:
     return tuple(sorted(_BACKENDS))
 
 
+# ---------------------------------------------------------------------------
+# preconditioners (repro_torch.solvers: the iterative-solver subsystem)
+# ---------------------------------------------------------------------------
+#
+# A preconditioner is a FACTORY
+#
+#     fn(spec: PlanSpec, data: PlanData, shift) -> apply
+#
+# factoring an approximation of ``A' + shift*I`` (the plan operator in
+# cluster order, diagonal-shifted) and returning ``apply(r, axis=-1) -> z``
+# with ``z ~= (A' + shift I)^-1 r`` over cluster-ordered residuals ``r`` of
+# shape (..., capacity) or (..., capacity, f). Factories broadcast over
+# leading batch axes, so one factorization serves a whole PlanBatch.
+# Built-ins (registered by ``repro_torch.solvers.precond``):
+#
+#   identity      no preconditioning (z = r)
+#   jacobi        pointwise diagonal scaling
+#   block_jacobi  batched Cholesky of the dense diagonal BSR tiles
+#                 (dead/hole slots get identity rows, never singular ones)
+
+
+def register_preconditioner(name: str, fn: Callable | None = None, *,
+                            overwrite: bool = False):
+    """Register ``fn`` as preconditioner factory ``name`` (decorator-friendly).
+
+    Mirrors :func:`register_backend`: duplicate names raise unless
+    ``overwrite=True``; re-registering the same callable is a no-op.
+    """
+
+    def _register(f: Callable) -> Callable:
+        prev = _PRECOND.get(name)
+        if prev is not None and prev is not f and not overwrite:
+            raise ValueError(
+                f"preconditioner {name!r} is already registered "
+                f"({prev.__module__}.{prev.__qualname__}); pass "
+                "overwrite=True to replace it deliberately")
+        _PRECOND[name] = f
+        return f
+
+    return _register if fn is None else _register(fn)
+
+
+def _ensure_precond_defaults() -> None:
+    global _PRECOND_LOADED
+    if _PRECOND_LOADED:
+        return
+    import importlib
+
+    for mod in _PRECOND_PROVIDERS:
+        importlib.import_module(mod)
+    _PRECOND_LOADED = True
+
+
+def get_preconditioner(name: str) -> Callable:
+    _ensure_precond_defaults()
+    try:
+        return _PRECOND[name]
+    except KeyError:
+        import difflib
+
+        close = difflib.get_close_matches(name, preconditioner_names(), n=1,
+                                          cutoff=0.5)
+        hint = f" — did you mean {close[0]!r}?" if close else ""
+        raise ValueError(
+            f"unknown preconditioner {name!r}{hint}; "
+            f"registered: {preconditioner_names()}"
+        ) from None
+
+
 def preconditioner_names() -> Tuple[str, ...]:
-    return tuple(sorted(PRECONDITIONERS))
+    _ensure_precond_defaults()
+    return tuple(sorted(_PRECOND))
 
 
 # ---------------------------------------------------------------------------

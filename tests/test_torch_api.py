@@ -329,7 +329,6 @@ def test_plan_config_fields_and_preconditioner_names():
 
 @pytest.mark.parametrize("call,item", [
     (lambda p: p.shard(), "A11"),
-    (lambda p: p.solve(None), "A8"), (lambda p: p.eigs(2), "A8"),
 ])
 def test_not_yet_ported_entry_points_raise(own_plan, call, item):
     _, plan = own_plan

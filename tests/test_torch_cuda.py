@@ -937,3 +937,208 @@ def test_cuda_service_with_the_plain_decode_backend_raises(cuda_device):
         svc.submit(r)
     with pytest.raises(ValueError, match="CPU tensors only"):
         svc.step()
+
+
+# ---------------------------------------------------------------------------
+# solvers and the double buffer on the card: B1 under every iteration
+# ---------------------------------------------------------------------------
+
+
+def _solver_plan(seed=3, n=2048, **kw):
+    from repro_torch.solvers import RBFValues
+    x = feature_mixture(n, 32, n_clusters=8, seed=seed)
+    return x, t_api.build_plan(x, k=16, symmetrize=True, values=RBFValues(),
+                               **kw)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_solve_runs_b1_once_per_iteration_and_matches_bsr(cuda_device):
+    """``backend=None`` on a CUDA plan resolves to the kernel: a KRR fit
+    launches B1 once per CG iteration plus the Gershgorin apply, and
+    agrees with the same fit through the plain ``bsr`` path."""
+    from repro_torch.solvers import krr_fit
+    from repro_torch.solvers.krr import _plan_backend
+    x, plan = _solver_plan()
+    assert _plan_backend(plan, None) == "cuda"
+    y = torch.tanh(torch.from_numpy(x[:, 0] - x[:, 1])).to(cuda_device)
+    n0 = t_bsr.bsr_spmv_batched.launches
+    model = krr_fit(plan, y, lam=0.5)
+    iters = int(model.result.iters)
+    assert t_bsr.bsr_spmv_batched.launches == n0 + iters + 1
+    assert bool(model.result.converged)
+    ref = krr_fit(plan, y, lam=0.5, backend="bsr")
+    assert abs(int(ref.result.iters) - iters) <= 1
+    scale = float(ref.alpha.abs().max())
+    assert_close(model.alpha, ref.alpha, rtol=0, atol=1e-4 * scale)
+    assert model.alpha.device.type == "cuda"
+
+
+@pytest.mark.requires_cuda
+def test_cuda_solve_check_every_is_bit_exact(cuda_device):
+    """Reading the early-exit test every 8 iterations instead of every one
+    returns the same bits, on a plan's operator and on a batch's (B1 under
+    every iteration, the block-Jacobi preconditioner)."""
+    from repro_torch.solvers import cg
+    from repro_torch.solvers.krr import _auto_self_weight
+    _, plan = _solver_plan()
+    _, other = _solver_plan(seed=4)
+    batch = t_api.PlanBatch.from_plans([plan, other])
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    factor = t_api.get_preconditioner("block_jacobi")
+    for op, b, axis in (
+            (plan, torch.randn(plan.n, 2, generator=gen,
+                               device=cuda_device), -2),
+            (batch, torch.randn(2, batch.capacity, generator=gen,
+                                device=cuda_device), -1)):
+        shift = _auto_self_weight(op) + 0.5    # SPD: Gershgorin
+        sh = shift.reshape(shift.shape + (1,) * (b.ndim - shift.ndim))
+        M = factor(op.spec, op.data, shift)
+
+        def A(v):
+            return op.apply(v) + sh * v
+
+        def run(every):
+            return cg(A, b, M=lambda r: M(r, axis=axis), tol=1e-6,
+                      maxiter=300, axis=axis, check_every=every)
+
+        r1 = run(1)
+        n0 = t_bsr.bsr_spmv_batched.launches
+        r8 = run(8)
+        top = int(r8.iters.max())
+        assert t_bsr.bsr_spmv_batched.launches - n0 == -(-top // 8) * 8
+        for f in ("x", "iters", "resid", "bnorm", "converged"):
+            assert torch.equal(getattr(r1, f), getattr(r8, f)), f
+        assert torch.equal(torch.nan_to_num(r1.history, 7.0),
+                           torch.nan_to_num(r8.history, 7.0))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_block_jacobi_factor_makes_no_host_sync(cuda_device):
+    """The batched ``cholesky_ex`` factorization (with its Jacobi fallback)
+    and the per-iteration apply read nothing back to the host; the
+    factors agree with the CPU's."""
+    from repro_torch.solvers import precond
+    from repro_torch.solvers.krr import _auto_self_weight
+    _, plan = _solver_plan()
+    spec, data = plan.spec, plan.data
+    # the KRR setting (Gershgorin shift): blocks well conditioned, so the
+    # card's factors and the CPU's agree to float32 rounding
+    shift = _auto_self_weight(plan) + 0.5
+    r = torch.randn(plan.n, device=cuda_device)
+    precond.block_jacobi(spec, data, shift)(r)           # warm the libraries
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        z = precond.block_jacobi(spec, data, shift)(r)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cpu = t_api.InteractionPlan.from_spec_data(
+        spec, t_api.PlanData(**{k: None if v is None else v.cpu()
+                                for k, v in vars(data).items()}))
+    want = precond.block_jacobi(cpu.spec, cpu.data, shift.cpu())(r.cpu())
+    assert_close(z, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_batch_solve_is_one_b1_launch_per_iteration(cuda_device):
+    from repro_torch.solvers import RBFValues, krr_fit, krr_fit_batch
+    xs = [feature_mixture(n, 32, n_clusters=8, seed=20 + i)
+          for i, n in enumerate((1024, 900, 1000))]
+    batch = t_api.build_plan_batch(xs, k=16, symmetrize=True,
+                                   values=RBFValues())
+    ys = batch.pad_charges([np.tanh(x[:, 0]) for x in xs])
+    n0 = t_bsr.bsr_spmv_batched.launches
+    model = krr_fit_batch(batch, ys, lam=0.5)
+    assert t_bsr.bsr_spmv_batched.launches == \
+        n0 + int(model.result.iters.max()) + 1
+    for i, mem in enumerate(batch.members()):
+        own = krr_fit(mem, ys[i], lam=0.5)
+        scale = float(own.alpha.abs().max())
+        assert_close(model.alpha[i], own.alpha, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_lanczos_eigs_and_spectral_match_bsr(cuda_device):
+    from repro_torch.solvers import (RBFValues, normalized_operator,
+                                     spectral_embedding)
+    _, plan = _solver_plan()
+    v0 = torch.randn(plan.n, device=cuda_device)
+    n0 = t_bsr.bsr_spmv_batched.launches
+    w, u = plan.eigs(k=4, m=32, v0=v0)
+    assert t_bsr.bsr_spmv_batched.launches == n0 + 32
+    wb, _ = plan.eigs(k=4, m=32, v0=v0, backend="bsr")
+    assert_close(w, wb, rtol=0, atol=1e-4 * float(wb.abs().max()))
+    assert float((u.T @ u - torch.eye(4, device=cuda_device)).abs().max()) \
+        < 1e-4
+    # spectral embedding of weakly bridged clusters (distinct top
+    # eigenvalues; a degenerate eigenvalue would leave all but one Ritz
+    # vector to rounding, ROADMAP C21)
+    rng = np.random.default_rng(7)
+    labels = rng.integers(0, 4, 2048)
+    centers = rng.standard_normal((4, 8)).astype(np.float32)
+    x = (centers[labels] + 0.45 * rng.standard_normal(
+        (2048, 8))).astype(np.float32)
+    sim = t_api.build_plan(x, k=16, symmetrize=True, values=RBFValues())
+    v0 = torch.randn(2048, device=cuda_device)
+    n0 = t_bsr.bsr_spmv_batched.launches
+    ws, y = spectral_embedding(plan=sim, n_components=2, bandwidth=0,
+                               drop_first=False, m=32, v0=v0)
+    assert t_bsr.bsr_spmv_batched.launches == n0 + 33
+    wsb, _ = spectral_embedding(plan=sim, n_components=2, bandwidth=0,
+                                drop_first=False, m=32, v0=v0,
+                                backend="bsr")
+    assert_close(ws, wsb, rtol=0, atol=1e-4)
+    n_plain, _ = normalized_operator(sim, backend="bsr")
+    yc = sim.permute(y)
+    for j in range(2):
+        res = n_plain(yc[:, j].contiguous()) - ws[j] * yc[:, j]
+        assert float(torch.linalg.vector_norm(res)) < 1e-3
+
+
+@pytest.mark.requires_cuda
+def test_cuda_doublebuffer_serves_through_b1_while_it_builds(cuda_device,
+                                                            monkeypatch):
+    """The background compaction runs on the card from its own thread on
+    the plan's device; mid-build matvecs go through B1 and equal the old
+    generation's bits; the successor equals the repair run inline."""
+    import threading
+    from repro_torch.core.doublebuf import DoubleBufferedPlan
+    x = feature_mixture(2048, 32, n_clusters=8, seed=5)
+    plan = t_api.build_plan(x, k=8, ell_slack=4, capacity=2300)
+    gate = threading.Event()
+    real = t_api.apply_pending_layout
+
+    def gated(p):
+        assert gate.wait(60)
+        assert torch.cuda.current_device() == p.device.index
+        return real(p)
+
+    monkeypatch.setattr(t_api, "apply_pending_layout", gated)
+    dbp = DoubleBufferedPlan(plan)
+    rng = np.random.default_rng(6)
+    kill = rng.choice(np.nonzero(plan.alive)[0], 700, replace=False)
+    assert dbp.update(delete=kill) == "applied" and dbp.building
+    snap = dbp.plan
+    live = np.nonzero(snap.alive)[0]
+    assert dbp.update(delete=live[:20]) == "queued"
+    ch = torch.randn(snap.n, device=cuda_device)
+    y0 = dbp.matvec(ch)
+    n0 = t_bsr.bsr_spmv_batched.launches
+    gate.set()
+    mids = 0
+    while dbp.building:
+        assert torch.equal(dbp.matvec(ch), y0)
+        mids += 1
+    assert t_bsr.bsr_spmv_batched.launches == n0 + mids
+    dbp.wait()
+    snapshot, successor, kind = dbp.last_swap
+    assert kind == "compact" and dbp.generation == 1 and dbp.queued == 0
+    redo = real(snapshot)
+    for f in ("col_idx", "nbr_mask", "vals"):
+        assert torch.equal(getattr(successor.bsr, f), getattr(redo.bsr, f))
+    assert torch.equal(successor.pi, redo.pi)
+    cs = torch.randn(successor.n, device=cuda_device)
+    want = successor.matvec(cs, backend="bsr")
+    assert_close(successor.matvec(cs), want, rtol=0,
+                 atol=1e-4 * float(want.abs().max()))
+    assert torch.equal(snap.matvec(ch), y0)

@@ -20,6 +20,8 @@ FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "examples" / "meanshift_torch.py",
     ROOT / "examples" / "stream_torch.py",
     ROOT / "examples" / "serve_clusterkv_torch.py",
+    ROOT / "examples" / "krr_torch.py",
+    ROOT / "examples" / "spectral_torch.py",
     ROOT / "tools" / "time_decode.py",
     ROOT / "tools" / "profile_stream.py",
     ROOT / "tools" / "profile_service.py"]
@@ -64,7 +66,10 @@ def test_port_has_the_expected_modules():
                  "models/model_api.py", "models/transformer.py",
                  "train/serve_loop.py", "serve/__init__.py",
                  "serve/session.py", "serve/streaming.py",
-                 "serve/engine.py"):
+                 "serve/engine.py", "core/doublebuf.py",
+                 "solvers/__init__.py", "solvers/cg.py",
+                 "solvers/precond.py", "solvers/krr.py",
+                 "solvers/lanczos.py", "solvers/spectral.py"):
         assert must in names, must
     cu = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert cu == {"bsr_spmv.cu", "gamma_pairs.cu", "tsne_force.cu",

@@ -157,8 +157,8 @@ def test_from_plans_rejects_mixed_members():
         pb.matvec(np.ones((2, 64), np.float32))
     # a step with nothing to stream re-stacks the members unchanged
     assert pb.update(insert=None).spec == pb.spec
-    with pytest.raises(NotImplementedError, match="A8"):
-        pb.solve(None)
+    with pytest.raises(ValueError, match="profile-only batch"):
+        pb.solve(np.ones((2, 64), np.float32))
 
 
 def test_build_plan_batch_matches_dense_products():
