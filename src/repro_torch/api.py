@@ -23,9 +23,11 @@ Index spaces: ``plan.apply(x)`` computes ``y = A' x`` in *cluster order*
 (``A' = P A Pᵀ``); ``plan.matvec(x)`` is the original-order convenience
 ``unpermute(apply(permute(x)))``. Backends are named entries in
 ``repro_torch.core.registry`` (``csr``, ``bsr``, ``bsr_ml``, ``cuda``, plus
-anything user-registered). ``backend="auto"`` resolves to ``"cuda"`` (the
-hand-written kernel) for a plan on a CUDA device and to ``"bsr"`` for a
-plan on the CPU.
+anything user-registered). ``backend="auto"`` is ``cuda`` on a CUDA plan;
+on a CPU plan ``core.autotune.tune_backend`` resolves it: the analytic
+cost model (``core.costmodel``) ranks the plain backends on the plan's
+structural shape, and the decision is memoized (``cuda`` would run its
+plain version there and is not ranked).
 
 Devices: every entry point takes ``device=None`` and ``None`` means
 ``"cuda"``; with no card it raises. A plan lives on one device
@@ -586,14 +588,20 @@ class InteractionPlan:
 
     # -- backend resolution ------------------------------------------------
 
-    def resolve_backend(self, name: Optional[str] = None) -> str:
+    def resolve_backend(self, name: Optional[str] = None,
+                        x: Optional[torch.Tensor] = None) -> str:
         """Resolve ``name`` (default: the config backend). ``"auto"`` is
-        ``"cuda"`` — the hand-written kernel — for a plan on a CUDA device
-        and ``"bsr"`` for a plan on the CPU."""
+        ``cuda`` on a CUDA plan (the kernel, with no lookup and no host
+        sync) and on a CPU plan the uncalibrated cost model's winner for
+        the plan's shape and the charges' ndim
+        (``core.autotune.tune_backend(calibrate=False)``, memoized)."""
         name = name or self.config.backend
         if name != "auto":
             return name
-        return "cuda" if self.device.type == "cuda" else "bsr"
+        if self.device.type == "cuda":
+            return "cuda"
+        from repro_torch.core.autotune import tune_backend
+        return tune_backend(self, x, calibrate=False)[0]
 
     # -- interaction (§2.4 step 4) -----------------------------------------
 
@@ -602,12 +610,12 @@ class InteractionPlan:
         """``y = A' x`` in cluster order (``A'`` the reordered matrix).
         ``x`` (n,) or (n, f): a tensor, or an array moved to the plan's
         device."""
-        name = self.resolve_backend(backend)
+        x = from_numpy(x, self.device, torch.float32)
+        name = self.resolve_backend(backend, x)
         if self.bsr is None and name != "csr":
             raise ValueError(
                 f"profile-only plan has no BSR for backend {name!r}; "
                 "rebuild with with_bsr=True (only 'csr' runs off the COO)")
-        x = from_numpy(x, self.device, torch.float32)
         return get_backend(name)(self, x, **kwargs)
 
     def matvec(self, x, backend: Optional[str] = None,
@@ -1037,13 +1045,19 @@ class PlanBatch:
 
     # -- interaction (one call for the whole batch) -------------------------
 
-    def resolve_backend(self, name: Optional[str] = None) -> str:
+    def resolve_backend(self, name: Optional[str] = None,
+                        x: Optional[torch.Tensor] = None) -> str:
         """Resolve a backend for the *whole batch* (one shared decision).
-        ``"auto"`` is ``"cuda"`` — one launch of the batched kernel — for a
-        batch on a CUDA device and ``"bsr"`` on the CPU."""
+        ``"auto"`` is ``cuda`` on a CUDA batch and on a CPU batch the
+        uncalibrated cost model's winner over the batchable backends
+        (``core.autotune.tune_batch_backend(calibrate=False)``, memoized
+        structurally, so spec-identical batches decide once)."""
         name = name or self.spec.config.backend
         if name == "auto":
-            return "cuda" if self.device.type == "cuda" else "bsr"
+            if self.device.type == "cuda":
+                return "cuda"
+            from repro_torch.core.autotune import tune_batch_backend
+            return tune_batch_backend(self, x, calibrate=False)[0]
         if name in ("csr", "dist"):
             raise ValueError(
                 f"backend {name!r} cannot run batched: csr reads the "
@@ -1064,7 +1078,7 @@ class PlanBatch:
                 f"capacity={self.capacity}) or (B, capacity, f); got "
                 f"{tuple(xs.shape)} (pad_charges packs ragged member "
                 "charges)")
-        name = self.resolve_backend(backend)
+        name = self.resolve_backend(backend, xs)
         return _batch_apply(self.spec, self.data, xs, name, mode, serial)
 
     def apply(self, xs, backend: Optional[str] = None, *,

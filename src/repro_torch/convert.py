@@ -21,6 +21,47 @@ from repro_torch.core.blocksparse import BSR
 from repro_torch.core.hierarchy import Tree
 
 
+# The one two-way map of names that differ between the packages' saved
+# state: the reference's SpMV backend ``pallas`` (its TPU kernel) is the
+# port's ``cuda`` (its CUDA kernel). ``dist`` (sharded) has no counterpart
+# until ROADMAP A11.
+_BACKEND_FROM_REF = {"pallas": "cuda"}
+_BACKEND_TO_REF = {v: k for k, v in _BACKEND_FROM_REF.items()}
+
+
+def backend_from_reference(name: str) -> str:
+    """A reference SpMV backend name -> the port's (``pallas`` -> ``cuda``);
+    ``dist`` raises (ROADMAP A11)."""
+    if name == "dist":
+        raise NotImplementedError(
+            "backend 'dist' (a sharded plan) is not ported to repro_torch "
+            "yet (port queue item A11 in ROADMAP.md)")
+    return _BACKEND_FROM_REF.get(name, name)
+
+
+def backend_to_reference(name: str) -> str:
+    """A port SpMV backend name -> the reference's (``cuda`` -> ``pallas``)."""
+    return _BACKEND_TO_REF.get(name, name)
+
+
+def config_to_reference(config: PlanConfig) -> dict:
+    """A port ``PlanConfig`` as the reference's ``dataclasses.asdict``."""
+    d = dataclasses.asdict(config)
+    d["backend"] = backend_to_reference(d["backend"])
+    return d
+
+
+def array_from_reference(a: np.ndarray):
+    """An array a reference checkpoint holds, as the port takes it: a JAX
+    bfloat16 array saved by ``np.savez`` loads as 2-byte void (``|V2``),
+    whose bits are a bfloat16's; it becomes a ``torch.bfloat16`` tensor
+    (no ``ml_dtypes`` needed). Every other array is returned as is."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
+                                .copy()).view(torch.bfloat16)
+    return a
+
+
 def bsr_from_arrays(bs: int, sb: int, n: int, col_idx, nbr_mask, vals,
                     fill: float = 0.0, device: DeviceLike = None) -> BSR:
     """A port :class:`BSR` from the arrays of an ELL-BSR: ``col_idx``
@@ -69,7 +110,8 @@ def plan_from_reference_arrays(
     """Build a port plan from a reference plan's state.
 
     ``config`` is the reference ``PlanConfig`` as a dict
-    (``dataclasses.asdict``); knobs the port does not know are rejected.
+    (``dataclasses.asdict``); knobs the port does not know are rejected,
+    and its backend crosses through :func:`backend_from_reference`.
     ``coo`` is the reordered ``(rows, cols, vals)`` pattern (or ``None``),
     ``col_idx``/``nbr_mask``/``vals`` the ELL-BSR arrays (all ``None`` for a
     profile-only plan), ``tree_levels`` the tree's per-level boundaries.
@@ -95,6 +137,8 @@ def plan_from_reference_arrays(
     unknown = sorted(set(config) - known)
     if unknown:
         raise ValueError(f"unknown PlanConfig knobs {unknown}")
+    config = dict(config)
+    config["backend"] = backend_from_reference(config.get("backend", "auto"))
     cfg = PlanConfig(**config)
     pi = np.asarray(pi).astype(np.int64)
     inv = np.asarray(inv).astype(np.int64)

@@ -215,8 +215,10 @@ def preconditioner_names() -> Tuple[str, ...]:
 #            counterpart of ``pallas``): selection, gather and softmax in
 #            one launch
 #
-# ``cfg.decode_backend == "auto"`` resolves to ``cuda`` for a CUDA tensor
-# and ``plain`` on the CPU (the cost model that ranks them is ROADMAP A9).
+# ``cfg.decode_backend == "auto"`` is ``cuda`` on a CUDA tensor; on a CPU
+# tensor it asks the cost model (``core.costmodel.choose_decode_backend``),
+# where ``cuda`` runs its plain version and is not ranked, so ``"auto"`` is
+# ``plain`` there.
 
 _DECODE: Dict[str, Callable] = {}
 _DECODE_LOADED = False

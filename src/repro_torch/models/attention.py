@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ClusterKVConfig
 from repro_torch.core import clusterkv as ckv
+from repro_torch.core import costmodel
 from repro_torch.core.registry import get_decode_backend, register_decode_backend
 from repro_torch.kernels import ops as kops
 
@@ -255,13 +256,30 @@ def clusterkv_decode(q, k, v, kpos, qpos, cfg: ClusterKVConfig):
                                     bk=bk)
 
 
-def resolve_decode_backend(cfg: ClusterKVConfig, x: torch.Tensor) -> str:
-    """``cfg.decode_backend`` with ``"auto"`` resolved: ``"cuda"`` for a
-    CUDA tensor, ``"plain"`` on the CPU (the cost model is ROADMAP A9)."""
+def resolve_decode_backend(cfg: ClusterKVConfig, q: torch.Tensor,
+                           ks: torch.Tensor | None = None,
+                           vs: torch.Tensor | None = None) -> str:
+    """``cfg.decode_backend`` with ``"auto"`` resolved: ``cuda`` on a CUDA
+    tensor (the only decode backend that runs on card tensors), and on a
+    CPU tensor the analytic cost model's winner
+    (``core.costmodel.choose_decode_backend``, memoized per shape) at the
+    shape of ``q`` (B,Hq,dh) over plan-ordered caches ``ks``/``vs``
+    (B,Hkv,S,dh|dv). There ``cuda`` runs its plain version and is not
+    ranked, so the winner is ``"plain"`` (no caches needed)."""
     name = cfg.decode_backend
-    if name == "auto":
-        return "cuda" if x.device.type == "cuda" else "plain"
-    return name
+    if name != "auto":
+        return name
+    if q.device.type == "cuda":
+        return "cuda"
+    if ks is None:
+        return "plain"
+    b, hq, dh = q.shape
+    hkv, s = ks.shape[1], ks.shape[2]
+    bk = min(cfg.block_k, s)
+    feat = costmodel.DecodeFeatures(
+        batch=b, hq=hq, hkv=hkv, s=s, dh=dh, dv=vs.shape[-1], bk=bk,
+        n_sel=min(cfg.decode_clusters, s // bk))
+    return costmodel.choose_decode_backend(feat, on_cpu=True)
 
 
 def clusterkv_plan_decode(q, ks, vs, ps, cent, qpos, cfg: ClusterKVConfig, *,
@@ -278,9 +296,12 @@ def clusterkv_plan_decode(q, ks, vs, ps, cent, qpos, cfg: ClusterKVConfig, *,
     Dispatches through the decode-backend registry: ``cfg.decode_backend``
     names ``"cuda"`` (the fused kernel; its plain version on a CPU tensor)
     or ``"plain"`` (CPU tensors only); ``"auto"`` is ``"cuda"`` on a CUDA
-    tensor and ``"plain"`` on the CPU.
+    tensor and on a CPU tensor asks the analytic cost model
+    (``core.costmodel.choose_decode_backend``), which prices B5's three
+    launches and once-only tile reads against the plain path's launches
+    and gather round trip (and does not rank ``cuda`` there).
     """
-    name = resolve_decode_backend(cfg, q)
+    name = resolve_decode_backend(cfg, q, ks, vs)
     return get_decode_backend(name)(q, ks, vs, ps, cent, qpos, cfg,
                                     k_self=k_self, v_self=v_self)
 

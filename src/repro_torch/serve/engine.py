@@ -452,7 +452,10 @@ class ClusterKVEngine(Engine):
                  blocking: bool = True) -> None:
         """Flush, pack every live session's device rows + request state
         into its ``aux`` payload, and hand the SessionStore to
-        ``ckpt.save_plan(step, store, name=, blocking=)``."""
+        ``ckpt.save_plan(step, store, name=, blocking=)`` — a
+        :class:`repro_torch.checkpoint.Checkpointer`, which gathers it to
+        the host before returning; ``Checkpointer.restore_plan(name=)``
+        gives the store back for :meth:`resume`."""
         self.store.counters["flushed_edges"] += self.inserter.flush_all()
         # bf16 has no npz representation: widen to float32 (lossless);
         # resume casts back to the cache dtype

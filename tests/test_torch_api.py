@@ -175,7 +175,10 @@ def test_build_plan_artifacts(own_plan):
     x, plan = own_plan
     n = plan.n
     assert plan.device.type == "cpu"
-    assert plan.resolve_backend() == "bsr"          # auto on a CPU plan
+    # auto on a CPU plan: the uncalibrated cost model's winner among the
+    # plain paths (cuda would run its plain version there and is not
+    # ranked); at this shape one launch over few true edges is csr
+    assert plan.resolve_backend() == "csr"
     assert plan.resolve_backend("csr") == "csr"
     assert sorted(plan.host.pi.tolist()) == list(range(n))
     a = torch.arange(n)

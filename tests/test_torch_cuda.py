@@ -1142,3 +1142,156 @@ def test_cuda_doublebuffer_serves_through_b1_while_it_builds(cuda_device,
     assert_close(successor.matvec(cs), want, rtol=0,
                  atol=1e-4 * float(want.abs().max()))
     assert torch.equal(snap.matvec(ch), y0)
+
+
+# ---------------------------------------------------------------------------
+# the cost model and autotune (A9) and persistence (A10) on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def fresh_autotune():
+    """Autotune decisions and calibration from nothing, dropped again after
+    the test so other tests calibrate as before."""
+    from repro_torch.core import autotune, costmodel
+    autotune.clear_tune_memo()
+    autotune.clear_calibration()
+    costmodel.set_hardware(None)
+    yield autotune
+    autotune.clear_tune_memo()
+    autotune.clear_calibration()
+    costmodel.set_hardware(None)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_restored_plan_matvec_is_bit_equal(cuda_device, tmp_path):
+    """A plan saved by the Checkpointer and restored on the card gives the
+    unsaved plan's B1 ``matvec`` bit for bit, through one launch."""
+    from repro_torch.checkpoint import Checkpointer
+    x = feature_mixture(4096, 32, n_clusters=16, seed=3)
+    plan = t_api.build_plan(x, k=12, backend="cuda", device=cuda_device)
+    ck = Checkpointer(tmp_path)
+    ck.save_plan(1, plan)
+    ck.wait()
+    back, step = ck.restore_plan()
+    assert step == 1 and back.device.type == "cuda"
+    for f in (None, 5):
+        shape = (4096,) if f is None else (4096, f)
+        ch = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            shape).astype(np.float32)).to(cuda_device)
+        n0 = t_bsr.bsr_spmv_batched.launches
+        y = back.matvec(ch)
+        assert t_bsr.bsr_spmv_batched.launches == n0 + 1
+        assert torch.equal(y, plan.matvec(ch))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_tune_backend_picks_cuda_at_a_small_plan(cuda_device,
+                                                      fresh_autotune):
+    """Calibration set first by a tiny plan, where the host wall of a
+    launch can rank a plain path ahead of the kernel, leaves ``"auto"``
+    on the card at ``cuda``: the ranking there is a report."""
+    tiny = t_api.build_plan(feature_mixture(256, 32, n_clusters=4, seed=6),
+                            k=8, bs=16, sb=4, device=cuda_device)
+    assert fresh_autotune.tune_backend(tiny)[0] == "cuda"
+    assert tiny.resolve_backend() == "cuda"
+    x = feature_mixture(32768, 32, n_clusters=64, seed=4)
+    plan = t_api.build_plan(x, k=16, device=cuda_device)
+    n0 = t_bsr.bsr_spmv_batched.launches
+    name, pred = fresh_autotune.tune_backend(plan, calibrate=False)
+    assert name == "cuda" and "cuda" in pred
+    assert t_bsr.bsr_spmv_batched.launches == n0     # no probe, no launch
+    fresh_autotune.clear_calibration()
+    name, pred = fresh_autotune.tune_backend(plan)
+    assert name == "cuda", pred
+    assert t_bsr.bsr_spmv_batched.launches > n0          # the probe ran
+    assert set(fresh_autotune._CALIB) >= {"cuda:cuda", "cuda:bsr"}
+    assert plan.resolve_backend() == "cuda"
+
+
+@pytest.mark.requires_cuda
+def test_cuda_auto_after_a_streaming_step_issues_no_host_sync(
+        cuda_device, fresh_autotune):
+    """A streaming step changes the plan's edge count; the first
+    ``"auto"`` matvec after it still launches B1 once and reads nothing
+    back to the host, with the autotune calibrated and memoized before."""
+    plan = t_api.build_plan(feature_mixture(2048, 32, n_clusters=8, seed=7),
+                            k=8, device=cuda_device)
+    fresh_autotune.tune_backend(plan)
+    rng = np.random.default_rng(7)
+    new = t_api.update_plan(
+        plan, insert=feature_mixture(64, 32, n_clusters=8, seed=8),
+        delete=rng.choice(plan.n, 32, replace=False))
+    ch = torch.randn(new.n, device=cuda_device)
+    want = new.matvec(ch, backend="cuda")
+    torch.cuda.synchronize()
+    memo = dict(fresh_autotune._TUNE_MEMO)
+    n0 = t_bsr.bsr_spmv_batched.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = new.matvec(ch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert t_bsr.bsr_spmv_batched.launches == n0 + 1
+    assert torch.equal(y, want)
+    assert fresh_autotune._TUNE_MEMO == memo         # no lookup was made
+
+
+@pytest.mark.requires_cuda
+def test_cuda_probe_that_fails_makes_tune_raise(cuda_device, fresh_autotune,
+                                                monkeypatch):
+    """A ``cuda`` probe that raises, or disagrees with ``bsr``, raises out
+    of ``tune_backend``: 'auto' never quietly ranks a plain path instead."""
+    from repro_torch.core import registry
+    x = feature_mixture(2048, 32, n_clusters=8, seed=5)
+    plan = t_api.build_plan(x, k=8, device=cuda_device)
+    real = registry.get_backend("cuda")
+
+    def broken(plan, x, **kw):
+        raise RuntimeError("kernel launch failed")
+
+    monkeypatch.setitem(registry._BACKENDS, "cuda", broken)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        fresh_autotune.tune_backend(plan)
+
+    def wrong(plan, x, **kw):
+        return real(plan, x) * 1.01
+
+    fresh_autotune.clear_calibration()
+    monkeypatch.setitem(registry._BACKENDS, "cuda", wrong)
+    with pytest.raises(RuntimeError, match="disagrees with 'bsr'"):
+        fresh_autotune.tune_backend(plan)
+    assert "cuda:cuda" not in fresh_autotune._CALIB
+
+
+@pytest.mark.requires_cuda
+def test_cuda_choose_decode_backend_with_default_knobs_picks_cuda(
+        cuda_device, fresh_autotune):
+    from repro_torch.configs.base import ClusterKVConfig
+    from repro_torch.core import costmodel
+    feat = costmodel.DecodeFeatures(batch=4, hq=14, hkv=2, s=8192, dh=64,
+                                    dv=64, bk=128, n_sel=16)
+    assert costmodel.choose_decode_backend(feat) == "cuda"
+    q = torch.zeros(4, 14, 64, device=cuda_device)
+    ks = torch.zeros(4, 2, 8192, 64, device=cuda_device)
+    assert t_attn.resolve_decode_backend(ClusterKVConfig(), q, ks, ks) \
+        == "cuda"
+
+
+@pytest.mark.requires_cuda
+def test_cuda_decode_auto_is_the_kernel_whatever_the_model(cuda_device,
+                                                           monkeypatch):
+    """On card tensors ``"auto"`` is B5 without asking the model: a model
+    that would answer ``plain`` (which raises on the card) is not
+    consulted."""
+    from repro_torch.configs.base import ClusterKVConfig
+    from repro_torch.core import costmodel
+
+    def plain(*a, **k):
+        return "plain"
+
+    monkeypatch.setattr(costmodel, "choose_decode_backend", plain)
+    q = torch.zeros(4, 14, 64, device=cuda_device)
+    ks = torch.zeros(4, 2, 8192, 64, device=cuda_device)
+    assert t_attn.resolve_decode_backend(ClusterKVConfig(), q, ks, ks) \
+        == "cuda"

@@ -93,9 +93,9 @@ def _serve(eng, reqs):
 
 
 class MemoryCheckpointer:
-    """In-memory stand-in for the reference's ``Checkpointer``: keeps a
-    deep copy of what ``save_plan`` is handed (the on-disk one is ROADMAP
-    A10)."""
+    """In-memory stand-in for ``repro_torch.checkpoint.Checkpointer``:
+    keeps a deep copy of what ``save_plan`` is handed, so the service's
+    snapshot/resume is checked apart from the on-disk format."""
 
     def __init__(self):
         self.saved = {}
@@ -642,9 +642,13 @@ def test_service_rebucket_keeps_decode_exact(model):
     assert e1.report()["decode_traces"] == 1
 
 
-def test_service_snapshot_resume_bit_exact(model):
+@pytest.mark.parametrize("store", ["memory", "disk"])
+def test_service_snapshot_resume_bit_exact(model, store, tmp_path):
     """Drain -> save_plan(SessionStore) -> restore -> resume continues
-    decode bit-exactly in a FRESH engine, counters kept."""
+    decode bit-exactly in a FRESH engine, counters kept: through the
+    in-memory stand-in and through the on-disk ``Checkpointer``."""
+    from repro_torch.checkpoint import Checkpointer
+
     _, _, tcfg, tp = model
     lengths = [20, 30]
     ref = _requests(Request, tcfg, lengths, max_new=10)
@@ -654,9 +658,15 @@ def test_service_snapshot_resume_bit_exact(model):
         e1.submit(r)
     for _ in range(4):
         e1.step()
-    ck = MemoryCheckpointer()
-    e1.snapshot(ck, step=4)
-    store, step = ck.restore_plan(name="sessions")
+    if store == "memory":
+        ck = MemoryCheckpointer()
+        e1.snapshot(ck, step=4)
+        store, step = ck.restore_plan(name="sessions")
+    else:
+        ck = Checkpointer(tmp_path)
+        e1.snapshot(ck, step=4, blocking=False)
+        ck.wait()
+        store, step = ck.restore_plan(name="sessions", device="cpu")
     assert step == 4
     assert sorted(store.sessions) == [0, 1]
     assert store.counters == e1.store.counters
