@@ -156,16 +156,36 @@ device time without the host's, which is the larger part of a call.
    restored, one B1 launch bit-equal. Save, restore and bytes on disk are
    printed beside ``build_plan``'s seconds.
 
+15. sharded plans on the one card (meshes of 1 and 4 shards, every shard
+   on the same card; no exchange between cards is measured): phase 3's
+   SIFT plan sharded (each ``ShardSpec`` printed: mode, halo, hot set,
+   transfer fraction), its ``matvec`` one B2 launch per shard held
+   against the unsharded ``matvec`` (``torch.equal`` printed, 1e-4 x
+   scale enforced) and timed beside it (CUDA events, 20 launches, median
+   of 3); ``plan.apply(backend="dist")``; ``tune_backend(device_count=4)``
+   (``dist`` probed on the one card, its report printed); ``krr_fit`` on
+   phase 13's plan sharded 4 ways (4 B2 launches per CG iteration)
+   against phase 13's unsharded fit; a delete-only ``ShardedPlan.update`` that patches the
+   owning shard only (the others keep their tensors, ``unshard()`` equals
+   the updated plan's BSR, the input ``ShardedPlan`` unchanged); a
+   ``DoubleBufferedPlan`` swap absorbed at n = 32 768 (the tombstone half
+   patched, the compaction re-sharded on the same mesh);
+   ``restore_plan(mesh=)`` of phase 14's checkpoint; and Qwen2-0.5B at
+   full width through 8 ``decode_step(sharded_long=True)`` steps with the
+   8 192-slot cache split over 4 shards — at a covering budget in float32
+   the unsharded decode's tokens and logits within 1e-3 x scale, at the
+   default budget in bf16 ms per step beside ``clusterkv_decode``'s.
+
 Launch counters are set to 0 just before each path (phases 3-4, 6, 7, 9,
-10, 11, 12, 13, 14) and read just after it; launches made to compare or time a
-kernel are not counted. Every kernel must have been launched by a path: B6
-by the prefills and the service's plan prefills, B5 by the ticks of both
-engines (plan mode) and the scalar steps (plain mode), B1 once per
-48-member ``PlanBatch.matvec``, by every streamed plan's and every
-double-buffered ``matvec`` (phase 11) and by every solver iteration
+10, 11, 12, 13, 14, 15) and read just after it; launches made to compare
+or time a kernel are not counted. Every kernel must have been launched by
+a path: B6 by the prefills and the service's plan prefills, B5 by the
+ticks of both engines (plan mode) and the scalar steps (plain mode), B1
+once per 48-member ``PlanBatch.matvec``, by every streamed plan's and
+every double-buffered ``matvec`` (phase 11) and by every solver iteration
 (phase 13) and by the autotune's probes and the restored plan and batch
 (phase 14), B2 by the single-plan entry on the main, streamed and
-restored plans.
+restored plans and once per shard by every sharded ``matvec`` (phase 15).
 
 Needs a CUDA device and ``nvcc``; without a device it exits non-zero and
 prints no result. ``--rehearse-cpu`` walks the same phases at tiny sizes
@@ -2374,7 +2394,9 @@ def phase_solvers(args, dev, timer, sync, rehearse, reset_counts,
                         "cuda_vs_bsr": err_w, "ritz_eigs": ritz_w,
                         "spectral_s": spec_s, "w_spectral": ws.tolist(),
                         "ritz_spectral": ritz, "ortho": ortho},
-            "phase_s": phase_s, "launches": launches, "_batch": batch}
+            "phase_s": phase_s, "launches": launches, "_batch": batch,
+            "_krr": {"plan": plan, "y": y_dev, "alpha": model.alpha,
+                     "iters": iters, "lam": lam}}
 
 
 def probe_knobs(dev, timer, plan, rehearse):
@@ -2431,10 +2453,11 @@ def probe_knobs(dev, timer, plan, rehearse):
 
 def phase_persist(args, dev, timer, sync, rehearse, reset_counts,
                   collect_counts, k_bsr, plan, x, build_s, batch, serve_shape,
-                  layer_keys, cfg):
+                  layer_keys, cfg, tmp):
     """Phase 14: the cost model and autotune with probed H100 knobs, and
     plan persistence through the Checkpointer, on phase 3's SIFT plan,
-    phase 13's 8-member batch, phase 10's tick shape and phase 9's keys."""
+    phase 13's 8-member batch, phase 10's tick shape and phase 9's keys.
+    The checkpoints stay in ``tmp`` for phase 15 (the caller removes it)."""
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.core import autotune, costmodel
     from repro_torch.kernels import ops
@@ -2446,7 +2469,6 @@ def phase_persist(args, dev, timer, sync, rehearse, reset_counts,
         f"(n={plan.n}, {kept} kept tiles), phase 13's {batch.batch}-member "
         f"batch and phase 10's tick shape")
     hw, probe = probe_knobs(dev, timer, plan, rehearse)
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_persist_"))
     try:
         knob_file = tmp / "hw.json"
         hw.to_json(str(knob_file))
@@ -2617,7 +2639,6 @@ def phase_persist(args, dev, timer, sync, rehearse, reset_counts,
         del bback
     finally:
         costmodel.set_hardware(None)
-        shutil.rmtree(tmp, ignore_errors=True)
     launches = collect_counts("autotune and persistence")
     if not rehearse:
         for name in ("bsr_spmv_batched", "bsr_spmv"):
@@ -2633,6 +2654,349 @@ def phase_persist(args, dev, timer, sync, rehearse, reset_counts,
             "batch_disk_bytes": batch_bytes,
             "batch_restore_s": batch_restore_s, "launches": launches,
             "phase_s": phase_s}
+
+
+def phase_shard(args, dev, timer, sync, rehearse, reset_counts,
+                collect_counts, k_bsr, plan, krr, ckpt_dir):
+    """Phase 15: sharded plans on the one card — phase 3's SIFT plan
+    sharded 1 and 4 ways (B2 once per shard per matvec), the ``dist``
+    backend, a sharded KRR solve on phase 13's plan, a delete-only step
+    through ``ShardedPlan.update``, a double-buffer swap absorbed, a
+    sharded restore of phase 14's checkpoint, and Qwen2-0.5B's sharded
+    long-context decode."""
+    from repro_torch import api
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import autotune
+    from repro_torch.core.doublebuf import DoubleBufferedPlan
+    from repro_torch.data.pipeline import feature_mixture
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.solvers import krr_fit
+    from repro_torch.solvers.cg import CHECK_EVERY
+
+    t_phase = time.perf_counter()
+    b1, b2 = k_bsr.bsr_spmv_batched, k_bsr.bsr_spmv
+    it = 2 if rehearse else 20
+    meshes = {n: make_mesh((n,), ("data",), [dev] * n) for n in (1, 4)}
+    say(f"== phase 15: sharded plans on one card (meshes of 1 and 4 shards "
+        f"on {meshes[4].devices_along('data')[0]}; no exchange between "
+        f"cards): phase 3's SIFT plan (n={plan.n}, {plan.bsr.n_rb} row "
+        f"blocks), phase 13's KRR plan, phase 14's checkpoint, "
+        f"Qwen2-0.5B's decode")
+    rng = np.random.default_rng(args.seed + 15)
+    x = torch.from_numpy(rng.standard_normal(plan.n).astype(np.float32)
+                         ).to(dev)
+    with uncounted(b1, b2):
+        y_ref = plan.matvec(x)                  # unsharded, B1
+    sync()
+    reset_counts()
+
+    # -- shard, matvec through B2 per shard, held against the unsharded
+    rows, sharded = {}, {}
+    for n_dev, mesh in meshes.items():
+        t0 = time.perf_counter()
+        sp = plan.shard(mesh)
+        sync()
+        shard_s = time.perf_counter() - t0
+        s = sp.spec
+        n0 = b2.launches
+        y = sp.matvec(x)
+        sync()
+        grew = b2.launches - n0
+        sharded[n_dev] = (sp, y)
+        if not rehearse and grew != n_dev:
+            raise AssertionError(f"{n_dev}-shard matvec launched B2 {grew} "
+                                 f"times")
+        equal = bool(torch.equal(y, y_ref))
+        err, scale = check_close(f"{n_dev}-shard matvec vs unsharded", y,
+                                 y_ref, rel_tol=BACKEND_TOL)
+        with uncounted(b1, b2):
+            ms_un = timer(lambda: plan.matvec(x), it)
+            ms_sh = timer(lambda: sp.matvec(x), it)
+            ms_un2 = timer(lambda: plan.matvec(x), it)
+        rows[n_dev] = {"mode": s.mode, "rb_per": s.rb_per,
+                       "halo": [s.halo_lo, s.halo_hi], "n_hot": s.n_hot,
+                       "win": s.win,
+                       "transfer_fraction": sp.transfer_fraction,
+                       "transfer_blocks": s.transfer_blocks,
+                       "allgather_blocks": s.allgather_blocks,
+                       "shard_s": shard_s, "b2_launches_per_matvec": grew,
+                       "torch_equal": equal, "max_abs_err": err,
+                       "scale": scale, "ms_sharded": ms_sh,
+                       "ms_unsharded": [ms_un, ms_un2]}
+        say(f"  {n_dev} shard(s): ShardSpec mode {s.mode!r}, rb_per "
+            f"{s.rb_per}, halo ({s.halo_lo}, {s.halo_hi}), n_hot {s.n_hot}, "
+            f"window {s.win} blocks, transfer_fraction "
+            f"{sp.transfer_fraction:.4f} ({s.transfer_blocks} of "
+            f"{s.allgather_blocks} all-gather blocks); shard {shard_s:.3f} s;"
+            f" matvec {grew} B2 launches, torch.equal to the unsharded "
+            f"matvec: {equal} (max-abs {err:.2e}); ms per matvec sharded "
+            f"{ms_sh:.4f}, unsharded {ms_un:.4f} / {ms_un2:.4f}")
+
+    # -- B2 at the shard shapes (rectangular: each window's win + n_hot
+    # column blocks against rb_per row blocks) against its plain version
+    sp4, y4 = sharded[4]
+    s4, bs = sp4.spec, plan.bsr.bs
+    xs = plan.permute(x)
+    xp = torch.nn.functional.pad(xs, (0, s4.n_rb_pad * bs - plan.n))
+    b2_err = []
+    with uncounted(b2):
+        for d, win in enumerate(sp4._windows(list(xp.split(s4.rb_per * bs)))):
+            got = b2(sp4.vals[d], sp4.lcol[d], win[:, None], sp4.mask[d],
+                     indices_checked=True)
+            b2_err.append(check_close(
+                f"B2 on shard {d}'s window", got,
+                k_bsr.bsr_spmv_plain(sp4.vals[d], sp4.lcol[d], win[:, None],
+                                     sp4.mask[d]))[0])
+    say(f"  B2 on each of the 4 shard windows ({s4.rb_per} row blocks x "
+        f"{s4.win + s4.n_hot} column blocks) vs its plain version: max-abs "
+        f"{max(b2_err):.2e}")
+
+    # -- the dist backend (default mesh: every card, here the one)
+    y_dist = plan.apply(xs, backend="dist")
+    sync()
+    dist_equal = bool(torch.equal(y_dist, plan.permute(y_ref)))
+    check_close("dist backend vs unsharded", y_dist, plan.permute(y_ref),
+                rel_tol=BACKEND_TOL)
+    say(f"  plan.apply(backend='dist'): torch.equal to the unsharded apply: "
+        f"{dist_equal}")
+    # the multi-device autotune: dist probed on the default mesh (the one
+    # card), the decision priced for 4 devices
+    n0 = b2.launches
+    tuned, _ = autotune.tune_backend(plan, device_count=4)
+    sync()
+    probe_b2 = b2.launches - n0
+    rep = autotune._TUNE_MEMO[next(k for k in reversed(autotune._TUNE_MEMO)
+                                   if k[-1] == 4)]
+    say(f"  tune_backend(device_count=4): winner {tuned!r}, local ranking "
+        f"{rep['ranking']}, dist {rep.get('dist')}; B2 launches by the "
+        f"dist probe {probe_b2}")
+    if not rehearse and (tuned != "dist" or probe_b2 <= 0):
+        raise AssertionError(f"tune_backend(device_count=4) picked "
+                             f"{tuned!r} ({probe_b2} B2 launches)")
+
+    # -- a sharded KRR solve on phase 13's plan, against its unsharded fit
+    kplan, lam = krr["plan"], krr["lam"]
+    sk = kplan.shard(meshes[4])
+    n0 = b2.launches
+    t0 = time.perf_counter()
+    model = krr_fit(sk, krr["y"], lam=lam, precond="block_jacobi")
+    sync()
+    krr_s = time.perf_counter() - t0
+    iters = int(model.result.iters)
+    grew = b2.launches - n0
+    trips = cg_trips(iters, CHECK_EVERY, kplan.config.cg_maxiter)
+    if not bool(model.result.converged):
+        raise AssertionError(f"sharded KRR did not converge in {iters}")
+    if not rehearse and grew != 4 * (trips + 1):
+        raise AssertionError(f"sharded KRR launched B2 {grew} times for "
+                             f"{trips} CG iterations + 1 apply on 4 shards")
+    if abs(iters - krr["iters"]) > 2:
+        raise AssertionError(f"sharded KRR took {iters} iterations, "
+                             f"unsharded {krr['iters']}")
+    err_k, scale_k = check_close("sharded KRR alpha vs unsharded",
+                                 model.alpha, krr["alpha"], rel_tol=1e-3)
+    say(f"  krr_fit on phase 13's plan sharded 4 ways (lam {lam}, "
+        f"block_jacobi): {krr_s:.3f} s, {iters} iterations (unsharded "
+        f"{krr['iters']}), B2 launches {grew} (4 x (iterations + 1)); alpha"
+        f" vs the unsharded fit {err_k:.2e} (scale {scale_k:.4f})")
+
+    # -- one delete-only streaming step: the owning shard patched in place
+    n_kill = 16 if rehearse else 100           # one run in cluster order
+    kill = np.asarray(plan.host.pi[plan.n // 50:plan.n // 50 + n_kill],
+                      np.int64)
+    t0 = time.perf_counter()
+    sp5 = sp4.update(delete=kill)
+    sync()
+    update_s = time.perf_counter() - t0
+    owners = sorted(set((sp5.plan.host.last_patch_rb
+                         // sp4.spec.rb_per).tolist()))
+    kept_same = [d for d in range(4) if sp5.vals[d] is sp4.vals[d]]
+    if (sp5.shard_patches, sp5.reshards) != (1, 0) or \
+            kept_same != [d for d in range(4) if d not in owners]:
+        raise AssertionError(f"delete step: patches {sp5.shard_patches}, "
+                             f"reshards {sp5.reshards}, owners {owners}, "
+                             f"untouched tensors {kept_same}")
+    ub = sp5.unshard()
+    for name in ("col_idx", "nbr_mask", "vals"):
+        if not torch.equal(getattr(ub, name), getattr(sp5.plan.bsr, name)):
+            raise AssertionError(f"unshard() {name} differs after the step")
+    with uncounted(b1, b2):
+        if not torch.equal(sp4.matvec(x), y4):
+            raise AssertionError("the input ShardedPlan changed (C6)")
+        y5 = sp5.matvec(x)
+        check_close("streamed shards vs their plan", y5,
+                    sp5.plan.matvec(x), rel_tol=BACKEND_TOL)
+        step_equal = bool(torch.equal(y5, sp5.plan.matvec(x)))
+    say(f"  update(delete={n_kill} points): {update_s:.3f} s host, tier "
+        f"{sp5.plan.refresh_stats.last_action!r}, shard_patches "
+        f"{sp5.shard_patches}, patched shard(s) {owners}, the others the "
+        f"same tensors; unshard() equals the updated plan's BSR; matvec "
+        f"torch.equal to the updated plan's: {step_equal}")
+    del sp5, ub, y5
+
+    # -- a double-buffer swap absorbed at 32 768 points
+    n_db = 2048 if rehearse else 32768
+    xdb = feature_mixture(n_db, 128, n_clusters=max(8, n_db // 256),
+                          seed=args.seed + 15)
+    pdb = api.build_plan(xdb, k=30, bs=32, sb=8, ell_slack=4, device=dev)
+    spd = pdb.shard(meshes[4])
+    dbp = DoubleBufferedPlan(pdb)
+    dead = rng.choice(n_db, int(0.3 * n_db), replace=False)
+    t0 = time.perf_counter()
+    dbp.update(delete=dead)
+    spd = spd.absorb(dbp.plan)
+    if (spd.shard_patches, spd.reshards) != (1, 0) or \
+            dbp.plan.host.pending_layout != "compact":
+        raise AssertionError(f"the in-place half: patches "
+                             f"{spd.shard_patches}, pending "
+                             f"{dbp.plan.host.pending_layout!r}")
+    dbp.wait()
+    spd2 = spd.absorb(dbp.plan)
+    sync()
+    swap_s = time.perf_counter() - t0
+    if dbp.generation != 1 or (spd2.reshards, spd2.shard_patches) != (1, 1):
+        raise AssertionError(f"the swap: generation {dbp.generation}, "
+                             f"reshards {spd2.reshards}")
+    xd = torch.from_numpy(rng.standard_normal(dbp.plan.n).astype(
+        np.float32)).to(dev)
+    with uncounted(b1, b2):
+        yd = spd2.matvec(xd)
+        check_close("absorbed swap vs its plan", yd, dbp.plan.matvec(xd),
+                    rel_tol=BACKEND_TOL)
+        swap_equal = bool(torch.equal(yd, dbp.plan.matvec(xd)))
+    say(f"  DoubleBufferedPlan at n={n_db}: {len(dead)} deletes tombstoned "
+        f"(shards patched), the compaction swapped in and re-sharded on the "
+        f"same mesh ({spd2.spec.mode!r}, {spd2.spec.n_dev} shards, n "
+        f"{dbp.plan.n}) in {swap_s:.3f} s; matvec torch.equal to the "
+        f"successor's: {swap_equal}")
+    del dbp, pdb, spd, spd2
+
+    # -- a sharded restore of phase 14's checkpoint
+    ck = Checkpointer(ckpt_dir / "ckpt")
+    t0 = time.perf_counter()
+    rsp, step = ck.restore_plan(name="sift", mesh=meshes[4], device=dev)
+    sync()
+    restore_s = time.perf_counter() - t0
+    with uncounted(b1, b2):
+        if rsp.spec != sp4.spec or not torch.equal(rsp.matvec(x), y4):
+            raise AssertionError("the sharded restore differs")
+    say(f"  restore_plan(mesh=4 shards) of phase 14's step {step}: "
+        f"{restore_s:.3f} s, the same ShardSpec, matvec torch.equal")
+    del rsp
+    launches_plan = collect_counts("sharded plan")
+    if not rehearse and launches_plan["bsr_spmv"] <= 0:
+        raise AssertionError("phase 15 never launched B2")
+
+    decode = phase_shard_decode(args, dev, sync, rehearse, reset_counts,
+                                collect_counts)
+    phase_s = time.perf_counter() - t_phase
+    say(f"  phase 15 took {phase_s:.1f} s")
+    return {"shards": rows, "b2_window_max_abs": b2_err,
+            "dist_torch_equal": dist_equal,
+            "tune_4": {"winner": tuned, "report": rep,
+                       "probe_b2_launches": probe_b2},
+            "krr": {"s": krr_s, "iters": iters, "iters_unsharded":
+                    krr["iters"], "b2_launches": grew,
+                    "alpha_vs_unsharded": err_k},
+            "update": {"s": update_s, "patched_shards": owners,
+                       "torch_equal": step_equal},
+            "swap": {"n": n_db, "s": swap_s, "torch_equal": swap_equal},
+            "restore_s": restore_s, "decode": decode,
+            "launches": {k: launches_plan[k] + decode["launches"][k]
+                         for k in launches_plan},
+            "phase_s": phase_s}
+
+
+def phase_shard_decode(args, dev, sync, rehearse, reset_counts,
+                       collect_counts):
+    """Phase 15's decode: Qwen2-0.5B at full width, 8
+    ``decode_step(sharded_long=True)`` steps with the 8 192-slot cache
+    split over 4 shards — at a covering budget (float32) against the
+    unsharded decode, then at the default budget (bf16) timed beside it."""
+    import dataclasses
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_api
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import ShardCtx
+
+    cfg = qwen_config(rehearse)
+    s_max = 256 if rehearse else 8192
+    steps = 8
+    plen = s_max - cfg.clusterkv.block_k       # the prefill takes whole tiles
+    shd = ShardCtx(make_mesh((4,), ("data",), [dev] * 4))
+    params = model_api.init(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed), device=dev)
+    rng = np.random.default_rng(args.seed + 151)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, plen))).to(dev)
+    reset_counts()
+
+    def prefilled(c):
+        cache, logits = tf.prefill(params, c, {"tokens": toks}, "clusterkv")
+        return model_api.grow_cache(c, cache, s_max), logits
+
+    def clone(cache):
+        return {k: v.clone() for k, v in cache.items()}
+
+    # covering budget, float32: both sides attend every tile
+    cover = s_max // cfg.clusterkv.block_k
+    cfgc = cfg.with_(dtype="float32", clusterkv=dataclasses.replace(
+        cfg.clusterkv, blocks_per_query=cover, decode_clusters=cover))
+    ca, logits = prefilled(cfgc)
+    cb = clone(ca)
+    na = nb = logits.argmax(-1)[:, None]
+    errs = []
+    for _ in range(steps):
+        la, ca = tf.decode_step(params, cfgc, ca, na, "clusterkv")
+        lb, cb = tf.decode_step(params, cfgc, cb, nb, "clusterkv",
+                                sharded_long=True, shd=shd)
+        err, scale = check_close("sharded decode vs unsharded (covering)",
+                                 lb, la, rel_tol=1e-3)
+        errs.append((err, scale))
+        na, nb = la.argmax(-1)[:, None], lb.argmax(-1)[:, None]
+        if not torch.equal(na, nb):
+            raise AssertionError("the sharded decode chose another token")
+    say(f"  {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}), "
+        f"covering budget ({cover} tiles), float32: {steps} "
+        f"decode_step(sharded_long=True) on 4 shards of a {s_max}-slot "
+        f"cache give the unsharded tokens; logits max-abs "
+        f"{max(e for e, _ in errs):.2e} (scale {errs[0][1]:.2f}, tolerance "
+        f"0.001 x scale)")
+    del ca, cb
+
+    # default budget, bf16: ms per step, sharded against clusterkv_decode
+    cache, logits = prefilled(cfg)
+    times = {}
+    for name, kw in (("unsharded", {}),
+                     ("sharded", {"sharded_long": True, "shd": shd}),
+                     ("unsharded_2", {})):
+        c, nxt, ts = clone(cache), logits.argmax(-1)[:, None], []
+        for _ in range(steps):
+            sync()
+            t0 = time.perf_counter()
+            lg, c = tf.decode_step(params, cfg, c, nxt, "clusterkv", **kw)
+            sync()
+            ts.append((time.perf_counter() - t0) * 1e3)
+            nxt = lg.argmax(-1)[:, None]
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"{name} decode: non-finite logits")
+        times[name] = ts
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    s_local = s_max // 4
+    bk = min(cfg.clusterkv.block_k, s_local)
+    per_shard = min(cfg.clusterkv.decode_clusters, s_local // bk)
+    say(f"  default budget ({cfg.clusterkv.decode_clusters} tiles; "
+        f"{per_shard} of each shard's {s_local // bk}), {cfg.dtype}: ms per "
+        f"step (host clock, median of {steps}) sharded {med['sharded']:.2f},"
+        f" clusterkv_decode {med['unsharded']:.2f} / "
+        f"{med['unsharded_2']:.2f}")
+    launches = collect_counts("sharded decode")
+    del params, cache
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"s_max": s_max, "covering_max_abs": [e for e, _ in errs],
+            "covering_scale": errs[0][1], "ms_per_step": med,
+            "step_ms": times, "per_shard_tiles": per_shard,
+            "launches": launches}
 
 
 def main() -> int:
@@ -3182,16 +3546,25 @@ def main() -> int:
                        bk=min(ckv_cfg.block_k, serve["max_seq"]),
                        n_sel=min(ckv_cfg.decode_clusters, serve["max_seq"]
                                  // min(ckv_cfg.block_k, serve["max_seq"])))
-    persist = phase_persist(args, dev, timer, sync, rehearse, reset_counts,
-                            collect_counts, k_bsr, plan, x, build_s,
-                            solvers.pop("_batch"), serve_shape,
-                            plan_batch.pop("_keys"), cfg)
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_persist_"))
+    try:
+        persist = phase_persist(args, dev, timer, sync, rehearse,
+                                reset_counts, collect_counts, k_bsr, plan, x,
+                                build_s, solvers.pop("_batch"), serve_shape,
+                                plan_batch.pop("_keys"), cfg, ckpt_dir)
+        # ----------------------------------------------------------- 15 ---
+        shard = phase_shard(args, dev, timer, sync, rehearse, reset_counts,
+                            collect_counts, k_bsr, plan, solvers.pop("_krr"),
+                            ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     del plan, x
     for e in entries:
         if e["name"] in ("bsr_spmv_batched", "bsr_spmv"):
             e["launches_streaming"] = stream["launches"][e["name"]]
             e["launches_solvers"] = solvers["launches"][e["name"]]
             e["launches_persist"] = persist["launches"][e["name"]]
+            e["launches_shard"] = shard["launches"][e["name"]]
         if e["name"] in ("decode_attend_fused", "block_attention"):
             e["launches_service"] = service["launches"][e["name"]]
 
@@ -3218,7 +3591,8 @@ def main() -> int:
                           "tsne": tsne, "meanshift": meanshift,
                           "plan_batch": plan_batch, "serve": serve,
                           "service": service, "stream": stream,
-                          "solvers": solvers, "persist": persist})
+                          "solvers": solvers, "persist": persist,
+                          "shard": shard})
     kernels = json.dumps({"kernels": entries})
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
     if rehearse:

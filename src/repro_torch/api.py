@@ -69,8 +69,11 @@ run preconditioned CG on ``(A + shift*I) x = b`` and ``plan.eigs`` runs
 Lanczos, each iteration one ``apply`` — on a CUDA plan one launch of the
 SpMV kernel, for the whole batch in a ``PlanBatch`` solve.
 
-Not ported yet, raising ``NotImplementedError`` with their ROADMAP item:
-sharding.
+Sharded plans: ``plan.shard(mesh)`` (``core.shardplan``) splits the row
+blocks over the devices of a :class:`~repro_torch.launch.mesh.Mesh` with
+the minimal halo exchange of charges; each shard runs the single-plan SpMV
+kernel on its window. ``backend="dist"`` (``core.dist``) applies through
+the memoized shards.
 """
 from __future__ import annotations
 
@@ -92,6 +95,7 @@ from repro_torch.core.blocksparse import (BSR, append_rows, build_bsr,
 from repro_torch.core.embedding import apply_pca_map, embed, pca_map
 from repro_torch.core.hierarchy import Tree, build_tree
 from repro_torch.core.ordering import ORDERINGS  # noqa: F401  (re-export)
+from repro_torch.core.shardplan import ShardedPlan, shard
 from repro_torch.core.registry import (backend_names,  # noqa: F401
                                        get_backend, get_batched_backend,
                                        get_preconditioner,
@@ -104,17 +108,12 @@ from repro_torch.kernels import ops as kernel_ops
 __all__ = [
     "PlanConfig", "PlanSpec", "PlanData", "InteractionPlan", "PlanBatch",
     "RefreshStats", "build_plan", "build_plan_batch", "refresh_plan",
-    "update_plan", "apply_pending_layout", "cluster_order", "ORDERINGS",
+    "update_plan", "apply_pending_layout", "cluster_order", "shard",
+    "ShardedPlan", "ORDERINGS",
     "register_backend", "register_batched_backend", "backend_names",
     "get_backend", "get_batched_backend", "preconditioner_names",
     "get_preconditioner", "register_preconditioner",
 ]
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (port queue item {item} "
-        "in ROADMAP.md)")
 
 
 @dataclass(frozen=True)
@@ -287,12 +286,17 @@ class _PlanHost:
     compact_map: Optional[np.ndarray] = None  # (old_capacity,) old physical
     #   slot -> new index after the last compaction, -1 for dead slots
     last_patch_rb: Optional[np.ndarray] = None  # row-blocks the last patch
-    #   tier touched (None once the ordering or the ELL layout changed)
+    #   tier touched (None once the ordering or the ELL layout changed) —
+    #   ShardedPlan.update patches exactly these shards instead of
+    #   re-sharding
     pending_layout: Optional[str] = None  # layout tier a defer_layout
     #   update recorded instead of running ("rebucket" | "compact"):
     #   apply_pending_layout runs it
     timings: dict = dataclasses.field(default_factory=dict)
     # ^ wall seconds of the build stages (knn, embedding, tree, build_bsr)
+    shard_cache: dict = dataclasses.field(default_factory=dict)
+    # ^ memoized ShardedPlans keyed by (device count, mesh axis), validated
+    #   by BSR identity, so a refreshed lineage re-shards lazily
 
 
 @contextmanager
@@ -634,7 +638,7 @@ class InteractionPlan:
         bsr = build_bsr(r2, c2, vals, self.n, bs=b.bs, sb=b.sb,
                         max_nbr=b.max_nbr, device=self.device)
         host = dataclasses.replace(self.host, coo=(r2, c2, vals),
-                                   coo_dev=None)
+                                   coo_dev=None, shard_cache={})
         return InteractionPlan(self.config, self.n, bsr, self.pi, self.inv,
                                host)
 
@@ -756,10 +760,12 @@ class InteractionPlan:
                              largest=largest, device=self.device)
         return w, self.unpermute(U)
 
-    # -- not ported yet ------------------------------------------------------
+    # -- sharding ------------------------------------------------------------
 
-    def shard(self, *args, **kwargs):
-        raise _not_ported("plan.shard", "A11")
+    def shard(self, mesh=None, axis: str = "data") -> ShardedPlan:
+        """Per-device row-block shards with halo exchange — see
+        :func:`repro_torch.core.shardplan.shard`."""
+        return shard(self, mesh, axis=axis)
 
     @property
     def refresh_stats(self) -> RefreshStats:
@@ -1513,7 +1519,7 @@ def _refresh_patch(plan: InteractionPlan, x_new, y_new, moved, stats,
     host2 = dataclasses.replace(host, coo=(r2n, c2n, v_all), coo_dev=None,
                                 gamma=None, y_last=y_new, refresh=stats,
                                 x=x_new, codes=None,
-                                last_patch_rb=touched_rb)
+                                last_patch_rb=touched_rb, shard_cache={})
     return InteractionPlan(cfg, n, bsr, plan.pi, plan.inv, host2)
 
 
@@ -1559,7 +1565,8 @@ def _refresh_rebucket(plan: InteractionPlan, x_new, y_new, moved, stats,
     host2 = dataclasses.replace(
         host, pi=pi, inv=inv, coo=(r2n, c2n, v2), coo_dev=None, tree=tree,
         embedding=y_new, y_last=y_new, gamma=None, refresh=stats, x=x_new,
-        codes=None, code_lo=None, code_hi=None, last_patch_rb=None)
+        codes=None, code_lo=None, code_hi=None, last_patch_rb=None,
+        shard_cache={})
     return InteractionPlan(cfg, n, bsr, from_numpy(pi, dev, torch.int64),
                            from_numpy(inv, dev, torch.int64), host2)
 
@@ -1946,7 +1953,7 @@ def _spread_holes(plan: InteractionPlan) -> InteractionPlan:
     host2 = dataclasses.replace(
         host, pi=pi, inv=inv, coo=(r2n, c2n, v2), coo_dev=None, tree=None,
         codes=codes, code_lo=lo, code_hi=hi, refresh=stats,
-        last_patch_rb=None)
+        last_patch_rb=None, shard_cache={})
     return InteractionPlan(cfg, plan.n, bsr, from_numpy(pi, dev, torch.int64),
                            from_numpy(inv, dev, torch.int64), host2)
 
@@ -2038,7 +2045,7 @@ def _grow_plan(plan: InteractionPlan, capacity: int) -> InteractionPlan:
     host2 = dataclasses.replace(
         host, pi=pi, inv=inv, alive=alive, x=_pad_rows(host.x),
         embedding=_pad_rows(host.embedding), y_last=_pad_rows(host.y_last),
-        codes=codes, coo_dev=None, last_patch_rb=None)
+        codes=codes, coo_dev=None, last_patch_rb=None, shard_cache={})
     bsr = (append_rows(plan.bsr, capacity)
            if plan.bsr is not None else None)
     return InteractionPlan(plan.config, capacity, bsr,
@@ -2419,7 +2426,7 @@ def update_plan(plan: InteractionPlan, *, insert=None, delete=None,
         code_hi=code_hi if codes is not None else host.code_hi,
         refresh=stats2, last_patch_rb=touched, peak_alive=peak,
         last_inserted_idx=inserted_phys, compact_map=None,
-        pending_layout=pending)
+        pending_layout=pending, shard_cache={})
     new_dev = C != plan.n or rebucketed
     pi_dev = from_numpy(pi, dev, torch.int64) if new_dev else plan.pi
     inv_dev = from_numpy(inv, dev, torch.int64) if new_dev else plan.inv
@@ -2451,7 +2458,8 @@ def _apply_stream_rebucket(plan: InteractionPlan) -> InteractionPlan:
     host2 = dataclasses.replace(
         host, pi=pi, inv=inv, coo=(r2n, c2n, v2), coo_dev=None,
         gamma=None, tree=None, codes=codes, code_lo=lo, code_hi=hi,
-        refresh=stats2, last_patch_rb=None, pending_layout=None)
+        refresh=stats2, last_patch_rb=None, pending_layout=None,
+        shard_cache={})
     return InteractionPlan(cfg, C, bsr, from_numpy(pi, dev, torch.int64),
                            from_numpy(inv, dev, torch.int64), host2)
 

@@ -34,8 +34,12 @@ Design points:
     array (``|V2`` in an npz) is read as ``torch.bfloat16``; the port
     writes bf16 as float32 (lossless), as the reference does;
   - devices: ``restore``/``restore_plan`` take ``device=None``, meaning
-    the card, as every entry point does. Sharded restores (``mesh=``,
-    ``axis=``, ``shardings=``) raise until ROADMAP A11.
+    the card, as every entry point does;
+  - shard-aware: ``save_plan`` of a ``ShardedPlan`` writes the unsharded
+    plan plus a note of its axis, and ``restore_plan(mesh=)`` re-shards on
+    load (elastic: the halo analysis runs against the restoring mesh).
+    Placing a model tree over a mesh (``restore(shardings=)``) waits for
+    the training slice, ROADMAP A14.
 
 When saving a model tree and a plan at the same step, save the model tree
 first: ``save(step, ...)`` replaces the whole ``step_<N>`` directory.
@@ -58,8 +62,8 @@ from repro_torch._device import DeviceLike, from_numpy, resolve_device
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} (a sharded restore) is not ported to repro_torch yet "
-        "(port queue item A11 in ROADMAP.md)")
+        f"{what} (placing a model tree over a mesh) is not ported to "
+        "repro_torch yet (port queue item A14 in ROADMAP.md)")
 
 
 def _host(a) -> np.ndarray:
@@ -422,8 +426,10 @@ class Checkpointer:
 
     def save_plan(self, step: int, plan: Any, name: str = "plan",
                   blocking: bool = False) -> None:
-        """Persist an ``InteractionPlan``, a ``PlanBatch`` or a
-        ``serve.SessionStore``, gathered to the host before this returns.
+        """Persist an ``InteractionPlan``, a ``ShardedPlan`` (its unsharded
+        plan, with the sharding axis noted for ``restore_plan(mesh=)``), a
+        ``PlanBatch`` or a ``serve.SessionStore``, gathered to the host
+        before this returns.
 
         BSR arrays, permutation, COO pattern, embedding frame and
         streaming state are stored exactly (the restored plan's ``matvec``
@@ -469,7 +475,16 @@ class Checkpointer:
             def fill(tmp: Path) -> None:
                 _write_batch_dir(tmp, payloads, manifest)
         else:
+            shard_meta = None
+            if hasattr(plan, "spec") and hasattr(plan, "unshard"):
+                # a ShardedPlan: the unsharded plan lands on disk (the
+                # shards are a pure transform of it)
+                shard_meta = {"axis": plan.spec.axis,
+                              "n_dev": plan.spec.n_dev,
+                              "mode": plan.spec.mode}
+                plan = plan.plan
             arrays, manifest = _plan_payload(plan, step)
+            manifest["shard"] = shard_meta
 
             def fill(tmp: Path) -> None:
                 np.savez(tmp / "arrays.npz", **arrays)
@@ -510,12 +525,28 @@ class Checkpointer:
         restored plan is passed through ``api.refresh_plan`` (``policy``
         as there): the recorded cell/γ-drift policy decides whether the
         persisted ordering still stands, gets patched, or is rebuilt.
-        ``mesh``/``axis`` (a sharded restore) raise until ROADMAP A11.
+
+        With ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`, or
+        ``"auto"`` for ``default_mesh`` on ``device``'s type), the plan is
+        re-sharded after any refresh and a ``ShardedPlan`` is returned;
+        the halo analysis runs against the *restoring* mesh's device
+        count. ``axis`` defaults to a one-axis mesh's axis, else the
+        recorded sharding axis (or ``"data"``).
         """
         from repro_torch import api, convert
+        from repro_torch.launch.mesh import Mesh, default_mesh
 
-        if mesh is not None or axis is not None:
-            raise _not_ported("restore_plan(mesh=, axis=)")
+        if mesh is not None and not (
+                isinstance(mesh, Mesh) or mesh == "auto"):
+            raise TypeError(
+                f"mesh must be a repro_torch.launch.mesh.Mesh or 'auto', "
+                f"got {mesh!r} — restore_plan re-shards elastically on "
+                "whatever mesh you pass")
+        if isinstance(mesh, Mesh) and axis is not None \
+                and axis not in mesh.shape:
+            raise ValueError(
+                f"restoring mesh has no axis {axis!r} (axes: "
+                f"{tuple(mesh.axis_names)}, {mesh.size} devices)")
         dev = resolve_device(device)
         if step is None:
             ps = self.plan_steps(name)
@@ -534,10 +565,10 @@ class Checkpointer:
                 "(checkpoint writes are atomic — this directory was "
                 "modified outside the Checkpointer)") from e
         if m.get("session_store"):
-            if refresh_with is not None:
+            if refresh_with is not None or mesh is not None:
                 raise ValueError(
                     f"plan {name!r} at step {step} is a SessionStore; "
-                    "refresh_with applies to single plans")
+                    "refresh_with/mesh apply to single plans")
             from repro_torch.serve.session import Session, SessionStore
 
             store = SessionStore()
@@ -564,11 +595,11 @@ class Checkpointer:
             store.counters = dict(m["counters"])
             return store, step
         if m.get("batch"):
-            if refresh_with is not None:
+            if refresh_with is not None or mesh is not None:
                 raise ValueError(
                     f"plan {name!r} at step {step} is a PlanBatch; "
-                    "refresh_with applies to single plans — restore the "
-                    "batch plain and refresh members individually")
+                    "refresh_with/mesh apply to single plans — restore the "
+                    "batch plain and refresh/shard members individually")
             return _read_batch_dir(d, m, dev), step
         if not (d / "arrays.npz").exists():
             raise FileNotFoundError(
@@ -583,4 +614,11 @@ class Checkpointer:
         plan = _plan_from_payload(m, arrays, dev)
         if refresh_with is not None:
             plan = api.refresh_plan(plan, refresh_with, policy=policy)
+        if mesh is not None:
+            if axis is None and mesh != "auto" and len(mesh.axis_names) == 1:
+                axis = mesh.axis_names[0]
+            axis = axis or (m.get("shard") or {}).get("axis") or "data"
+            if mesh == "auto":
+                mesh = default_mesh(axis, dev)
+            plan = api.shard(plan, mesh, axis=axis)
         return plan, step

@@ -127,11 +127,11 @@ class ModelConfig:
 # waits for its ROADMAP item
 _MOD_FOR: Dict[str, str] = {"qwen2-0.5b": "qwen2_0_5b"}
 _NOT_PORTED: Dict[str, str] = {
-    "llava-next-34b": "A12", "minicpm3-4b": "A12",
-    "h2o-danube-3-4b": "A12", "mistral-large-123b": "A12",
-    "falcon-mamba-7b": "A12", "whisper-medium": "A12",
-    "llama4-maverick-400b-a17b": "A12", "granite-moe-3b-a800m": "A12",
-    "zamba2-1.2b": "A12",
+    "llava-next-34b": "A13", "minicpm3-4b": "A13",
+    "h2o-danube-3-4b": "A13", "mistral-large-123b": "A13",
+    "falcon-mamba-7b": "A13", "whisper-medium": "A13",
+    "llama4-maverick-400b-a17b": "A13", "granite-moe-3b-a800m": "A13",
+    "zamba2-1.2b": "A13",
 }
 ARCH_IDS = list(_MOD_FOR)
 

@@ -23,19 +23,15 @@ from repro_torch.core.hierarchy import Tree
 
 # The one two-way map of names that differ between the packages' saved
 # state: the reference's SpMV backend ``pallas`` (its TPU kernel) is the
-# port's ``cuda`` (its CUDA kernel). ``dist`` (sharded) has no counterpart
-# until ROADMAP A11.
+# port's ``cuda`` (its CUDA kernel). Every other name, ``dist`` (sharded)
+# among them, is the same in both.
 _BACKEND_FROM_REF = {"pallas": "cuda"}
 _BACKEND_TO_REF = {v: k for k, v in _BACKEND_FROM_REF.items()}
 
 
 def backend_from_reference(name: str) -> str:
-    """A reference SpMV backend name -> the port's (``pallas`` -> ``cuda``);
-    ``dist`` raises (ROADMAP A11)."""
-    if name == "dist":
-        raise NotImplementedError(
-            "backend 'dist' (a sharded plan) is not ported to repro_torch "
-            "yet (port queue item A11 in ROADMAP.md)")
+    """A reference SpMV backend name -> the port's (``pallas`` ->
+    ``cuda``)."""
     return _BACKEND_FROM_REF.get(name, name)
 
 

@@ -50,6 +50,7 @@ from repro_torch.configs.base import ClusterKVConfig
 from repro_torch.core import clusterkv as ckv
 from repro_torch.core import costmodel
 from repro_torch.core.registry import backend_names, get_backend
+from repro_torch.launch.mesh import default_mesh
 
 # structural memo of decisions, keyed by (shape_key, true nnz, charge ndim,
 # backend set, calibrated, device type); values are the ranking reports.
@@ -177,11 +178,10 @@ def _calibrate(names: Iterable[str], feat, run, device: torch.device,
             else float("inf"))
 
 
-def _rank(key: tuple, feat, names: Tuple[str, ...], device: torch.device,
-          calibrate: bool, batch: bool) -> Tuple[str, Dict[str, float]]:
-    """Rank ``names`` on ``feat`` (calibrated or not), memoize the report
-    under ``key`` and return the winner: ``cuda`` on the card, else the
-    ranking's first."""
+def _rank_report(feat, names: Tuple[str, ...], device: torch.device,
+                 calibrate: bool, batch: bool) -> dict:
+    """The ranking report of ``names`` on ``feat`` (calibrated or not),
+    its ``winner`` ``cuda`` on the card, else the ranking's first."""
     dt = device.type
     cal = ({n: _CALIB.get(_ckey(dt, n, batch), 1.0) for n in names}
            if calibrate else None)
@@ -191,9 +191,43 @@ def _rank(key: tuple, feat, names: Tuple[str, ...], device: torch.device,
         winner = "cuda"                  # the kernel runs on card tensors
     else:
         winner = report["winner"] or "bsr"
-    report = dict(report, winner=winner)
+    return dict(report, winner=winner)
+
+
+def _rank(key: tuple, feat, names: Tuple[str, ...], device: torch.device,
+          calibrate: bool, batch: bool) -> Tuple[str, Dict[str, float]]:
+    """Rank ``names`` on ``feat``, memoize the report under ``key`` and
+    return the winner (see :func:`_rank_report`)."""
+    report = _rank_report(feat, names, device, calibrate, batch)
     _remember(key, report)
-    return winner, dict(report["predicted_s"])
+    return report["winner"], dict(report["predicted_s"])
+
+
+def _with_dist(report: dict, plan, feat, ndev: int, dt: str) -> dict:
+    """The reference's multi-device rule on top of a local ranking:
+    ``dist`` wins when it calibrated healthy and the exchange model prices
+    the plan's analyzed halo strictly under replication over ``ndev``
+    devices. The report names the mesh the ``dist`` probe ran on."""
+    from repro_torch.core.shardplan import analyze_shards
+
+    ratio = _CALIB.get(_ckey(dt, "dist"), float("inf"))
+    if ratio == float("inf"):
+        return report
+    spec, _ = analyze_shards(plan.bsr, ndev)
+    halo_s = costmodel.exchange_cost(spec.transfer_blocks, plan.bsr.bs)
+    ag_s = costmodel.exchange_cost(spec.allgather_blocks, plan.bsr.bs)
+    if not halo_s < ag_s:
+        return report
+    dist_s = costmodel.backend_cost(
+        feat, "dist", n_dev=ndev,
+        exchange_blocks=spec.transfer_blocks)["seconds"]
+    times = dict(report["predicted_s"], dist=ratio * dist_s)
+    probe_mesh = default_mesh(device=dt).devices_along("data")
+    return dict(report, winner="dist", predicted_s=times,
+                dist={"n_dev": ndev, "mode": spec.mode,
+                      "transfer_blocks": spec.transfer_blocks,
+                      "allgather_blocks": spec.allgather_blocks,
+                      "probe_mesh": [str(d) for d in probe_mesh]})
 
 
 def tune_backend(plan, x: Optional[torch.Tensor] = None,
@@ -217,34 +251,57 @@ def tune_backend(plan, x: Optional[torch.Tensor] = None,
     ``"auto"`` asks, so the same plan resolves the same way under any
     load. Decisions are memoized on ``(shape_key, true nnz, charge ndim,
     backend set, calibrate, device type)`` with their ranking reports; a
-    miss reads the plan's kept-tile count once. ``device_count >= 2``
-    (the reference's sharded ``dist`` branch) raises for ROADMAP A11.
+    miss reads the plan's kept-tile count once.
+
+    Device-count-aware, as the reference: ``device_count`` (default: the
+    CUDA devices for a CUDA plan, 1 for a CPU plan) of 2 or more lets the
+    sharded ``dist`` backend win whenever it calibrated healthy and the
+    exchange model prices the plan's analyzed halo (``analyze_shards``
+    over ``device_count`` devices) strictly under replication; ``dist``
+    then appears in the returned dict and the report records the mesh its
+    probe ran on (``default_mesh()``: on a one-card machine, that card).
+    Multi-device decisions are not reused: their reports are kept in the
+    memo under the key plus the device count, for reading only.
     """
-    if device_count is not None and device_count >= 2:
-        raise NotImplementedError(
-            "multi-device tune_backend (the reference's 'dist' branch) is "
-            "not ported to repro_torch yet (port queue item A11 in "
-            "ROADMAP.md)")
     names = tuple(backends) if backends is not None else backend_names()
     if plan.bsr is None:
         return "bsr", {}
     dev = plan.device
-    if dev.type != "cuda":
-        names = tuple(n for n in names if n != "cuda")
+    ndev = (device_count if device_count is not None
+            else torch.cuda.device_count() if dev.type == "cuda" else 1)
+    local = tuple(n for n in names if n != "dist"
+                  and not (n == "cuda" and dev.type != "cuda"))
     ndim = x.ndim if x is not None else 1
     coo = plan.host.coo
     nnz = int(len(coo[0])) if coo is not None else None
-    key = (plan.spec.shape_key, nnz, ndim, names, calibrate, dev.type)
-    hit = _TUNE_MEMO.get(key)
-    if hit is not None:
-        return hit["winner"], dict(hit["predicted_s"])
+    key = (plan.spec.shape_key, nnz, ndim, local, calibrate, dev.type)
+    if ndev < 2:
+        hit = _TUNE_MEMO.get(key)
+        if hit is not None:
+            return hit["winner"], dict(hit["predicted_s"])
     f = x.shape[-1] if (x is not None and x.ndim == 2) else 1
     feat = costmodel.plan_features(plan.spec.shape_key, f=f, nnz=nnz,
                                    kept_tiles=int(plan.bsr.nbr_mask.sum()))
-    if calibrate:
+    multi = ndev >= 2 and "dist" in names
+    if calibrate or multi:
         xp = x if x is not None else _charges((plan.n,), dev)
-        _calibrate(names, feat, lambda n: get_backend(n)(plan, xp), dev)
-    return _rank(key, feat, names, dev, calibrate, batch=False)
+
+        def run(n):
+            return get_backend(n)(plan, xp)
+
+        if calibrate:
+            _calibrate(local, feat, run, dev)
+        if multi:
+            # dist needs a mesh to calibrate (the default one); a failed
+            # probe marks it non-viable here
+            _calibrate(("dist",), feat, run, dev)
+    if ndev < 2:
+        return _rank(key, feat, local, dev, calibrate, batch=False)
+    report = _rank_report(feat, local, dev, calibrate, batch=False)
+    if multi:
+        report = _with_dist(report, plan, feat, ndev, dev.type)
+    _remember(key + (ndev,), report)
+    return report["winner"], dict(report["predicted_s"])
 
 
 def tune_batch_backend(batch, x: Optional[torch.Tensor] = None,

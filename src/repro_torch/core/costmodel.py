@@ -11,7 +11,8 @@ One model, two consumers in the port:
     :func:`choose_decode_backend`; on a CUDA tensor it is the kernel.
 
 :func:`exchange_cost` prices a charge exchange over NVLink for the
-sharded plans of ROADMAP A11. The reference's third consumer, the Pallas
+sharded plans (``core.shardplan``), and ``backend_cost(.., "dist")`` the
+sharded matvec. The reference's third consumer, the Pallas
 tile sizing ``choose_tiles``, has no counterpart: the CUDA kernels fix
 their launch shapes in ``kernels/csrc``.
 
@@ -221,14 +222,17 @@ def spmv_kernel_bytes(kept_tiles: int, bs: int, col_idx_numel: int,
 
 
 def backend_cost(feat: CostFeatures, backend: str,
-                 hw: Optional[HardwareConfig] = None) -> dict:
+                 hw: Optional[HardwareConfig] = None, *, n_dev: int = 1,
+                 exchange_blocks: int = 0) -> dict:
     """Closed-form flops / HBM bytes / seconds for one backend.
 
     The roofline estimate is ``max(flops/peak, bytes/hbm_bw)`` plus the
-    per-launch overhead (the reference's formula, float32 at the CUDA-core
-    peak). Absolute seconds are calibrated by the autotune (one probe per
-    backend and device type, memoized); *relative* order across shapes
-    and hardware configs is what the model owns.
+    per-launch overhead and (``dist`` only) the NVLink time of the halo
+    exchange of ``exchange_blocks`` charge blocks over ``n_dev`` devices
+    (the reference's formula, float32 at the CUDA-core peak). Absolute
+    seconds are calibrated by the autotune (one probe per backend and
+    device type, memoized); *relative* order across shapes and hardware
+    configs is what the model owns.
     """
     hw = hw or get_hardware()
     B = feat.batch
@@ -238,6 +242,7 @@ def backend_cost(feat: CostFeatures, backend: str,
     seg_bytes = tiles * feat.bs * feat.f * _ELEM
     out_bytes = B * feat.n_rb * feat.bs * feat.f * _ELEM
     idx_bytes = tiles * _IDX
+    link_bytes = 0.0
     launches = 1.0
     edge_s = 0.0
     if backend == "csr":
@@ -270,14 +275,22 @@ def backend_cost(feat: CostFeatures, backend: str,
         hbm = spmv_kernel_bytes(kept, feat.bs, tiles,
                                 B * feat.n_cb * feat.bs * feat.f,
                                 B * feat.n_rb * feat.bs * feat.f)
+    elif backend == "dist":
+        # the reference's pricing: the flat path split over the devices,
+        # plus the link time of the exchange
+        hbm = (tile_bytes + hw.gather_penalty * seg_bytes + out_bytes) \
+            / max(n_dev, 1)
+        flops /= max(n_dev, 1)
+        link_bytes = float(exchange_blocks) * feat.bs * _ELEM
     else:
         # unknown backends get the generic flat-path estimate
         hbm = tile_bytes + hw.gather_penalty * seg_bytes + out_bytes \
             + idx_bytes
     seconds = max(flops / hw.fp32_flops, hbm / hw.hbm_bw) \
-        + launches * hw.launch_overhead + edge_s
+        + launches * hw.launch_overhead + link_bytes / hw.nvlink_bw + edge_s
     return {"backend": backend, "flops": flops, "hbm_bytes": hbm,
-            "link_bytes": 0.0, "launches": launches, "seconds": seconds}
+            "link_bytes": link_bytes, "launches": launches,
+            "seconds": seconds}
 
 
 def rank_backends(feat: CostFeatures, names: Iterable[str], *,
@@ -525,7 +538,7 @@ def choose_decode_backend(feat: DecodeFeatures, *, on_cpu: bool = False,
 
 
 # ---------------------------------------------------------------------------
-# exchange pricing (the sharded plans of ROADMAP A11)
+# exchange pricing (the sharded plans of core.shardplan)
 # ---------------------------------------------------------------------------
 
 

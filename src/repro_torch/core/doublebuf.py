@@ -40,9 +40,9 @@ stream; both threads' host work (the repair is mostly numpy) overlaps.
 Because the successor's tensors were written on the same stream that
 serves them, the swap needs no extra synchronisation.
 
-Downstream state absorbs a swap explicitly: re-attach a
-``serve.LockstepInserter`` with the new ``generation`` (stale-generation
-claims raise).
+Downstream state absorbs a swap explicitly: re-shard via
+``ShardedPlan.absorb(dbp.plan)``, re-attach a ``serve.LockstepInserter``
+with the new ``generation`` (stale-generation claims raise).
 """
 from __future__ import annotations
 

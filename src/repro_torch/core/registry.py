@@ -12,6 +12,8 @@ backends register themselves on first use:
   bsr_ml    multi-level superblock stripes     (core.interact)
   cuda      hand-written ELL-BSR CUDA kernel   (kernels.ops; the
             counterpart of the reference's ``pallas`` backend)
+  dist      row blocks sharded over a mesh     (core.dist, through
+            with halo exchange                 core.shardplan)
 
 ``csr``/``bsr``/``bsr_ml`` are the plain PyTorch reference paths that stand
 beside the kernel; they run on any device. ``cuda`` launches the kernel
@@ -29,7 +31,8 @@ _BATCHED: Dict[str, Callable] = {}
 _DEFAULTS_LOADED = False
 
 # modules that register the built-in backends at import time
-_DEFAULT_PROVIDERS = ("repro_torch.core.interact", "repro_torch.kernels.ops")
+_DEFAULT_PROVIDERS = ("repro_torch.core.interact", "repro_torch.kernels.ops",
+                      "repro_torch.core.dist")
 
 _PRECOND: Dict[str, Callable] = {}
 _PRECOND_LOADED = False

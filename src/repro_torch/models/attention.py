@@ -13,8 +13,10 @@ Layout convention: q/k/v are (B, H, S, dh); positions are int32.
                     through the hand-written CUDA kernels
                     (kernels/block_attention.py, kernels/decode_attend.py)
 
-The sharded long-context decode of the reference
-(``clusterkv_decode_sharded``) waits for ROADMAP A11.
+  clusterkv_decode_sharded
+                    long-context decode with the cache's sequence split
+                    over a mesh axis: per-shard cluster selection and
+                    partial softmax, combined as flash-decode partials
 """
 from __future__ import annotations
 
@@ -341,3 +343,56 @@ def clusterkv_percall_decode(q, k, v, kpos, qpos, cfg: ClusterKVConfig):
     ks, vs, ps = ckv.permute_kv(k, v, kpos, perm)
     cent = ckv.block_centroids(ks.float(), bk)
     return clusterkv_plan_decode(q, ks, vs, ps, cent, qpos, cfg)
+
+
+def clusterkv_decode_sharded(q, k, v, kpos, qpos, cfg: ClusterKVConfig,
+                             mesh, axis: str = "data"):
+    """Long-context decode with the cache sequence sharded over ``axis``
+    of ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`).
+
+    Every shard takes its contiguous slice of the cache to its device,
+    builds its local tile centroids, selects its local top-c tiles
+    (``decode_select``) and computes a partial softmax ``(m, l, o)``; the
+    partials combine by max and sum (the reference's ``pmax``/``psum``)
+    on ``q``'s device — flash-decode with the paper's cluster selection
+    inside each shard. No cross-shard gather ever touches the cache. The
+    reference's local step is XLA, so this is plain PyTorch.
+    """
+    b, hq, dh = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    devices = mesh.devices_along(axis)
+    shards = len(devices)
+    s_local = s // shards
+    bk = min(cfg.block_k, s_local)
+    n_sel = min(cfg.decode_clusters, s_local // bk)
+    g = hq // hkv
+    if kpos.ndim == 1:
+        kpos = kpos.expand(b, hkv, s)
+    home = q.device
+    qp = torch.as_tensor(qpos, device=home)
+    ms, ls, os_ = [], [], []
+    for d, dev in enumerate(devices):
+        part = slice(d * s_local, (d + 1) * s_local)
+        kl, vl = k[:, :, part].to(dev), v[:, :, part].to(dev)
+        pl = kpos[:, :, part].to(dev)
+        qh = q.to(dev)
+        cent = ckv.block_centroids(kl, bk)
+        idx = ckv.decode_select(qh.float(), cent.float(), n_sel)
+        ksel = ckv.gather_tiles(kl, idx, bk).float()    # (b, hkv, c*bk, dh)
+        vsel = ckv.gather_tiles(vl, idx, bk).float()
+        psel = ckv.gather_tiles(pl, idx, bk)            # (b, hkv, c*bk)
+        qg = qh.reshape(b, hkv, g, dh).float()
+        logit = torch.einsum("bhgd,bhtd->bhgt", qg, ksel) / float(dh) ** 0.5
+        logit = torch.where(psel[:, :, None, :] <= qp.to(dev), logit,
+                            NEG_INF)
+        m = logit.amax(dim=-1)
+        p = torch.exp(logit - m[..., None])
+        ms.append(m.to(home))
+        ls.append(p.sum(-1).to(home))
+        os_.append(torch.einsum("bhgt,bhtd->bhgd", p, vsel).to(home))
+    mm = torch.stack(ms).amax(dim=0)
+    alpha = [torch.exp(m - mm) for m in ms]
+    ll = sum(l * a for l, a in zip(ls, alpha))
+    oo = sum(o * a[..., None] for o, a in zip(os_, alpha))
+    out = oo / torch.clamp(ll, min=1e-30)[..., None]
+    return out.reshape(b, hq, dh).to(q.dtype)

@@ -17,8 +17,8 @@ from repro_torch.models import param as pm
 from repro_torch.models import transformer
 
 _FAMILY = {"dense": transformer}
-_NOT_PORTED = {"vlm": "A12", "moe": "A12", "ssm": "A12", "hybrid": "A12",
-               "encdec": "A12"}
+_NOT_PORTED = {"vlm": "A13", "moe": "A13", "ssm": "A13", "hybrid": "A13",
+               "encdec": "A13"}
 
 
 def module_for(cfg: ModelConfig):

@@ -2,8 +2,8 @@
 layout (``linear`` weights ``(d_in, d_out)``, stacked layers ``(L, ...)``),
 so a reference parameter tree crosses over leaf for leaf
 (``convert.params_from_reference``). Weights are drawn from an explicit
-``torch.Generator``; the reference's sharding specs have no counterpart on
-one device (ROADMAP A11)."""
+``torch.Generator``. The reference's parameter sharding specs, which
+place parameters over a mesh, wait for the trainer (ROADMAP A14)."""
 from __future__ import annotations
 
 import math

@@ -5,7 +5,7 @@ Parameters are plain nested dicts of tensors in the reference's layout
 (``models/param.py``); layers are stacked ``(L, ...)`` and applied by a
 Python loop (the reference's ``lax.scan``). Everything runs eagerly. The
 MoE FFN and MLA attention of the reference's other families wait for
-ROADMAP A12.
+ROADMAP A13.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import param as pm
+from repro_torch.models.sharding import NO_SHARD, ShardCtx
 
 AUX_COEF = 0.01
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -35,9 +36,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def _check_dense(cfg: ModelConfig) -> None:
     if cfg.moe is not None:
-        raise _not_ported("the MoE FFN", "A12")
+        raise _not_ported("the MoE FFN", "A13")
     if cfg.mla is not None:
-        raise _not_ported("MLA attention", "A12")
+        raise _not_ported("MLA attention", "A13")
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +173,17 @@ def _logits(p, cfg: ModelConfig, h_last: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def cache_specs(cfg: ModelConfig, long_context: bool = False):
+    """Logical partition specs of the cache (``models.sharding``): the
+    sequence sharded for long context, else kv heads over ``tp``."""
+    _check_dense(cfg)
+    if long_context:
+        kv = (None, "dp", None, "seq", None)
+    else:
+        kv = (None, "dp", "tp", None, None)
+    return {"k": kv, "v": kv, "pos": ()}
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
                device: DeviceLike = None) -> Dict[str, Any]:
     _check_dense(cfg)
@@ -202,7 +214,8 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash"
 
 
 def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
-                sharded_long: bool = False) -> Tuple[torch.Tensor, Dict]:
+                sharded_long: bool = False, shd: ShardCtx = NO_SHARD
+                ) -> Tuple[torch.Tensor, Dict]:
     """One decode step. tokens (B, 1); cache from init_cache/prefill.
 
     cache["pos"] may be a scalar (uniform decode) or a (B,) vector of
@@ -210,10 +223,11 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
     masks at its own position). Where the reference returns new cache
     arrays, the port writes the new key/value rows into ``cache["k"]`` and
     ``cache["v"]`` in place (no copy of the cache per token); the returned
-    cache shares them."""
+    cache shares them. ``sharded_long=True`` with a mesh in ``shd`` (and
+    the ``clusterkv`` backend at a scalar position) splits each layer's
+    cache sequence over the mesh's ``data`` axis
+    (``attention.clusterkv_decode_sharded``)."""
     _check_dense(cfg)
-    if sharded_long:
-        raise _not_ported("decode_step(sharded_long=True)", "A11")
     dt = compute_dtype(cfg)
     h = p["embed"]["table"][tokens.long()].to(dt)
     b = h.shape[0]
@@ -253,6 +267,9 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
                 # cache region (the baseline the plan service amortizes)
                 o = attn.clusterkv_percall_decode(q1, kc, vc, kpos, qpos,
                                                   cfg.clusterkv)
+            elif sharded_long and shd.mesh is not None:
+                o = attn.clusterkv_decode_sharded(
+                    q1, kc, vc, kpos, qpos, cfg.clusterkv, shd.mesh)
             else:
                 o = attn.clusterkv_decode(q1, kc, vc, kpos, qpos,
                                           cfg.clusterkv)

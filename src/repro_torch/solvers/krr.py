@@ -21,12 +21,16 @@ self_weight + lam`` is folded into the operator — one
                    solved in lockstep, each iteration ONE batched apply
                    (one kernel launch for the whole batch), the batched
                    Cholesky preconditioning every lane.
+  ShardedPlan      CG in original order over the halo-exchange matvec
+                   (one SpMV launch per shard per iteration); the
+                   preconditioner factors from the wrapped plan's
+                   unsharded tiles and applies in cluster order.
 
 Backends resolve as the plan's own do (``"auto"`` is the ``cuda`` kernel
 on a CUDA plan, ``bsr`` on the CPU). A single plan's solve keeps the
 reference's rule that a path reading host data (``csr``, which walks the
 host COO) or any backend outside ``bsr``/``bsr_ml``/``cuda`` runs as
-``bsr``. A ``ShardedPlan`` operator is not ported yet.
+``bsr``.
 """
 from __future__ import annotations
 
@@ -62,11 +66,6 @@ def _solver_knobs(config, precond, tol, maxiter):
     return (precond if precond is not None else config.precond,
             float(tol) if tol is not None else config.cg_tol,
             int(maxiter) if maxiter is not None else config.cg_maxiter)
-
-
-def _reject_sharded(operator) -> None:
-    if type(operator).__name__ == "ShardedPlan":
-        raise api._not_ported("solve on a ShardedPlan", "A11")
 
 
 def _solve_single(plan, b, shift, tol, backend: str, precond: str,
@@ -105,6 +104,27 @@ def _solve_batch(batch, b, shift, tol, backend: str, precond: str,
     return dataclasses.replace(res, x=api._batch_take(res.x, data.inv))
 
 
+def _solve_sharded(sp, b, shift, tol, precond: str,
+                   maxiter: int) -> CGResult:
+    """CG over the halo-exchange matvec (1-D charges only — the sharded
+    apply's contract). The preconditioner factors from the *unsharded*
+    tiles the wrapped plan still owns and applies in cluster order."""
+    plan = sp.plan
+    if b.ndim != 1:
+        raise ValueError("sharded solves take 1-D right-hand sides "
+                         f"(the sharded matvec contract); got "
+                         f"{tuple(b.shape)}")
+    M_cl = get_preconditioner(precond)(plan.spec, plan.data, shift)
+
+    def A(v):
+        return sp.matvec(v) + shift * v
+
+    def M(r):
+        return plan.unpermute(M_cl(plan.permute(r), axis=-1))
+
+    return cg(A, b, M=M, tol=tol, maxiter=maxiter)
+
+
 def _plan_backend(plan: "api.InteractionPlan", backend) -> str:
     name = plan.resolve_backend(backend)
     return name if name in _JIT_SAFE else "bsr"
@@ -117,9 +137,11 @@ def solve(operator, b, *, shift=0.0,
           maxiter: Optional[int] = None) -> CGResult:
     """Solve ``(A + shift*I) x = b`` on a plan-shaped operator.
 
-    ``operator`` is an :class:`~repro_torch.api.InteractionPlan` or a
-    :class:`~repro_torch.api.PlanBatch`; ``b`` is in ORIGINAL index order —
-    ``(capacity,)`` / ``(capacity, t)`` for a single plan,
+    ``operator`` is an :class:`~repro_torch.api.InteractionPlan`, a
+    :class:`~repro_torch.api.PlanBatch` or a
+    :class:`~repro_torch.core.shardplan.ShardedPlan`; ``b`` is in ORIGINAL
+    index order — ``(capacity,)`` / ``(capacity, t)`` for a single plan
+    (``(capacity,)`` only for a sharded one),
     ``(B, capacity)`` / ``(B, capacity, t)`` for a batch (zero-pad
     dead/hole slots; their solutions come back ``b/shift``, i.e. zero) —
     as a tensor or an array, moved to the operator's device. ``shift`` is
@@ -129,7 +151,6 @@ def solve(operator, b, *, shift=0.0,
     ``cg_maxiter``, ``precond``). Returns a :class:`CGResult` with
     telemetry.
     """
-    _reject_sharded(operator)
     dev = operator.device
     b = from_numpy(b, dev, torch.float32)
     shift = torch.as_tensor(shift, dtype=torch.float32, device=dev)
@@ -147,6 +168,10 @@ def solve(operator, b, *, shift=0.0,
         prec, tol, maxiter = _solver_knobs(batch.spec.config, precond, tol,
                                            maxiter)
         return _solve_batch(batch, b, shift, tol, name, prec, maxiter)
+    if isinstance(operator, api.ShardedPlan):   # its shards run B2 alone
+        prec, tol, maxiter = _solver_knobs(operator.plan.config, precond,
+                                           tol, maxiter)
+        return _solve_sharded(operator, b, shift, tol, prec, maxiter)
     plan = operator
     plan._require_bsr()
     if b.shape[0] != plan.n:
@@ -243,8 +268,9 @@ def krr_fit(plan, y, lam: float, *,
             precond: Optional[str] = None,
             tol: Optional[float] = None,
             maxiter: Optional[int] = None) -> KRRModel:
-    """Fit ``(W + (self_weight + lam) I) alpha = y`` on one plan.
-    ``lam > 0`` is required: dead/hole rows contribute a bare ``shift``
+    """Fit ``(W + (self_weight + lam) I) alpha = y`` on one plan (or a
+    sharded plan, whose model keeps the wrapped plan). ``lam > 0`` is
+    required: dead/hole rows contribute a bare ``shift``
     diagonal. ``self_weight="auto"`` (default) uses the Gershgorin shift
     (see :func:`_auto_self_weight`) — the kNN-truncated kernel is NOT
     positive definite on clustered data, so a fixed ``self_weight=1.0``
@@ -253,11 +279,11 @@ def krr_fit(plan, y, lam: float, *,
     ``(capacity, t)``."""
     if lam <= 0:
         raise ValueError(f"krr needs lam > 0, got {lam}")
-    _reject_sharded(plan)
     sw = _resolve_self_weight(plan, self_weight)
     res = solve(plan, y, shift=sw + lam, backend=backend, precond=precond,
                 tol=tol, maxiter=maxiter)
-    return KRRModel(operator=plan, alpha=res.x, lam=lam, self_weight=sw,
+    op = plan.plan if isinstance(plan, api.ShardedPlan) else plan
+    return KRRModel(operator=op, alpha=res.x, lam=lam, self_weight=sw,
                     result=res)
 
 

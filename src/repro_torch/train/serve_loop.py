@@ -50,7 +50,7 @@ class Engine:
         if cfg.family != "dense":
             raise NotImplementedError(
                 "the port's engine serves the dense decoder-only family "
-                "(the others are ROADMAP A12)")
+                "(the others are ROADMAP A13)")
         self.cfg = cfg
         self.params = params
         self.slots = slots

@@ -176,7 +176,7 @@ def test_flat_gather_and_tile_contraction_match_reference():
 
 
 def test_registry_names_duplicates_and_did_you_mean():
-    assert t_reg.backend_names() == ("bsr", "bsr_ml", "csr", "cuda")
+    assert t_reg.backend_names() == ("bsr", "bsr_ml", "csr", "cuda", "dist")
     for name in ("bsr", "bsr_ml", "cuda"):
         assert t_reg.get_batched_backend(name) is not None
     assert t_reg.get_batched_backend("csr") is None

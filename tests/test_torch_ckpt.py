@@ -160,7 +160,7 @@ def test_ckpt_structure_mismatch_and_shardings_raise(tmp_path):
     ck.save(0, _tree(), blocking=True)
     with pytest.raises(ValueError, match="structure mismatch"):
         ck.restore({"only": torch.zeros(3)}, device=CPU)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A14"):
         ck.restore(_tree(), shardings={"a": None}, device=CPU)
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         Checkpointer(tmp_path / "empty").restore(_tree(), device=CPU)
@@ -293,11 +293,10 @@ def test_cuda_backend_is_saved_as_pallas_and_restored_as_cuda(tmp_path,
     assert ck.restore_plan(device=CPU)[0].config.backend == "cuda"
     assert RefCheckpointer(tmp_path).restore_plan()[0].config.backend \
         == "pallas"
-    m["config"]["backend"] = "dist"
+    m["config"]["backend"] = "dist"      # the same name in both packages
     (tmp_path / "step_2" / "plan_plan" / "manifest.json").write_text(
         json.dumps(m))
-    with pytest.raises(NotImplementedError, match="A11"):
-        ck.restore_plan(device=CPU)
+    assert ck.restore_plan(device=CPU)[0].config.backend == "dist"
 
 
 # -- plans across packages ----------------------------------------------------------
@@ -542,14 +541,21 @@ def test_restore_plan_array_shape_mismatch(tmp_path, port_plan):
 
 
 def test_restore_plan_sharded_raises_for_a11(tmp_path, port_plan):
+    """The sharded restore of ROADMAP A11, ported: ``mesh="auto"`` re-shards
+    on ``default_mesh`` of the device, ``axis=`` alone restores unsharded
+    (as the reference), and the unsharded restore is unchanged. The full
+    round trip is ``test_torch_shardplan.py``'s."""
     ck = Checkpointer(tmp_path)
     ck.save_plan(1, port_plan, blocking=True)
-    with pytest.raises(NotImplementedError, match="A11"):
-        ck.restore_plan(mesh="auto", device=CPU)
-    with pytest.raises(NotImplementedError, match="A11"):
-        ck.restore_plan(axis="data", device=CPU)
+    sp, _ = ck.restore_plan(mesh="auto", device=CPU)
+    assert sp.spec.n_dev == 1 and sp.mesh.devices_along("data") == [
+        torch.device(CPU)]
+    p, _ = ck.restore_plan(axis="data", device=CPU)
+    assert p.n == port_plan.n and not hasattr(p, "unshard")
     p, _ = ck.restore_plan(device=CPU)            # unsharded still works
     assert p.n == port_plan.n
+    x = torch.ones(p.n)
+    assert torch.equal(sp.matvec(x), p.matvec(x, backend="bsr"))
 
 
 def test_restore_defaults_to_the_card(tmp_path, port_plan, monkeypatch):

@@ -168,11 +168,59 @@ def test_decode_logits_and_combine(g):
 
 @pytest.mark.parametrize("d", [1, 2, 3])
 def test_cluster_perm_equals_reference(d):
+    """ROADMAP C9: on the CPU the ordering equals the reference's — off
+    Morton near-ties, where the two packages' float32 embeddings put a
+    key on either side of a cell edge (C31, the test after this one)."""
     k = _clustered_keys(3, b=2, h=3, s=96, dh=12)
     got = t_ckv.cluster_perm(tt(k), d=d)
     want = r_ckv.cluster_perm(jnp.asarray(k), d=d)
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(tn(got), np.asarray(want))
+
+
+def test_cluster_perm_off_a_morton_near_tie_equals_reference():
+    """ROADMAP C31: ROADMAP C30's keys rounded to bf16 and passed as
+    float32, default ``embed_dim`` 3. Key 89 of head 0 sits on a cell
+    edge: the packages' embedding boxes differ by one float32 ulp, so its
+    first coordinate quantizes to 1008.00006 in the reference and
+    1007.99994 in the port (6e-5 of a cell either side of the edge at
+    1008), and its Morton code is 766433698 against 766430187. It moves
+    from cluster position 291 to 286, across the tile edge at 288, and
+    the five keys between shift by one. Everything else — head 1, every
+    other code, the permutation with key 89 taken out — is exact. The
+    embedding's sum order is not changed to chase the bits (values are
+    close, not bitwise)."""
+    from repro.core.clusterkv import _pca_project
+    from repro.core.hierarchy import morton_codes as r_morton
+    from repro_torch.core.embedding import pca_project_det
+    from repro_torch.core.hierarchy import morton_codes as t_morton
+
+    rng = _rng(0)
+    rng.standard_normal((1, 14, 512, 64))             # C30's q draw
+    centers = rng.standard_normal((8, 64)).astype(np.float32) * 3
+    k = (centers[rng.integers(0, 8, (1, 2, 512))]
+         + 0.3 * rng.standard_normal((1, 2, 512, 64))).astype(np.float32)
+    k = tt(k).to(torch.bfloat16).float().numpy()
+    got = tn(t_ckv.cluster_perm(tt(k)))
+    want = np.asarray(r_ckv.cluster_perm(jnp.asarray(k)))
+    np.testing.assert_array_equal(got[0, 1], want[0, 1])
+    differ = np.nonzero(got[0, 0] != want[0, 0])[0]
+    np.testing.assert_array_equal(differ, np.arange(286, 292))
+    assert (int(np.nonzero(want[0, 0] == 89)[0][0]),
+            int(np.nonzero(got[0, 0] == 89)[0][0])) == (291, 286)
+    np.testing.assert_array_equal(got[0, 0][got[0, 0] != 89],
+                                  want[0, 0][want[0, 0] != 89])
+    yr = np.asarray(_pca_project(jnp.asarray(k[0, 0]), 3))
+    yt = tn(pca_project_det(tt(k[0, :1]), 3, device="cpu")[0])
+    assert np.abs(yr - yt).max() < 1e-5
+    cr = np.asarray(r_morton(jnp.asarray(yr), 10))
+    ct = tn(t_morton(tt(yt)[None], 10, device="cpu")[0])
+    np.testing.assert_array_equal(np.nonzero(cr != ct)[0], [89])
+    assert (int(cr[89]), int(ct[89])) == (766433698, 766430187)
+    for y, cell in ((yr, 1008), (yt, 1007)):
+        lo, hi = y.min(0), y.max(0)
+        t = (y[89, 0] - lo[0]) / (hi[0] - lo[0]) * 1023
+        assert np.floor(t) == cell and abs(t - 1008) < 1e-4
 
 
 def test_permute_kv_and_block_centroids():

@@ -1295,3 +1295,86 @@ def test_cuda_decode_auto_is_the_kernel_whatever_the_model(cuda_device,
     ks = torch.zeros(4, 2, 8192, 64, device=cuda_device)
     assert t_attn.resolve_decode_backend(ClusterKVConfig(), q, ks, ks) \
         == "cuda"
+
+
+# -- sharded plans (core/shardplan.py) on one card ----------------------------
+
+
+def _sharded_plan(n=4096, seed=7):
+    x = feature_mixture(n, 32, n_clusters=16, seed=seed)
+    return t_api.build_plan(x, k=8, bs=32, sb=4, ell_slack=4)
+
+
+def _card_mesh(cuda_device, n_dev):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((n_dev,), ("data",), [cuda_device] * n_dev)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_b2_on_a_rectangular_shard_window(cuda_device):
+    """B2 over one shard's window: more column blocks than row blocks
+    (halo on both sides plus a replicated hot set), the shard's own slot
+    mask, against its plain version on the same card tensors."""
+    import dataclasses
+    from repro_torch.core.blocksparse import random_bsr
+    b = random_bsr(0, 4096, 32, 4, banded=True, device=cuda_device)
+    col, mask, vals = b.col_idx.clone(), b.nbr_mask.clone(), b.vals.clone()
+    col[0, 0], col[70, 1] = b.n_rb - 1, 3          # two far columns: hot
+    mask[9, 2], vals[9, 2] = False, 0.0            # and a masked slot
+    plan = t_api.InteractionPlan.from_bsr(dataclasses.replace(
+        b, col_idx=col, nbr_mask=mask, vals=vals))
+    sp = plan.shard(_card_mesh(cuda_device, 8))
+    spec, bs = sp.spec, plan.bsr.bs
+    assert spec.mode == "halo" and spec.n_hot == 2
+    assert spec.win + spec.n_hot > spec.rb_per
+    x = torch.randn(spec.n_rb_pad * bs, device=cuda_device)
+    xs = list(x.split(spec.rb_per * bs))
+    for d, win in enumerate(sp._windows(xs)):
+        assert win.shape == ((spec.win + spec.n_hot) * bs,)
+        n0 = t_bsr.bsr_spmv.launches
+        got = t_bsr.bsr_spmv(sp.vals[d], sp.lcol[d], win[:, None],
+                             sp.mask[d], indices_checked=True)
+        torch.cuda.synchronize()
+        assert t_bsr.bsr_spmv.launches == n0 + 1
+        want = t_bsr.bsr_spmv_plain(sp.vals[d], sp.lcol[d], win[:, None],
+                                    sp.mask[d])
+        scale = max(float(want.abs().max()), 1e-30)
+        assert_close(got, want, rtol=0, atol=2e-5 * scale)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_four_shard_matvec_on_one_card_is_the_unsharded_one(
+        cuda_device):
+    """Four shards on one card, one B2 launch each: each row's kept tiles
+    are walked in the same order as B1 walks them for the unsharded
+    plan, so the products are bit-equal."""
+    plan = _sharded_plan()
+    sp = plan.shard(_card_mesh(cuda_device, 4))
+    x = torch.randn(plan.n, device=cuda_device)
+    n0 = t_bsr.bsr_spmv.launches
+    y = sp.matvec(x)
+    torch.cuda.synchronize()
+    assert t_bsr.bsr_spmv.launches == n0 + 4
+    assert torch.equal(y, plan.matvec(x, backend="cuda"))
+    assert torch.equal(plan.apply(plan.permute(x), backend="dist",
+                                  mesh=sp.mesh), sp.apply(plan.permute(x)))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_sharded_update_leaves_the_input_shards_untouched(cuda_device):
+    """ROADMAP C6 for shards: a delete patches clones of the owning shards
+    only; the input ShardedPlan keeps its tensors and its products."""
+    plan = _sharded_plan()
+    sp = plan.shard(_card_mesh(cuda_device, 4))
+    before = [v.clone() for v in sp.vals]
+    x = torch.randn(plan.n, device=cuda_device)
+    y0 = sp.matvec(x).clone()
+    sp2 = sp.delete(np.asarray(plan.host.pi[100:130], np.int64))
+    assert (sp2.shard_patches, sp2.reshards) == (1, 0)
+    owners = set((sp2.plan.host.last_patch_rb // sp.spec.rb_per).tolist())
+    assert 0 < len(owners) < 4
+    for d in range(4):
+        assert (sp2.vals[d] is sp.vals[d]) == (d not in owners)
+        assert torch.equal(sp.vals[d], before[d])
+    assert torch.equal(sp.matvec(x), y0)
+    assert torch.equal(sp2.matvec(x), sp2.plan.matvec(x, backend="cuda"))

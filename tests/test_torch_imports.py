@@ -71,7 +71,9 @@ def test_port_has_the_expected_modules():
                  "solvers/precond.py", "solvers/krr.py",
                  "solvers/lanczos.py", "solvers/spectral.py",
                  "core/costmodel.py", "core/autotune.py",
-                 "checkpoint/__init__.py", "checkpoint/ckpt.py"):
+                 "checkpoint/__init__.py", "checkpoint/ckpt.py",
+                 "launch/mesh.py", "core/shardplan.py", "core/dist.py",
+                 "models/sharding.py"):
         assert must in names, must
     cu = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert cu == {"bsr_spmv.cu", "gamma_pairs.cu", "tsne_force.cu",

@@ -104,14 +104,14 @@ def test_config_from_reference_maps_the_renamed_fields():
 
 
 def test_unported_architectures_and_families_raise():
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A13"):
         t_base.get_config("falcon-mamba-7b")
     with pytest.raises(KeyError, match="unknown arch"):
         t_base.get_config("gpt-17")
     cfg = t_base.reduced_config("qwen2-0.5b")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A13"):
         t_api.module_for(cfg.with_(family="ssm"))
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A13"):
         t_tf.init_cache(cfg.with_(moe=t_base.MoEConfig(n_experts=2)), 1, 8,
                         device="cpu")
     if not torch.cuda.is_available():

@@ -50,6 +50,7 @@ from repro_torch.core import registry as t_registry
 from repro_torch.solvers import (RBFValues, cg, krr_fit, krr_fit_batch,
                                  lanczos_eigsh, normalized_operator,
                                  redress_rbf, solve, spectral_embedding)
+from repro_torch.launch import mesh as t_mesh
 from repro_torch.solvers import precond as t_precond
 
 N, D, K = 256, 16, 8
@@ -736,12 +737,13 @@ def test_solve_validates_rhs_shape(plans, batches):
         solve(tp, torch.ones(tp.n + 1), shift=SHIFT)
     with pytest.raises(ValueError, match="batched right-hand side"):
         solve(tb, torch.ones(tb.capacity), shift=SHIFT)
-    # the sharded operator is ROADMAP A11: it raises, never solves unsharded
-    sharded = type("ShardedPlan", (), {"plan": tp})()
-    with pytest.raises(NotImplementedError, match="A11"):
-        solve(sharded, torch.ones(tp.n), shift=SHIFT)
-    with pytest.raises(NotImplementedError, match="A11"):
-        krr_fit(sharded, torch.ones(tp.n), lam=0.5)
+    # a sharded operator solves 1-D right-hand sides only, as the
+    # reference's (the sharded solves themselves: test_torch_shardplan.py)
+    sharded = tp.shard(t_mesh.make_mesh((2,), ("data",), [CPU] * 2))
+    with pytest.raises(ValueError, match="1-D"):
+        solve(sharded, torch.ones((tp.n, 2)), shift=SHIFT)
+    with pytest.raises(ValueError, match="1-D"):
+        krr_fit(sharded, torch.ones((tp.n, 2)), lam=0.5)
 
 
 @pytest.mark.parametrize("name,args,says", [
