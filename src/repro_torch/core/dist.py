@@ -5,68 +5,19 @@ row blocks over the devices of a :class:`~repro_torch.launch.mesh.Mesh`.
 Because the dual-tree ordering makes each row-block's column footprint
 compact, every shard needs only a small window of the charge vector. The
 registry backend ``dist`` realizes that window as the minimal halo
-exchange of :mod:`repro_torch.core.shardplan`; :func:`spmv_sharded` below
-keeps the simpler replicate-the-charges all-gather path as the traffic
-baseline the halo exchange is measured against. Both run each shard
-through the SpMV kernel B2 on a card (the plain einsum on the CPU).
+exchange of :mod:`repro_torch.core.shardplan`, which runs each shard
+through the SpMV kernel B2 on a card (the plain einsum on the CPU). Its
+``allgather`` mode, which replicates the charges, is the traffic baseline
+the halo exchange is measured against.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch._device import from_numpy
-from repro_torch.core.blocksparse import BSR
 from repro_torch.core.registry import register_backend
-from repro_torch.kernels import bsr_spmv as _bsr
 from repro_torch.launch.mesh import Mesh
-
-
-def spmv_sharded(bsr: BSR, x, mesh: Mesh, axis: str = "data"
-                 ) -> torch.Tensor:
-    """y = A x with row-blocks sharded over ``axis``, every device given
-    the whole (all-gathered) charge vector.
-
-    A row-block count that does not divide the axis size is padded with
-    empty row-blocks (column 0, zero tiles, no kept slot — they contribute
-    zero rows that are sliced off), so any plan runs on any mesh. The
-    padded tiles are memoized on the BSR (``_dist_pad``): a serving loop
-    calls this every matvec and must not re-copy the tiles. Single-vector
-    charges only: reject (n, f) loudly rather than scrambling it.
-    """
-    x = from_numpy(x, bsr.device, torch.float32)
-    if x.ndim != 1:
-        raise ValueError(f"spmv_sharded supports 1-D charges only, "
-                         f"got x.shape={tuple(x.shape)}")
-    n_rb = bsr.vals.shape[0]
-    size = mesh.shape[axis]
-    pad_rb = (-n_rb) % size
-    vals, col_idx, mask = bsr.vals, bsr.col_idx, bsr.nbr_mask
-    if pad_rb:
-        cache = getattr(bsr, "_dist_pad", None)
-        if cache is not None and cache[0] == size:
-            vals, col_idx, mask = cache[1:]
-        else:
-            vals = F.pad(vals, (0, 0, 0, 0, 0, 0, 0, pad_rb))
-            col_idx = F.pad(col_idx, (0, 0, 0, pad_rb))
-            mask = F.pad(mask, (0, 0, 0, pad_rb))
-            bsr._dist_pad = (size, vals, col_idx, mask)
-    rb_l = (n_rb + pad_rb) // size
-    bs = bsr.bs
-    if x.shape[0] > bsr.n_cb * bs:
-        raise ValueError(f"{x.shape[0]} charges for a matrix of {bsr.n} "
-                         "columns")
-    xg = F.pad(x, (0, bsr.n_cb * bs - x.shape[0]))[:, None]
-    ys = []
-    for d, dev in enumerate(mesh.devices_along(axis)):
-        rows = slice(d * rb_l, (d + 1) * rb_l)
-        y = _bsr.bsr_spmv(vals[rows].to(dev), col_idx[rows].to(dev),
-                          xg.to(dev), mask[rows].to(dev),
-                          indices_checked=True)
-        ys.append(y[:, 0].to(x.device))
-    return torch.cat(ys)[:bsr.n]
 
 
 @register_backend("dist")

@@ -9,8 +9,7 @@ the charge window each device needs is its *own* charge shard plus a small
 **halo** of neighbouring blocks. The halo is computed exactly from the ELL
 schedule (``col_idx`` under ``nbr_mask``), so on banded/clustered patterns
 each matvec moves only the halo blocks between neighbour devices instead of
-all-gathering the full charge vector the way ``core.dist.spmv_sharded``
-does.
+all-gathering the full charge vector.
 
 Exchange modes, chosen per plan by :func:`analyze_shards`:
 
@@ -283,7 +282,7 @@ class ShardedPlan:
         self.plan = plan
         self.mesh = mesh
         self.spec = spec
-        self.devices = mesh.devices_along(spec.axis)
+        self.devices = _same_type_devices(mesh, spec.axis, plan.device)
         self.vals = vals
         self.lcol = lcol
         self.mask = mask
@@ -544,6 +543,21 @@ class ShardedPlan:
                 f"transfer={self.transfer_fraction:.2f}x-allgather)")
 
 
+def _same_type_devices(mesh: Mesh, axis: str, home: torch.device) -> list:
+    """The devices of ``axis``, all of ``home``'s type, or a ValueError.
+    ``apply`` copies asynchronously between the shards and the plan's
+    device; a copy from a card into host memory would return before it
+    landed."""
+    devices = mesh.devices_along(axis)
+    other = sorted({str(d) for d in devices if d.type != home.type})
+    if other:
+        raise ValueError(
+            f"mesh axis {axis!r} holds {other}, but the plan lives on "
+            f"{home}: build the plan on the mesh's device type or pass a "
+            f"mesh of {home.type} devices")
+    return devices
+
+
 def _row_shards(t: torch.Tensor, spec: ShardSpec, devices) -> list:
     """Split ``t`` (n_rb, ...) into ``n_dev`` contiguous row ranges of
     ``rb_per``, zero-padding the last ones, each moved to its device (a
@@ -579,6 +593,7 @@ def shard(plan, mesh: Optional[Mesh] = None, axis: str = "data"
     if axis not in mesh.shape:
         raise ValueError(f"mesh has no axis {axis!r} (axes: "
                          f"{tuple(mesh.axis_names)}); pass axis=")
+    devices = _same_type_devices(mesh, axis, plan.device)
     cache = plan.host.shard_cache
     key = (mesh.shape[axis], axis)
     sp = cache.get(key)
@@ -589,7 +604,6 @@ def shard(plan, mesh: Optional[Mesh] = None, axis: str = "data"
     mask_np = to_numpy(b.nbr_mask)
     lcol = _local_cols(to_numpy(b.col_idx), mask_np, spec, hot)
     hot_local, hot_dst = _hot_routing(spec, hot)
-    devices = mesh.devices_along(axis)
     mask_pad = np.zeros((spec.n_rb_pad, b.max_nbr), bool)
     mask_pad[:b.n_rb] = mask_np
     per = spec.rb_per

@@ -27,8 +27,7 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 
-__all__ = ["Mesh", "make_mesh", "make_production_mesh", "make_test_mesh",
-           "default_mesh"]
+__all__ = ["Mesh", "make_mesh", "default_mesh"]
 
 
 def _indexed(device: DeviceLike) -> torch.device:
@@ -113,23 +112,6 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     grid = np.empty(need, dtype=object)
     grid[:] = devs[:need]
     return Mesh(grid.reshape(tuple(shape)), axes)
-
-
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """Single pod: (data=16, model=16) = 256 devices. Multi-pod: (pod=2,
-    data=16, model=16) = 512 devices. Raises on fewer devices."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
-
-
-def make_test_mesh(data: int = 2, model: int = 2,
-                   device: DeviceLike = None) -> Mesh:
-    """Small (data, model) mesh with every position on one device
-    (``None``: the card), the port's stand-in for the reference's forced
-    host devices (ROADMAP C32)."""
-    return make_mesh((data, model), ("data", "model"),
-                     [resolve_device(device)] * (data * model))
 
 
 @functools.lru_cache(maxsize=None)

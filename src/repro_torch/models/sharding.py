@@ -1,158 +1,21 @@
-"""Logical-axis sharding: models declare partition specs over logical
-tokens, and the launcher resolves them onto the physical mesh.
+"""The shard context that model code threads through.
 
-Tokens:
-  "dp"    batch axis            -> ("pod", "data") on multi-pod, ("data",) else
-  "fsdp"  param ZeRO-3 axis     -> "data"
-  "tp"    tensor-parallel axis  -> "model"
-  "seq"   sequence shards       -> "data" (decode KV)
-Specs on a mesh without the token's axis resolve to replicated.
-
-A spec is a tuple with one entry per array dimension, each ``None``, an
-axis or token name, or a tuple of them — the reference's
-``PartitionSpec`` written as a plain tuple. In a tree of specs, dicts and
-lists are containers and a tuple is always a spec. :class:`ShardCtx` is
-what model code threads through: its ``cst`` returns ``x`` unchanged,
-because eager PyTorch has no sharding constraint and the reference's
-constraint never changes values. Placing parameters over a mesh
-(``shardings_for``) belongs to the training slice, ROADMAP A14.
+:class:`ShardCtx` carries the mesh of the sharded paths: the long-context
+decode shards its cache's sequence over it. Its ``cst`` returns ``x``
+unchanged, because eager PyTorch has no sharding constraint and the
+reference's constraint never changes values. The reference's logical-axis
+layouts and spec resolution, and placing parameters over a mesh
+(``shardings_for``), belong to the training slice, ROADMAP A14, where
+parameter placement consumes them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Optional, Tuple
+from typing import Optional
 
 import torch
 
 from repro_torch.launch.mesh import Mesh
-
-TOKEN_AXES = ("dp", "fsdp", "tp", "ep", "seq")
-
-# Layouts: how logical tokens map onto the (pod, data, model) mesh.
-#   2d       baseline: DP/FSDP over 'data', TP over 'model'
-#   dp_all   no tensor parallelism: batch + ZeRO over BOTH axes (small
-#            models — kills the per-layer TP all-reduces)
-#   moe_dp   experts resident sharded over 'model' (EP), everything else
-#            pure DP/ZeRO over both axes
-#   serve_tp serving: weights resident TP-only (no per-step ZeRO gathers)
-LAYOUTS = {
-    "2d": {"dp": ("pod", "data"), "fsdp": ("data",), "tp": "model",
-           "ep": "model", "seq": "data"},
-    "dp_all": {"dp": ("pod", "data", "model"),
-               "fsdp": ("data", "model"), "tp": None, "ep": None,
-               "seq": "data"},
-    "moe_dp": {"dp": ("pod", "data", "model"),
-               "fsdp": ("data", "model"), "tp": None, "ep": "model",
-               "seq": "data"},
-    "serve_tp": {"dp": ("pod", "data"), "fsdp": None, "tp": "model",
-                 "ep": "model", "seq": "data"},
-}
-_current_layout = "2d"
-
-Spec = Tuple[Any, ...]
-
-
-def set_layout(name: str) -> None:
-    global _current_layout
-    if name not in LAYOUTS:
-        raise KeyError(f"unknown layout {name!r}; known: {list(LAYOUTS)}")
-    _current_layout = name
-
-
-def get_layout() -> str:
-    return _current_layout
-
-
-def _resolve_token(token, mesh_axes) -> Any:
-    if token is None:
-        return None
-    if isinstance(token, (tuple, list)):
-        out: Tuple[str, ...] = ()
-        for t in token:
-            r = _resolve_token(t, mesh_axes)
-            if r is not None:
-                out += r if isinstance(r, tuple) else (r,)
-        return out or None
-    if token in TOKEN_AXES:
-        mapped = LAYOUTS[_current_layout][token]
-        if isinstance(mapped, tuple):
-            avail = tuple(a for a in mapped if a in mesh_axes)
-            return avail or None
-        return mapped if mapped in mesh_axes else None
-    # already a physical axis name
-    return token if token in mesh_axes else None
-
-
-def tp_axis(mesh: Mesh):
-    """Physical tensor-parallel axis under the current layout (or None)."""
-    return _resolve_token("tp", mesh.axis_names)
-
-
-def ep_axis(mesh: Mesh):
-    """Physical expert-parallel axis under the current layout (or None)."""
-    return _resolve_token("ep", mesh.axis_names)
-
-
-def _entry(axes):
-    """One spec entry as ``PartitionSpec`` keeps it: a single axis by its
-    name, several as a tuple."""
-    return axes[0] if isinstance(axes, tuple) and len(axes) == 1 else axes
-
-
-def resolve_spec(spec: Spec, mesh: Mesh) -> Spec:
-    return tuple(_entry(_resolve_token(t, mesh.axis_names)) for t in spec)
-
-
-@dataclass(frozen=True)
-class NamedSharding:
-    """A resolved spec on a mesh: where an array's dimensions would be
-    split (a description; nothing is placed)."""
-    mesh: Mesh
-    spec: Spec
-
-
-def _tree_map(fn: Callable, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def resolve_tree(tree, mesh: Mesh):
-    """Map a tree of logical specs to :class:`NamedSharding`\\ s on mesh."""
-    return _tree_map(lambda s: NamedSharding(mesh, resolve_spec(s, mesh)),
-                     tree)
-
-
-def spec_tree(tree, mesh: Mesh):
-    """Same, but keep the resolved specs."""
-    return _tree_map(lambda s: resolve_spec(s, mesh), tree)
-
-
-def fit_spec(dims, spec: Spec, mesh: Mesh) -> Spec:
-    """Make a resolved spec valid for an array of shape ``dims``: drop mesh
-    axes from dims they don't divide evenly, and drop duplicate axis uses
-    (first dim wins)."""
-    used: set = set()
-    new = []
-    for i, entry in enumerate(spec):
-        if entry is None or i >= len(dims):
-            new.append(None if i >= len(dims) else entry)
-            continue
-        axes = [a for a in (entry if isinstance(entry, (tuple, list))
-                            else (entry,)) if a not in used]
-        while axes:
-            prod = 1
-            for a in axes:
-                prod *= mesh.shape[a]
-            if dims[i] % prod == 0:
-                break
-            axes.pop()
-        used.update(axes)
-        new.append(tuple(axes) if len(axes) > 1
-                   else (axes[0] if axes else None))
-    return tuple(new)
 
 
 def shardings_for(shapes_tree, logical_specs_tree, mesh: Mesh):

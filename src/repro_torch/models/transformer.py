@@ -173,17 +173,6 @@ def _logits(p, cfg: ModelConfig, h_last: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def cache_specs(cfg: ModelConfig, long_context: bool = False):
-    """Logical partition specs of the cache (``models.sharding``): the
-    sequence sharded for long context, else kv heads over ``tp``."""
-    _check_dense(cfg)
-    if long_context:
-        kv = (None, "dp", None, "seq", None)
-    else:
-        kv = (None, "dp", "tp", None, None)
-    return {"k": kv, "v": kv, "pos": ()}
-
-
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
                device: DeviceLike = None) -> Dict[str, Any]:
     _check_dense(cfg)

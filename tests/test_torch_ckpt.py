@@ -540,7 +540,7 @@ def test_restore_plan_array_shape_mismatch(tmp_path, port_plan):
         ck.restore_plan(device=CPU)
 
 
-def test_restore_plan_sharded_raises_for_a11(tmp_path, port_plan):
+def test_restore_plan_reshards_on_a_mesh(tmp_path, port_plan):
     """The sharded restore of ROADMAP A11, ported: ``mesh="auto"`` re-shards
     on ``default_mesh`` of the device, ``axis=`` alone restores unsharded
     (as the reference), and the unsharded restore is unchanged. The full

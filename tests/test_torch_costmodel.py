@@ -522,7 +522,7 @@ def test_on_the_card_the_winner_is_the_kernel_whatever_the_ranking():
     assert t_tune._rank(("c",), feat, names, cpu, True, False)[0] == "bsr"
 
 
-def test_multi_device_tune_raises_for_a11():
+def test_multi_device_tune_picks_dist_as_the_reference():
     """ROADMAP A11, ported: on 2 or more devices ``dist`` wins where the
     analyzed halo beats replication — the reference's decision on the same
     plan — with its probe on the default mesh (the one CPU here), named in

@@ -1378,3 +1378,27 @@ def test_cuda_sharded_update_leaves_the_input_shards_untouched(cuda_device):
         assert torch.equal(sp.vals[d], before[d])
     assert torch.equal(sp.matvec(x), y0)
     assert torch.equal(sp2.matvec(x), sp2.plan.matvec(x, backend="cuda"))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_cpu_plan_on_a_card_mesh_is_rejected(cuda_device, tmp_path):
+    """A CPU plan sharded over cards would copy each shard's result back
+    to host memory without a sync; ``shard`` refuses that mesh, and so
+    does a CPU restore onto it."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch.mesh import make_mesh
+    x = feature_mixture(1024, 32, n_clusters=8, seed=5)
+    plan = t_api.build_plan(x, k=8, bs=32, sb=4, device="cpu")
+    for mesh in (make_mesh((1,), ("data",)), _card_mesh(cuda_device, 4)):
+        with pytest.raises(ValueError, match="the plan lives on cpu"):
+            plan.shard(mesh)
+    ck = Checkpointer(tmp_path)
+    ck.save_plan(1, plan)
+    ck.wait()
+    with pytest.raises(ValueError, match="the plan lives on cpu"):
+        ck.restore_plan(mesh=_card_mesh(cuda_device, 2), device="cpu")
+    back, _ = ck.restore_plan(mesh=_card_mesh(cuda_device, 2))
+    ch = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        1024).astype(np.float32))
+    assert torch.equal(back.matvec(ch.to(cuda_device)).cpu(),
+                       back.plan.matvec(ch.to(cuda_device)).cpu())

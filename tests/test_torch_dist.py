@@ -1,7 +1,6 @@
-"""The all-gather baseline and the ``dist`` backend (``core/dist.py``), the
-sharded long-context decode (``models/attention.py``,
-``models/transformer.py``) and the logical-axis specs
-(``models/sharding.py``), port against reference, on the CPU.
+"""The ``dist`` backend (``core/dist.py``), the sharded long-context
+decode (``models/attention.py``, ``models/transformer.py``) and the shard
+context (``models/sharding.py``), port against reference, on the CPU.
 
 Sharded results are held against single-device ones — the reference's
 ``apply(x, backend="bsr")``, dense ``decode_attention``, and the
@@ -10,15 +9,12 @@ True)`` on a one-device mesh in this process. The reference's sharded
 paths over several (forced) devices are red on this JAX (ROADMAP C2), so
 they are not the yardstick. Meshes repeat the CPU device (ROADMAP C32).
 """
-import dataclasses
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import PartitionSpec as P
 
 from _torch_parity import assert_close, tn, tt
 
@@ -33,7 +29,6 @@ from repro.models import transformer as r_tf
 from repro_torch import api as t_api
 from repro_torch import convert as t_convert
 from repro_torch.configs.base import ClusterKVConfig as TCKV
-from repro_torch.core import dist as t_dist
 from repro_torch.core import registry as t_reg
 from repro_torch.core.blocksparse import random_bsr
 from repro_torch.launch import mesh as t_mesh
@@ -50,30 +45,26 @@ def cpu_mesh(n_dev, axes=("data",)):
     return t_mesh.make_mesh(shape, axes, [CPU] * int(np.prod(shape)))
 
 
-# -- spmv_sharded and the dist backend -------------------------------------------
+# -- the dist backend --------------------------------------------------------------
 
 
 @pytest.mark.parametrize("n,n_dev", [(512, 1), (512, 2), (512, 8),
                                      (320, 8), (320, 3)])
-def test_spmv_sharded_matches_single_device(n, n_dev):
+def test_dist_backend_matches_single_device(n, n_dev):
     """Row-block counts that do not divide the mesh (10 over 8 or 3) are
-    padded, not rejected; the padded tiles are memoized on the BSR."""
+    padded, not rejected; (n, f) charges are rejected, not scrambled."""
     rb = ref_bs.random_bsr(0, n, 32, 4)
-    tb = random_bsr(0, n, 32, 4, device="cpu")
+    tp = t_api.InteractionPlan.from_bsr(random_bsr(0, n, 32, 4,
+                                                   device="cpu"))
     x = np.random.default_rng(0).standard_normal(n).astype(np.float32)
     want = ref_api.InteractionPlan.from_bsr(rb).apply(jnp.asarray(x),
                                                       backend="bsr")
     mesh = cpu_mesh(n_dev)
-    y = t_dist.spmv_sharded(tb, tt(x), mesh)
+    y = tp.apply(tt(x), backend="dist", mesh=mesh)
     assert y.shape == (n,)
     assert_close(y, want)
-    pad = getattr(tb, "_dist_pad", None)
-    assert (pad is not None) == bool(tb.n_rb % n_dev)
-    if pad is not None:
-        assert torch.equal(t_dist.spmv_sharded(tb, tt(x), mesh), y)
-        assert tb._dist_pad[1] is pad[1]              # reused, not recopied
     with pytest.raises(ValueError, match="1-D"):
-        t_dist.spmv_sharded(tb, torch.ones((n, 2)), mesh)
+        tp.apply(torch.ones((n, 2)), backend="dist", mesh=mesh)
 
 
 def test_dist_backend_on_any_plan_and_mesh():
@@ -218,55 +209,14 @@ def test_sharded_long_decode_at_a_covering_budget_is_the_unsharded_one():
     assert lc.shape == la.shape
 
 
-# -- logical-axis specs ----------------------------------------------------------
+# -- the shard context ----------------------------------------------------------
 
 
-SPECS = [("dp", None), (None, "dp", None, "seq", None), ("fsdp", "tp"),
-         (("dp", "tp"), None), ("ep", "model", None), ("data",), ()]
-
-
-@pytest.mark.parametrize("layout", list(r_shd.LAYOUTS))
-def test_resolve_spec_equals_the_reference(layout):
-    assert t_shd.LAYOUTS == r_shd.LAYOUTS
-    axes = ("data", "model")
-    rmesh = SimpleNamespace(axis_names=axes, shape={"data": 4, "model": 2})
-    tmesh = cpu_mesh(4, axes)
-    prev_r, prev_t = r_shd.get_layout(), t_shd.get_layout()
-    try:
-        r_shd.set_layout(layout)
-        t_shd.set_layout(layout)
-        for spec in SPECS:
-            want = r_shd.resolve_spec(P(*spec), rmesh)
-            got = t_shd.resolve_spec(spec, tmesh)
-            assert got == tuple(want), spec
-            for dims in ((8, 6, 4, 16, 2), (3, 8, 5, 4, 2)):
-                assert t_shd.fit_spec(dims, got, tmesh) == tuple(
-                    r_shd.fit_spec(dims, want, rmesh)), (spec, dims)
-        assert t_shd.tp_axis(tmesh) == r_shd.tp_axis(rmesh)
-        assert t_shd.ep_axis(tmesh) == r_shd.ep_axis(rmesh)
-    finally:
-        r_shd.set_layout(prev_r)
-        t_shd.set_layout(prev_t)
-    with pytest.raises(KeyError, match="unknown layout"):
-        t_shd.set_layout("4d")
-
-
-def test_cache_specs_trees_and_the_shard_context():
-    tcfg = t_convert.config_from_reference(_cfg(2))
-    rcfg = _cfg(2)
+def test_the_shard_context_and_shardings_for():
     tmesh = cpu_mesh(2, ("data", "model"))
-    for long in (False, True):
-        want = r_tf.cache_specs(rcfg, long_context=long)
-        got = t_tf.cache_specs(tcfg, long_context=long)
-        assert got == {k: tuple(v) for k, v in want.items()}
-        tree = t_shd.spec_tree(got, tmesh)
-        sh = t_shd.resolve_tree(got, tmesh)
-        assert sh["k"].spec == tree["k"] and sh["k"].mesh == tmesh
-    assert t_shd.spec_tree([("seq",), ("tp", None)], tmesh) == [
-        ("data",), ("model", None)]
     x = torch.ones(3)
     assert t_shd.ShardCtx(tmesh).cst(x, "dp") is x
+    assert t_shd.ShardCtx(tmesh).mesh == tmesh
     assert t_shd.NO_SHARD.mesh is None
     with pytest.raises(NotImplementedError, match="A14"):
         t_shd.shardings_for({}, {}, tmesh)
-    assert dataclasses.is_dataclass(t_shd.NamedSharding)

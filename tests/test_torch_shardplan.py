@@ -102,9 +102,6 @@ def test_mesh_shape_equality_and_repeated_devices():
                                             [CPU] * 8))
     with pytest.raises(ValueError, match="needs 8 devices"):
         t_mesh.make_mesh((4, 2), ("data", "model"), [CPU] * 4)
-    t = t_mesh.make_test_mesh(2, 2, device="cpu")
-    assert t.shape == {"data": 2, "model": 2}
-    assert list(t.devices.flat) == [CPU] * 4
 
 
 def test_default_mesh_is_every_card_or_the_cpu():
@@ -118,7 +115,7 @@ def test_default_mesh_is_every_card_or_the_cpu():
         with pytest.raises(RuntimeError, match="CUDA"):
             t_mesh.default_mesh("data")
         with pytest.raises(RuntimeError, match="CUDA"):
-            t_mesh.make_production_mesh()
+            t_mesh.make_mesh((2,), ("data",))
 
 
 # -- host analysis: exact ----------------------------------------------------
@@ -297,6 +294,19 @@ def test_sharded_rejects_what_the_reference_rejects(plans, clustered):
         profile.shard(cpu_mesh(2))
     assert "mode='halo'" in repr(sp) and sp.n == N and sp.device == CPU
     assert 0.0 < sp.transfer_fraction < 1.0
+
+
+def test_shard_rejects_a_mesh_of_another_device_type(plans):
+    """``apply`` copies between the shards and the plan's device without a
+    sync, which a card-to-host copy would race, so a mesh must hold the
+    plan's device type only."""
+    _, tp = plans
+    for devs in (["meta"] * 2, [CPU, "meta"]):
+        mesh = t_mesh.make_mesh((2,), ("data",), devs)
+        with pytest.raises(ValueError, match="the plan lives on cpu"):
+            tp.shard(mesh)
+    assert (2, "data") not in tp.host.shard_cache or \
+        tp.host.shard_cache[(2, "data")].mesh == cpu_mesh(2)
 
 
 # -- solve -----------------------------------------------------------------------
