@@ -9,12 +9,13 @@ plan.matvec(charges)`` at the paper's SIFT setting (arXiv 1709.03671 §4.2:
 128-d descriptors, k = 30, tile 32, superblock 8) on n = 262 144 synthetic
 descriptors made from a seed, then the paper's two iterative applications
 (§3) at the same n, then Qwen2-0.5B at full width (random weights from the
-seed) served with ClusterKV attention. Phases, each of which fails the run
-when it fails:
+seed) served with ClusterKV attention, and six decoder-only models of the
+zoo at full width (phase 16). Phases, each of which fails the run when it
+fails:
 
 1. environment: versions, the card, the kernel build with its wall time,
-   and the registers and spills ``-Xptxas -v`` reports for the bf16 B6
-   kernel;
+   and the registers and spills ``-Xptxas -v`` reports for every B6
+   instantiation (bf16 and float32);
 2. every kernel against its plain PyTorch version on the card, on the
    paper's §4.1 micro matrices (16 dense tiles per row block, banded and
    scattered; B1/B2 also under padded masks — kept counts spread over
@@ -25,10 +26,12 @@ when it fails:
    under the same three kinds of padded mask, run twice and required to
    be bit-equal), the ClusterKV prefill kernel (causal and not, g = 7,
    tiles of 128 and 64, float32 and bf16; float32 also at tiles of 32 and
-   head dim 16, the reduced model's) and the decode kernel (plain
+   head dim 16, the reduced model's; at tiles of 128 also head dim 128
+   and MLA's q/k 96 with v 64, both dtypes) and the decode kernel (plain
    mode, plan mode with holes with and without the self column, g = 1 and
-   7, float32 and bf16; the same tiles selected as the plain path; and
-   one NaN key tile, selected first as ``topk_stable`` ranks it);
+   7, float32 and bf16; at head dim 128 with g = 7 and 12; the same tiles
+   selected as the plain path; and one NaN key tile, selected first as
+   ``topk_stable`` ranks it);
 3. the main path at full size — per-stage build times, ``matvec`` through
    the ``cuda`` backend for (n,) and (n, 8) charges against the ``bsr``
    and ``csr`` reference paths, the single-plan kernel entry on the plan's
@@ -176,8 +179,28 @@ device time without the host's, which is the larger part of a call.
    the unsharded decode's tokens and logits within 1e-3 x scale, at the
    default budget in bf16 ms per step beside ``clusterkv_decode``'s.
 
+16. the decoder-only model zoo at full width, bf16 compute, weights from
+   the seed drawn in place in their parameter dtype, one model at a time
+   (freed before the next; each prints its depth, cuts and weight bytes):
+   granite-moe-3b-a800m (MoE, 40 experts top 8) served on phase 10's
+   traffic through ``Engine(backend="clusterkv")`` and
+   ``ClusterKVEngine(mode="plan", knn=8, plan_prefill=True)`` (prefill
+   ms, tick ms, tokens/s, B5/B6 launches) plus the float32 covering-budget
+   check against the flash engine; then h2o-danube-3-4b (SWA 4096, the
+   flash path, a 6144-token prompt), minicpm3-4b (MLA: B6 at q/k 96, v
+   64; the absorbed decode), llava-next-34b (vlm from embeddings, bf16
+   master weights), mistral-large-123b (20 of 88 layers) and
+   llama4-maverick-400b-a17b (1 of 48 layers): ``prefill`` of one 4096-
+   token prompt, then 8 scalar ``decode_step``s in an 8192-slot cache
+   (B6 once a layer, B5 once a layer a step where ClusterKV is on);
+   minicpm3-4b and mistral-large-123b (4 layers) held against their own
+   flash path in float32 at a covering budget (logits within 1e-3 x
+   scale, same tokens). Then B6 is timed at the zoo's new shapes (a
+   llava layer at dh 128 in bf16 and float32, a minicpm3 MLA layer) and
+   B5 at head dim 128 (g = 7 and 12).
+
 Launch counters are set to 0 just before each path (phases 3-4, 6, 7, 9,
-10, 11, 12, 13, 14, 15) and read just after it; launches made to compare
+10, 11, 12, 13, 14, 15, 16) and read just after it; launches made to compare
 or time a kernel are not counted. Every kernel must have been launched by
 a path: B6 by the prefills and the service's plan prefills, B5 by the
 ticks of both engines (plan mode) and the scalar steps (plain mode), B1
@@ -341,19 +364,21 @@ def check_close(name: str, got, want, rel_tol: float = REL_TOL,
 
 def ptxas_summary(report: str, kernel: str) -> list:
     """Registers and spills of each instantiation of ``kernel`` from the
-    ``-Xptxas -v`` report of the kernel build (mangled names: the first
-    template argument, the tile height, names the instantiation)."""
+    ``-Xptxas -v`` report of the kernel build (mangled names: the integer
+    template arguments name the instantiation, e.g. B6's bq, bk, dh, dv)."""
     rows = []
     blocks = re.split(r"Compiling entry function '", report)[1:]
     for blk in blocks:
         name = blk.split("'", 1)[0]
         if kernel not in name:
             continue
-        tile = re.search(kernel + r"ILi(\d+)E", name)
+        targs = re.search(kernel + r"I((?:Li\d+E)+)", name)
+        targs = ", ".join(re.findall(r"Li(\d+)E", targs.group(1))) \
+            if targs else "?"
         regs = re.search(r"Used (\d+) registers", blk)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", blk)
-        rows.append({"kernel": f"{kernel}<{tile.group(1) if tile else '?'}>",
+        rows.append({"kernel": f"{kernel}<{targs}>",
                      "registers": int(regs.group(1)) if regs else None,
                      "spill_stores": int(spill.group(1)) if spill else None,
                      "spill_loads": int(spill.group(2)) if spill else None})
@@ -895,6 +920,34 @@ def check_attention_kernels(args, dev, rehearse, cases):
                       "tolerance": f"{REL_TOL:g} x scale"})
         say(f"  B6 torch.float32  S=256 g=2 dh=16 bq=bk=32 causal="
             f"{causal!s:5s}: err {err:.2e} (scale {scale:.2f})")
+    # the model zoo's head dims at tiles of 128 (phase 16): dh = dv = 128
+    # (float32 at half a query tile a block) and MLA's q/k 96 with v 64
+    for dh, dv in ((128, 128), (96, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            ulps = 0 if dtype == torch.float32 else BF16_ULPS
+            tol = f"{REL_TOL:g} x scale" if ulps == 0 else BF16_TOL_TEXT
+            for causal in (True, False):
+                q, k, _, kpos, qpos, idx = attention_inputs(
+                    gen, 1, 14, 2, s6, dh, 128, 8, dtype, dev)
+                v = torch.randn((1, 2, s6, dv), generator=gen,
+                                device=dev).to(dtype)
+                got = k_ba.block_attention(q, k, v, kpos, qpos, idx, bq=128,
+                                           bk=128, causal=causal)
+                err, scale = check_close(
+                    f"block_attention {dtype} dh={dh} dv={dv} "
+                    f"causal={causal}", got.float(),
+                    k_ba.block_attention_plain(q, k, v, kpos, qpos, idx,
+                                               bq=128, bk=128,
+                                               causal=causal).float(),
+                    bf16_ulps=ulps)
+                cases.append({"kernel": "block_attention",
+                              "dtype": str(dtype), "S": s6, "g": 7,
+                              "dh": dh, "dv": dv, "bq": 128, "n_sel": 8,
+                              "causal": causal, "max_abs_err": err,
+                              "scale": scale, "tolerance": tol})
+                say(f"  B6 {str(dtype):14s} S={s6} g=7 dh={dh} dv={dv} "
+                    f"bq=bk=128 causal={causal!s:5s}: err {err:.2e} (scale "
+                    f"{scale:.2f}, tolerance {tol})")
     b, s5, bk, n_sel = 4, (2048 if rehearse else 8192), 128, 16
     qpos = torch.tensor([s5 - 500, s5 // 3, s5 - 1, 40], dtype=torch.int32,
                         device=dev)
@@ -948,6 +1001,52 @@ def check_attention_kernels(args, dev, rehearse, cases):
                     f"{mode:9s}: err {err:.2e} (scale {scale:.2f}, "
                     f"tolerance {tol}), selected tiles equal"
                     + ("" if ordered else " (order differs)"))
+    # head dim 128 at the zoo's GQA groups (llava-next-34b 7,
+    # mistral-large-123b 12): the part kernel stages ~144 KB at g = 12
+    for dtype in (torch.float32, torch.bfloat16):
+        ulps = 0 if dtype == torch.float32 else BF16_ULPS
+        tol = f"{REL_TOL:g} x scale" if ulps == 0 else BF16_TOL_TEXT
+        for g in (7, 12):
+            for mode in ("plain", "plan+self"):
+                plan_mode = mode != "plain"
+                q, k, v, pos, cent = decode_inputs(
+                    gen, b, 2, g, s5, 128, bk, dtype, dev,
+                    holes=0.2 if plan_mode else 0.0)
+                ks = torch.randn((b, 2, 128), generator=gen,
+                                 device=dev).to(dtype)
+                vs = torch.randn((b, 2, 128), generator=gen,
+                                 device=dev).to(dtype)
+                kw = dict(n_sel=n_sel, bk=bk, plan_mode=plan_mode,
+                          has_self=plan_mode, window=bk)
+                sel = torch.zeros((b, 2, n_sel), dtype=torch.int32,
+                                  device=dev)
+                got = k_da.decode_attend_fused(
+                    q, k, v, pos, cent, qpos, ks, vs,
+                    sel_out=None if rehearse else sel, **kw)
+                err, scale = check_close(
+                    f"decode_attend {dtype} dh=128 g={g} {mode}",
+                    got.float(), k_da.decode_attend_plain(
+                        q, k, v, pos, cent, qpos, ks, vs, **kw).float(),
+                    bf16_ulps=ulps)
+                if plan_mode:
+                    want_sel = plan_select(q, pos, cent, qpos, n_sel=n_sel,
+                                           bk=bk, window=bk)
+                else:
+                    want_sel = decode_select(q.float(), cent, n_sel)
+                if not rehearse and not torch.equal(
+                        sel.long().sort(-1).values,
+                        want_sel.long().sort(-1).values):
+                    raise AssertionError(f"decode_attend {dtype} dh=128 "
+                                         f"g={g} {mode}: tile selection "
+                                         "differs")
+                cases.append({"kernel": "decode_attend_fused",
+                              "dtype": str(dtype), "S": s5, "B": b, "g": g,
+                              "dh": 128, "mode": mode, "n_sel": n_sel,
+                              "max_abs_err": err, "scale": scale,
+                              "tolerance": tol, "selection_equal": True})
+                say(f"  B5 {str(dtype):14s} B={b} S={s5} dh=128 g={g} "
+                    f"{mode:9s}: err {err:.2e} (scale {scale:.2f}, "
+                    f"tolerance {tol}), selected tiles equal")
     # ROADMAP C15: a key tile holding NaN scores NaN; the kernel must select
     # it first, as topk_stable (and the reference's lax.top_k) rank it, and
     # the rows of its kv head come out NaN as in the plain version
@@ -2999,6 +3098,414 @@ def phase_shard_decode(args, dev, sync, rehearse, reset_counts,
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# the decoder-only model zoo at full width (phase 16)
+# ---------------------------------------------------------------------------
+
+# the six configurations of phase 16 in their order, and the depth one
+# 80 GB card holds (None: every layer). Widths are never cut.
+ZOO = (("granite-moe-3b-a800m", None), ("h2o-danube-3-4b", None),
+       ("minicpm3-4b", None), ("llava-next-34b", None),
+       ("mistral-large-123b", 20), ("llama4-maverick-400b-a17b", 1))
+# layers of mistral-large-123b the float32 check against its flash path
+# holds (its bf16 weights read in float32)
+MISTRAL_F32_LAYERS = 4
+
+
+def zoo_config(arch: str, depth, rehearse: bool):
+    """The config of ``arch`` at full width, cut to ``depth`` layers, and
+    the list of cuts; llava-next-34b keeps bf16 master weights (float32
+    would be 126 GiB). The CPU rehearsal takes the reduced config with
+    tiles of 32."""
+    from repro_torch.configs import ClusterKVConfig, get_config, reduced_config
+    if rehearse:
+        cfg = reduced_config(arch)
+        if get_config(arch).clusterkv.enabled:
+            cfg = cfg.with_(clusterkv=ClusterKVConfig(
+                enabled=True, block_q=32, block_k=32, blocks_per_query=4,
+                decode_clusters=4))
+        return cfg, ["reduced config (CPU rehearsal)"]
+    cfg, cuts = get_config(arch), []
+    if arch == "llava-next-34b":
+        cfg = cfg.with_(param_dtype="bfloat16")
+        cuts.append("param_dtype bfloat16 (float32 masters: 126 GiB)")
+    if depth is not None and depth < cfg.n_layers:
+        cuts.append(f"depth {depth} of {cfg.n_layers} layers")
+        cfg = cfg.with_(n_layers=depth)
+    return cfg, cuts
+
+
+def tree_bytes(params) -> int:
+    from repro_torch.models import param as pm
+    return sum(t.numel() * t.element_size() for t in pm.tree_leaves(params))
+
+
+def covering(cfg, max_seq: int):
+    """``cfg`` in float32 with ClusterKV budgets that cover every tile of a
+    ``max_seq`` cache: ClusterKV is then exact attention."""
+    n = max_seq // cfg.clusterkv.block_k
+    return cfg.with_(dtype="float32", clusterkv=dataclasses.replace(
+        cfg.clusterkv, blocks_per_query=n, decode_clusters=n))
+
+
+def zoo_serve(args, dev, sync, cfg, params, rehearse, reset_counts,
+              collect_counts):
+    """Granite served on phase 10's traffic through ``Engine(backend=
+    "clusterkv")`` and ``ClusterKVEngine(mode="plan", knn=8,
+    plan_prefill=True)``, then the float32 covering-budget check against
+    the flash engine."""
+    from repro_torch.serve import ClusterKVEngine
+    from repro_torch.train.serve_loop import Engine, Request
+
+    out = {}
+    for name in ("Engine", "ClusterKVEngine"):
+        sizes, reqs, rng = serve_traffic(args, cfg, rehearse)
+        slots, max_seq, bucket, n_req, max_new, lo, hi = sizes
+        if name == "Engine":
+            eng = Engine(cfg, params, slots=slots, max_seq=max_seq,
+                         prefill_bucket=bucket, backend="clusterkv",
+                         device=dev)
+        else:
+            eng = ClusterKVEngine(cfg, params, slots=slots, max_seq=max_seq,
+                                  prefill_bucket=bucket, mode="plan", knn=8,
+                                  plan_prefill=True, device=dev)
+        for r in reqs:
+            eng.submit(r)
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        eng.run()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = collect_counts(f"{cfg.name} served by {name}")
+        for r in reqs:
+            if len(r.output) != max_new or not all(0 <= t < cfg.vocab
+                                                   for t in r.output):
+                raise AssertionError(f"{name} request {r.rid}: {r.output}")
+        generated = sum(len(r.output) for r in reqs)
+        plan_mode = launches["decode_attend_fused.plan_mode"]
+        if not rehearse and (
+                launches["block_attention"] != cfg.n_layers * n_req
+                or plan_mode != cfg.n_layers * eng.ticks
+                or launches["decode_attend_fused"] != plan_mode):
+            raise AssertionError(f"{name}: {eng.ticks} ticks and {n_req} "
+                                 f"prefills launched {launches}")
+        pre = [t * 1e3 for t in eng.timings["prefill_s"]]
+        tick = [t * 1e3 for t in eng.timings["tick_s"]]
+        say(f"  {name}: {n_req} requests of {lo}-{hi} tokens, {generated} "
+            f"tokens in {wall:.2f} s = {generated / wall:.2f} tokens/s, "
+            f"{eng.ticks} ticks; prefill ms {min(pre):.1f}-{max(pre):.1f} "
+            f"(median {float(np.median(pre)):.1f}); tick ms median "
+            f"{float(np.median(tick)):.2f} ({min(tick):.2f}-"
+            f"{max(tick):.2f}); B6 {launches['block_attention']}, B5 "
+            f"{launches['decode_attend_fused']} launches")
+        out[name] = {"wall_s": wall, "generated": generated,
+                     "tokens_per_s": generated / wall, "ticks": eng.ticks,
+                     "prefill_ms": pre, "tick_ms": tick,
+                     "tick_ms_median": float(np.median(tick)),
+                     "launches": launches}
+        del eng
+    # float32, budgets covering every tile: the ClusterKV engine must give
+    # the flash engine's greedy tokens and first-token logits
+    cfgc = covering(cfg, max_seq)
+    chk = [rng.integers(0, cfg.vocab, int(n)).astype(np.int64)
+           for n in ((40, 70) if rehearse else (2048, 3000))]
+    outs, firsts = {}, {}
+    for backend in ("flash", "clusterkv"):
+        e = Engine(cfgc, params, slots=2, max_seq=max_seq,
+                   prefill_bucket=bucket, backend=backend, device=dev)
+        rs = [Request(rid=i, tokens=t, max_new=8) for i, t in enumerate(chk)]
+        for r in rs:
+            e.submit(r)
+        e.run()
+        outs[backend] = [r.output for r in rs]
+        firsts[backend] = e.first_logits
+        del e
+    collect_counts(f"{cfg.name} covering-budget check")
+    if outs["flash"] != outs["clusterkv"]:
+        raise AssertionError(f"clusterkv engine tokens {outs['clusterkv']} "
+                             f"!= flash engine tokens {outs['flash']}")
+    errs = [check_close(f"{cfg.name} first-token logits request {i}",
+                        firsts["clusterkv"][i], firsts["flash"][i],
+                        rel_tol=SERVE_TOL) for i in range(2)]
+    say(f"  covering budgets, float32: 2 requests x 8 tokens equal the "
+        f"flash engine's; first-token logits max-abs "
+        + ", ".join(f"{e:.2e} (scale {s:.2f})" for e, s in errs)
+        + f", tolerance {SERVE_TOL:g} x scale")
+    out["check_tokens"] = outs["clusterkv"]
+    out["check_logit_err"] = [e for e, _ in errs]
+    return out
+
+
+def zoo_run(args, dev, sync, cfg, params, rehearse, reset_counts,
+            collect_counts):
+    """One prompt through ``prefill`` (ClusterKV where the config enables
+    it, else flash; a vlm model takes (1, S, d) embeddings), then scalar
+    ``decode_step``s in a grown cache (a vlm model continues from (1, 1,
+    d) embeddings). Returns prefill ms and ms a step."""
+    from repro_torch.models import model_api
+    from repro_torch.models import transformer as tf
+
+    swa = bool(cfg.swa_window)
+    plen = (96 if swa else 64) if rehearse else (6144 if swa else 4096)
+    s_max, steps = (128, 3) if rehearse else (8192, 8)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 16)
+    dt = tf.compute_dtype(cfg)
+    if cfg.embedding_inputs:
+        batch = {"embeddings": torch.randn((1, plen, cfg.d_model),
+                                           generator=gen, device=dev).to(dt)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab, (1, plen),
+                                         generator=gen, device=dev)}
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    cache, logits = tf.prefill(params, cfg, batch, "clusterkv")
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre = collect_counts(f"{cfg.name} prefill")
+    cache = model_api.grow_cache(cfg, cache, s_max)
+    nxt = logits.argmax(-1)[:, None]
+    step_ms = []
+    for _ in range(steps):
+        if cfg.embedding_inputs:
+            nxt = torch.randn((1, 1, cfg.d_model), generator=gen,
+                              device=dev).to(dt)
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = tf.decode_step(params, cfg, cache, nxt, "clusterkv")
+        nxt = logits.argmax(-1)[:, None]
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    dec = collect_counts(f"{cfg.name} decode steps")
+    if tuple(logits.shape) != (1, cfg.vocab) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"{cfg.name}: decode logits of shape "
+                             f"{tuple(logits.shape)} or not finite")
+    if not rehearse:
+        use_ckv = cfg.clusterkv.enabled
+        want6 = cfg.n_layers if use_ckv else 0
+        # MLA decodes by the absorbed dense einsum, no kernel
+        want5 = cfg.n_layers * steps if use_ckv and cfg.mla is None else 0
+        if pre["block_attention"] != want6 or \
+                dec["decode_attend_fused.plain_mode"] != want5:
+            raise AssertionError(f"{cfg.name}: prefill launched {pre}, "
+                                 f"decode {dec}")
+    return {"prompt": plen, "cache": s_max, "steps": steps,
+            "prefill_ms": prefill_ms, "step_ms": step_ms,
+            "step_ms_median": float(np.median(step_ms)),
+            "launches_prefill": pre, "launches_decode": dec}
+
+
+def zoo_flash_check(args, dev, sync, cfg, params, rehearse):
+    """float32, budgets covering every tile: ``prefill`` and two decode
+    steps through ClusterKV give the flash path's logits (1e-3 x scale)
+    and tokens."""
+    from repro_torch.models import model_api
+    from repro_torch.models import transformer as tf
+
+    plen, s_max = (64, 128) if rehearse else (2048, 4096)
+    cfgc = covering(cfg, s_max)
+    rng = np.random.default_rng(args.seed + 161)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, plen))).to(dev)
+    runs = {}
+    for backend in ("flash", "clusterkv"):
+        cache, lg = tf.prefill(params, cfgc, {"tokens": tokens}, backend)
+        cache = model_api.grow_cache(cfgc, cache, s_max)
+        lgs, nxt = [lg], lg.argmax(-1)[:, None]
+        for _ in range(2):
+            lg, cache = tf.decode_step(params, cfgc, cache, nxt, backend)
+            lgs.append(lg)
+            nxt = lg.argmax(-1)[:, None]
+        runs[backend] = lgs
+        del cache
+    sync()
+    errs = [check_close(f"{cfg.name} float32 logits {i}", a, b,
+                        rel_tol=SERVE_TOL)
+            for i, (a, b) in enumerate(zip(runs["clusterkv"],
+                                           runs["flash"]))]
+    if [int(a.argmax()) for a in runs["clusterkv"]] != \
+            [int(b.argmax()) for b in runs["flash"]]:
+        raise AssertionError(f"{cfg.name}: ClusterKV and flash pick other "
+                             "tokens")
+    say(f"  float32 at {cfg.n_layers} layers, budgets covering every tile: "
+        f"prefill of {plen} tokens + 2 steps, ClusterKV vs flash logits "
+        f"max-abs " + ", ".join(f"{e:.2e} (scale {s:.2f})" for e, s in errs)
+        + f", tolerance {SERVE_TOL:g} x scale; same tokens")
+    return {"layers": cfg.n_layers, "prompt": plen,
+            "logit_err": [e for e, _ in errs],
+            "scale": [s for _, s in errs]}
+
+
+def phase_zoo(args, dev, sync, rehearse, reset_counts, collect_counts):
+    """Phase 16: the six A13a configurations at full width, one after the
+    other (each freed before the next)."""
+    from repro_torch.models import model_api
+
+    t_phase = time.perf_counter()
+    say("== phase 16: the decoder-only model zoo at full width")
+    out = {}
+    for arch, depth in ZOO:
+        cfg, cuts = zoo_config(arch, depth, rehearse)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        gen_w = torch.Generator(device=dev).manual_seed(args.seed)
+        t0 = time.perf_counter()
+        params = model_api.init(cfg, gen_w, device=dev)
+        sync()
+        init_s = time.perf_counter() - t0
+        nbytes = tree_bytes(params)
+        peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+                else None)
+        if cfg.mla is not None:
+            m = cfg.mla
+            heads = (f"MLA, {cfg.n_heads} heads of q/k "
+                     f"{m.qk_nope_head_dim + m.qk_rope_head_dim}, v "
+                     f"{m.v_head_dim}")
+        else:
+            heads = (f"GQA {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+                     f"{cfg.head_dim}")
+        say(f" -- {cfg.name} [{cfg.family}]: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {heads}, d_ff {cfg.d_ff}"
+            + (f", {cfg.moe.n_experts} experts top {cfg.moe.top_k} "
+               f"(+{cfg.moe.n_shared_experts} shared) of d_ff "
+               f"{cfg.moe.d_ff_expert}" if cfg.moe else "")
+            + (f", SWA {cfg.swa_window}" if cfg.swa_window else "")
+            + f", vocab {cfg.vocab}; ClusterKV "
+            + ("on" if cfg.clusterkv.enabled else "off (flash)")
+            + f"; {cfg.param_dtype} weights {nbytes / 2 ** 30:.2f} GiB from "
+            f"seed {args.seed} in {init_s:.2f} s"
+            + (f" (peak {peak / 2 ** 30:.2f} GiB)" if peak else "")
+            + (f"; cut: {'; '.join(cuts)}" if cuts else "; nothing cut"))
+        row = {"family": cfg.family, "layers": cfg.n_layers, "cuts": cuts,
+               "param_dtype": cfg.param_dtype, "weight_bytes": nbytes,
+               "init_s": init_s, "init_peak_bytes": peak}
+        if arch == "granite-moe-3b-a800m":
+            row["serve"] = zoo_serve(args, dev, sync, cfg, params, rehearse,
+                                     reset_counts, collect_counts)
+        else:
+            row.update(zoo_run(args, dev, sync, cfg, params, rehearse,
+                               reset_counts, collect_counts))
+            say(f"  prefill of {row['prompt']} tokens "
+                f"{row['prefill_ms']:.1f} ms; {row['steps']} decode steps "
+                f"in a {row['cache']}-slot cache, median "
+                f"{row['step_ms_median']:.2f} ms a step "
+                f"({min(row['step_ms']):.2f}-{max(row['step_ms']):.2f})")
+            if arch in ("minicpm3-4b", "mistral-large-123b"):
+                fcfg = (cfg.with_(n_layers=MISTRAL_F32_LAYERS)
+                        if arch == "mistral-large-123b" and not rehearse
+                        else cfg)
+                row["float32_check"] = zoo_flash_check(
+                    args, dev, sync, fcfg, params, rehearse)
+                collect_counts(f"{cfg.name} float32 check")
+        out[arch] = row
+        del params
+        sync()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"  phase 16 wall time: {out['wall_s']:.1f} s")
+    return out
+
+
+def time_zoo_kernels(args, dev, timer, rehearse):
+    """B6 at the zoo's new shapes (one prefill layer at S = 4096, 16 of 32
+    tiles: llava-next-34b's 56 / 8 heads of 128 in bf16 and float32,
+    minicpm3-4b's 40 MLA heads of q/k 96 and v 64 in bf16) and B5 at head
+    dim 128 (one scalar decode step's layer, 16 tiles of an 8192-slot
+    cache: g = 7 and 12), each beside its plain version and its bound, B6
+    also beside SDPA with the equivalent boolean mask."""
+    from repro_torch.kernels import block_attention as k_ba
+    from repro_torch.kernels import decode_attend as k_da
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 22)
+    it_fast, it_slow = (2, 1) if rehearse else (20, 3)
+    s6, n6 = (512, 4) if rehearse else (4096, 16)
+    b6 = []
+    for what, hq, hkv, dh, dv, dtype in (
+            ("llava-next-34b", 56, 8, 128, 128, torch.bfloat16),
+            ("llava-next-34b", 56, 8, 128, 128, torch.float32),
+            ("minicpm3-4b", 40, 40, 96, 64, torch.bfloat16)):
+        if rehearse:
+            dtype = torch.float32
+        q, k, _, kpos, qpos, idx = attention_inputs(
+            gen, 1, hq, hkv, s6, dh, 128, n6, dtype, dev)
+        v = torch.randn((1, hkv, s6, dv), generator=gen, device=dev).to(dtype)
+        run = lambda: k_ba.block_attention(q, k, v, kpos, qpos, idx, bq=128,
+                                           bk=128)
+        plain = lambda: k_ba.block_attention_plain(q, k, v, kpos, qpos, idx,
+                                                   bq=128, bk=128)
+        ulps = BF16_ULPS if dtype == torch.bfloat16 else 0
+        err, scale = check_close(f"block_attention {what} {dtype}",
+                                 run().float(), plain().float(),
+                                 bf16_ulps=ulps)
+        ms, plain_ms = timer(run, it_fast), timer(plain, it_slow)
+        g = hq // hkv
+        tile_of = torch.arange(s6, device=dev) // 128
+        sel = torch.zeros((1, hkv, s6 // 128, s6 // 128), dtype=torch.bool,
+                          device=dev)
+        sel.scatter_(-1, idx.long(), True)
+        mask = sel[:, :, :, tile_of].repeat_interleave(128, dim=2)
+        mask &= kpos[:, :, None, :] <= qpos[None, None, :, None]
+        mask = mask.repeat_interleave(g, dim=1)
+        kx, vx = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+        lib_ms = timer(lambda: torch.nn.functional
+                       .scaled_dot_product_attention(q, kx, vx,
+                                                     attn_mask=mask),
+                       it_fast)
+        del mask, kx, vx, sel
+        # 2 x bq x bk x (dh + dv) operations a selected tile pair (q.k and
+        # p.v); bytes: q, k, v, positions, indices and the output, once
+        elem = 2 if dtype == torch.bfloat16 else 4
+        ops = 2.0 * hq * (s6 // 128) * n6 * 128 * 128 * (dh + dv)
+        byts = elem * (hq * s6 * (dh + dv) + hkv * s6 * (dh + dv)) \
+            + 4 * (hkv * s6 + s6 + hkv * (s6 // 128) * n6)
+        rate = BF16_FLOP_PER_S if elem == 2 else FP32_FLOP_PER_S
+        t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+        bound, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+        say(f"  B6 {what} layer: q (1, {hq}, {s6}, {dh}), k (1, {hkv}, "
+            f"{s6}, {dh}), v (..., {dv}) {dtype}, {n6} tiles of 128: kernel "
+            f"{ms:.3f} ms  plain {plain_ms:.3f} ms  SDPA (boolean mask) "
+            f"{lib_ms:.3f} ms  bound {bound:.3f} ms ({by}: "
+            f"{ops / 1e9:.1f} GFLOP); err {err:.2e} (scale {scale:.2f})")
+        b6.append({"config": what, "dtype": str(dtype), "hq": hq,
+                   "hkv": hkv, "dh": dh, "dv": dv, "S": s6, "n_sel": n6,
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+                   "gflop": ops / 1e9})
+        del q, k, v, kpos, qpos, idx
+    b5 = []
+    s5, n5 = (1024, 4) if rehearse else (8192, 16)
+    dtype = torch.float32 if rehearse else torch.bfloat16
+    for what, g in (("llava-next-34b", 7), ("mistral-large-123b", 12)):
+        q, k, v, pos, cent = decode_inputs(gen, 1, 8, g, s5, 128, 128, dtype,
+                                           dev, holes=0.0)
+        qp = torch.tensor([s5 - 1], dtype=torch.int32, device=dev)
+        kw = dict(n_sel=n5, bk=128, plan_mode=False, has_self=False,
+                  window=128)
+        run = lambda: k_da.decode_attend_fused(q, k, v, pos, cent, qp, **kw)
+        plain = lambda: k_da.decode_attend_plain(q, k, v, pos, cent, qp,
+                                                 **kw)
+        err, scale = check_close(f"decode_attend {what} g={g}",
+                                 run().float(), plain().float(),
+                                 bf16_ulps=0 if rehearse else BF16_ULPS)
+        ms, plain_ms = timer(run, it_fast), timer(plain, it_slow)
+        device_ms = timer.device_time(run, it_fast)
+        bound, by = decode_bound(1, 8, g, s5, 128, 128, n5,
+                                 4 if rehearse else 2, False)
+        say(f"  B5 {what} decode-step layer: q (1, {8 * g}, 128), k/v (1, "
+            f"8, {s5}, 128) {dtype}, {n5} tiles, plain mode: kernel "
+            f"{ms:.4f} ms a call back to back ({device_ms:.4f} ms device, "
+            f"graph replay)  plain {plain_ms:.3f} ms  bound {bound:.4f} ms "
+            f"({by}); err {err:.2e} (scale {scale:.2f})")
+        b5.append({"config": what, "g": g, "dh": 128, "S": s5, "n_sel": n5,
+                   "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by})
+        del q, k, v, pos, cent
+    return b6, b5
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=262144,
@@ -3104,9 +3611,13 @@ def main() -> int:
         _build.load()
         say(f"kernel build: {time.perf_counter() - t0:.2f} s "
             f"({', '.join(p.name for p in _build._sources())})")
-        ptxas = ptxas_summary(_build.ptxas_report(), "block_attention_mma")
-        if not ptxas:
-            raise AssertionError("no -Xptxas -v report of the bf16 B6 kernel")
+        report = _build.ptxas_report()
+        ptxas = (ptxas_summary(report, "block_attention_mma")
+                 + ptxas_summary(report, "block_attention_kernel"))
+        if len(ptxas) != 11:
+            raise AssertionError(f"-Xptxas -v reports {len(ptxas)} B6 "
+                                 "instantiations, expected 5 bf16 + 6 "
+                                 "float32")
         for row in ptxas:
             say(f"  ptxas {row['kernel']}: {row['registers']} registers, "
                 f"{row['spill_stores']} bytes spill stores, "
@@ -3559,6 +4070,15 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     del plan, x
+    # --------------------------------------------------------------- 16 ---
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    before = dict(main_launches)
+    zoo = phase_zoo(args, dev, sync, rehearse, reset_counts, collect_counts)
+    zoo["launches"] = {name: main_launches[name] - before[name]
+                       for name in main_launches}
+    say("== B6 and B5 at the zoo's new shapes")
+    zoo_b6, zoo_b5 = time_zoo_kernels(args, dev, timer, rehearse)
     for e in entries:
         if e["name"] in ("bsr_spmv_batched", "bsr_spmv"):
             e["launches_streaming"] = stream["launches"][e["name"]]
@@ -3567,6 +4087,12 @@ def main() -> int:
             e["launches_shard"] = shard["launches"][e["name"]]
         if e["name"] in ("decode_attend_fused", "block_attention"):
             e["launches_service"] = service["launches"][e["name"]]
+            e["launches_zoo"] = zoo["launches"][e["name"]]
+        if e["name"] == "block_attention":
+            e["zoo_shapes"] = zoo_b6
+            e["ptxas"] = ptxas
+        if e["name"] == "decode_attend_fused":
+            e["zoo_shapes"] = zoo_b5
 
     say(f"  launches on all paths: {main_launches}")
     if not rehearse:
@@ -3579,7 +4105,7 @@ def main() -> int:
 
     # both lines are composed in the rehearsal too, so that a fault in
     # them shows on the CPU
-    details = json.dumps({"ptxas_b6_bf16": ptxas,
+    details = json.dumps({"ptxas_b6": ptxas,
                           "micro_cases": micro_cases,
                           "build_plan_s": build_s,
                           "stage_s": stage_s,
@@ -3592,7 +4118,7 @@ def main() -> int:
                           "plan_batch": plan_batch, "serve": serve,
                           "service": service, "stream": stream,
                           "solvers": solvers, "persist": persist,
-                          "shard": shard})
+                          "shard": shard, "zoo": zoo})
     kernels = json.dumps({"kernels": entries})
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
     if rehearse:

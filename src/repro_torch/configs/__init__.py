@@ -6,6 +6,8 @@ from repro_torch.configs.base import (
     ModelConfig,
     MoEConfig,
     SSMConfig,
+    all_cells,
+    cells,
     get_config,
     reduced_config,
 )
@@ -18,6 +20,8 @@ __all__ = [
     "ModelConfig",
     "MoEConfig",
     "SSMConfig",
+    "all_cells",
+    "cells",
     "get_config",
     "reduced_config",
 ]

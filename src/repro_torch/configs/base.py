@@ -14,8 +14,9 @@ the reference) with two fields renamed for the port:
   tensor) or ``"auto"`` (``"cuda"`` on a CUDA tensor and ``"plain"`` on
   the CPU).
 
-``convert.config_from_reference`` carries both across as ``"auto"``. Only the architectures whose family is ported are known to
-:func:`get_config`; any other id raises with its ROADMAP item.
+``convert.config_from_reference`` carries both across as ``"auto"``. Only
+the architectures whose family is ported are known to :func:`get_config`;
+any other id raises with its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -123,17 +124,23 @@ class ModelConfig:
         return replace(self, **kw)
 
 
-# ported architectures -> config module; every other id of the reference
-# waits for its ROADMAP item
-_MOD_FOR: Dict[str, str] = {"qwen2-0.5b": "qwen2_0_5b"}
+# ported architectures -> config module (the reference's order); every
+# other id of the reference waits for its ROADMAP item
+ARCH_IDS = [
+    "llava-next-34b",
+    "qwen2-0.5b",
+    "minicpm3-4b",
+    "h2o-danube-3-4b",
+    "mistral-large-123b",
+    "llama4-maverick-400b-a17b",
+    "granite-moe-3b-a800m",
+]
+_MOD_FOR: Dict[str, str] = {a: a.replace("-", "_").replace(".", "_")
+                            for a in ARCH_IDS}
 _NOT_PORTED: Dict[str, str] = {
-    "llava-next-34b": "A13", "minicpm3-4b": "A13",
-    "h2o-danube-3-4b": "A13", "mistral-large-123b": "A13",
-    "falcon-mamba-7b": "A13", "whisper-medium": "A13",
-    "llama4-maverick-400b-a17b": "A13", "granite-moe-3b-a800m": "A13",
-    "zamba2-1.2b": "A13",
+    "falcon-mamba-7b": "A13b", "whisper-medium": "A13b",
+    "zamba2-1.2b": "A13b",
 }
-ARCH_IDS = list(_MOD_FOR)
 
 
 def _module(arch_id: str):
@@ -153,3 +160,18 @@ def get_config(arch_id: str) -> ModelConfig:
 def reduced_config(arch_id: str) -> ModelConfig:
     """Tiny same-family config for CPU tests."""
     return _module(arch_id).REDUCED
+
+
+def cells(arch_id: str):
+    """Yield the (shape_name, seq, batch, kind) cells assigned to this arch."""
+    cfg = get_config(arch_id)
+    for name, (seq, batch, kind) in SHAPES.items():
+        if name == "long_500k" and cfg.long_context == "skip":
+            continue
+        yield name, seq, batch, kind
+
+
+def all_cells():
+    for a in ARCH_IDS:
+        for c in cells(a):
+            yield (a,) + c

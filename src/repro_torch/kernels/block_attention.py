@@ -22,10 +22,13 @@ import torch
 from repro_torch.core.clusterkv import sparse_block_attention
 from repro_torch.kernels import _build
 
-# (bq == bk, dh == dv) the CUDA kernel is instantiated for, per dtype: the
-# float32 CUDA-core kernel also at the reduced model's head dim 16
-SUPPORTED = {(128, 64), (64, 64), (32, 64)}
-SUPPORTED_F32 = SUPPORTED | {(32, 16)}
+# (bq == bk, dh, dv) the CUDA kernel is instantiated for, per dtype: head
+# dim 64 at every tile size, 128 (llava-next-34b, mistral-large-123b,
+# llama4-maverick) and MLA's q/k 96 with v 64 (minicpm3-4b) at tiles of
+# 128; the float32 CUDA-core kernel also at the reduced model's head dim 16
+SUPPORTED = {(128, 64, 64), (64, 64, 64), (32, 64, 64), (128, 128, 128),
+             (128, 96, 64)}
+SUPPORTED_F32 = SUPPORTED | {(32, 16, 16)}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -84,8 +87,8 @@ def block_attention(q: torch.Tensor, k_sorted: torch.Tensor,
         return block_attention_plain(q, k_sorted, v_sorted, kpos, qpos, idx,
                                      bq=bq, bk=bk, causal=causal)
     shapes = SUPPORTED_F32 if q.dtype == torch.float32 else SUPPORTED
-    if bq != bk or dv != dh or (bq, dh) not in shapes:
-        raise ValueError(f"the CUDA kernel supports (bq == bk, dh == dv) in "
+    if bq != bk or (bq, dh, dv) not in shapes:
+        raise ValueError(f"the CUDA kernel supports (bq == bk, dh, dv) in "
                          f"{sorted(shapes)} for {q.dtype}, got bq={bq}, "
                          f"bk={bk}, dh={dh}, dv={dv}")
     if q.dtype not in DTYPES or k_sorted.dtype != q.dtype \
@@ -103,7 +106,7 @@ def block_attention(q: torch.Tensor, k_sorted: torch.Tensor,
         code = _build.load().repro_block_attention(
             q.data_ptr(), k_sorted.data_ptr(), v_sorted.data_ptr(),
             kpos.data_ptr(), qpos.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            b, hq, hkv, s, s_k, dh, bq, bk, n_sel, int(causal),
+            b, hq, hkv, s, s_k, dh, dv, bq, bk, n_sel, int(causal),
             DTYPES[q.dtype], _build.current_stream())
     _build.check(code, "block_attention")
     block_attention.launches += 1

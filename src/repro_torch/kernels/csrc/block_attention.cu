@@ -18,40 +18,52 @@
 //   (exp(0) = 1). Tile ids outside [0, S_k/bk) are skipped. No atomics: the
 //   result is bit-equal run to run.
 //
-// Two kernels behind one entry:
+// Two kernels behind one entry, each templated on the q/k dim DK and the
+// v dim DV (the TPU kernel takes any dh and dv = v.shape[-1]; the scale is
+// 1/sqrt(DK) as its 1/sqrt(dh)):
 //
 // * bf16 (dtype 1, every ClusterKV prefill): block_attention_mma, on the
 //   tensor cores. What bounds it: operations. Each (query tile, selected
-//   key tile) pair is 2 * 2 * bq * bk * dh operations against 2 * bk * dh
-//   bf16 values of k and v, about 128 per byte at bq = 128; a Qwen2-0.5B
-//   layer at S = 4096 (14 query heads, 16 of 32 key tiles, dh = 64) is
-//   30 GFLOP, 0.030 ms at 989 TFLOP/s bf16 (P.V is issued twice, see
-//   below, so the kernel executes 1.5x that). Design: one warp per 16
-//   query rows (bq / 16 warps); the q fragments are loaded once into
-//   registers with ldmatrix. The selected (bk, 64) k and v tiles and their
-//   positions stream through a 2-stage cp.async ring (16 bytes a thread,
-//   rows padded to 72 bf16 so that ldmatrix is free of bank conflicts):
-//   tile j+1 loads while tile j computes, one barrier per tile.
+//   key tile) pair is 2 * bq * bk * (DK + DV) operations against
+//   bk * (DK + DV) bf16 values of k and v, about 128 per byte at
+//   bq = 128; a Qwen2-0.5B layer at S = 4096 (14 query heads, 16 of 32
+//   key tiles, dh = 64) is 30 GFLOP, 0.030 ms at 989 TFLOP/s bf16 (P.V is
+//   issued twice, see below, so the kernel executes 1.5x that); a
+//   llava-next-34b layer (56 heads, dh = 128) 240.5 GFLOP, 0.243 ms; a
+//   minicpm3-4b MLA layer (40 heads, 96 / 64) 107.4 GFLOP, 0.109 ms.
+//   Design: one warp per 16 query rows (bq / 16 warps); the q fragments
+//   are loaded once into registers with ldmatrix. The selected (bk, DK) k
+//   and (bk, DV) v tiles and their positions stream through a 2-stage
+//   cp.async ring (16 bytes a thread, rows padded by 16 bytes so that
+//   ldmatrix is free of bank conflicts): tile j+1 loads while tile j
+//   computes, one barrier per tile. At DK = DV = 64 two blocks of 8 warps
+//   share an SM (93 KB of shared memory each, 128 registers a thread); at
+//   DK = DV = 128 (175 KB) and at 96 / 64 (118 KB) one block fits, so the
+//   launch bound asks for one and a thread may hold 255 registers: the
+//   output accumulators alone are DV / 2 floats a thread.
 //   Q.K^T is mma.sync.m16n8k16 bf16 -> f32 (K row-major [key][dh] is
 //   already the "col" B operand); scale and the causal mask from the
 //   tile's positions in shared memory, then the online softmax per row,
-//   reduced over the 4 lanes that share a row, over chunks of 32 keys (at
-//   128 registers two blocks of 8 warps share an SM), with the logits in
-//   log2 units (log2 e folded into the scale, exp2f: p moves by ~1e-6
-//   relative). P.V takes P straight from the S accumulators as the A
-//   operand and V by ldmatrix.trans. P must stay float32-accurate (the
-//   reference keeps p in float32; one bf16 rounding of p is an output
-//   error of ~1e-4 rms at S = 2048, outside the kernel-vs-plain bound), so
-//   p is split into hi = bf16(p) and lo = bf16(p - hi) and two mmas are
-//   issued per step: |p - hi - lo| <= 2^-17 |p|. Q.K^T of bf16 inputs with
-//   f32 accumulation is exact up to summation order.
+//   reduced over the 4 lanes that share a row, over chunks of 32 keys,
+//   with the logits in log2 units (log2 e folded into the scale, exp2f:
+//   p moves by ~1e-6 relative). P.V takes P straight from the S
+//   accumulators as the A operand and V by ldmatrix.trans. P must stay
+//   float32-accurate (the reference keeps p in float32; one bf16 rounding
+//   of p is an output error of ~1e-4 rms at S = 2048, outside the
+//   kernel-vs-plain bound), so p is split into hi = bf16(p) and
+//   lo = bf16(p - hi) and two mmas are issued per step:
+//   |p - hi - lo| <= 2^-17 |p|. Q.K^T of bf16 inputs with f32
+//   accumulation is exact up to summation order.
 //
-// * float32 (dtype 0, the covering-budget check): block_attention_kernel
-//   on the CUDA cores: 256 threads in a 16 x 16 grid, each owning an
-//   (bq/16) x (bk/16) register tile of the logits and (bq/16) x (dv/16) of
-//   the output; q, k, v and p staged as float32 in up to 170 KB of dynamic
-//   shared memory (one block per SM), rows padded for conflict-free
-//   access; bound 0.45 ms at 67 TFLOP/s for the layer above.
+// * float32 (dtype 0, the covering-budget checks): block_attention_kernel
+//   on the CUDA cores: 256 threads in a 16 x 16 grid, each owning a
+//   (QR/16) x (bk/16) register tile of the logits and (QR/16) x (DV/16) of
+//   the output; q, k, v and p staged as float32 in dynamic shared memory,
+//   rows padded for conflict-free access. A block takes QR = bq query rows
+//   where that staging fits in 227 KB, else half a query tile (QR = bq/2:
+//   at bq = 128, DK = DV = 128 the whole tile would need 266 KB, half of
+//   it 197 KB); both halves of a tile read the same idx row. Bound for the
+//   Qwen layer above: 0.45 ms at 67 TFLOP/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,15 +79,26 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
+// dynamic shared memory one block may opt in to on sm_90
+constexpr size_t kMaxSmem = 232448;
 
-template <int BQ, int BK, int D>
+// QR query rows of one block (the whole query tile, or half of it)
+template <int QR, int BK, int DK, int DV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) +
-                          (size_t)BK * D + (size_t)BQ * (BK + 16)) +
+  return sizeof(float) * ((size_t)QR * (DK + 1) + (size_t)BK * (DK + 1) +
+                          (size_t)BK * DV + (size_t)QR * (BK + 16)) +
          sizeof(int) * BK;
 }
 
-template <int BQ, int BK, int D>
+// a block takes the whole BQ-row query tile where its staging fits, else
+// half of it: every query row reads only its tile's idx row, so two
+// blocks of the same tile compute what one would
+template <int BQ, int BK, int DK, int DV>
+constexpr int f32_rows() {
+  return smem_bytes<BQ, BK, DK, DV>() <= kMaxSmem ? BQ : BQ / 2;
+}
+
+template <int BQ, int BK, int DK, int DV, int QR>
 __global__ void __launch_bounds__(kThreads)
     block_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
@@ -86,21 +109,23 @@ __global__ void __launch_bounds__(kThreads)
                            float* __restrict__ out,
                            int hq, int hkv, int s, int s_k, int n_sel,
                            int causal, float scale) {
-  constexpr int RQ = BQ / 16;
+  constexpr int RQ = QR / 16;
   constexpr int RK = BK / 16;
-  constexpr int RV = D / 16;
-  constexpr int LDQ = D + 1;
-  constexpr int LDK = D + 1;
+  constexpr int RV = DV / 16;
+  constexpr int LDQ = DK + 1;
+  constexpr int LDK = DK + 1;
   constexpr int LDP = BK + 16;
+  static_assert(BQ % QR == 0 && QR % 16 == 0 && DV % 16 == 0, "tile shape");
 
   extern __shared__ float smem[];
-  float* Qs = smem;                       // BQ x LDQ
-  float* Ks = Qs + BQ * LDQ;              // BK x LDK
-  float* Vs = Ks + BK * LDK;              // BK x D
-  float* Ps = Vs + BK * D;                // BQ x LDP
-  int* kps = reinterpret_cast<int*>(Ps + BQ * LDP);   // BK
+  float* Qs = smem;                       // QR x LDQ
+  float* Ks = Qs + QR * LDQ;              // BK x LDK
+  float* Vs = Ks + BK * LDK;              // BK x DV
+  float* Ps = Vs + BK * DV;               // QR x LDP
+  int* kps = reinterpret_cast<int*>(Ps + QR * LDP);   // BK
 
-  const int qt = blockIdx.x;
+  const int row0 = blockIdx.x * QR;       // first query row of the block
+  const int qt = row0 / BQ;               // its query tile
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int g = hq / hkv;
@@ -110,22 +135,21 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = tid / 16;
   const int tx = tid % 16;
 
-  const float* qb =
-      q + (((long long)b * hq + h) * s + (long long)qt * BQ) * D;
+  const float* qb = q + (((long long)b * hq + h) * s + row0) * DK;
   const long long kvbase = ((long long)b * hkv + kvh) * s_k;
-  const float* kb = k + kvbase * D;
-  const float* vb = v + kvbase * D;
+  const float* kb = k + kvbase * DK;
+  const float* vb = v + kvbase * DV;
   const int* pb = kpos + kvbase;
   const int* ib = idx + (((long long)b * hkv + kvh) * nqb + qt) * n_sel;
 
-  for (int e = tid; e < BQ * D; e += kThreads)
-    Qs[(e / D) * LDQ + e % D] = qb[e];
+  for (int e = tid; e < QR * DK; e += kThreads)
+    Qs[(e / DK) * LDQ + e % DK] = qb[e];
 
   int qp[RQ];
   float m[RQ], l[RQ], o[RQ][RV];
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
-    qp[i] = qpos[qt * BQ + ty + 16 * i];
+    qp[i] = qpos[row0 + ty + 16 * i];
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
@@ -138,12 +162,11 @@ __global__ void __launch_bounds__(kThreads)
     // a tile id outside the cache is skipped (the same for every thread)
     if (t < 0 || t >= nkb) continue;
     __syncthreads();                      // previous tile consumed
-    const float* kt = kb + t * BK * D;
-    const float* vt = vb + t * BK * D;
-    for (int e = tid; e < BK * D; e += kThreads) {
-      Ks[(e / D) * LDK + e % D] = kt[e];
-      Vs[e] = vt[e];
-    }
+    const float* kt = kb + t * BK * DK;
+    const float* vt = vb + t * BK * DV;
+    for (int e = tid; e < BK * DK; e += kThreads)
+      Ks[(e / DK) * LDK + e % DK] = kt[e];
+    for (int e = tid; e < BK * DV; e += kThreads) Vs[e] = vt[e];
     for (int e = tid; e < BK; e += kThreads) kps[e] = pb[t * BK + e];
     __syncthreads();
 
@@ -153,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < RK; ++j) sc[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DK; ++d) {
       float a[RQ], bb[RK];
 #pragma unroll
       for (int i = 0; i < RQ; ++i) a[i] = Qs[(ty + 16 * i) * LDQ + d];
@@ -202,7 +225,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < RQ; ++i) a[i] = Ps[(ty + 16 * i) * LDP + c];
 #pragma unroll
-      for (int j = 0; j < RV; ++j) bb[j] = Vs[c * D + tx + 16 * j];
+      for (int j = 0; j < RV; ++j) bb[j] = Vs[c * DV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < RQ; ++i)
 #pragma unroll
@@ -210,13 +233,13 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  float* ob = out + (((long long)b * hq + h) * s + (long long)qt * BQ) * D;
+  float* ob = out + (((long long)b * hq + h) * s + row0) * DV;
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < RV; ++j)
-      ob[(ty + 16 * i) * D + tx + 16 * j] = o[i][j] * inv;
+      ob[(ty + 16 * i) * DV + tx + 16 * j] = o[i][j] * inv;
   }
 }
 
@@ -283,19 +306,25 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
                                   x1 - __high2float(h)));
 }
 
-template <int BQ, int BK, int D>
+template <int BQ, int BK, int DK, int DV>
 struct MmaShape {
   static constexpr int kThreads = 2 * BQ;   // one warp per 16 query rows
-  static constexpr int kMinBlocks = 2;      // blocks an SM should hold
   static constexpr int kChunk = BK < 32 ? BK : 32;   // keys per softmax step
-  static constexpr int LD = D + 8;          // bf16 per shared row (+16 B)
-  static constexpr int kStage = 2 * BK * LD * 2 + BK * 4;   // k, v, kpos
-  static constexpr size_t kSmem = (size_t)BQ * LD * 2 + 2 * (size_t)kStage;
+  static constexpr int LDK = DK + 8;        // bf16 per shared q/k row (+16 B)
+  static constexpr int LDV = DV + 8;        // bf16 per shared v row (+16 B)
+  static constexpr int kStage = BK * LDK * 2 + BK * LDV * 2 + BK * 4;
+  static constexpr size_t kSmem = (size_t)BQ * LDK * 2 + 2 * (size_t)kStage;
+  // blocks an SM should hold: two where their shared memory fits in the
+  // SM's 228 KB (1 KB reserved a block), which caps a thread at 128
+  // registers; else one, and up to 255 registers (dh 128: 64 float
+  // accumulators a thread for the output alone)
+  static constexpr int kMinBlocks =
+      2 * (kSmem + 1024) <= 228 * 1024 ? 2 : 1;
 };
 
-template <int BQ, int BK, int D>
-__global__ void __launch_bounds__(MmaShape<BQ, BK, D>::kThreads,
-                                  MmaShape<BQ, BK, D>::kMinBlocks)
+template <int BQ, int BK, int DK, int DV>
+__global__ void __launch_bounds__(MmaShape<BQ, BK, DK, DV>::kThreads,
+                                  MmaShape<BQ, BK, DK, DV>::kMinBlocks)
     block_attention_mma(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
@@ -305,19 +334,23 @@ __global__ void __launch_bounds__(MmaShape<BQ, BK, D>::kThreads,
                         __nv_bfloat16* __restrict__ out, int hq, int hkv,
                         int s, int s_k, int n_sel, int causal,
                         float scale_log2) {
-  using Shape = MmaShape<BQ, BK, D>;
+  using Shape = MmaShape<BQ, BK, DK, DV>;
   constexpr int NT = Shape::kThreads;
-  constexpr int LD = Shape::LD;
+  constexpr int LDK = Shape::LDK;
+  constexpr int LDV = Shape::LDV;
   constexpr int KC = Shape::kChunk;
   constexpr int NS = KC / 8;               // logit n-tiles per chunk
-  constexpr int NO = D / 8;                // output n-tiles
-  constexpr int KD = D / 16;               // k-steps over dh
-  constexpr int CPR = D / 8;               // 16-byte chunks per row
-  static_assert(BQ % 16 == 0 && BK % 16 == 0 && D % 32 == 0, "tile shape");
+  constexpr int NO = DV / 8;               // output n-tiles
+  constexpr int KD = DK / 16;              // k-steps over the q/k dim
+  constexpr int CPK = DK / 8;              // 16-byte chunks per q/k row
+  constexpr int CPV = DV / 8;              // 16-byte chunks per v row
+  static_assert(BQ % 16 == 0 && BK % 16 == 0 && DK % 32 == 0 &&
+                    DV % 16 == 0,
+                "tile shape");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  unsigned char* ring = smem_raw + (size_t)BQ * LD * 2;
+  unsigned char* ring = smem_raw + (size_t)BQ * LDK * 2;
 
   const int qt = blockIdx.x;
   const int h = blockIdx.y;
@@ -333,10 +366,10 @@ __global__ void __launch_bounds__(MmaShape<BQ, BK, D>::kThreads,
   const int tg = lane % 4;                 // column pair of the fragment
 
   const __nv_bfloat16* qb =
-      q + (((long long)b * hq + h) * s + (long long)qt * BQ) * D;
+      q + (((long long)b * hq + h) * s + (long long)qt * BQ) * DK;
   const long long kvbase = ((long long)b * hkv + kvh) * s_k;
-  const __nv_bfloat16* kb = k + kvbase * D;
-  const __nv_bfloat16* vb = v + kvbase * D;
+  const __nv_bfloat16* kb = k + kvbase * DK;
+  const __nv_bfloat16* vb = v + kvbase * DV;
   const int* pb = kpos + kvbase;
   const int* ib = idx + (((long long)b * hkv + kvh) * nqb + qt) * n_sel;
 
@@ -349,30 +382,34 @@ __global__ void __launch_bounds__(MmaShape<BQ, BK, D>::kThreads,
   auto stage_k = [&](int st) {
     return reinterpret_cast<__nv_bfloat16*>(ring + st * Shape::kStage);
   };
-  auto stage_v = [&](int st) { return stage_k(st) + BK * LD; };
+  auto stage_v = [&](int st) { return stage_k(st) + BK * LDK; };
   auto stage_p = [&](int st) {
-    return reinterpret_cast<int*>(stage_k(st) + 2 * BK * LD);
+    return reinterpret_cast<int*>(stage_v(st) + BK * LDV);
   };
   auto load_tile = [&](int st, long long t) {
-    const __nv_bfloat16* kt = kb + t * BK * D;
-    const __nv_bfloat16* vt = vb + t * BK * D;
+    const __nv_bfloat16* kt = kb + t * BK * DK;
+    const __nv_bfloat16* vt = vb + t * BK * DV;
     __nv_bfloat16* ks = stage_k(st);
     __nv_bfloat16* vs = stage_v(st);
-    for (int c = tid; c < BK * CPR; c += NT) {
-      const int r = c / CPR;
-      const int col = (c % CPR) * 8;
-      cp_async16(ks + r * LD + col, kt + r * D + col);
-      cp_async16(vs + r * LD + col, vt + r * D + col);
+    for (int c = tid; c < BK * CPK; c += NT) {
+      const int r = c / CPK;
+      const int col = (c % CPK) * 8;
+      cp_async16(ks + r * LDK + col, kt + r * DK + col);
+    }
+    for (int c = tid; c < BK * CPV; c += NT) {
+      const int r = c / CPV;
+      const int col = (c % CPV) * 8;
+      cp_async16(vs + r * LDV + col, vt + r * DV + col);
     }
     int* ps = stage_p(st);
     for (int c = tid; c < BK / 4; c += NT)
       cp_async16(ps + 4 * c, pb + t * BK + 4 * c);
   };
 
-  for (int c = tid; c < BQ * CPR; c += NT) {
-    const int r = c / CPR;
-    const int col = (c % CPR) * 8;
-    cp_async16(Qs + r * LD + col, qb + r * D + col);
+  for (int c = tid; c < BQ * CPK; c += NT) {
+    const int r = c / CPK;
+    const int col = (c % CPK) * 8;
+    cp_async16(Qs + r * LDK + col, qb + r * DK + col);
   }
   int js = next_tile(0);
   if (js < n_sel) load_tile(0, ib[js]);
@@ -383,7 +420,7 @@ __global__ void __launch_bounds__(MmaShape<BQ, BK, D>::kThreads,
   uint32_t qf[KD][4];
 #pragma unroll
   for (int kk = 0; kk < KD; ++kk)
-    ldsm_x4(qf[kk], Qs + (warp * 16 + lane % 16) * LD + kk * 16 +
+    ldsm_x4(qf[kk], Qs + (warp * 16 + lane % 16) * LDK + kk * 16 +
                         (lane / 16) * 8);
 
   const int row0 = qt * BQ + warp * 16 + gr;       // and row0 + 8
@@ -418,7 +455,7 @@ __global__ void __launch_bounds__(MmaShape<BQ, BK, D>::kThreads,
 #pragma unroll
         for (int kk = 0; kk < KD; kk += 2) {
           uint32_t kf[4];
-          ldsm_x4(kf, Ks + (kc * KC + j * 8 + lane % 8) * LD + kk * 16 +
+          ldsm_x4(kf, Ks + (kc * KC + j * 8 + lane % 8) * LDK + kk * 16 +
                           (lane / 8) * 8);
           mma_bf16(sc[j], qf[kk], kf[0], kf[1]);
           mma_bf16(sc[j], qf[kk + 1], kf[2], kf[3]);
@@ -483,7 +520,7 @@ __global__ void __launch_bounds__(MmaShape<BQ, BK, D>::kThreads,
 #pragma unroll
         for (int n = 0; n < NO; n += 2) {
           uint32_t vf[4];
-          ldsm_x4_trans(vf, Vs + (kc * KC + t * 16 + lane % 16) * LD +
+          ldsm_x4_trans(vf, Vs + (kc * KC + t * 16 + lane % 16) * LDV +
                                 n * 8 + (lane / 16) * 8);
           mma_bf16(o[n], ph, vf[0], vf[1]);
           mma_bf16(o[n], pl, vf[0], vf[1]);
@@ -504,9 +541,9 @@ __global__ void __launch_bounds__(MmaShape<BQ, BK, D>::kThreads,
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
   __nv_bfloat16* ob =
-      out + (((long long)b * hq + h) * s + (long long)qt * BQ) * D;
-  __nv_bfloat16* r0 = ob + (warp * 16 + gr) * D + tg * 2;
-  __nv_bfloat16* r1 = r0 + 8 * D;
+      out + (((long long)b * hq + h) * s + (long long)qt * BQ) * DV;
+  __nv_bfloat16* r0 = ob + (warp * 16 + gr) * DV + tg * 2;
+  __nv_bfloat16* r1 = r0 + 8 * DV;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     *reinterpret_cast<__nv_bfloat162*>(r0 + n * 8) =
@@ -520,40 +557,43 @@ __global__ void __launch_bounds__(MmaShape<BQ, BK, D>::kThreads,
 // launch
 // ---------------------------------------------------------------------------
 
-template <int BQ, int BK, int D>
+template <int BQ, int BK, int DK, int DV>
 int launch_f32(const float* q, const float* k, const float* v,
                const int* kpos, const int* qpos, const int* idx, float* out,
                int b, int hq, int hkv, int s, int s_k, int n_sel, int causal,
                cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<BQ, BK, D>();
+  constexpr int QR = f32_rows<BQ, BK, DK, DV>();
+  constexpr size_t smem = smem_bytes<QR, BK, DK, DV>();
+  static_assert(smem <= kMaxSmem, "float32 staging exceeds shared memory");
   static repro::SmemOptin opt;
-  auto kern = block_attention_kernel<BQ, BK, D>;
+  auto kern = block_attention_kernel<BQ, BK, DK, DV, QR>;
   int dev = 0;
   cudaError_t err = repro::current_device(&dev);
   if (err == cudaSuccess) err = repro::allow_smem(kern, dev, smem, opt);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(s / BQ, hq, b);
-  const float scale = 1.f / sqrtf((float)D);
+  const dim3 grid(s / QR, hq, b);
+  const float scale = 1.f / sqrtf((float)DK);
   kern<<<grid, kThreads, smem, stream>>>(q, k, v, kpos, qpos, idx, out, hq,
                                          hkv, s, s_k, n_sel, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <int BQ, int BK, int D>
+template <int BQ, int BK, int DK, int DV>
 int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                 const __nv_bfloat16* v, const int* kpos, const int* qpos,
                 const int* idx, __nv_bfloat16* out, int b, int hq, int hkv,
                 int s, int s_k, int n_sel, int causal, cudaStream_t stream) {
-  using Shape = MmaShape<BQ, BK, D>;
+  using Shape = MmaShape<BQ, BK, DK, DV>;
+  static_assert(Shape::kSmem <= kMaxSmem, "bf16 ring exceeds shared memory");
   static repro::SmemOptin opt;
-  auto kern = block_attention_mma<BQ, BK, D>;
+  auto kern = block_attention_mma<BQ, BK, DK, DV>;
   int dev = 0;
   cudaError_t err = repro::current_device(&dev);
   if (err == cudaSuccess) err = repro::allow_smem(kern, dev, Shape::kSmem, opt);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(s / BQ, hq, b);
   // logits in log2 units: exp(x) = exp2(x log2 e), folded into the scale
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)DK);
   kern<<<grid, Shape::kThreads, Shape::kSmem, stream>>>(
       q, k, v, kpos, qpos, idx, out, hq, hkv, s, s_k, n_sel, causal,
       scale_log2);
@@ -562,44 +602,51 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
 
 }  // namespace
 
-// q (B, Hq, S, dh); k/v (B, Hkv, S_k, dh) cluster-sorted; kpos (B, Hkv, S_k)
-// i32; qpos (S,) i32; idx (B, Hkv, S/bq, n_sel) i32 key tiles; out
-// (B, Hq, S, dh). dtype 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
-// cores); q, k, v and out alike. bq == bk in {32, 64, 128}, dh = 64; and
-// float32 at bq == bk == 32, dh = 16 (the reduced model configuration of
-// the tests and the twin example).
+// q (B, Hq, S, dh); k (B, Hkv, S_k, dh) and v (B, Hkv, S_k, dv)
+// cluster-sorted; kpos (B, Hkv, S_k) i32; qpos (S,) i32; idx
+// (B, Hkv, S/bq, n_sel) i32 key tiles; out (B, Hq, S, dv). dtype 0 =
+// float32 (CUDA cores), 1 = bfloat16 (tensor cores); q, k, v and out
+// alike. Instantiated for bq == bk and (bq, dh, dv) in
+//   {32, 64, 128} x (64, 64)  every ClusterKV prefill at head dim 64,
+//   128 x (128, 128)          head dim 128 (llava-next-34b,
+//                             mistral-large-123b, llama4-maverick),
+//   128 x (96, 64)            MLA (minicpm3-4b: q/k 96, v 64),
+// both dtypes; and float32 at 32 x (16, 16) (the reduced model of the
+// tests and the twin example). Any other shape is refused.
 extern "C" int repro_block_attention(const void* q, const void* k,
                                      const void* v, const void* kpos,
                                      const void* qpos, const void* idx,
                                      void* out, int b, int hq, int hkv, int s,
-                                     int s_k, int dh, int bq, int bk,
+                                     int s_k, int dh, int dv, int bq, int bk,
                                      int n_sel, int causal, int dtype,
                                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (b == 0 || s == 0) return (int)cudaSuccess;
-  if (bq == 32 && bk == 32 && dh == 16 && dtype == 0)
-    return launch_f32<32, 32, 16>(
-        (const float*)q, (const float*)k, (const float*)v, (const int*)kpos,
-        (const int*)qpos, (const int*)idx, (float*)out, b, hq, hkv, s, s_k,
+  if (bq != bk) return (int)cudaErrorInvalidValue;
+#define REPRO_BA_F32(BT, DK, DV)                                             \
+  if (dtype == 0 && bq == BT && dh == DK && dv == DV)                        \
+    return launch_f32<BT, BT, DK, DV>(                                       \
+        (const float*)q, (const float*)k, (const float*)v, (const int*)kpos, \
+        (const int*)qpos, (const int*)idx, (float*)out, b, hq, hkv, s, s_k,  \
         n_sel, causal, st);
-  if (bq != bk || dh != 64 || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-#define REPRO_BA_CASE(BT)                                                    \
-  if (bq == BT) {                                                            \
-    if (dtype == 0)                                                          \
-      return launch_f32<BT, BT, 64>(                                         \
-          (const float*)q, (const float*)k, (const float*)v,                 \
-          (const int*)kpos, (const int*)qpos, (const int*)idx, (float*)out,  \
-          b, hq, hkv, s, s_k, n_sel, causal, st);                            \
-    return launch_bf16<BT, BT, 64>(                                          \
+#define REPRO_BA_BF16(BT, DK, DV)                                            \
+  if (dtype == 1 && bq == BT && dh == DK && dv == DV)                        \
+    return launch_bf16<BT, BT, DK, DV>(                                      \
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,                    \
         (const __nv_bfloat16*)v, (const int*)kpos, (const int*)qpos,         \
         (const int*)idx, (__nv_bfloat16*)out, b, hq, hkv, s, s_k, n_sel,     \
-        causal, st);                                                         \
-  }
-  REPRO_BA_CASE(128)
-  REPRO_BA_CASE(64)
-  REPRO_BA_CASE(32)
-#undef REPRO_BA_CASE
+        causal, st);
+#define REPRO_BA_BOTH(BT, DK, DV) \
+  REPRO_BA_F32(BT, DK, DV)        \
+  REPRO_BA_BF16(BT, DK, DV)
+  REPRO_BA_BOTH(128, 64, 64)
+  REPRO_BA_BOTH(64, 64, 64)
+  REPRO_BA_BOTH(32, 64, 64)
+  REPRO_BA_BOTH(128, 128, 128)
+  REPRO_BA_BOTH(128, 96, 64)
+  REPRO_BA_F32(32, 16, 16)
+#undef REPRO_BA_BOTH
+#undef REPRO_BA_BF16
+#undef REPRO_BA_F32
   return (int)cudaErrorInvalidValue;
 }

@@ -161,7 +161,7 @@ def block_attention(q, k_sorted, v_sorted, kpos, qpos, idx, *, bq, bk,
                     causal=True) -> torch.Tensor:
     """Batched cluster-block-sparse attention.
 
-    q (B,Hq,S,dh); k/v_sorted (B,Hkv,S,dh); kpos (B,Hkv,S); qpos (S,);
+    q (B,Hq,S,dh); k/v_sorted (B,Hkv,S,dh|dv); kpos (B,Hkv,S); qpos (S,);
     idx (B,Hkv,nqb,n_sel). GQA: q heads grouped onto kv heads, one kernel
     launch for every (query tile, query head, batch member)."""
     return _ba.block_attention(q.contiguous(), k_sorted.contiguous(),

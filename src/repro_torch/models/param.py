@@ -1,25 +1,88 @@
 """Parameter construction: plain nested dicts of tensors in the reference's
 layout (``linear`` weights ``(d_in, d_out)``, stacked layers ``(L, ...)``),
 so a reference parameter tree crosses over leaf for leaf
-(``convert.params_from_reference``). Weights are drawn from an explicit
-``torch.Generator``. The reference's parameter sharding specs, which
-place parameters over a mesh, wait for the trainer (ROADMAP A14)."""
+(``convert.params_from_reference``). The reference's parameter sharding
+specs, which place parameters over a mesh, wait for the trainer (ROADMAP
+A14).
+
+A model's init is built in two steps. The family's init functions return a
+tree of :class:`Init` leaves (shape, and how to fill it); :func:`stacked`
+gives a layer tree its leading ``(L,)`` axis. :func:`materialize` then
+allocates every leaf ONCE, in the parameter dtype, and draws it from an
+explicit ``torch.Generator`` in float32 chunks of at most ``CHUNK``
+elements, each cast into place. The peak is the model's bytes in its
+parameter dtype plus one chunk, so a model whose float32 tree would not fit
+on the card (llava-next-34b's is 126 GiB) is drawn in place in bf16.
+"""
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass, replace
 from typing import Callable, Optional
 
 import torch
 
+# float32 elements drawn at a time by materialize: 1 GiB
+CHUNK = 1 << 28
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
 
-def linear(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = False,
-           device=None, scale: Optional[float] = None) -> dict:
+
+@dataclass(frozen=True)
+class Init:
+    """A parameter leaf not allocated yet: its shape, and either ``scale``
+    (standard normal draws times ``scale``) or the constant ``fill``."""
+    shape: tuple
+    scale: Optional[float] = None
+    fill: float = 0.0
+
+
+def normal(shape: tuple, scale: float) -> Init:
+    return Init(tuple(shape), scale=scale)
+
+
+def linear(d_in: int, d_out: int, *, bias: bool = False,
+           scale: Optional[float] = None) -> dict:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    p = {"w": torch.randn((d_in, d_out), generator=gen, device=device)
-         * scale}
+    p = {"w": normal((d_in, d_out), scale)}
     if bias:
-        p["b"] = torch.zeros((d_out,), device=device)
+        p["b"] = Init((d_out,))
     return p
+
+
+def embedding(vocab: int, d: int) -> dict:
+    return {"table": normal((vocab, d), d ** -0.5)}
+
+
+def rmsnorm(d: int) -> dict:
+    return {"scale": Init((d,), fill=1.0)}
+
+
+def stacked(tree: dict, n: int) -> dict:
+    """``n`` independent copies of a layer tree of :class:`Init` leaves,
+    stacked along a new leading axis (each copy drawn on its own)."""
+    return tree_map(lambda s: replace(s, shape=(n,) + s.shape), tree)
+
+
+def materialize(tree, gen: torch.Generator, device: torch.device,
+                dtype: torch.dtype = torch.float32):
+    """Tensors for a tree of :class:`Init` leaves on ``device``: each leaf
+    allocated once in ``dtype`` and drawn from ``gen`` (on ``device``) in
+    float32 chunks of at most ``CHUNK`` elements, cast into place. On the
+    ``meta`` device nothing is drawn."""
+    def make(s: Init) -> torch.Tensor:
+        out = torch.empty(s.shape, dtype=dtype, device=device)
+        if out.device.type == "meta":
+            return out
+        if s.scale is None:
+            return out.fill_(s.fill)
+        flat = out.view(-1)
+        for i in range(0, flat.numel(), CHUNK):
+            n = min(CHUNK, flat.numel() - i)
+            flat[i:i + n].copy_(torch.randn(n, generator=gen,
+                                            device=out.device).mul_(s.scale))
+        return out
+    return tree_map(make, tree)
 
 
 def apply_linear(p: dict, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
@@ -32,15 +95,6 @@ def apply_linear(p: dict, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     return y
 
 
-def embedding(gen: torch.Generator, vocab: int, d: int, *, device=None) -> dict:
-    return {"table": torch.randn((vocab, d), generator=gen, device=device)
-            * d ** -0.5}
-
-
-def rmsnorm(d: int, *, device=None) -> dict:
-    return {"scale": torch.ones((d,), device=device)}
-
-
 def apply_rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
@@ -49,7 +103,7 @@ def apply_rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def tree_map(fn: Callable, tree):
-    """``fn`` over every tensor leaf of a nested dict."""
+    """``fn`` over every leaf of a nested dict."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
@@ -61,24 +115,6 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def stacked(init_fn: Callable, n: int) -> dict:
-    """Stack ``n`` independent layer inits (``init_fn() -> params``) along
-    a new leading axis."""
-    layers = [init_fn() for _ in range(n)]
-    return _stack(layers)
-
-
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def layer(params: dict, i: int) -> dict:
     """Layer ``i`` of a stacked layer tree (views, no copy)."""
     return tree_map(lambda a: a[i], params)
-
-
-def cast_tree(params, dtype: torch.dtype):
-    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
-                    params)

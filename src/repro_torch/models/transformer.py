@@ -1,11 +1,10 @@
-"""Decoder-only transformer LM, dense family (GQA, optional QKV bias,
-optional SWA, optional cluster-sparse attention).
+"""Decoder-only transformer LM covering the dense / vlm / moe families
+(GQA, optional QKV bias, optional SWA, optional MLA via ``models.mla``,
+optional MoE FFN via ``models.moe``, optional cluster-sparse attention).
 
 Parameters are plain nested dicts of tensors in the reference's layout
 (``models/param.py``); layers are stacked ``(L, ...)`` and applied by a
-Python loop (the reference's ``lax.scan``). Everything runs eagerly. The
-MoE FFN and MLA attention of the reference's other families wait for
-ROADMAP A13.
+Python loop (the reference's ``lax.scan``). Everything runs eagerly.
 """
 from __future__ import annotations
 
@@ -16,29 +15,17 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import param as pm
 from repro_torch.models.sharding import NO_SHARD, ShardCtx
 
 AUX_COEF = 0.01
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-          "float16": torch.float16}
+DTYPES = pm.DTYPES
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (port queue item {item} "
-        "in ROADMAP.md)")
-
-
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise _not_ported("the MoE FFN", "A13")
-    if cfg.mla is not None:
-        raise _not_ported("MLA attention", "A13")
 
 
 # ---------------------------------------------------------------------------
@@ -46,43 +33,42 @@ def _check_dense(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_attn(gen, cfg: ModelConfig, device):
+def _init_attn(cfg: ModelConfig) -> dict:
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {"wq": pm.linear(gen, d, hq * dh, bias=cfg.qkv_bias, device=device),
-            "wk": pm.linear(gen, d, hkv * dh, bias=cfg.qkv_bias,
-                            device=device),
-            "wv": pm.linear(gen, d, hkv * dh, bias=cfg.qkv_bias,
-                            device=device),
-            "wo": pm.linear(gen, hq * dh, d, device=device)}
+    return {"wq": pm.linear(d, hq * dh, bias=cfg.qkv_bias),
+            "wk": pm.linear(d, hkv * dh, bias=cfg.qkv_bias),
+            "wv": pm.linear(d, hkv * dh, bias=cfg.qkv_bias),
+            "wo": pm.linear(hq * dh, d)}
 
 
-def _init_mlp(gen, cfg: ModelConfig, device):
+def _init_mlp(cfg: ModelConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
-    return {"wg": pm.linear(gen, d, f, device=device),
-            "wu": pm.linear(gen, d, f, device=device),
-            "wd": pm.linear(gen, f, d, device=device)}
+    return {"wg": pm.linear(d, f), "wu": pm.linear(d, f),
+            "wd": pm.linear(f, d)}
 
 
-def _init_layer(gen, cfg: ModelConfig, device):
-    return {"ln1": pm.rmsnorm(cfg.d_model, device=device),
-            "ln2": pm.rmsnorm(cfg.d_model, device=device),
-            "attn": _init_attn(gen, cfg, device),
-            "ffn": _init_mlp(gen, cfg, device)}
+def _init_layer(cfg: ModelConfig) -> dict:
+    return {"ln1": pm.rmsnorm(cfg.d_model),
+            "ln2": pm.rmsnorm(cfg.d_model),
+            "attn": (mla_mod.init_mla(cfg) if cfg.mla is not None
+                     else _init_attn(cfg)),
+            "ffn": (moe_mod.init_moe(cfg) if cfg.moe is not None
+                    else _init_mlp(cfg))}
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator,
-            device: DeviceLike = None) -> dict:
-    """Random float32 parameters drawn from ``gen`` on ``device``."""
-    _check_dense(cfg)
-    dev = resolve_device(device)
+            device: DeviceLike = None, dtype: torch.dtype = torch.float32
+            ) -> dict:
+    """Random parameters drawn from ``gen`` on ``device``, each leaf
+    allocated once in ``dtype`` (``param.materialize``)."""
     p = {}
     if not cfg.embedding_inputs:
-        p["embed"] = pm.embedding(gen, cfg.vocab, cfg.d_model, device=dev)
-    p["layers"] = pm.stacked(lambda: _init_layer(gen, cfg, dev), cfg.n_layers)
-    p["ln_f"] = pm.rmsnorm(cfg.d_model, device=dev)
+        p["embed"] = pm.embedding(cfg.vocab, cfg.d_model)
+    p["layers"] = pm.stacked(_init_layer(cfg), cfg.n_layers)
+    p["ln_f"] = pm.rmsnorm(cfg.d_model)
     if not cfg.tie_embeddings:
-        p["head"] = pm.linear(gen, cfg.d_model, cfg.vocab, device=dev)
-    return p
+        p["head"] = pm.linear(cfg.d_model, cfg.vocab)
+    return pm.materialize(p, gen, resolve_device(device), dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -119,18 +105,36 @@ def _apply_mlp(lp, x):
     return pm.apply_linear(lp["wd"], h)
 
 
+def _ffn(lp, x, cfg: ModelConfig, shd: ShardCtx):
+    """The layer's FFN: (output, aux loss) — the MoE's, or the dense MLP's
+    with a zero aux loss."""
+    if cfg.moe is not None:
+        return moe_mod.moe_ffn(lp, x, cfg, shd)
+    return _apply_mlp(lp, x), torch.zeros((), device=x.device)
+
+
 def _attn_out(lp, o, b, s):
     return pm.apply_linear(lp["attn"]["wo"],
                            o.transpose(1, 2).reshape(b, s, -1))
 
 
-def _layer(lp, x, pos, cfg: ModelConfig, backend: str):
+def _layer(lp, x, pos, cfg: ModelConfig, backend: str,
+           shd: ShardCtx = NO_SHARD):
+    """One layer: (x, aux loss, (k, v)); MLA layers return no k/v (their
+    cache is the latent, see ``mla.prefill``)."""
     b, s, _ = x.shape
     h = pm.apply_rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    q, k, v = _project_qkv(lp["attn"], h, cfg, pos)
-    x = x + _attn_out(lp, _attend(q, k, v, pos, cfg, backend), b, s)
+    if cfg.mla is not None:
+        x = x + mla_mod.mla_attention(lp["attn"], h, pos, cfg, shd,
+                                      backend)
+        kv = None
+    else:
+        q, k, v = _project_qkv(lp["attn"], h, cfg, pos)
+        x = x + _attn_out(lp, _attend(q, k, v, pos, cfg, backend), b, s)
+        kv = (k, v)
     h = pm.apply_rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + _apply_mlp(lp["ffn"], h), (k, v)
+    f, aux = _ffn(lp["ffn"], h, cfg, shd)
+    return x + f, aux, kv
 
 
 # ---------------------------------------------------------------------------
@@ -146,14 +150,16 @@ def embed_tokens(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
 
 
 def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            backend: str = "flash") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (final hidden states (B,S,d), aux loss)."""
-    _check_dense(cfg)
+            backend: str = "flash", shd: ShardCtx = NO_SHARD
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (final hidden states (B,S,d), aux loss summed over layers)."""
     h = embed_tokens(p, cfg, batch)
     pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
-    for i in range(cfg.n_layers):
-        h, _ = _layer(pm.layer(p["layers"], i), h, pos, cfg, backend)
     aux = torch.zeros((), device=h.device)
+    for i in range(cfg.n_layers):
+        h, a, _ = _layer(pm.layer(p["layers"], i), h, pos, cfg, backend,
+                         shd)
+        aux = aux + a
     return pm.apply_rmsnorm(p["ln_f"], h, cfg.norm_eps), aux
 
 
@@ -175,26 +181,29 @@ def _logits(p, cfg: ModelConfig, h_last: torch.Tensor) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
                device: DeviceLike = None) -> Dict[str, Any]:
-    _check_dense(cfg)
-    dev = resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
+    if cfg.mla is not None:
+        return mla_mod.init_cache(cfg, batch_size, max_seq, dtype, device)
+    dev = resolve_device(device)
     shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, max_seq, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev),
             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def prefill(p, cfg: ModelConfig, batch, backend: str = "flash"
-            ) -> Tuple[Dict, torch.Tensor]:
+def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
+            shd: ShardCtx = NO_SHARD) -> Tuple[Dict, torch.Tensor]:
     """Forward over the prompt, returning a filled cache + last logits."""
-    _check_dense(cfg)
+    if cfg.mla is not None:
+        return mla_mod.prefill(p, cfg, batch, backend)
     h = embed_tokens(p, cfg, batch)
     b, s, _ = h.shape
     pos = torch.arange(s, dtype=torch.int32, device=h.device)
     dt = compute_dtype(cfg)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        h, (k, v) = _layer(pm.layer(p["layers"], i), h, pos, cfg, backend)
+        h, _, (k, v) = _layer(pm.layer(p["layers"], i), h, pos, cfg,
+                              backend, shd)
         ks.append(k.to(dt))
         vs.append(v.to(dt))
     cache = {"k": torch.stack(ks), "v": torch.stack(vs),
@@ -215,10 +224,16 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
     cache shares them. ``sharded_long=True`` with a mesh in ``shd`` (and
     the ``clusterkv`` backend at a scalar position) splits each layer's
     cache sequence over the mesh's ``data`` axis
-    (``attention.clusterkv_decode_sharded``)."""
-    _check_dense(cfg)
+    (``attention.clusterkv_decode_sharded``). A vlm model (embedding
+    inputs) continues from token embeddings ``tokens`` (B, 1, d)."""
+    if cfg.mla is not None:
+        return mla_mod.decode_step(p, cfg, cache, tokens, backend,
+                                   sharded_long, shd)
     dt = compute_dtype(cfg)
-    h = p["embed"]["table"][tokens.long()].to(dt)
+    if tokens.ndim == 3:
+        h = tokens.to(dt)
+    else:
+        h = p["embed"]["table"][tokens.long()].to(dt)
     b = h.shape[0]
     dev = h.device
     qpos = torch.as_tensor(cache["pos"], device=dev)
@@ -267,7 +282,7 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
                                       window=cfg.swa_window)
         h = h + pm.apply_linear(lp["attn"]["wo"], o.reshape(b, 1, -1))
         hn = pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps)
-        h = h + _apply_mlp(lp["ffn"], hn)
+        h = h + _ffn(lp["ffn"], hn, cfg, shd)[0]
     logits = _logits(p, cfg, h[:, 0])
     new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"] + 1}
     return logits, new_cache
@@ -279,8 +294,7 @@ def plan_prefill(p, cfg: ModelConfig, batch, perms) -> torch.Tensor:
     per layer), driving the ``plan_batch`` path of
     :func:`~repro_torch.models.attention.clusterkv_attention`. Returns
     last-position logits only."""
-    _check_dense(cfg)
-    if cfg.embedding_inputs:
+    if cfg.mla is not None or cfg.embedding_inputs:
         raise NotImplementedError(
             "plan prefill serves token decoder-only models")
     h = embed_tokens(p, cfg, batch)
@@ -294,7 +308,7 @@ def plan_prefill(p, cfg: ModelConfig, batch, perms) -> torch.Tensor:
                                      causal=True, plan_batch=perms[i])
         h = h + _attn_out(lp, o, b, s)
         hn = pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps)
-        h = h + _apply_mlp(lp["ffn"], hn)
+        h = h + _ffn(lp["ffn"], hn, cfg, NO_SHARD)[0]
     return _logits(p, cfg, h[:, -1])
 
 
@@ -334,8 +348,7 @@ def plan_decode_step(p, cfg: ModelConfig, pstate, pend, tokens, slot_pos
     (the reference recomputes the clamped tile's centroid there, equal up
     to rounding).
     """
-    _check_dense(cfg)
-    if cfg.embedding_inputs:
+    if cfg.mla is not None or cfg.embedding_inputs:
         raise NotImplementedError(
             "plan decode serves token decoder-only models")
     ckv_cfg = cfg.clusterkv
@@ -386,7 +399,7 @@ def plan_decode_step(p, cfg: ModelConfig, pstate, pend, tokens, slot_pos
                                        qpos, ckv_cfg, k_self=k1, v_self=v1)
         h = h + pm.apply_linear(lp["attn"]["wo"], o.reshape(b, 1, -1))
         hn = pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps)
-        h = h + _apply_mlp(lp["ffn"], hn)
+        h = h + _ffn(lp["ffn"], hn, cfg, NO_SHARD)[0]
         nks.append(k1)
         nvs.append(v1)
     return (_logits(p, cfg, h[:, 0]), pstate, torch.stack(nks),

@@ -47,10 +47,15 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, slots: int = 4,
                  max_seq: int = 512, prefill_bucket: int = 64,
                  backend: str = "flash", device: DeviceLike = None):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                "the port's engine serves the dense decoder-only family "
-                "(the others are ROADMAP A13)")
+                "the engine serves decoder-only token models (the dense "
+                "and moe families), as the reference's")
+        if cfg.mla is not None:
+            raise NotImplementedError(
+                "the engine does not serve MLA: continuous batching decodes "
+                "at per-slot positions, and MLA's absorbed decode takes a "
+                "scalar position only (as the reference's)")
         self.cfg = cfg
         self.params = params
         self.slots = slots

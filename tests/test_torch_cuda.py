@@ -374,13 +374,15 @@ def _assert_kernel_close(got, want, dtype):
     assert bool(((got - want).abs() <= limit).all())
 
 
-def _attention_inputs(seed, b, hq, hkv, s, dh, bq, n_sel, device, dtype):
+def _attention_inputs(seed, b, hq, hkv, s, dh, bq, n_sel, device, dtype,
+                      dv=None):
     """Cluster-sorted k/v with a permuted position per key, and for every
-    query tile ``n_sel`` distinct key tiles."""
+    query tile ``n_sel`` distinct key tiles (v of width ``dv``, default
+    ``dh``)."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, hq, s, dh)).astype(np.float32)
     k = rng.standard_normal((b, hkv, s, dh)).astype(np.float32)
-    v = rng.standard_normal((b, hkv, s, dh)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, dv or dh)).astype(np.float32)
     kpos = np.stack([np.stack([rng.permutation(s) for _ in range(hkv)])
                      for _ in range(b)]).astype(np.int32)
     nqb = s // bq
@@ -517,6 +519,103 @@ def test_cuda_attention_wrappers_reject_what_the_kernels_do_not_take(
     with pytest.raises(TypeError, match="int32"):
         t_da.decode_attend_fused(q, k, v, pos.long(), cent, 10, n_sel=2,
                                  bk=128)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dh,dv", [(128, 128), (96, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_block_attention_wide_heads_match_plain(cuda_device, dh, dv,
+                                                     causal, dtype):
+    """B6 at the model zoo's head dims, tiles of 128: dh = dv = 128
+    (llava-next-34b, mistral-large-123b, llama4-maverick; float32 takes
+    half a query tile a block) and MLA's q/k 96 with v 64 (minicpm3-4b)."""
+    q, k, v, kpos, qpos, idx = _attention_inputs(
+        dh + dv, 2, 14, 2, 640, dh, 128, 3, cuda_device, dtype, dv=dv)
+    n0 = t_ba.block_attention.launches
+    got = t_ba.block_attention(q, k, v, kpos, qpos, idx, bq=128, bk=128,
+                               causal=causal)
+    torch.cuda.synchronize()
+    assert t_ba.block_attention.launches == n0 + 1
+    assert tuple(got.shape) == (2, 14, 640, dv)
+    want = t_ba.block_attention_plain(q, k, v, kpos, qpos, idx, bq=128,
+                                      bk=128, causal=causal)
+    _assert_kernel_close(got, want, dtype)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_block_attention_rejects_unsupported_head_dims(cuda_device):
+    """A shape the kernel has no instance for raises on a card; it never
+    falls back to the plain version."""
+    for dh, dv, bq in ((128, 64, 128), (96, 64, 64), (128, 128, 64),
+                       (80, 80, 128)):
+        q, k, v, kpos, qpos, idx = _attention_inputs(
+            1, 1, 4, 2, 256, dh, bq, 1, cuda_device, torch.bfloat16, dv=dv)
+        n0 = t_ba.block_attention.launches
+        with pytest.raises(ValueError, match="supports"):
+            t_ba.block_attention(q, k, v, kpos, qpos, idx, bq=bq, bk=bq)
+        assert t_ba.block_attention.launches == n0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("g", [7, 12])
+@pytest.mark.parametrize("mode", ["plain", "plan_self"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attend_head_dim_128_matches_plain(cuda_device, g, mode,
+                                                       dtype):
+    """B5 at head dim 128 and the zoo's GQA groups (llava 7, mistral 12):
+    the part kernel stages about 144 KB of shared memory at g = 12."""
+    b, hkv, s, dh, bk, n_sel = 2, 2, 2048, 128, 128, 6
+    q, k, v, pos, cent = _decode_inputs(g + 1, b, hkv, g, s, dh, bk,
+                                        cuda_device, dtype,
+                                        holes=mode != "plain")
+    qpos = torch.tensor([1500, 2047], dtype=torch.int32, device=cuda_device)
+    plan_mode = mode != "plain"
+    ks = torch.randn(b, hkv, dh, device=cuda_device).to(dtype)
+    vs = torch.randn(b, hkv, dh, device=cuda_device).to(dtype)
+    kw = dict(n_sel=n_sel, bk=bk, plan_mode=plan_mode,
+              has_self=mode == "plan_self", window=bk)
+    n0 = t_da.decode_attend_fused.launches
+    got = t_da.decode_attend_fused(q, k, v, pos, cent, qpos, ks, vs, **kw)
+    torch.cuda.synchronize()
+    assert t_da.decode_attend_fused.launches == n0 + 1
+    want = t_da.decode_attend_plain(q, k, v, pos, cent, qpos, ks, vs, **kw)
+    _assert_kernel_close(got, want, dtype)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["gqa128", "mla"])
+def test_cuda_zoo_prefill_through_the_wide_kernels(cuda_device, kind):
+    """A two-layer model at the zoo's head dims (GQA at 128, g = 4; MLA
+    q/k 96, v 64) prefills 512 tokens through ClusterKV on the card: B6 is
+    launched once a layer, and at a covering budget in float32 the logits
+    are the flash path's."""
+    from repro_torch.configs import ClusterKVConfig, MLAConfig, ModelConfig
+    from repro_torch.models import model_api
+    ckv = ClusterKVConfig(enabled=True, blocks_per_query=4)
+    if kind == "mla":
+        cfg = ModelConfig(name="mla", family="dense", n_layers=2,
+                          d_model=256, n_heads=4, n_kv_heads=4, d_ff=512,
+                          vocab=512, d_head=64, dtype="float32",
+                          clusterkv=ckv,
+                          mla=MLAConfig(q_lora_rank=96, kv_lora_rank=64,
+                                        qk_nope_head_dim=64,
+                                        qk_rope_head_dim=32, v_head_dim=64))
+    else:
+        cfg = ModelConfig(name="gqa128", family="dense", n_layers=2,
+                          d_model=512, n_heads=4, n_kv_heads=1, d_ff=512,
+                          vocab=512, dtype="float32", clusterkv=ckv)
+    params = model_api.init(cfg, torch.Generator(device=cuda_device)
+                            .manual_seed(0), device=cuda_device)
+    tokens = torch.randint(0, cfg.vocab, (1, 512), device=cuda_device,
+                           generator=torch.Generator(device=cuda_device)
+                           .manual_seed(1))
+    n0 = t_ba.block_attention.launches
+    _, got = t_model.prefill(params, cfg, {"tokens": tokens}, "clusterkv")
+    torch.cuda.synchronize()
+    assert t_ba.block_attention.launches == n0 + cfg.n_layers
+    _, want = t_model.prefill(params, cfg, {"tokens": tokens}, "flash")
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
 
 
 @pytest.mark.requires_cuda

@@ -73,7 +73,12 @@ def test_port_has_the_expected_modules():
                  "core/costmodel.py", "core/autotune.py",
                  "checkpoint/__init__.py", "checkpoint/ckpt.py",
                  "launch/mesh.py", "core/shardplan.py", "core/dist.py",
-                 "models/sharding.py"):
+                 "models/sharding.py", "models/moe.py", "models/mla.py",
+                 "configs/granite_moe_3b_a800m.py",
+                 "configs/h2o_danube_3_4b.py", "configs/minicpm3_4b.py",
+                 "configs/llava_next_34b.py",
+                 "configs/mistral_large_123b.py",
+                 "configs/llama4_maverick_400b_a17b.py"):
         assert must in names, must
     cu = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert cu == {"bsr_spmv.cu", "gamma_pairs.cu", "tsne_force.cu",

@@ -104,16 +104,15 @@ def test_config_from_reference_maps_the_renamed_fields():
 
 
 def test_unported_architectures_and_families_raise():
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A13b"):
         t_base.get_config("falcon-mamba-7b")
     with pytest.raises(KeyError, match="unknown arch"):
         t_base.get_config("gpt-17")
     cfg = t_base.reduced_config("qwen2-0.5b")
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A13b"):
         t_api.module_for(cfg.with_(family="ssm"))
-    with pytest.raises(NotImplementedError, match="A13"):
-        t_tf.init_cache(cfg.with_(moe=t_base.MoEConfig(n_experts=2)), 1, 8,
-                        device="cpu")
+    with pytest.raises(NotImplementedError, match="A13b"):
+        t_api.cache_seq_axes(cfg.with_(family="hybrid"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             t_api.init(cfg, torch.Generator())   # device None means "cuda"
