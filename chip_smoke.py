@@ -227,6 +227,7 @@ import dataclasses
 import importlib.util
 from contextlib import contextmanager
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -806,6 +807,11 @@ BF16_TOL_TEXT = f"{REL_TOL:g} x scale + {BF16_ULPS} bf16 spacing"
 # serving check: first-token logits of the covering-budget ClusterKV engine
 # against the flash engine, float32 (examples/serve_clusterkv.py's bound)
 SERVE_TOL = 1e-3
+# MoE FFN in bf16 against its plain float32 version: the bf16 path rounds
+# each expert product, the SwiGLU and the gated sum to bf16 (2^-9 relative
+# each), so an element may be some 2^-9 x 4 of its own size off; a wrong
+# expert, gate or drop is off by the whole of its term
+MOE_BF16_TOL = 2e-2
 
 
 def attention_inputs(gen, b, hq, hkv, s, dh, bq, n_sel, dtype, device):
@@ -3337,6 +3343,71 @@ def zoo_flash_check(args, dev, sync, cfg, params, rehearse):
             "scale": [s for _, s in errs]}
 
 
+def moe_plain(ffn, x, moe):
+    """An independent plain MoE FFN over ``x`` (T, d), in float32: the
+    router by ``torch.topk``, each (token, choice) taken in token order and
+    kept while its expert holds fewer than ``ceil(T k cf / E)`` tokens
+    (Switch drops), then one expert at a time over the tokens it kept, and
+    the shared expert. Returns (y (T, d) float32, dropped choices)."""
+    t, d = x.shape
+    xf = x.float()
+    probs = torch.softmax(xf @ ffn["router"]["w"].float(), dim=-1)
+    gates, eidx = torch.topk(probs, moe.top_k, dim=-1)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    cap = max(1, math.ceil(t * moe.top_k * moe.capacity_factor
+                           / moe.n_experts))
+    load = [0] * moe.n_experts
+    kept = [[] for _ in range(moe.n_experts)]
+    for ti, choice in enumerate(eidx.tolist()):
+        for j, e in enumerate(choice):
+            if load[e] < cap:
+                kept[e].append((ti, j))
+            load[e] += 1
+    y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    for e, rows in enumerate(kept):
+        if not rows:
+            continue
+        ti = torch.tensor([r[0] for r in rows], device=x.device)
+        tj = torch.tensor([r[1] for r in rows], device=x.device)
+        xe = xf[ti]
+        h = torch.nn.functional.silu(xe @ ffn["wg"][e].float()) \
+            * (xe @ ffn["wu"][e].float())
+        y[ti] += gates[ti, tj, None] * (h @ ffn["wd"][e].float())
+    if "shared" in ffn:
+        sh = ffn["shared"]
+        h = torch.nn.functional.silu(xf @ sh["wg"].float()) \
+            * (xf @ sh["wu"].float())
+        y = y + h @ sh["wd"].float()
+    return y, sum(max(0, n - cap) for n in load)
+
+
+def zoo_moe_check(args, dev, cfg, params, rehearse):
+    """Layer 0's MoE FFN at full width against :func:`moe_plain` on 512
+    seeded tokens: in float32 (``REL_TOL``) where the model's float32
+    experts fit beside it, else in the model's bf16 (maverick: its 128
+    experts cast to float32 would be 64 GiB), to ``MOE_BF16_TOL``."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import param as pm
+
+    ffn = pm.layer(params["layers"], 0)["ffn"]
+    t = 64 if rehearse else 512
+    dtype = (torch.float32 if cfg.param_dtype == "float32"
+             else torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 162)
+    x = torch.randn((t, cfg.d_model), generator=gen, device=dev).to(dtype)
+    y, _ = moe_mod.moe_ffn(ffn, x[None], cfg)
+    want, dropped = moe_plain(ffn, x, cfg.moe)
+    tol = REL_TOL if dtype == torch.float32 else MOE_BF16_TOL
+    err, scale = check_close(f"{cfg.name} MoE FFN layer 0", y[0].float(),
+                             want, rel_tol=tol)
+    say(f"  MoE FFN, layer 0, {t} tokens in {dtype}: {cfg.moe.n_experts} "
+        f"experts top {cfg.moe.top_k}, {dropped} of {t * cfg.moe.top_k} "
+        f"choices dropped; against a plain per-expert loop in float32 "
+        f"max-abs {err:.2e} (scale {scale:.2f}, tolerance {tol:g} x scale)")
+    return {"tokens": t, "dtype": str(dtype), "dropped": dropped,
+            "max_abs_err": err, "scale": scale, "tolerance": tol}
+
+
 def phase_zoo(args, dev, sync, rehearse, reset_counts, collect_counts):
     """Phase 16: the six A13a configurations at full width, one after the
     other (each freed before the next)."""
@@ -3381,6 +3452,9 @@ def phase_zoo(args, dev, sync, rehearse, reset_counts, collect_counts):
         row = {"family": cfg.family, "layers": cfg.n_layers, "cuts": cuts,
                "param_dtype": cfg.param_dtype, "weight_bytes": nbytes,
                "init_s": init_s, "init_peak_bytes": peak}
+        if cfg.moe is not None:
+            row["moe_check"] = zoo_moe_check(args, dev, cfg, params,
+                                             rehearse)
         if arch == "granite-moe-3b-a800m":
             row["serve"] = zoo_serve(args, dev, sync, cfg, params, rehearse,
                                      reset_counts, collect_counts)
@@ -3407,6 +3481,95 @@ def phase_zoo(args, dev, sync, rehearse, reset_counts, collect_counts):
     out["wall_s"] = time.perf_counter() - t_phase
     say(f"  phase 16 wall time: {out['wall_s']:.1f} s")
     return out
+
+
+def check_zoo_shapes(args, dev, rehearse):
+    """B6 and B5 held against their plain versions at the heads and dims
+    each ClusterKV configuration of phase 16 gives them, in bf16 (the
+    models' runs) and float32 (the covering checks): B6 as one causal
+    prefill layer of 4096 tokens; B5 as one scalar decode step's layer in
+    an 8192-slot cache (plain mode), and for the served granite also at
+    the engines' 4 slots in plan mode, with and without the self column.
+    MLA layers decode by a dense einsum and reach no B5."""
+    from repro_torch.kernels import block_attention as k_ba
+    from repro_torch.kernels import decode_attend as k_da
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 163)
+    s6, s5 = (128, 256) if rehearse else (4096, 8192)
+    rows = []
+    for arch, _ in ZOO:
+        cfg, _ = zoo_config(arch, None, rehearse)
+        ck = cfg.clusterkv
+        if not ck.enabled:
+            continue
+        if cfg.mla is not None:
+            m = cfg.mla
+            hq = hkv = cfg.n_heads
+            dh, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+        else:
+            hq, hkv, dh, dv = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                               cfg.head_dim)
+        g = hq // hkv
+        for dtype in (torch.bfloat16, torch.float32):
+            ulps = BF16_ULPS if dtype == torch.bfloat16 else 0
+            n6 = min(ck.blocks_per_query, s6 // ck.block_k)
+            q, k, _, kpos, qpos, idx = attention_inputs(
+                gen, 1, hq, hkv, s6, dh, ck.block_q, n6, dtype, dev)
+            v = torch.randn((1, hkv, s6, dv), generator=gen,
+                            device=dev).to(dtype)
+            kw = dict(bq=ck.block_q, bk=ck.block_k)
+            err, scale = check_close(
+                f"block_attention {arch} {dtype}",
+                k_ba.block_attention(q, k, v, kpos, qpos, idx, **kw).float(),
+                k_ba.block_attention_plain(q, k, v, kpos, qpos, idx,
+                                           **kw).float(), bf16_ulps=ulps)
+            rows.append({"kernel": "block_attention", "config": arch,
+                         "dtype": str(dtype), "hq": hq, "hkv": hkv, "dh": dh,
+                         "dv": dv, "S": s6, "n_sel": n6, "max_abs_err": err,
+                         "scale": scale})
+            say(f"  B6 {arch:26s} {str(dtype):14s} {hq}/{hkv} heads, q/k "
+                f"{dh}, v {dv}, S={s6}, {n6} tiles: err {err:.2e} (scale "
+                f"{scale:.2f})")
+            del q, k, v, kpos, qpos, idx
+            if cfg.mla is not None:
+                continue
+            bk = ck.block_k
+            n5 = min(ck.decode_clusters, s5 // bk)
+            modes = [("plain", 1)]
+            if arch == "granite-moe-3b-a800m":
+                modes += [("plan", 4), ("plan+self", 4)]
+            for mode, b in modes:
+                plan_mode = mode != "plain"
+                q, k, v, pos, cent = decode_inputs(
+                    gen, b, hkv, g, s5, dh, bk, dtype, dev,
+                    holes=0.2 if plan_mode else 0.0)
+                ks = torch.randn((b, hkv, dh), generator=gen,
+                                 device=dev).to(dtype)
+                vs = torch.randn((b, hkv, dh), generator=gen,
+                                 device=dev).to(dtype)
+                qp = (torch.tensor([s5 - 500, s5 // 3, s5 - 1, 40],
+                                   dtype=torch.int32, device=dev)
+                      if plan_mode else
+                      torch.tensor([s5 // 2 + 4], dtype=torch.int32,
+                                   device=dev))
+                kw = dict(n_sel=n5, bk=bk, plan_mode=plan_mode,
+                          has_self=mode == "plan+self",
+                          window=ck.local_window_blocks * bk)
+                err, scale = check_close(
+                    f"decode_attend {arch} {dtype} {mode}",
+                    k_da.decode_attend_fused(q, k, v, pos, cent, qp, ks, vs,
+                                             **kw).float(),
+                    k_da.decode_attend_plain(q, k, v, pos, cent, qp, ks, vs,
+                                             **kw).float(), bf16_ulps=ulps)
+                rows.append({"kernel": "decode_attend_fused", "config": arch,
+                             "dtype": str(dtype), "B": b, "hkv": hkv, "g": g,
+                             "dh": dh, "S": s5, "n_sel": n5, "mode": mode,
+                             "max_abs_err": err, "scale": scale})
+                say(f"  B5 {arch:26s} {str(dtype):14s} B={b} {hkv} kv heads "
+                    f"g={g} dh={dh} S={s5} {n5} tiles {mode}: err {err:.2e} "
+                    f"(scale {scale:.2f})")
+                del q, k, v, pos, cent
+    return rows
 
 
 def time_zoo_kernels(args, dev, timer, rehearse):
@@ -4077,7 +4240,9 @@ def main() -> int:
     zoo = phase_zoo(args, dev, sync, rehearse, reset_counts, collect_counts)
     zoo["launches"] = {name: main_launches[name] - before[name]
                        for name in main_launches}
-    say("== B6 and B5 at the zoo's new shapes")
+    say("== B6 and B5 at each zoo configuration's heads and dims")
+    zoo_checked = check_zoo_shapes(args, dev, rehearse)
+    say("== B6 and B5 at the zoo's new shapes, timed")
     zoo_b6, zoo_b5 = time_zoo_kernels(args, dev, timer, rehearse)
     for e in entries:
         if e["name"] in ("bsr_spmv_batched", "bsr_spmv"):
@@ -4088,6 +4253,9 @@ def main() -> int:
         if e["name"] in ("decode_attend_fused", "block_attention"):
             e["launches_service"] = service["launches"][e["name"]]
             e["launches_zoo"] = zoo["launches"][e["name"]]
+        if e["name"] in ("decode_attend_fused", "block_attention"):
+            e["zoo_shapes_checked"] = [r for r in zoo_checked
+                                       if r["kernel"] == e["name"]]
         if e["name"] == "block_attention":
             e["zoo_shapes"] = zoo_b6
             e["ptxas"] = ptxas

@@ -119,18 +119,6 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def _mlp(lp, x):
-    h = (torch.nn.functional.silu(pm.apply_linear(lp["wg"], x))
-         * pm.apply_linear(lp["wu"], x))
-    return pm.apply_linear(lp["wd"], h)
-
-
-def _logits(p, cfg: ModelConfig, h_last):
-    w = p["embed"]["table"].T if cfg.tie_embeddings else p["head"]["w"]
-    h_last = pm.apply_rmsnorm(p["ln_f"], h_last, cfg.norm_eps)
-    return (h_last @ w.to(h_last.dtype)).float()
-
-
 def prefill(p, cfg: ModelConfig, batch, backend: str = "flash"):
     dt = pm.DTYPES[cfg.dtype]
     h = p["embed"]["table"][batch["tokens"].long()].to(dt)
@@ -143,12 +131,12 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash"):
         a, cn, krope = _attend_latent(lp["attn"], hn, pos, cfg, backend)
         h = h + a
         hn = pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps)
-        h = h + _mlp(lp["ffn"], hn)
+        h = h + pm.apply_swiglu(lp["ffn"], hn)
         cs.append(cn.to(dt))
         krs.append(krope.to(dt))
     cache = {"c": torch.stack(cs), "kr": torch.stack(krs),
              "pos": torch.tensor(s, dtype=torch.int32, device=h.device)}
-    return cache, _logits(p, cfg, h[:, -1])
+    return cache, pm.apply_lm_head(p, cfg, h[:, -1])
 
 
 def _absorbed_scores_attend(lp, qn, qrope, cc, krc, kpos, qpos,
@@ -251,7 +239,7 @@ def decode_step(p, cfg: ModelConfig, cache, tokens,
         o = torch.einsum("bhr,rhd->bhd", o_lat, wv.float())
         h = h + pm.apply_linear(lp["attn"]["wo"], o.reshape(b, 1, -1).to(dt))
         hn = pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps)
-        h = h + _mlp(lp["ffn"], hn)
-    logits = _logits(p, cfg, h[:, 0])
+        h = h + pm.apply_swiglu(lp["ffn"], hn)
+    logits = pm.apply_lm_head(p, cfg, h[:, 0])
     return logits, {"c": cache["c"], "kr": cache["kr"],
                     "pos": cache["pos"] + 1}

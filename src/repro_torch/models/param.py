@@ -102,6 +102,21 @@ def apply_rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def apply_swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU MLP ``wd(silu(wg x) * wu x)`` of a dense layer."""
+    h = (torch.nn.functional.silu(apply_linear(p["wg"], x))
+         * apply_linear(p["wu"], x))
+    return apply_linear(p["wd"], h)
+
+
+def apply_lm_head(p: dict, cfg, h_last: torch.Tensor) -> torch.Tensor:
+    """float32 logits of the final hidden states: the final RMSNorm, then
+    the head (the embedding table's transpose when ``cfg.tie_embeddings``)."""
+    w = p["embed"]["table"].T if cfg.tie_embeddings else p["head"]["w"]
+    h_last = apply_rmsnorm(p["ln_f"], h_last, cfg.norm_eps)
+    return (h_last @ w.to(h_last.dtype)).float()
+
+
 def tree_map(fn: Callable, tree):
     """``fn`` over every leaf of a nested dict."""
     if isinstance(tree, dict):

@@ -99,18 +99,12 @@ def _attend(q, k, v, pos, cfg: ModelConfig, backend: str):
                                 window=cfg.swa_window)
 
 
-def _apply_mlp(lp, x):
-    h = (torch.nn.functional.silu(pm.apply_linear(lp["wg"], x))
-         * pm.apply_linear(lp["wu"], x))
-    return pm.apply_linear(lp["wd"], h)
-
-
 def _ffn(lp, x, cfg: ModelConfig, shd: ShardCtx):
     """The layer's FFN: (output, aux loss) — the MoE's, or the dense MLP's
     with a zero aux loss."""
     if cfg.moe is not None:
         return moe_mod.moe_ffn(lp, x, cfg, shd)
-    return _apply_mlp(lp, x), torch.zeros((), device=x.device)
+    return pm.apply_swiglu(lp, x), torch.zeros((), device=x.device)
 
 
 def _attn_out(lp, o, b, s):
@@ -163,17 +157,6 @@ def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     return pm.apply_rmsnorm(p["ln_f"], h, cfg.norm_eps), aux
 
 
-def lm_head_weight(p, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return p["embed"]["table"].T
-    return p["head"]["w"]
-
-
-def _logits(p, cfg: ModelConfig, h_last: torch.Tensor) -> torch.Tensor:
-    h_last = pm.apply_rmsnorm(p["ln_f"], h_last, cfg.norm_eps)
-    return (h_last @ lm_head_weight(p, cfg).to(h_last.dtype)).float()
-
-
 # ---------------------------------------------------------------------------
 # prefill / decode
 # ---------------------------------------------------------------------------
@@ -208,7 +191,7 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
         vs.append(v.to(dt))
     cache = {"k": torch.stack(ks), "v": torch.stack(vs),
              "pos": torch.tensor(s, dtype=torch.int32, device=h.device)}
-    return cache, _logits(p, cfg, h[:, -1])
+    return cache, pm.apply_lm_head(p, cfg, h[:, -1])
 
 
 def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
@@ -283,7 +266,7 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
         h = h + pm.apply_linear(lp["attn"]["wo"], o.reshape(b, 1, -1))
         hn = pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps)
         h = h + _ffn(lp["ffn"], hn, cfg, shd)[0]
-    logits = _logits(p, cfg, h[:, 0])
+    logits = pm.apply_lm_head(p, cfg, h[:, 0])
     new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"] + 1}
     return logits, new_cache
 
@@ -309,7 +292,7 @@ def plan_prefill(p, cfg: ModelConfig, batch, perms) -> torch.Tensor:
         h = h + _attn_out(lp, o, b, s)
         hn = pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps)
         h = h + _ffn(lp["ffn"], hn, cfg, NO_SHARD)[0]
-    return _logits(p, cfg, h[:, -1])
+    return pm.apply_lm_head(p, cfg, h[:, -1])
 
 
 def plan_decode_step(p, cfg: ModelConfig, pstate, pend, tokens, slot_pos
@@ -402,5 +385,5 @@ def plan_decode_step(p, cfg: ModelConfig, pstate, pend, tokens, slot_pos
         h = h + _ffn(lp["ffn"], hn, cfg, NO_SHARD)[0]
         nks.append(k1)
         nvs.append(v1)
-    return (_logits(p, cfg, h[:, 0]), pstate, torch.stack(nks),
+    return (pm.apply_lm_head(p, cfg, h[:, 0]), pstate, torch.stack(nks),
             torch.stack(nvs))
