@@ -9,9 +9,10 @@ plan.matvec(charges)`` at the paper's SIFT setting (arXiv 1709.03671 §4.2:
 128-d descriptors, k = 30, tile 32, superblock 8) on n = 262 144 synthetic
 descriptors made from a seed, then the paper's two iterative applications
 (§3) at the same n, then Qwen2-0.5B at full width (random weights from the
-seed) served with ClusterKV attention, and six decoder-only models of the
-zoo at full width (phase 16). Phases, each of which fails the run when it
-fails:
+seed) served with ClusterKV attention, six decoder-only models of the
+zoo at full width (phase 16), and the SSM LM, the hybrid and the
+encoder-decoder of the zoo at full width and depth through the serving
+launcher (phase 17). Phases, each of which fails the run when it fails:
 
 1. environment: versions, the card, the kernel build with its wall time,
    and the registers and spills ``-Xptxas -v`` reports for every B6
@@ -199,11 +200,32 @@ device time without the host's, which is the larger part of a call.
    llava layer at dh 128 in bf16 and float32, a minicpm3 MLA layer) and
    B5 at head dim 128 (g = 7 and 12).
 
+17. the rest of the zoo at full width and full depth, bf16 compute over
+   float32 master weights from the seed, one model at a time, each
+   served through ``launch.serve.generate`` (``prefill``, the cache grown
+   to prompt + gen, greedy ``decode_step``s; prefill ms, ms a step,
+   tokens/s, weight bytes, B5/B6 launches): falcon-mamba-7b (64 mamba1
+   layers; batch 4, prompt 2048, 32 tokens, attention-free),
+   zamba2-1.2b (42 mamba2 layers in 7 groups with one shared attention
+   block; batch 4, prompt 3968, 128 tokens, ClusterKV: B6 once a group a
+   prefill, B5 once a group a step, 32 / 32 heads of 128, g = 1) and
+   whisper-medium (24 + 24 layers; batch 4, 448 frames and 448 tokens,
+   32 tokens). Checks: zamba2 in float32 at budgets covering every tile
+   gives its flash path's tokens and logits (1e-3 x scale);
+   falcon-mamba-7b and whisper-medium at 4 layers of full width in
+   float32 hold teacher forcing (``prefill(S)`` against ``prefill(S-1)``
+   and one step, 1e-3 x scale); one mamba1 layer at full width
+   (d_inner 8192, d_state 16, S 2048) scans within 1e-4 x scale of the
+   float64 step recurrence. Then B6 and B5 are held against their plain
+   versions at each ClusterKV config's heads and dims (zamba2's too) and
+   timed at the zoo's new shapes (zamba2's among them).
+
 Launch counters are set to 0 just before each path (phases 3-4, 6, 7, 9,
-10, 11, 12, 13, 14, 15, 16) and read just after it; launches made to compare
-or time a kernel are not counted. Every kernel must have been launched by
-a path: B6 by the prefills and the service's plan prefills, B5 by the
-ticks of both engines (plan mode) and the scalar steps (plain mode), B1
+10, 11, 12, 13, 14, 15, 16, 17) and read just after it; launches made to
+compare or time a kernel are not counted. Every kernel must have been
+launched by a path: B6 by the prefills and the service's plan prefills,
+B5 by the ticks of both engines (plan mode) and the scalar steps (plain
+mode), B1
 once per 48-member ``PlanBatch.matvec``, by every streamed plan's and
 every double-buffered ``matvec`` (phase 11) and by every solver iteration
 (phase 13) and by the autotune's probes and the restored plan and batch
@@ -3306,10 +3328,11 @@ def zoo_run(args, dev, sync, cfg, params, rehearse, reset_counts,
 def zoo_flash_check(args, dev, sync, cfg, params, rehearse):
     """float32, budgets covering every tile: ``prefill`` and two decode
     steps through ClusterKV give the flash path's logits (1e-3 x scale)
-    and tokens."""
+    and tokens (the family's own module: the transformer, or the hybrid's
+    shared block)."""
     from repro_torch.models import model_api
-    from repro_torch.models import transformer as tf
 
+    tf = model_api.module_for(cfg)
     plen, s_max = (64, 128) if rehearse else (2048, 4096)
     cfgc = covering(cfg, s_max)
     rng = np.random.default_rng(args.seed + 161)
@@ -3334,7 +3357,12 @@ def zoo_flash_check(args, dev, sync, cfg, params, rehearse):
             [int(b.argmax()) for b in runs["flash"]]:
         raise AssertionError(f"{cfg.name}: ClusterKV and flash pick other "
                              "tokens")
-    say(f"  float32 at {cfg.n_layers} layers, budgets covering every tile: "
+    depth = f"{cfg.n_layers} layers"
+    if cfg.family == "hybrid":
+        from repro_torch.models import hybrid
+        depth = (f"full depth ({hybrid._n_groups(cfg) * cfg.shared_attn_every}"
+                 f" mamba2 layers)")
+    say(f"  float32 at {depth}, budgets covering every tile: "
         f"prefill of {plen} tokens + 2 steps, ClusterKV vs flash logits "
         f"max-abs " + ", ".join(f"{e:.2e} (scale {s:.2f})" for e, s in errs)
         + f", tolerance {SERVE_TOL:g} x scale; same tokens")
@@ -3490,22 +3518,35 @@ def check_zoo_shapes(args, dev, rehearse):
     prefill layer of 4096 tokens; B5 as one scalar decode step's layer in
     an 8192-slot cache (plain mode), and for the served granite also at
     the engines' 4 slots in plan mode, with and without the self column.
-    MLA layers decode by a dense einsum and reach no B5."""
+    MLA layers decode by a dense einsum and reach no B5. zamba2-1.2b's
+    shared block (phase 17) at its run's own shapes: B6 over 4 prompts of
+    3968 tokens, B5 at batch 4 in the 4096-slot cache, 32 / 32 heads of
+    128 (g = 1)."""
     from repro_torch.kernels import block_attention as k_ba
     from repro_torch.kernels import decode_attend as k_da
 
     gen = torch.Generator(device=dev).manual_seed(args.seed + 163)
-    s6, s5 = (128, 256) if rehearse else (4096, 8192)
     rows = []
-    for arch, _ in ZOO:
+    for arch, _ in ZOO + (("zamba2-1.2b", None),):
         cfg, _ = zoo_config(arch, None, rehearse)
         ck = cfg.clusterkv
         if not ck.enabled:
             continue
+        # the hybrid's shared block: one batch of phase 17's zamba2 run
+        # (4 prompts of 3968 tokens, a 4096-slot cache)
+        hybrid = cfg.family == "hybrid"
+        b6 = 4 if hybrid else 1
+        s6 = (96 if hybrid else 128) if rehearse else (
+            ZAMBA_PROMPT if hybrid else 4096)
+        s5 = (128 if hybrid else 256) if rehearse else (
+            ZAMBA_PROMPT + ZAMBA_GEN if hybrid else 8192)
         if cfg.mla is not None:
             m = cfg.mla
             hq = hkv = cfg.n_heads
             dh, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+        elif hybrid:
+            hq = hkv = cfg.n_heads
+            dh = dv = 2 * cfg.d_model // cfg.n_heads
         else:
             hq, hkv, dh, dv = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                                cfg.head_dim)
@@ -3514,8 +3555,8 @@ def check_zoo_shapes(args, dev, rehearse):
             ulps = BF16_ULPS if dtype == torch.bfloat16 else 0
             n6 = min(ck.blocks_per_query, s6 // ck.block_k)
             q, k, _, kpos, qpos, idx = attention_inputs(
-                gen, 1, hq, hkv, s6, dh, ck.block_q, n6, dtype, dev)
-            v = torch.randn((1, hkv, s6, dv), generator=gen,
+                gen, b6, hq, hkv, s6, dh, ck.block_q, n6, dtype, dev)
+            v = torch.randn((b6, hkv, s6, dv), generator=gen,
                             device=dev).to(dtype)
             kw = dict(bq=ck.block_q, bk=ck.block_k)
             err, scale = check_close(
@@ -3524,18 +3565,18 @@ def check_zoo_shapes(args, dev, rehearse):
                 k_ba.block_attention_plain(q, k, v, kpos, qpos, idx,
                                            **kw).float(), bf16_ulps=ulps)
             rows.append({"kernel": "block_attention", "config": arch,
-                         "dtype": str(dtype), "hq": hq, "hkv": hkv, "dh": dh,
-                         "dv": dv, "S": s6, "n_sel": n6, "max_abs_err": err,
-                         "scale": scale})
-            say(f"  B6 {arch:26s} {str(dtype):14s} {hq}/{hkv} heads, q/k "
-                f"{dh}, v {dv}, S={s6}, {n6} tiles: err {err:.2e} (scale "
-                f"{scale:.2f})")
+                         "dtype": str(dtype), "B": b6, "hq": hq, "hkv": hkv,
+                         "dh": dh, "dv": dv, "S": s6, "n_sel": n6,
+                         "max_abs_err": err, "scale": scale})
+            say(f"  B6 {arch:26s} {str(dtype):14s} B={b6} {hq}/{hkv} heads, "
+                f"q/k {dh}, v {dv}, S={s6}, {n6} tiles: err {err:.2e} "
+                f"(scale {scale:.2f})")
             del q, k, v, kpos, qpos, idx
             if cfg.mla is not None:
                 continue
             bk = ck.block_k
             n5 = min(ck.decode_clusters, s5 // bk)
-            modes = [("plain", 1)]
+            modes = [("plain", b6)]
             if arch == "granite-moe-3b-a800m":
                 modes += [("plan", 4), ("plan+self", 4)]
             for mode, b in modes:
@@ -3547,6 +3588,7 @@ def check_zoo_shapes(args, dev, rehearse):
                                  device=dev).to(dtype)
                 vs = torch.randn((b, hkv, dh), generator=gen,
                                  device=dev).to(dtype)
+                # plain mode decodes at one scalar position for the batch
                 qp = (torch.tensor([s5 - 500, s5 // 3, s5 - 1, 40],
                                    dtype=torch.int32, device=dev)
                       if plan_mode else
@@ -3575,26 +3617,32 @@ def check_zoo_shapes(args, dev, rehearse):
 def time_zoo_kernels(args, dev, timer, rehearse):
     """B6 at the zoo's new shapes (one prefill layer at S = 4096, 16 of 32
     tiles: llava-next-34b's 56 / 8 heads of 128 in bf16 and float32,
-    minicpm3-4b's 40 MLA heads of q/k 96 and v 64 in bf16) and B5 at head
-    dim 128 (one scalar decode step's layer, 16 tiles of an 8192-slot
-    cache: g = 7 and 12), each beside its plain version and its bound, B6
-    also beside SDPA with the equivalent boolean mask."""
+    minicpm3-4b's 40 MLA heads of q/k 96 and v 64 in bf16; zamba2-1.2b's
+    shared block, 4 prompts of 3968 tokens, 32 / 32 heads of 128, 16 of 31
+    tiles) and B5 at head dim 128 (one scalar decode step's layer, 16
+    tiles: g = 7 and 12 in an 8192-slot cache, zamba2's g = 1 over 32 kv
+    heads at batch 4 in a 4096-slot cache), each beside its plain version
+    and its bound, B6 also beside SDPA with the equivalent boolean
+    mask."""
     from repro_torch.kernels import block_attention as k_ba
     from repro_torch.kernels import decode_attend as k_da
 
     gen = torch.Generator(device=dev).manual_seed(args.seed + 22)
     it_fast, it_slow = (2, 1) if rehearse else (20, 3)
-    s6, n6 = (512, 4) if rehearse else (4096, 16)
+    n6 = 4 if rehearse else 16
+    sz = 512 if rehearse else ZAMBA_PROMPT
     b6 = []
-    for what, hq, hkv, dh, dv, dtype in (
-            ("llava-next-34b", 56, 8, 128, 128, torch.bfloat16),
-            ("llava-next-34b", 56, 8, 128, 128, torch.float32),
-            ("minicpm3-4b", 40, 40, 96, 64, torch.bfloat16)):
+    for what, b, s6, hq, hkv, dh, dv, dtype in (
+            ("llava-next-34b", 1, 4096, 56, 8, 128, 128, torch.bfloat16),
+            ("llava-next-34b", 1, 4096, 56, 8, 128, 128, torch.float32),
+            ("minicpm3-4b", 1, 4096, 40, 40, 96, 64, torch.bfloat16),
+            # zamba2-1.2b's shared block in phase 17's prefill (g = 1)
+            ("zamba2-1.2b", 4, sz, 32, 32, 128, 128, torch.bfloat16)):
         if rehearse:
-            dtype = torch.float32
+            dtype, s6 = torch.float32, 512
         q, k, _, kpos, qpos, idx = attention_inputs(
-            gen, 1, hq, hkv, s6, dh, 128, n6, dtype, dev)
-        v = torch.randn((1, hkv, s6, dv), generator=gen, device=dev).to(dtype)
+            gen, b, hq, hkv, s6, dh, 128, n6, dtype, dev)
+        v = torch.randn((b, hkv, s6, dv), generator=gen, device=dev).to(dtype)
         run = lambda: k_ba.block_attention(q, k, v, kpos, qpos, idx, bq=128,
                                            bk=128)
         plain = lambda: k_ba.block_attention_plain(q, k, v, kpos, qpos, idx,
@@ -3606,7 +3654,7 @@ def time_zoo_kernels(args, dev, timer, rehearse):
         ms, plain_ms = timer(run, it_fast), timer(plain, it_slow)
         g = hq // hkv
         tile_of = torch.arange(s6, device=dev) // 128
-        sel = torch.zeros((1, hkv, s6 // 128, s6 // 128), dtype=torch.bool,
+        sel = torch.zeros((b, hkv, s6 // 128, s6 // 128), dtype=torch.bool,
                           device=dev)
         sel.scatter_(-1, idx.long(), True)
         mask = sel[:, :, :, tile_of].repeat_interleave(128, dim=2)
@@ -3621,29 +3669,35 @@ def time_zoo_kernels(args, dev, timer, rehearse):
         # 2 x bq x bk x (dh + dv) operations a selected tile pair (q.k and
         # p.v); bytes: q, k, v, positions, indices and the output, once
         elem = 2 if dtype == torch.bfloat16 else 4
-        ops = 2.0 * hq * (s6 // 128) * n6 * 128 * 128 * (dh + dv)
-        byts = elem * (hq * s6 * (dh + dv) + hkv * s6 * (dh + dv)) \
-            + 4 * (hkv * s6 + s6 + hkv * (s6 // 128) * n6)
+        ops = 2.0 * b * hq * (s6 // 128) * n6 * 128 * 128 * (dh + dv)
+        byts = elem * b * (hq * s6 * (dh + dv) + hkv * s6 * (dh + dv)) \
+            + 4 * (b * hkv * s6 + s6 + b * hkv * (s6 // 128) * n6)
         rate = BF16_FLOP_PER_S if elem == 2 else FP32_FLOP_PER_S
         t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
         bound, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-        say(f"  B6 {what} layer: q (1, {hq}, {s6}, {dh}), k (1, {hkv}, "
+        say(f"  B6 {what} layer: q ({b}, {hq}, {s6}, {dh}), k ({b}, {hkv}, "
             f"{s6}, {dh}), v (..., {dv}) {dtype}, {n6} tiles of 128: kernel "
             f"{ms:.3f} ms  plain {plain_ms:.3f} ms  SDPA (boolean mask) "
             f"{lib_ms:.3f} ms  bound {bound:.3f} ms ({by}: "
             f"{ops / 1e9:.1f} GFLOP); err {err:.2e} (scale {scale:.2f})")
-        b6.append({"config": what, "dtype": str(dtype), "hq": hq,
+        b6.append({"config": what, "dtype": str(dtype), "B": b, "hq": hq,
                    "hkv": hkv, "dh": dh, "dv": dv, "S": s6, "n_sel": n6,
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
                    "gflop": ops / 1e9})
         del q, k, v, kpos, qpos, idx
     b5 = []
-    s5, n5 = (1024, 4) if rehearse else (8192, 16)
+    n5 = 4 if rehearse else 16
     dtype = torch.float32 if rehearse else torch.bfloat16
-    for what, g in (("llava-next-34b", 7), ("mistral-large-123b", 12)):
-        q, k, v, pos, cent = decode_inputs(gen, 1, 8, g, s5, 128, 128, dtype,
-                                           dev, holes=0.0)
+    for what, b, hkv, g, s5 in (
+            ("llava-next-34b", 1, 8, 7, 8192),
+            ("mistral-large-123b", 1, 8, 12, 8192),
+            # zamba2-1.2b's shared block in phase 17's decode (g = 1)
+            ("zamba2-1.2b", 4, 32, 1, ZAMBA_PROMPT + ZAMBA_GEN)):
+        if rehearse:
+            s5 = 1024
+        q, k, v, pos, cent = decode_inputs(gen, b, hkv, g, s5, 128, 128,
+                                           dtype, dev, holes=0.0)
         qp = torch.tensor([s5 - 1], dtype=torch.int32, device=dev)
         kw = dict(n_sel=n5, bk=128, plan_mode=False, has_self=False,
                   window=128)
@@ -3655,18 +3709,234 @@ def time_zoo_kernels(args, dev, timer, rehearse):
                                  bf16_ulps=0 if rehearse else BF16_ULPS)
         ms, plain_ms = timer(run, it_fast), timer(plain, it_slow)
         device_ms = timer.device_time(run, it_fast)
-        bound, by = decode_bound(1, 8, g, s5, 128, 128, n5,
+        bound, by = decode_bound(b, hkv, g, s5, 128, 128, n5,
                                  4 if rehearse else 2, False)
-        say(f"  B5 {what} decode-step layer: q (1, {8 * g}, 128), k/v (1, "
-            f"8, {s5}, 128) {dtype}, {n5} tiles, plain mode: kernel "
+        say(f"  B5 {what} decode-step layer: q ({b}, {hkv * g}, 128), k/v "
+            f"({b}, {hkv}, {s5}, 128) {dtype}, {n5} tiles, plain mode: kernel "
             f"{ms:.4f} ms a call back to back ({device_ms:.4f} ms device, "
             f"graph replay)  plain {plain_ms:.3f} ms  bound {bound:.4f} ms "
             f"({by}); err {err:.2e} (scale {scale:.2f})")
-        b5.append({"config": what, "g": g, "dh": 128, "S": s5, "n_sel": n5,
+        b5.append({"config": what, "B": b, "hkv": hkv, "g": g, "dh": 128,
+                   "S": s5, "n_sel": n5,
                    "max_abs_err": err, "ms": ms, "device_ms": device_ms,
                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by})
         del q, k, v, pos, cent
     return b6, b5
+
+
+# ---------------------------------------------------------------------------
+# the rest of the model zoo at full width (phase 17)
+# ---------------------------------------------------------------------------
+
+# zamba2-1.2b's run: prompt and prompt + gen are whole 128-tiles, so its
+# prefill launches B6 and every decode step B5 (a cache length off the
+# tiles takes dense decode)
+ZAMBA_PROMPT, ZAMBA_GEN = 3968, 128
+# the three configurations of phase 17, each served through the
+# ``launch.serve`` twin's one-shot loop at full width and depth: (arch,
+# attention backend, batch, prompt, generated tokens). whisper-medium's
+# frames and tokens are both 448, Whisper's decoder context, as the
+# reference's launcher ties them
+ZOO_B = (("falcon-mamba-7b", "flash", 4, 2048, 32),
+         ("zamba2-1.2b", "clusterkv", 4, ZAMBA_PROMPT, ZAMBA_GEN),
+         ("whisper-medium", "flash", 4, 448, 32))
+# layers (full width) of the float32 teacher-forcing checks
+TF_LAYERS = 4
+# the float32 chunked scan against the float64 step recurrence: float32
+# sums over a state that forgets geometrically (decay <= 1) stay within a
+# few float32 spacings of the largest output; a wrong combine, chunk carry
+# or padded position is off by the whole of a term
+SCAN_TOL = 1e-4
+
+
+def zoo_b_teacher_forcing(args, dev, cfg, params, rehearse):
+    """float32, ``TF_LAYERS`` layers at full width (the encoder too for an
+    encdec model), the reference's ``tests/test_models.py`` check on the
+    card: the last logits of ``prefill(S)`` equal ``prefill(S - 1)`` then
+    one ``decode_step`` of the last token (1e-3 x scale). For the SSM LM,
+    S = 600 spans three scan chunks, the last one padded: the chunked scan
+    against the step recurrence. Whisper keeps its 448 frames whole."""
+    from repro_torch.models import model_api
+
+    mod = model_api.module_for(cfg)
+    encdec = cfg.family == "encdec"
+    cut = {"dtype": "float32"}
+    if not rehearse:
+        cut["n_layers"] = TF_LAYERS
+        if encdec:
+            cut["n_enc_layers"] = TF_LAYERS
+    cfg4 = cfg.with_(**cut)
+    s = 32 if rehearse else (448 if encdec else 600)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 172)
+    batch = model_api.make_small_batch(cfg4, gen, 2, s, kind="prefill",
+                                       device=dev)
+    _, full = mod.prefill(params, cfg4, batch, "flash")
+    short = dict(batch, tokens=batch["tokens"][:, :s - 1])
+    cache, _ = mod.prefill(params, cfg4, short, "flash")
+    cache = model_api.grow_cache(cfg4, cache, s)
+    lg, _ = mod.decode_step(params, cfg4, cache, batch["tokens"][:, s - 1:],
+                            "flash")
+    err, scale = check_close(f"{cfg.name} teacher forcing", lg, full,
+                             rel_tol=SERVE_TOL)
+    say(f"  float32 teacher forcing, {cfg4.n_layers} layers at full width, "
+        f"batch 2, S = {s}: prefill(S) vs prefill(S - 1) + one step, "
+        f"max-abs {err:.2e} (scale {scale:.2f}, tolerance {SERVE_TOL:g} x "
+        f"scale)")
+    return {"layers": cfg4.n_layers, "S": s, "max_abs_err": err,
+            "scale": scale, "tolerance": SERVE_TOL}
+
+
+def mamba1_scan_check(args, dev, cfg, params, rehearse):
+    """Layer 0 of the SSM LM at full width on 2048 seeded tokens: the
+    scan's inputs formed as ``mamba1_forward`` forms them (float32), then
+    ``selective_scan`` against the step recurrence in float64 (outputs and
+    final state within ``SCAN_TOL`` x scale)."""
+    import torch.nn.functional as F
+    from repro_torch.models import mamba
+    from repro_torch.models import param as pm
+
+    lp = pm.layer(params["layers"], 0)["mixer"]
+    s = 64 if rehearse else 2048
+    di, dt_rank, n = mamba._dims(cfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 173)
+    x = torch.randn((1, s, cfg.d_model), generator=gen, device=dev)
+    xin = pm.apply_linear(lp["in_proj"], x)[..., :di]
+    xc = F.silu(mamba.conv1d_apply(lp["conv"], xin))
+    proj = pm.apply_linear(lp["x_proj"], xc)
+    dt = F.softplus(pm.apply_linear(lp["dt_proj"], proj[..., :dt_rank]))
+    bc, cc = proj[..., dt_rank:dt_rank + n], proj[..., dt_rank + n:]
+    a_mat = -torch.exp(lp["A_log"]).float()
+    y, h = mamba.selective_scan(xc, dt, a_mat, bc, cc, cfg.ssm.chunk)
+    xc64, dt64, a64, bc64, cc64 = (t.double() for t in (xc, dt, a_mat, bc,
+                                                         cc))
+    h64 = torch.zeros((1, di, n), dtype=torch.float64, device=dev)
+    y64 = torch.empty((1, s, di), dtype=torch.float64, device=dev)
+    for t in range(s):
+        h64 = torch.exp(dt64[:, t, :, None] * a64) * h64 \
+            + dt64[:, t, :, None] * bc64[:, t, None, :] * xc64[:, t, :, None]
+        y64[:, t] = torch.einsum("bdn,bn->bd", h64, cc64[:, t])
+    err_y, scale_y = check_close(f"{cfg.name} selective_scan y", y.double(),
+                                 y64, rel_tol=SCAN_TOL)
+    err_h, scale_h = check_close(f"{cfg.name} selective_scan state",
+                                 h.double(), h64, rel_tol=SCAN_TOL)
+    say(f"  selective_scan, layer 0, d_inner {di}, d_state {n}, S {s}, "
+        f"chunk {cfg.ssm.chunk}: against the float64 recurrence y max-abs "
+        f"{err_y:.2e} (scale {scale_y:.2f}), final state {err_h:.2e} "
+        f"(scale {scale_h:.2f}), tolerance {SCAN_TOL:g} x scale")
+    return {"S": s, "d_inner": di, "d_state": n, "y_max_abs_err": err_y,
+            "y_scale": scale_y, "h_max_abs_err": err_h, "h_scale": scale_h,
+            "tolerance": SCAN_TOL}
+
+
+def phase_zoo_b(args, dev, sync, rehearse, reset_counts, collect_counts,
+                card: str):
+    """Phase 17: falcon-mamba-7b, zamba2-1.2b and whisper-medium at full
+    width and depth, each served through ``launch.serve.generate`` (one
+    prefill, the cache grown, greedy decode steps) and freed before the
+    next; then each family's float32 check. Each run's times are printed
+    beside ``card``, the card's name and power limit."""
+    from repro_torch.launch import serve
+    from repro_torch.models import hybrid, model_api
+    from repro_torch.models import param as pm
+
+    t_phase = time.perf_counter()
+    say("== phase 17: the rest of the model zoo (ssm, hybrid, encdec) at "
+        "full width through launch.serve.generate")
+    out = {}
+    for arch, backend, b, plen, n_gen in ZOO_B:
+        cfg, cuts = zoo_config(arch, None, rehearse)
+        if rehearse:
+            b, n_gen = 2, (32 if cfg.family == "hybrid" else 4)
+            plen = {"ssm": 40, "hybrid": 96, "encdec": 32}[cfg.family]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        gen_w = torch.Generator(device=dev).manual_seed(args.seed)
+        t0 = time.perf_counter()
+        params = model_api.init(cfg, gen_w, device=dev)
+        sync()
+        init_s = time.perf_counter() - t0
+        nbytes = tree_bytes(params)
+        n_params = sum(t.numel() for t in pm.tree_leaves(params))
+        if cfg.family == "ssm":
+            shape = (f"{cfg.n_layers} mamba1 layers, d_model {cfg.d_model}, "
+                     f"d_inner {cfg.ssm.expand * cfg.d_model}, d_state "
+                     f"{cfg.ssm.d_state}")
+        elif cfg.family == "hybrid":
+            groups = hybrid._n_groups(cfg)
+            shape = (f"{groups * cfg.shared_attn_every} mamba2 layers "
+                     f"({groups} groups of {cfg.shared_attn_every}; the "
+                     f"config's n_layers {cfg.n_layers}), d_model "
+                     f"{cfg.d_model}, a shared block of {cfg.n_heads}/"
+                     f"{cfg.n_heads} heads of {2 * cfg.d_model // cfg.n_heads}"
+                     f", ClusterKV on")
+        else:
+            shape = (f"{cfg.n_enc_layers} encoder + {cfg.n_layers} decoder "
+                     f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+                     f"{cfg.head_dim}")
+        say(f" -- {cfg.name} [{cfg.family}]: {shape}, vocab {cfg.vocab}; "
+            f"{n_params / 1e9:.3f} B parameters, {cfg.param_dtype} weights "
+            f"{nbytes / 1e9:.2f} GB from seed {args.seed} in {init_s:.2f} s; "
+            + (f"cut: {'; '.join(cuts)}" if rehearse else "nothing cut"))
+        batch = model_api.make_small_batch(cfg, gen_w, b, plen,
+                                           kind="prefill", device=dev)
+        sync()
+        reset_counts()
+        timings = {}
+        t0 = time.perf_counter()
+        toks = serve.generate(cfg, params, batch, n_gen, backend,
+                              timings=timings)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = collect_counts(f"{cfg.name} generate")
+        if tuple(toks.shape) != (b, n_gen) or int(toks.min()) < 0 or \
+                int(toks.max()) >= cfg.vocab:
+            raise AssertionError(f"{cfg.name}: generated tokens of shape "
+                                 f"{tuple(toks.shape)} out of the vocab")
+        groups = hybrid._n_groups(cfg) if cfg.family == "hybrid" else 0
+        want6, want5 = groups, groups * (n_gen - 1)
+        if not rehearse and (
+                launches["block_attention"] != want6
+                or launches["decode_attend_fused.plain_mode"] != want5
+                or launches["decode_attend_fused"] != want5):
+            raise AssertionError(f"{cfg.name}: one prefill and {n_gen - 1} "
+                                 f"steps launched {launches}")
+        prefill_ms = timings["prefill_s"] * 1e3
+        step_ms = [t * 1e3 for t in timings["step_s"]]
+        decode_s = sum(timings["step_s"])
+        say(f"  batch {b}, prompt {plen}, {n_gen} tokens, backend "
+            f"{backend}: prefill {prefill_ms:.1f} ms; decode step median "
+            f"{float(np.median(step_ms)):.2f} ms ({min(step_ms):.2f}-"
+            f"{max(step_ms):.2f}); {b * n_gen / wall:.1f} tokens/s over the "
+            f"run, {b * (n_gen - 1) / decode_s:.1f} decode tokens/s; B6 "
+            f"{launches['block_attention']}, B5 "
+            f"{launches['decode_attend_fused']} launches; {card}")
+        row = {"family": cfg.family, "backend": backend, "batch": b,
+               "prompt": plen, "gen": n_gen, "params": n_params,
+               "weight_bytes": nbytes, "init_s": init_s,
+               "prefill_ms": prefill_ms, "step_ms": step_ms,
+               "step_ms_median": float(np.median(step_ms)),
+               "tokens_per_s": b * n_gen / wall,
+               "decode_tokens_per_s": b * (n_gen - 1) / decode_s,
+               "launches": launches}
+        if cfg.family == "hybrid":
+            row["float32_check"] = zoo_flash_check(args, dev, sync, cfg,
+                                                   params, rehearse)
+        else:
+            row["teacher_forcing"] = zoo_b_teacher_forcing(
+                args, dev, cfg, params, rehearse)
+        if cfg.family == "ssm":
+            row["scan_check"] = mamba1_scan_check(args, dev, cfg, params,
+                                                  rehearse)
+        collect_counts(f"{cfg.name} float32 checks")
+        out[arch] = row
+        del params, batch, toks
+        sync()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"  phase 17 wall time: {out['wall_s']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -4240,6 +4510,12 @@ def main() -> int:
     zoo = phase_zoo(args, dev, sync, rehearse, reset_counts, collect_counts)
     zoo["launches"] = {name: main_launches[name] - before[name]
                        for name in main_launches}
+    # --------------------------------------------------------------- 17 ---
+    before = dict(main_launches)
+    zoo_b = phase_zoo_b(args, dev, sync, rehearse, reset_counts,
+                        collect_counts, smi_line)
+    zoo_b["launches"] = {name: main_launches[name] - before[name]
+                         for name in main_launches}
     say("== B6 and B5 at each zoo configuration's heads and dims")
     zoo_checked = check_zoo_shapes(args, dev, rehearse)
     say("== B6 and B5 at the zoo's new shapes, timed")
@@ -4253,6 +4529,7 @@ def main() -> int:
         if e["name"] in ("decode_attend_fused", "block_attention"):
             e["launches_service"] = service["launches"][e["name"]]
             e["launches_zoo"] = zoo["launches"][e["name"]]
+            e["launches_zoo_b"] = zoo_b["launches"][e["name"]]
         if e["name"] in ("decode_attend_fused", "block_attention"):
             e["zoo_shapes_checked"] = [r for r in zoo_checked
                                        if r["kernel"] == e["name"]]
@@ -4286,7 +4563,7 @@ def main() -> int:
                           "plan_batch": plan_batch, "serve": serve,
                           "service": service, "stream": stream,
                           "solvers": solvers, "persist": persist,
-                          "shard": shard, "zoo": zoo})
+                          "shard": shard, "zoo": zoo, "zoo_b": zoo_b})
     kernels = json.dumps({"kernels": entries})
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
     if rehearse:

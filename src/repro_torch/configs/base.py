@@ -14,9 +14,8 @@ the reference) with two fields renamed for the port:
   tensor) or ``"auto"`` (``"cuda"`` on a CUDA tensor and ``"plain"`` on
   the CPU).
 
-``convert.config_from_reference`` carries both across as ``"auto"``. Only
-the architectures whose family is ported are known to :func:`get_config`;
-any other id raises with its ROADMAP item.
+``convert.config_from_reference`` carries both across as ``"auto"``. The
+registry (``ARCH_IDS``, :func:`all_cells`) is the reference's.
 """
 from __future__ import annotations
 
@@ -124,30 +123,23 @@ class ModelConfig:
         return replace(self, **kw)
 
 
-# ported architectures -> config module (the reference's order); every
-# other id of the reference waits for its ROADMAP item
 ARCH_IDS = [
     "llava-next-34b",
     "qwen2-0.5b",
     "minicpm3-4b",
     "h2o-danube-3-4b",
     "mistral-large-123b",
+    "falcon-mamba-7b",
+    "whisper-medium",
     "llama4-maverick-400b-a17b",
     "granite-moe-3b-a800m",
+    "zamba2-1.2b",
 ]
 _MOD_FOR: Dict[str, str] = {a: a.replace("-", "_").replace(".", "_")
                             for a in ARCH_IDS}
-_NOT_PORTED: Dict[str, str] = {
-    "falcon-mamba-7b": "A13b", "whisper-medium": "A13b",
-    "zamba2-1.2b": "A13b",
-}
 
 
 def _module(arch_id: str):
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"config {arch_id!r} is not ported to repro_torch yet (port "
-            f"queue item {_NOT_PORTED[arch_id]} in ROADMAP.md)")
     if arch_id not in _MOD_FOR:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MOD_FOR[arch_id]}")

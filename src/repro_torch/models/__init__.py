@@ -1,2 +1,4 @@
-"""Models of the port: the dense decoder-only LM and its attention
-backends (the reference's other families wait for ROADMAP A13)."""
+"""Models of the port: every family of the reference (the decoder-only
+transformer with its MoE and MLA variants, the mamba SSM LM, the Zamba2
+hybrid and the Whisper-style encoder-decoder) and their attention
+backends."""

@@ -1,10 +1,10 @@
-"""Model API: family dispatch for the ported families.
+"""Model API: family dispatch for every family of the reference.
 
 A family module exposes ``init_lm(cfg, gen, device, dtype)``, ``forward``,
-``init_cache(cfg, batch, max_seq)``, ``prefill`` and ``decode_step``. The
-decoder-only families (``dense``, ``vlm``, ``moe``: ``models.transformer``)
-are ported; ``ssm``, ``hybrid`` and ``encdec`` raise with their ROADMAP
-item. The reference's ``input_specs``, ``param_specs`` and
+``init_cache(cfg, batch, max_seq)``, ``prefill`` and ``decode_step``: the
+decoder-only families (``dense``, ``vlm``, ``moe``: ``models.transformer``),
+``ssm`` (``models.ssm_lm``), ``hybrid`` (``models.hybrid``) and ``encdec``
+(``models.encdec``). The reference's ``input_specs``, ``param_specs`` and
 ``cache_shapes`` return PartitionSpecs for the trainer's layouts and wait
 for ROADMAP A14.
 """
@@ -17,17 +17,13 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import param as pm
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 
-_FAMILY = {"dense": transformer, "vlm": transformer, "moe": transformer}
-_NOT_PORTED = {"ssm": "A13b", "hybrid": "A13b", "encdec": "A13b"}
+_FAMILY = {"dense": transformer, "vlm": transformer, "moe": transformer,
+           "ssm": ssm_lm, "hybrid": hybrid, "encdec": encdec}
 
 
 def module_for(cfg: ModelConfig):
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported to repro_torch yet "
-            f"(port queue item {_NOT_PORTED[cfg.family]} in ROADMAP.md)")
     return _FAMILY[cfg.family]
 
 
@@ -49,16 +45,16 @@ def make_small_batch(cfg: ModelConfig, gen: torch.Generator, batch: int = 2,
                      seq: int = 64, kind: str = "train",
                      device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Concrete small batch for smoke tests, drawn from ``gen`` on
-    ``device``: token ids, or bf16 embeddings for a vlm model, and labels
-    for ``kind="train"``."""
+    ``device``: token ids, bf16 embeddings for a vlm model, bf16 frame
+    embeddings and token ids for an encdec model, and labels for
+    ``kind="train"``."""
     dev = resolve_device(device)
-    module_for(cfg)                   # ssm, hybrid, encdec raise (A13b)
     out: Dict[str, torch.Tensor] = {}
-    if cfg.family == "vlm":
-        out["embeddings"] = torch.randn(
-            (batch, seq, cfg.d_model), generator=gen,
-            device=dev).to(torch.bfloat16)
-    else:
+    if cfg.family in ("vlm", "encdec"):
+        key = "embeddings" if cfg.family == "vlm" else "frames"
+        out[key] = torch.randn((batch, seq, cfg.d_model), generator=gen,
+                               device=dev).to(torch.bfloat16)
+    if cfg.family != "vlm":
         out["tokens"] = torch.randint(0, cfg.vocab, (batch, seq),
                                       generator=gen, device=dev)
     if kind == "train":
@@ -84,14 +80,16 @@ def cache_seq_axes(cfg: ModelConfig, batch: int = 1, seq: int = 8
                    ) -> Dict[str, int]:
     """Which axis of each cache entry is the sequence axis, read off the
     family's own ``init_cache`` at two lengths (on the ``meta`` device: no
-    memory is allocated). Entries that do not scale with seq are absent."""
+    memory is allocated). Entries that do not scale with seq, and entries
+    that are not tensors (the hybrid's nested ``"ssm"`` state), are
+    absent."""
     mod = module_for(cfg)
     small = mod.init_cache(cfg, batch, seq, device="meta")
     large = mod.init_cache(cfg, batch, 2 * seq, device="meta")
     axes: Dict[str, int] = {}
     for key, sa in small.items():
         sb = large[key]
-        if sa.shape == sb.shape:
+        if not isinstance(sa, torch.Tensor) or sa.shape == sb.shape:
             continue
         diff = [i for i, (x, y) in enumerate(zip(sa.shape, sb.shape))
                 if x != y]
@@ -105,7 +103,9 @@ def cache_seq_axes(cfg: ModelConfig, batch: int = 1, seq: int = 8
 def grow_cache(cfg: ModelConfig, cache: Dict[str, Any], new_seq: int,
                axes: Dict[str, int] = None) -> Dict[str, Any]:
     """Zero-pad a (prefilled) cache out to ``new_seq`` along each entry's
-    sequence axis."""
+    sequence axis; every other entry (the hybrid's ``"ssm"`` dict among
+    them) is passed on as it is. An encdec model's cross caches ``xk``/
+    ``xv`` scale with the cache length, so they are padded too (C38)."""
     axes = cache_seq_axes(cfg) if axes is None else axes
     out = dict(cache)
     for key, ax in axes.items():

@@ -31,10 +31,13 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 @dataclass(frozen=True)
 class Init:
     """A parameter leaf not allocated yet: its shape, and either ``scale``
-    (standard normal draws times ``scale``) or the constant ``fill``."""
+    (standard normal draws times ``scale``), the constant ``fill``, or
+    ``values``: float32 constants along the last axis, the same for every
+    index of the leading axes (no draw)."""
     shape: tuple
     scale: Optional[float] = None
     fill: float = 0.0
+    values: Optional[tuple] = None
 
 
 def normal(shape: tuple, scale: float) -> Init:
@@ -48,6 +51,12 @@ def linear(d_in: int, d_out: int, *, bias: bool = False,
     if bias:
         p["b"] = Init((d_out,))
     return p
+
+
+def constant(shape: tuple, values) -> Init:
+    """A leaf of ``shape`` holding ``values`` (float32 constants, one per
+    index of the last axis) at every index of the leading axes."""
+    return Init(tuple(shape), values=tuple(float(v) for v in values))
 
 
 def embedding(vocab: int, d: int) -> dict:
@@ -74,6 +83,9 @@ def materialize(tree, gen: torch.Generator, device: torch.device,
         out = torch.empty(s.shape, dtype=dtype, device=device)
         if out.device.type == "meta":
             return out
+        if s.values is not None:
+            return out.copy_(torch.tensor(s.values, dtype=torch.float32)
+                             .expand(s.shape))
         if s.scale is None:
             return out.fill_(s.fill)
         flat = out.view(-1)
@@ -107,6 +119,11 @@ def apply_swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = (torch.nn.functional.silu(apply_linear(p["wg"], x))
          * apply_linear(p["wu"], x))
     return apply_linear(p["wd"], h)
+
+
+def apply_embedding(p: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """Token ids -> rows of the embedding table in the compute dtype."""
+    return p["embed"]["table"][tokens.long()].to(DTYPES[cfg.dtype])
 
 
 def apply_lm_head(p: dict, cfg, h_last: torch.Tensor) -> torch.Tensor:

@@ -619,6 +619,67 @@ def test_cuda_zoo_prefill_through_the_wide_kernels(cuda_device, kind):
 
 
 @pytest.mark.requires_cuda
+def test_cuda_hybrid_generates_through_b6_and_b5(cuda_device):
+    """A small Zamba2-style hybrid (2 groups, a shared block of 4 heads of
+    128, g = 1) served by ``launch.serve.generate`` on the card with
+    ClusterKV: B6 once a group a prefill, B5 once a group a step; in
+    float32 at budgets covering every tile its tokens are the flash
+    path's."""
+    from repro_torch.configs import ClusterKVConfig, ModelConfig, SSMConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import model_api
+    cfg = ModelConfig(name="hybrid", family="hybrid", n_layers=4,
+                      d_model=256, n_heads=4, n_kv_heads=4, d_ff=512,
+                      vocab=512, dtype="float32", shared_attn_every=2,
+                      ssm=SSMConfig(version=2, d_state=16, head_dim=32,
+                                    chunk=64),
+                      clusterkv=ClusterKVConfig(enabled=True,
+                                                blocks_per_query=5,
+                                                decode_clusters=5))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = model_api.init(cfg, gen, device=cuda_device)
+    batch = model_api.make_small_batch(cfg, gen, 2, 512, kind="prefill",
+                                       device=cuda_device)
+    n6, n5 = t_ba.block_attention.launches, t_da.decode_attend_fused.launches
+    got = serve.generate(cfg, params, batch, 128, "clusterkv")
+    torch.cuda.synchronize()
+    assert t_ba.block_attention.launches == n6 + 2
+    assert t_da.decode_attend_fused.launches == n5 + 2 * 127
+    want = serve.generate(cfg, params, batch, 128, "flash")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_mamba_scans_match_the_cpu(cuda_device):
+    """``selective_scan`` and ``ssd`` on card tensors give the CPU's
+    results (float32, another order of sums: 1e-5 x max|y|)."""
+    from repro_torch.models import mamba
+    g = torch.Generator().manual_seed(4)
+    b, s, di, n = 2, 300, 64, 16
+    args = (torch.randn((b, s, di), generator=g),
+            0.1 + torch.rand((b, s, di), generator=g),
+            -torch.exp(torch.randn((di, n), generator=g)),
+            torch.randn((b, s, n), generator=g),
+            torch.randn((b, s, n), generator=g))
+    want = mamba.selective_scan(*args, 128)
+    got = mamba.selective_scan(*(a.to(cuda_device) for a in args), 128)
+    for x, y in zip(got, want):
+        assert_close(x.cpu(), y, rtol=1e-5,
+                     atol=1e-5 * float(y.abs().max()))
+    h = 4
+    args = (torch.randn((b, s, h, 8), generator=g),
+            0.1 + torch.rand((b, s, h), generator=g),
+            -torch.exp(torch.randn(h, generator=g)),
+            torch.randn((b, s, n), generator=g),
+            torch.randn((b, s, n), generator=g))
+    want = mamba.ssd(*args, 128)
+    got = mamba.ssd(*(a.to(cuda_device) for a in args), 128)
+    for x, y in zip(got, want):
+        assert_close(x.cpu(), y, rtol=1e-5,
+                     atol=1e-5 * float(y.abs().max()))
+
+
+@pytest.mark.requires_cuda
 def test_cuda_block_attention_skips_tile_ids_outside_the_cache(cuda_device):
     q, k, v, kpos, qpos, idx = _attention_inputs(3, 1, 4, 2, 512, 64, 128, 3,
                                                  cuda_device, torch.float32)

@@ -78,7 +78,11 @@ def test_port_has_the_expected_modules():
                  "configs/h2o_danube_3_4b.py", "configs/minicpm3_4b.py",
                  "configs/llava_next_34b.py",
                  "configs/mistral_large_123b.py",
-                 "configs/llama4_maverick_400b_a17b.py"):
+                 "configs/llama4_maverick_400b_a17b.py",
+                 "models/mamba.py", "models/ssm_lm.py", "models/hybrid.py",
+                 "models/encdec.py", "launch/serve.py",
+                 "configs/falcon_mamba_7b.py", "configs/zamba2_1_2b.py",
+                 "configs/whisper_medium.py"):
         assert must in names, must
     cu = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert cu == {"bsr_spmv.cu", "gamma_pairs.cu", "tsne_force.cu",

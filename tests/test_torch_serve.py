@@ -30,6 +30,7 @@ from repro_torch import convert as t_convert
 from repro_torch.configs import base as t_base
 from repro_torch.models import model_api as t_api
 from repro_torch.models import transformer as t_tf
+from repro_torch.serve import ClusterKVEngine
 from repro_torch.train.serve_loop import Engine as TEngine
 from repro_torch.train.serve_loop import Request as TRequest
 
@@ -104,15 +105,23 @@ def test_config_from_reference_maps_the_renamed_fields():
 
 
 def test_unported_architectures_and_families_raise():
-    with pytest.raises(NotImplementedError, match="A13b"):
-        t_base.get_config("falcon-mamba-7b")
+    """An unknown arch raises; the engines refuse the ssm, hybrid and
+    encdec families (their decode takes a scalar position), as the
+    reference's ``Engine`` does: they are served by ``launch.serve``."""
     with pytest.raises(KeyError, match="unknown arch"):
         t_base.get_config("gpt-17")
     cfg = t_base.reduced_config("qwen2-0.5b")
-    with pytest.raises(NotImplementedError, match="A13b"):
-        t_api.module_for(cfg.with_(family="ssm"))
-    with pytest.raises(NotImplementedError, match="A13b"):
-        t_api.cache_seq_axes(cfg.with_(family="hybrid"))
+    for arch in ("falcon-mamba-7b", "zamba2-1.2b", "whisper-medium"):
+        acfg = t_base.reduced_config(arch)
+        params = t_api.init(acfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+        with pytest.raises(NotImplementedError, match="decoder-only"):
+            REngine(r_reduced(arch), None, slots=1, max_seq=64)
+        with pytest.raises(NotImplementedError, match="decoder-only"):
+            TEngine(acfg, params, slots=1, max_seq=64, device="cpu")
+        with pytest.raises(NotImplementedError, match="decoder-only"):
+            ClusterKVEngine(acfg, params, slots=1, max_seq=64,
+                            mode="percall", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             t_api.init(cfg, torch.Generator())   # device None means "cuda"
