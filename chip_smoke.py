@@ -12,7 +12,9 @@ descriptors made from a seed, then the paper's two iterative applications
 seed) served with ClusterKV attention, six decoder-only models of the
 zoo at full width (phase 16), and the SSM LM, the hybrid and the
 encoder-decoder of the zoo at full width and depth through the serving
-launcher (phase 17). Phases, each of which fails the run when it fails:
+launcher (phase 17), and Qwen2-0.5B trained at full width and depth on
+the card, then served from its trained weights (phase 18). Phases, each of
+which fails the run when it fails:
 
 1. environment: versions, the card, the kernel build with its wall time,
    and the registers and spills ``-Xptxas -v`` reports for every B6
@@ -220,12 +222,35 @@ device time without the host's, which is the larger part of a call.
    versions at each ClusterKV config's heads and dims (zamba2's too) and
    timed at the zoo's new shapes (zamba2's among them).
 
+18. single-card training. Qwen2-0.5B at full width and depth (24 layers,
+   d 896, vocab 151 936, tied), float32 masters from the seed, bf16
+   compute, remat on, ``loss_chunk`` 8192, ``make_optimizer(cfg.optimizer)``
+   with the launcher's schedule for 6 steps, trained by
+   ``train.trainer.make_train_step`` for 6 steps on one fixed batch of 16 x
+   4096 tokens (train_4k's length; its global batch 256 cut to 16 for the
+   run's time limit) in 2 microbatches of 8: loss per step, step ms (the
+   median of steps 2-6), tokens/s, peak memory, and the analytic model's
+   FLOPs a step with their share of 989 TFLOP/s. Training launches no
+   kernel (flash attention); the trained weights are then served through
+   ``make_prefill_step``/``make_decode_step`` with ClusterKV (one
+   4096-token prompt, 8 scalar steps: B6 24 times, B5 24 times a step).
+   Checks: finite metrics, the fixed batch's loss lowered; float32 at 2
+   layers of full width, ``microbatch=2`` against 1 and ``compress_grads``
+   against exact within the reference's bounds; the mamba1 scan's gradient
+   at full width (d_inner 8192, d_state 16, S 512) against float64
+   autograd of the step recurrence (1e-4 x scale); one step each of
+   falcon-mamba-7b (2 layers), zamba2-1.2b (one group of 6),
+   whisper-medium (2 + 2 layers), granite-moe-3b-a800m (2 layers, aux
+   loss), minicpm3-4b (2 layers, MLA) and mistral-large-123b (1 layer, bf16
+   masters, Adafactor) at full width, finite, ms printed; and a ClusterKV
+   train step on the card raising C40's error at B6.
+
 Launch counters are set to 0 just before each path (phases 3-4, 6, 7, 9,
-10, 11, 12, 13, 14, 15, 16, 17) and read just after it; launches made to
+10, 11, 12, 13, 14, 15, 16, 17, 18) and read just after it; launches made to
 compare or time a kernel are not counted. Every kernel must have been
 launched by a path: B6 by the prefills and the service's plan prefills,
 B5 by the ticks of both engines (plan mode) and the scalar steps (plain
-mode), B1
+mode; phase 18 serves its trained weights through both), B1
 once per 48-member ``PlanBatch.matvec``, by every streamed plan's and
 every double-buffered ``matvec`` (phase 11) and by every solver iteration
 (phase 13) and by the autotune's probes and the restored plan and batch
@@ -3939,6 +3964,395 @@ def phase_zoo_b(args, dev, sync, rehearse, reset_counts, collect_counts,
     return out
 
 
+# ---------------------------------------------------------------------------
+# single-card training (phase 18)
+# ---------------------------------------------------------------------------
+
+# the headline run: Qwen2-0.5B at full width and depth, train_4k's sequence
+# length, the global batch of 256 cut to 16 (2 microbatches of 8) for the
+# run's time limit, 6 AdamW steps on one fixed batch
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_MICRO, TRAIN_SEQ = 6, 16, 2, 4096
+# the trained weights served: one prompt of train_4k's length, the cache
+# grown by one 128-tile so every step attends through B5, 8 scalar steps
+TRAIN_SERVE_GEN = 8
+# the reference's bounds (tests/test_optim_trainer.py): microbatch
+# accumulation against the full batch (loss rel 1e-4, params max-abs
+# 5e-3) and bf16-compressed accumulation against exact (rel 0.05)
+MICRO_LOSS_RTOL, MICRO_PARAM_ATOL, COMPRESS_RTOL = 1e-4, 5e-3, 0.05
+# the float32 scan's gradients against float64 autograd of the step
+# recurrence (as SCAN_TOL for its values)
+SCAN_GRAD_TOL = 1e-4
+# one step each of the rest of the families at full width and cut depth:
+# (arch, {field: cut})
+TRAIN_FAMILIES = (("falcon-mamba-7b", {"n_layers": 2}),
+                  ("zamba2-1.2b", {"n_layers": 6}),
+                  ("whisper-medium", {"n_layers": 2, "n_enc_layers": 2}),
+                  ("granite-moe-3b-a800m", {"n_layers": 2}),
+                  ("minicpm3-4b", {"n_layers": 2}),
+                  ("mistral-large-123b", {"n_layers": 1}))
+FAMILY_BATCH, FAMILY_SEQ = 2, 1024
+
+
+def timed_steps(step, params, state, batch, n, sync):
+    """``n`` train steps on ``batch``: (losses, grad norms, ms each on the
+    host clock to the step's metrics read, which waits for the card)."""
+    losses, norms, ms = [], [], []
+    for _ in range(n):
+        sync()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, norms, ms
+
+
+def train_qwen(args, dev, sync, rehearse, reset_counts, collect_counts,
+               card):
+    """The headline: Qwen2-0.5B trained, then served from its weights."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import pipeline
+    from repro_torch.launch import analytic
+    from repro_torch.models import model_api
+    from repro_torch.models import param as pm
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import trainer
+
+    if rehearse:
+        cfg = reduced_config("qwen2-0.5b").with_(remat=True, loss_chunk=64)
+        b, s = 4, 64
+    else:
+        cfg = get_config("qwen2-0.5b")
+        b, s = TRAIN_BATCH, TRAIN_SEQ
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = model_api.init(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed), device=dev)
+    # the launcher's schedule for a run of TRAIN_STEPS steps
+    opt = make_optimizer(cfg.optimizer, warmup=max(TRAIN_STEPS // 20, 1),
+                         total=TRAIN_STEPS)
+    step, _ = trainer.make_train_step(cfg, None, "flash",
+                                      microbatch=TRAIN_MICRO, optimizer=opt)
+    state = opt.init(params)
+    batch = pipeline.to_device(pipeline.token_batch(cfg, 0, b, s, args.seed),
+                               dev)
+    say(f" -- {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}, tied head; {pm.count_params(params) / 1e6:.1f} M "
+        f"{cfg.param_dtype} masters from seed {args.seed}, {cfg.dtype} "
+        f"compute, remat {cfg.remat} ({cfg.remat_policy}), loss_chunk "
+        f"{cfg.loss_chunk}, {cfg.optimizer}; batch {b} x {s} in "
+        f"{TRAIN_MICRO} microbatches, one fixed batch; cut: global batch "
+        f"256 -> {b}")
+    sync()
+    reset_counts()
+    losses, norms, ms = timed_steps(step, params, state, batch, TRAIN_STEPS,
+                                    sync)
+    launches = collect_counts(f"{cfg.name} training")
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    for i, (l, g, t) in enumerate(zip(losses, norms, ms)):
+        say(f"  step {i + 1}: loss {l:.6f}  grad norm {g:.4f}  {t:.1f} ms")
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"non-finite training metrics: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{TRAIN_STEPS - 1} steps on one batch did not "
+                             f"lower its loss: {losses}")
+    if any(launches[k] for k in launches):
+        raise AssertionError(f"training launched kernels: {launches}")
+    step_ms = float(np.median(ms[1:]))
+    tokens = b * s
+    # the analytic model's step at train_4k (global batch 256), scaled to
+    # this batch (every term is linear in the batch)
+    cm = analytic.cell_model("qwen2-0.5b", "train_4k")
+    flops = cm.flops * b / analytic.SHAPES["train_4k"][1]
+    model_flops = cm.model_flops * b / analytic.SHAPES["train_4k"][1]
+    share = flops / (step_ms * 1e-3 * BF16_FLOP_PER_S)
+    say(f"  step ms (median of steps 2-{TRAIN_STEPS}) {step_ms:.1f}; "
+        f"{tokens / (step_ms * 1e-3):.0f} tokens/s; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; analytic model {flops:.3e} FLOPs a step "
+        f"(model FLOPs {model_flops:.3e}), {100 * share:.2f} % of "
+        f"{BF16_FLOP_PER_S / 1e12:g} TFLOP/s bf16; {card}")
+    out = {"arch": cfg.name, "batch": b, "seq": s, "microbatch": TRAIN_MICRO,
+           "losses": losses, "grad_norms": norms, "step_ms": ms,
+           "step_ms_median": step_ms, "tokens_per_s": tokens / (step_ms
+                                                                * 1e-3),
+           "peak_bytes": peak, "analytic_flops": flops,
+           "analytic_model_flops": model_flops, "bf16_peak_share": share,
+           "launches_training": launches,
+           "cuts": [f"global batch 256 -> {b}"]}
+
+    # serve the trained weights: B6 once a layer in the prefill, B5 once a
+    # layer a step
+    prompt = {"tokens": batch["tokens"][:1]}
+    pre = trainer.make_prefill_step(cfg, backend="clusterkv")
+    dec = trainer.make_decode_step(cfg, backend="clusterkv")
+    bk = cfg.clusterkv.block_k if not rehearse else 16
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cache, logits = pre(params, prompt)
+        cache = model_api.grow_cache(cfg, cache, s + max(bk, TRAIN_SERVE_GEN))
+        toks = [logits.argmax(-1)]
+        for _ in range(TRAIN_SERVE_GEN):
+            logits, cache = dec(params, cache, {"tokens": toks[-1][:, None]})
+            toks.append(logits.argmax(-1))
+    sync()
+    serve_s = time.perf_counter() - t0
+    served = collect_counts(f"{cfg.name} serving its trained weights")
+    toks = torch.stack(toks, 1)
+    if not torch.isfinite(logits).all() or int(toks.min()) < 0 or \
+            int(toks.max()) >= cfg.vocab:
+        raise AssertionError("the trained weights served non-finite logits "
+                             "or tokens outside the vocab")
+    if not rehearse and (
+            served["block_attention"] != cfg.n_layers
+            or served["decode_attend_fused"] != cfg.n_layers
+            * TRAIN_SERVE_GEN):
+        raise AssertionError(f"serving the trained weights launched "
+                             f"{served}")
+    say(f"  served: one {s}-token prompt + {TRAIN_SERVE_GEN} scalar steps "
+        f"through ClusterKV in {serve_s:.2f} s; B6 "
+        f"{served['block_attention']}, B5 {served['decode_attend_fused']} "
+        f"launches")
+    out.update(serve_s=serve_s, launches_serving=served,
+               served_tokens=toks[0].tolist())
+    del params, state, batch, cache, opt, step
+    return out
+
+
+class RecordingOptimizer:
+    """An optimizer that keeps a copy of the gradients it is handed (the
+    accumulated ones of a microbatched step) and then updates as ``opt``."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        from repro_torch.models import param as pm
+        self.grads = pm.tree_map(lambda g: g.detach().clone(), grads)
+        return self.opt.update(grads, state, params)
+
+
+def train_accumulation_checks(args, dev, sync, rehearse):
+    """float32, 2 layers of Qwen2-0.5B at full width, one AdamW step each
+    from the same weights: ``microbatch=2`` against ``microbatch=1`` within
+    the reference's bounds (loss rel 1e-4, parameters max-abs 5e-3), and
+    ``compress_grads`` against exact accumulation within the reference's
+    relative bound (0.05) on the accumulated gradients it perturbs. The
+    reference's form of that bound, on the updated parameters, is printed
+    beside it: a zero-initialised leaf (the q/k/v biases) moves by
+    ``lr x sign(g)`` in AdamW's first step, so a near-zero gradient element
+    whose sign the bf16 rounding flips moves it by 2 lr, the leaf's whole
+    size."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import pipeline
+    from repro_torch.models import model_api
+    from repro_torch.models import param as pm
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import trainer
+
+    cfg = (reduced_config("qwen2-0.5b") if rehearse
+           else get_config("qwen2-0.5b").with_(n_layers=2))
+    cfg = cfg.with_(dtype="float32")
+    params = model_api.init(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed + 181), device=dev)
+    batch = pipeline.to_device(pipeline.token_batch(cfg, 0, 8, 256,
+                                                    args.seed), dev)
+    outs = {}
+    for key, kw in (("full", {}), ("micro", {"microbatch": 2}),
+                    ("comp", {"microbatch": 2, "compress_grads": True})):
+        opt = RecordingOptimizer(make_optimizer("adamw"))
+        step, _ = trainer.make_train_step(cfg, None, "flash", optimizer=opt,
+                                          **kw)
+        p = pm.tree_map(lambda t: t.clone(), params)
+        _, _, m = step(p, opt.init(p), batch)
+        outs[key] = (pm.tree_leaves(p), m, pm.tree_leaves(opt.grads))
+    sync()
+    (p1, m1, _), (p2, m2, g2), (p3, _, g3) = (outs["full"], outs["micro"],
+                                              outs["comp"])
+    loss_rel = abs(float(m1["loss"]) - float(m2["loss"])) / \
+        abs(float(m1["loss"]))
+    p_err = max(float((a - c).abs().max()) for a, c in zip(p1, p2))
+    g_rel = max(float((a - c).abs().max() / (a.abs().max() + 1e-9))
+                for a, c in zip(g2, g3))
+    p_rel = max(float((a - c).abs().max() / (a.abs().max() + 1e-9))
+                for a, c in zip(p2, p3))
+    flips = sum(int((torch.sign(a - p0) != torch.sign(c - p0)).sum())
+                for a, c, p0 in zip(p2, p3, pm.tree_leaves(params)))
+    if not (loss_rel < MICRO_LOSS_RTOL and p_err < MICRO_PARAM_ATOL
+            and g_rel < COMPRESS_RTOL):
+        raise AssertionError(f"accumulation checks: loss rel {loss_rel:.2e}, "
+                             f"params {p_err:.2e}, compressed gradients rel "
+                             f"{g_rel:.2e}")
+    say(f"  float32, {cfg.n_layers} layers at full width, batch 8 x 256: "
+        f"microbatch 2 vs 1 loss rel {loss_rel:.2e} (limit "
+        f"{MICRO_LOSS_RTOL:g}), params max-abs {p_err:.2e} (limit "
+        f"{MICRO_PARAM_ATOL:g}); compress_grads vs exact: accumulated "
+        f"gradients rel {g_rel:.2e} (limit {COMPRESS_RTOL:g}); updated "
+        f"params rel {p_rel:.2e}, {flips} elements moved the other way")
+    return {"layers": cfg.n_layers, "microbatch_loss_rel": loss_rel,
+            "microbatch_param_max_abs": p_err, "compressed_grad_rel": g_rel,
+            "compressed_param_rel": p_rel, "compressed_sign_flips": flips}
+
+
+def scan_gradient_check(args, dev, rehearse):
+    """The mamba1 scan's gradients at falcon-mamba-7b's width (d_inner
+    8192, d_state 16, S 512, batch 1; float32, chunks of 256) against
+    float64 autograd of the step recurrence, for a random linear objective
+    of the outputs and the final state."""
+    from repro_torch.models import mamba
+
+    di, n, s = (64, 16, 64) if rehearse else (8192, 16, 512)
+    chunk = 16 if rehearse else 256
+    g = torch.Generator(device=dev).manual_seed(args.seed + 182)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    xc, bc, cc = rnd(1, s, di), rnd(1, s, n), rnd(1, s, n)
+    dt = torch.nn.functional.softplus(rnd(1, s, di) - 2.0)
+    a_mat = -torch.arange(1, n + 1, dtype=torch.float32,
+                          device=dev).expand(di, n).contiguous()
+    wy, wh = rnd(1, s, di), rnd(1, di, n)
+    ins = [t.clone().requires_grad_() for t in (xc, dt, a_mat, bc, cc)]
+    y, h = mamba.selective_scan(*ins, chunk)
+    got = torch.autograd.grad((y * wy).sum() + (h * wh).sum(), ins)
+    ins64 = [t.double().requires_grad_() for t in (xc, dt, a_mat, bc, cc)]
+    x64, dt64, a64, b64, c64 = ins64
+    h64 = torch.zeros((1, di, n), dtype=torch.float64, device=dev)
+    obj = torch.zeros((), dtype=torch.float64, device=dev)
+    for t in range(s):
+        h64 = torch.exp(dt64[:, t, :, None] * a64) * h64 \
+            + dt64[:, t, :, None] * b64[:, t, None, :] * x64[:, t, :, None]
+        obj = obj + (torch.einsum("bdn,bn->bd", h64, c64[:, t])
+                     * wy[:, t].double()).sum()
+    obj = obj + (h64 * wh.double()).sum()
+    want = torch.autograd.grad(obj, ins64)
+    errs = {}
+    for name, a, w in zip(("x", "dt", "A", "B", "C"), got, want):
+        errs[name] = check_close(f"selective_scan grad {name}", a.double(),
+                                 w, rel_tol=SCAN_GRAD_TOL)
+    say(f"  selective_scan backward, d_inner {di}, d_state {n}, S {s}, "
+        f"chunk {chunk}: against float64 autograd of the recurrence "
+        + ", ".join(f"d{k} {e:.2e} (scale {sc:.2e})"
+                    for k, (e, sc) in errs.items())
+        + f"; tolerance {SCAN_GRAD_TOL:g} x scale")
+    return {"S": s, "d_inner": di, "d_state": n,
+            "grads": {k: {"max_abs_err": e, "scale": sc}
+                      for k, (e, sc) in errs.items()},
+            "tolerance": SCAN_GRAD_TOL}
+
+
+def train_families(args, dev, sync, rehearse, card):
+    """One train step of each other family at full width and cut depth."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import pipeline
+    from repro_torch.models import model_api
+    from repro_torch.models import param as pm
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import trainer
+
+    out = {}
+    for arch, cut in TRAIN_FAMILIES:
+        if rehearse:
+            cfg, cuts, b, s = reduced_config(arch), ["reduced config"], 2, 32
+        else:
+            full = get_config(arch)
+            cfg, b, s = full.with_(**cut), FAMILY_BATCH, FAMILY_SEQ
+            cuts = [f"{k} {v} of {getattr(full, k)}" for k, v in cut.items()]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = model_api.init(cfg, torch.Generator(device=dev).manual_seed(
+            args.seed), device=dev)
+        opt = make_optimizer(cfg.optimizer, warmup=1, total=1)
+        step, _ = trainer.make_train_step(cfg, None, "flash", optimizer=opt)
+        batch = pipeline.to_device(pipeline.token_batch(cfg, 0, b, s,
+                                                        args.seed), dev)
+        losses, norms, ms = timed_steps(step, params, opt.init(params),
+                                        batch, 1, sync)
+        if not (math.isfinite(losses[0]) and math.isfinite(norms[0])):
+            raise AssertionError(f"{cfg.name}: loss {losses[0]}, grad norm "
+                                 f"{norms[0]}")
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        kind = cfg.family + (", MoE aux loss" if cfg.moe else "") + \
+            (", MLA" if cfg.mla else "")
+        say(f"  {cfg.name} [{kind}]: {pm.count_params(params) / 1e9:.3f} B "
+            f"{cfg.param_dtype} params, {cfg.optimizer}, batch {b} x {s}: "
+            f"loss {losses[0]:.4f}, grad norm {norms[0]:.4f}, one step "
+            f"{ms[0]:.1f} ms, peak {peak / 2 ** 30:.2f} GiB; cut: "
+            f"{'; '.join(cuts)}; {card}")
+        out[arch] = {"family": cfg.family, "params": pm.count_params(params),
+                     "param_dtype": cfg.param_dtype,
+                     "optimizer": cfg.optimizer, "batch": b, "seq": s,
+                     "loss": losses[0], "grad_norm": norms[0],
+                     "step_ms": ms[0], "peak_bytes": peak, "cuts": cuts}
+        del params, batch, step, opt
+        sync()
+    return out
+
+
+def clusterkv_train_raises(args, dev, rehearse):
+    """C40 on the card: a train step through ClusterKV reaches B6 under
+    grad, and its wrapper raises instead of dropping the gradient."""
+    from repro_torch.configs import (ClusterKVConfig, get_config,
+                                     reduced_config)
+    from repro_torch.data import pipeline
+    from repro_torch.models import model_api
+    from repro_torch.train import trainer
+
+    cfg = (reduced_config("qwen2-0.5b").with_(clusterkv=ClusterKVConfig(
+        enabled=True, block_q=32, block_k=32)) if rehearse
+           else get_config("qwen2-0.5b").with_(n_layers=2))
+    params = model_api.init(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed), device=dev)
+    step, opt = trainer.make_train_step(cfg, None, "clusterkv")
+    batch = pipeline.to_device(pipeline.token_batch(cfg, 0, 1, 256), dev)
+    try:
+        step(params, opt.init(params), batch)
+    except NotImplementedError as e:
+        if "C40" not in str(e):
+            raise
+        say(f"  backend clusterkv under grad: NotImplementedError: {e}")
+        return str(e)
+    if rehearse:
+        # on the CPU the plain version differentiates, so the step runs
+        say("  backend clusterkv under grad on the CPU: the plain version "
+            "trains (the card raises)")
+        return None
+    raise AssertionError("a ClusterKV train step on the card did not raise "
+                         "C40's error")
+
+
+def phase_train(args, dev, sync, rehearse, reset_counts, collect_counts,
+                card: str):
+    """Phase 18: single-card training. Qwen2-0.5B trained at full width
+    and depth, then served from its trained weights through B6/B5; the
+    accumulation checks, the scan's gradient, one step of each other
+    family, and C40's raise on the card."""
+    t_phase = time.perf_counter()
+    say("== phase 18: single-card training (make_train_step, AdamW / "
+        "Adafactor, remat, chunked CE) and serving the trained weights")
+    out = {"qwen": train_qwen(args, dev, sync, rehearse, reset_counts,
+                              collect_counts, card)}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["accumulation"] = train_accumulation_checks(args, dev, sync,
+                                                    rehearse)
+    out["scan_grad"] = scan_gradient_check(args, dev, rehearse)
+    out["families"] = train_families(args, dev, sync, rehearse, card)
+    out["c40"] = clusterkv_train_raises(args, dev, rehearse)
+    collect_counts("phase 18 checks")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"  phase 18 wall time: {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=262144,
@@ -4516,6 +4930,12 @@ def main() -> int:
                         collect_counts, smi_line)
     zoo_b["launches"] = {name: main_launches[name] - before[name]
                          for name in main_launches}
+    # --------------------------------------------------------------- 18 ---
+    before = dict(main_launches)
+    train = phase_train(args, dev, sync, rehearse, reset_counts,
+                        collect_counts, smi_line)
+    train["launches"] = {name: main_launches[name] - before[name]
+                         for name in main_launches}
     say("== B6 and B5 at each zoo configuration's heads and dims")
     zoo_checked = check_zoo_shapes(args, dev, rehearse)
     say("== B6 and B5 at the zoo's new shapes, timed")
@@ -4530,6 +4950,7 @@ def main() -> int:
             e["launches_service"] = service["launches"][e["name"]]
             e["launches_zoo"] = zoo["launches"][e["name"]]
             e["launches_zoo_b"] = zoo_b["launches"][e["name"]]
+            e["launches_train"] = train["launches"][e["name"]]
         if e["name"] in ("decode_attend_fused", "block_attention"):
             e["zoo_shapes_checked"] = [r for r in zoo_checked
                                        if r["kernel"] == e["name"]]
@@ -4563,7 +4984,8 @@ def main() -> int:
                           "plan_batch": plan_batch, "serve": serve,
                           "service": service, "stream": stream,
                           "solvers": solvers, "persist": persist,
-                          "shard": shard, "zoo": zoo, "zoo_b": zoo_b})
+                          "shard": shard, "zoo": zoo, "zoo_b": zoo_b,
+                          "train": train})
     kernels = json.dumps({"kernels": entries})
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
     if rehearse:

@@ -39,7 +39,7 @@ Design points:
     plan plus a note of its axis, and ``restore_plan(mesh=)`` re-shards on
     load (elastic: the halo analysis runs against the restoring mesh).
     Placing a model tree over a mesh (``restore(shardings=)``) waits for
-    the training slice, ROADMAP A14.
+    the mesh half of training, ROADMAP A14b.
 
 When saving a model tree and a plan at the same step, save the model tree
 first: ``save(step, ...)`` replaces the whole ``step_<N>`` directory.
@@ -63,7 +63,7 @@ from repro_torch._device import DeviceLike, from_numpy, resolve_device
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} (placing a model tree over a mesh) is not ported to "
-        "repro_torch yet (port queue item A14 in ROADMAP.md)")
+        "repro_torch yet (port queue item A14b in ROADMAP.md)")
 
 
 def _host(a) -> np.ndarray:

@@ -280,3 +280,39 @@ def params_from_reference(params_np, cfg, device: DeviceLike = None) -> dict:
         return from_numpy(arr, dev, torch.float32)
 
     return cross(params_np, want, "")
+
+
+def opt_state_from_reference(state_np, params, opt) -> dict:
+    """The port's optimizer state from a reference optimizer state.
+
+    ``state_np`` is the reference's ``opt.init``/``opt.update`` state with
+    every leaf a numpy array (``jax.tree.map(np.asarray, state)``):
+    AdamW's ``{"m", "v", "step"}`` or Adafactor's ``{"v", "step"}`` (a
+    ``{"vr", "vc"}`` or ``{"v"}`` dict per parameter). ``opt`` is the
+    port's optimizer of the same kind and ``params`` the port's parameters
+    it updates; the state comes out as ``opt.init(params)`` lays it out,
+    every key and shape checked, the moments float32 and ``step`` int32 on
+    the parameters' device. With ``params_from_reference`` a reference
+    training state crosses over whole."""
+    from repro_torch.models.param import tree_leaves, tree_map
+
+    dev = tree_leaves(params)[0].device
+    want = opt.init(tree_map(lambda p: torch.empty_like(p, device="meta"),
+                             params))
+
+    def cross(ref, shape_tree, path):
+        if isinstance(shape_tree, dict):
+            if not isinstance(ref, dict) or set(ref) != set(shape_tree):
+                got = sorted(ref) if isinstance(ref, dict) else type(ref)
+                raise ValueError(f"optimizer state at {path or '/'} has keys "
+                                 f"{got}, expected {sorted(shape_tree)}")
+            return {k: cross(ref[k], shape_tree[k], f"{path}/{k}")
+                    for k in shape_tree}
+        arr = np.asarray(ref)
+        if tuple(arr.shape) != tuple(shape_tree.shape):
+            raise ValueError(f"optimizer state {path}: shape {arr.shape}, "
+                             f"expected {tuple(shape_tree.shape)}")
+        # (from_numpy makes a 0-d array 1-d)
+        return from_numpy(arr, dev, shape_tree.dtype).reshape(arr.shape)
+
+    return cross(state_np, want, "")

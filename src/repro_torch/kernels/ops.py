@@ -18,6 +18,13 @@ The attention wrappers (``block_attention``, ``decode_attend_fused`` and
 the ``cuda`` decode backend) take the batched layouts of the reference's
 ``ops.py`` and cast positions and indices to int32; the kernel modules
 they call count the launches.
+
+None of the kernels has a backward, in this package or in the reference
+(whose ``jax.grad`` through a Pallas kernel raises), so a wrapper about to
+launch one raises ``NotImplementedError`` when grad mode is on and an input
+requires grad (ROADMAP C40), rather than return an output whose gradient
+would be dropped. On a CPU tensor the plain version runs, and autograd
+differentiates it.
 """
 from __future__ import annotations
 
@@ -33,6 +40,28 @@ from repro_torch.kernels import bsr_spmv as _bsr
 from repro_torch.kernels import decode_attend as _da
 from repro_torch.kernels import gamma_score as _gs
 from repro_torch.kernels import tsne_force as _tf
+
+
+def _launches_kernel(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` launches its CUDA kernel (on the CPU
+    it takes the plain version)."""
+    return t.device.type == "cuda"
+
+
+def _no_backward(kernel: str, *inputs) -> None:
+    """C40: raise if ``kernel`` would launch with grad mode on and an input
+    that requires grad."""
+    if not torch.is_grad_enabled():
+        return
+    for t in inputs:
+        if isinstance(t, torch.Tensor) and t.requires_grad \
+                and _launches_kernel(t):
+            raise NotImplementedError(
+                f"{kernel} has no backward: neither the port's CUDA kernel "
+                "nor the reference's Pallas kernel defines one (ROADMAP "
+                "C40). Call it under torch.no_grad() or with inputs that "
+                "do not require grad; on the CPU its plain version "
+                "differentiates")
 
 
 @register_backend("cuda")
@@ -64,6 +93,7 @@ def bsr_spmv(vals: torch.Tensor, col_idx: torch.Tensor, x: torch.Tensor,
              nbr_mask: torch.Tensor | None = None) -> torch.Tensor:
     """ELL-BSR SpMV/SpMM. x (n,) or (n, f); returns same leading length.
     ``nbr_mask`` (n_rb, nbr) bool marks the kept slots (None: all)."""
+    _no_backward("bsr_spmv (B2)", vals, x)
     n_rb, nbr, bs, _ = vals.shape
     squeeze = x.ndim == 1
     if squeeze:
@@ -91,6 +121,7 @@ def bsr_spmv_batched(vals: torch.Tensor, col_idx: torch.Tensor,
     all). ``indices_checked=True`` (a plan's own storage) launches without
     the range check of ``col_idx`` and its host sync.
     """
+    _no_backward("bsr_spmv_batched (B1)", vals, xs)
     B, n_rb, nbr, bs, _ = vals.shape
     squeeze = xs.ndim == 2
     if squeeze:
@@ -118,6 +149,7 @@ def tsne_force(p_vals: torch.Tensor, col_idx: torch.Tensor, y: torch.Tensor,
     bool marks the kept slots (None: all); ``indices_checked=True`` (a
     plan's own storage) launches without the range check of ``col_idx``
     and its host sync."""
+    _no_backward("tsne_force (B4)", p_vals, y)
     n_rb, nbr, bs, _ = p_vals.shape
     yp = _pad_rows(y, n_rb * bs)
     f = _tf.tsne_force(p_vals.to(torch.float32).contiguous(),
@@ -144,6 +176,7 @@ def gamma_exact(rows, cols, sigma: float, bn: int = 256, weights=None,
     coords = torch.stack([r, c], 1)
     w = (torch.ones(nnz, dtype=torch.float32, device=dev) if weights is None
          else from_numpy(weights, dev, torch.float32))
+    _no_backward("gamma_pairs (B3)", coords, w)
     pad = (-nnz) % bn
     coords = _pad_rows(coords, nnz + pad).contiguous()
     w = _pad_rows(w, nnz + pad).contiguous()
@@ -164,6 +197,7 @@ def block_attention(q, k_sorted, v_sorted, kpos, qpos, idx, *, bq, bk,
     q (B,Hq,S,dh); k/v_sorted (B,Hkv,S,dh|dv); kpos (B,Hkv,S); qpos (S,);
     idx (B,Hkv,nqb,n_sel). GQA: q heads grouped onto kv heads, one kernel
     launch for every (query tile, query head, batch member)."""
+    _no_backward("block_attention (B6)", q, k_sorted, v_sorted)
     return _ba.block_attention(q.contiguous(), k_sorted.contiguous(),
                                v_sorted.contiguous(), _i32(kpos), _i32(qpos),
                                _i32(idx), bq=bq, bk=bk, causal=causal)
@@ -174,6 +208,7 @@ def decode_attend_fused(q, k, v, pos, cent, qpos, *, n_sel, bk):
     ``core.clusterkv.decode_select`` + ``decode_attend`` in one kernel.
     q (B,Hq,dh); k/v (B,Hkv,S,dh|dv); pos (B,Hkv,S); cent (B,Hkv,S/bk,dh);
     qpos scalar or (B,)."""
+    _no_backward("decode_attend_fused (B5)", q, k, v, cent)
     return _da.decode_attend_fused(q, k.contiguous(), v.contiguous(),
                                    _i32(pos), cent, qpos, n_sel=n_sel, bk=bk)
 
@@ -188,6 +223,7 @@ def _cuda_plan_decode(q, ks, vs, ps, cent, qpos, cfg, *, k_self=None,
     (``core.clusterkv.plan_decode_plain``): hole tiles masked out of
     selection, local-window recency boost, optional always-visible self
     column. On a CPU tensor it takes that plain version."""
+    _no_backward("decode_attend_fused (B5)", q, ks, vs, cent, k_self, v_self)
     s = ks.shape[2]
     bk = min(cfg.block_k, s)
     has_self = k_self is not None

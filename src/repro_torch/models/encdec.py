@@ -7,8 +7,8 @@ stacks, as in the reference. The MLP's GELU is the tanh approximation
 Cross attention in ``decode_step`` attends every position of the cached
 encoder keys, ``xk``/``xv``, as the reference's does: after
 ``model_api.grow_cache`` has zero-padded them to the cache length, the
-padded positions take part (ROADMAP C38). The training loss waits for
-ROADMAP A14.
+padded positions take part (ROADMAP C38). ``loss_fn`` is the training
+loss; each layer of ``encode`` and ``forward`` runs under remat.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import param as pm
 from repro_torch.models.sharding import NO_SHARD, ShardCtx
+from repro_torch.models.transformer import ce_loss
 
 
 def _init_attn(cfg: ModelConfig, d_kv_src: int = 0) -> dict:
@@ -93,13 +94,17 @@ def encode(p, cfg: ModelConfig, frames: torch.Tensor,
     """The encoder over frame embeddings (B, S, d) -> (B, S, d)."""
     h = frames.to(pm.DTYPES[cfg.dtype])
     pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
-    for i in range(cfg.n_enc_layers):
-        lp = pm.layer(p["enc"], i)
-        hn = pm.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps)
-        h = h + _mha(lp["attn"], hn, hn, cfg, pos, pos, shd, causal=False,
+
+    def body(lp, x):
+        hn = pm.apply_rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        x = x + _mha(lp["attn"], hn, hn, cfg, pos, pos, shd, causal=False,
                      backend=backend)
-        h = h + _mlp_apply(lp["mlp"],
-                           pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps))
+        return x + _mlp_apply(lp["mlp"],
+                              pm.apply_rmsnorm(lp["ln2"], x, cfg.norm_eps))
+
+    body = pm.maybe_remat(body, cfg)
+    for lp in pm.unstack(p["enc"], cfg.n_enc_layers):
+        h = body(lp, h)
     return pm.apply_rmsnorm(p["ln_enc"], h, cfg.norm_eps)
 
 
@@ -122,11 +127,23 @@ def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     h = pm.apply_embedding(p, cfg, batch["tokens"])
     pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     epos = torch.arange(enc_out.shape[1], dtype=torch.int32, device=h.device)
-    for i in range(cfg.n_layers):
-        h = _dec_layer(pm.layer(p["dec"], i), h, enc_out, pos, epos, cfg,
-                       shd, backend)
+
+    def body(lp, x, enc):
+        return _dec_layer(lp, x, enc, pos, epos, cfg, shd, backend)
+
+    body = pm.maybe_remat(body, cfg)
+    for lp in pm.unstack(p["dec"], cfg.n_layers):
+        h = body(lp, h, enc_out)
     return (pm.apply_rmsnorm(p["ln_f"], h, cfg.norm_eps),
             torch.zeros((), device=h.device))
+
+
+def loss_fn(p, cfg: ModelConfig, batch, backend: str = "flash",
+            shd: ShardCtx = NO_SHARD) -> torch.Tensor:
+    """Chunked cross-entropy of ``batch["labels"]`` through the head."""
+    h, _ = forward(p, cfg, batch, backend, shd)
+    return ce_loss(h, p["head"]["w"].to(pm.DTYPES[cfg.dtype]),
+                   batch["labels"], cfg.loss_chunk)
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,

@@ -12,8 +12,9 @@ shared_attn_every`` layers (42 for zamba2-1.2b's 38), as the reference's.
 With ``backend="clusterkv"`` and ``cfg.clusterkv.enabled`` the shared block
 attends through the ClusterKV paths: the block-sparse prefill kernel (B6)
 once a group in ``prefill``, the fused decode kernel (B5) once a group in
-``decode_step``. The training loss and the cache's PartitionSpecs wait for
-ROADMAP A14.
+``decode_step``. ``loss_fn`` is the training loss; each mamba2 layer of
+``forward`` runs under remat, the shared block without, as the
+reference's. The cache's PartitionSpecs wait for ROADMAP A14b.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba
 from repro_torch.models import param as pm
 from repro_torch.models.sharding import NO_SHARD, ShardCtx
+from repro_torch.models.transformer import ce_loss
 
 
 def _n_groups(cfg: ModelConfig) -> int:
@@ -127,17 +129,29 @@ def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     h = x0
     pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     per = cfg.shared_attn_every
+
+    def mamba_body(lp, x):
+        y, _, _, _ = mamba.mamba2_forward(
+            lp["mixer"], pm.apply_rmsnorm(lp["ln"], x, cfg.norm_eps), cfg,
+            shd)
+        return x + y
+
+    mamba_body = pm.maybe_remat(mamba_body, cfg)
+    layers = pm.unstack(p["layers"], _n_groups(cfg) * per)
     for g in range(_n_groups(cfg)):
         h = h + _shared_block(p["shared"], h, x0, pos, cfg, backend, shd)
-        gp = _group_params(p, g, per)
-        for j in range(per):
-            lp = pm.layer(gp, j)
-            y, _, _, _ = mamba.mamba2_forward(
-                lp["mixer"], pm.apply_rmsnorm(lp["ln"], h, cfg.norm_eps),
-                cfg, shd)
-            h = h + y
+        for lp in layers[g * per:(g + 1) * per]:
+            h = mamba_body(lp, h)
     return (pm.apply_rmsnorm(p["ln_f"], h, cfg.norm_eps),
             torch.zeros((), device=h.device))
+
+
+def loss_fn(p, cfg: ModelConfig, batch, backend: str = "flash",
+            shd: ShardCtx = NO_SHARD) -> torch.Tensor:
+    """Chunked cross-entropy of ``batch["labels"]`` through the head."""
+    h, _ = forward(p, cfg, batch, backend, shd)
+    return ce_loss(h, p["head"]["w"].to(pm.DTYPES[cfg.dtype]),
+                   batch["labels"], cfg.loss_chunk)
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,

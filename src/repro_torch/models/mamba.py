@@ -109,6 +109,95 @@ def _scan_chunk(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
     return b
 
 
+def _pad_time(chunk: int, *ts):
+    """Each (B,S,*) tensor zero-padded along S to whole chunks."""
+    s = ts[0].shape[1]
+    pad = -(-s // chunk) * chunk - s
+    return tuple(F.pad(t, (0, 0, 0, pad)) if pad else t for t in ts)
+
+
+def _scan_forward(xc, dt, a_mat, bc, cc, chunk: int, starts=None):
+    """The chunked forward over inputs already padded to whole chunks:
+    y (B,S,di) and the final state. ``starts`` (a list), when given,
+    receives the state each chunk starts from."""
+    b, s, di = xc.shape
+    n = a_mat.shape[-1]
+    h = torch.zeros((b, di, n), dtype=xc.dtype, device=xc.device)
+    ys = []
+    for c in range(s // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        if starts is not None:
+            starts.append(h)
+        dtc = dt[:, sl, :, None]                         # (B,l,di,1)
+        da = torch.exp(dtc * a_mat)                      # (B,l,di,N)
+        dbx = dtc * bc[:, sl, None, :] * xc[:, sl, :, None]
+        dbx[:, 0].addcmul_(da[:, 0], h)
+        hs = _scan_chunk(da, dbx)                        # (B,l,di,N)
+        ys.append(torch.einsum("bldn,bln->bld", hs, cc[:, sl]))
+        h = hs[:, -1]
+    return torch.cat(ys, dim=1), h.clone()   # not a view pinning the chunk
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The chunked scan with its adjoint. The forward keeps only the state
+    each chunk starts from; the backward walks the chunks last to first,
+    recomputes a chunk's states from its start, and runs the adjoint of
+    ``h_t = a_t h_{t-1} + b_t``, which is the same recurrence backwards:
+    ``lam_t = dL/dh_t + a_{t+1} lam_{t+1}``, ``dL/db_t = lam_t``,
+    ``dL/da_t = lam_t h_{t-1}``. It runs through ``_scan_chunk`` on the
+    chunk flipped in time, the adjoint carried in from the next chunk
+    entering as the first term, as the forward carries its state."""
+
+    @staticmethod
+    def forward(ctx, xc, dt, a_mat, bc, cc, chunk):
+        s = xc.shape[1]
+        xc, dt, bc, cc = _pad_time(chunk, xc, dt, bc, cc)
+        starts = []
+        y, h = _scan_forward(xc, dt, a_mat, bc, cc, chunk, starts)
+        ctx.save_for_backward(xc, dt, a_mat, bc, cc, torch.stack(starts))
+        ctx.chunk, ctx.s = chunk, s
+        return y[:, :s], h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        xc, dt, a_mat, bc, cc, starts = ctx.saved_tensors
+        chunk, s = ctx.chunk, ctx.s
+        gy = F.pad(gy, (0, 0, 0, xc.shape[1] - s)) if gy is not None \
+            else torch.zeros_like(xc)
+        # the adjoint carried into a chunk from the one after it, already
+        # multiplied by that chunk's first decay: dL/dh_fin for the last
+        carry = gh if gh is not None else torch.zeros_like(starts[0])
+        gxs, gdts, gbs, gcs = [], [], [], []
+        ga = torch.zeros_like(a_mat)
+        for c in reversed(range(starts.shape[0])):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            dtc, xcc = dt[:, sl], xc[:, sl]
+            bcc, ccc, gyc = bc[:, sl], cc[:, sl], gy[:, sl]
+            da = torch.exp(dtc[..., None] * a_mat)       # (B,l,di,N)
+            dbx = dtc[..., None] * bcc[:, :, None, :] * xcc[..., None]
+            dbx[:, 0].addcmul_(da[:, 0], starts[c])
+            hs = _scan_chunk(da.clone(), dbx)            # states, (B,l,di,N)
+            prev = torch.cat([starts[c][:, None], hs[:, :-1]], dim=1)
+            # the adjoint, flipped in time: a_s = da_{l-s} (a_0 unread)
+            rev_a = torch.cat([torch.ones_like(da[:, :1]),
+                               da.flip(1)[:, :-1]], dim=1)
+            rev_g = (gyc[..., None] * ccc[:, :, None, :]).flip(1)
+            rev_g[:, 0].add_(carry)
+            lam = _scan_chunk(rev_a, rev_g).flip(1)      # dL/dh_t
+            carry = da[:, 0] * lam[:, 0]
+            gda = lam * prev * da                        # dL/d(dt A)
+            ga += torch.einsum("bldn,bld->dn", gda, dtc)
+            lb = torch.einsum("bldn,bln->bld", lam, bcc)
+            gdts.append(torch.einsum("bldn,dn->bld", gda, a_mat) + lb * xcc)
+            gxs.append(lb * dtc)
+            gbs.append(torch.einsum("bldn,bld->bln", lam, dtc * xcc))
+            gcs.append(torch.einsum("bld,bldn->bln", gyc, hs))
+
+        def whole(parts):
+            return torch.cat(parts[::-1], dim=1)[:, :s]
+        return whole(gxs), whole(gdts), ga, whole(gbs), whole(gcs), None
+
+
 def selective_scan(xc, dt, a_mat, bc, cc, chunk: int):
     """Chunked mamba1 scan.
 
@@ -118,27 +207,20 @@ def selective_scan(xc, dt, a_mat, bc, cc, chunk: int):
     state carried in from the previous chunk enters as the chunk's first
     input term (``h_0 = a_0 h + b_0``), so the scan's ``b`` part is the
     state at every position: the reference's ``acum * h + bcum``, in
-    another order of float32 rounding."""
-    b, s, di = xc.shape
-    n = a_mat.shape[-1]
-    nc = -(-s // chunk)
-    pad = nc * chunk - s
-    if pad:
-        xc, dt = F.pad(xc, (0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad))
-        bc, cc = F.pad(bc, (0, 0, 0, pad)), F.pad(cc, (0, 0, 0, pad))
-    h = torch.zeros((b, di, n), dtype=xc.dtype, device=xc.device)
-    ys = []
-    for c in range(nc):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        dtc = dt[:, sl, :, None]                         # (B,l,di,1)
-        da = torch.exp(dtc * a_mat)                      # (B,l,di,N)
-        dbx = dtc * bc[:, sl, None, :] * xc[:, sl, :, None]
-        dbx[:, 0].addcmul_(da[:, 0], h)
-        hs = _scan_chunk(da, dbx)                        # (B,l,di,N)
-        ys.append(torch.einsum("bldn,bln->bld", hs, cc[:, sl]))
-        h = hs[:, -1]
-    y = torch.cat(ys, dim=1)
-    return y[:, :s], h.clone()       # not a view pinning the chunk buffer
+    another order of float32 rounding.
+
+    The chunk buffers are written in place, which autograd cannot follow:
+    where grad mode is on and an input requires grad, the scan runs as
+    :class:`_SelectiveScan`, whose backward is the adjoint recurrence (the
+    reference differentiates its ``lax.associative_scan``); the values are
+    the same either way."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xc, dt, a_mat, bc, cc)):
+        return _SelectiveScan.apply(xc, dt, a_mat, bc, cc, chunk)
+    s = xc.shape[1]
+    y, h = _scan_forward(*_pad_time(chunk, xc, dt), a_mat,
+                         *_pad_time(chunk, bc, cc), chunk)
+    return y[:, :s], h
 
 
 def mamba1_forward(lp, x, cfg: ModelConfig, shd: ShardCtx = NO_SHARD):

@@ -1,12 +1,13 @@
 """Model API: family dispatch for every family of the reference.
 
 A family module exposes ``init_lm(cfg, gen, device, dtype)``, ``forward``,
-``init_cache(cfg, batch, max_seq)``, ``prefill`` and ``decode_step``: the
+``loss_fn``, ``init_cache(cfg, batch, max_seq)``, ``prefill`` and
+``decode_step``: the
 decoder-only families (``dense``, ``vlm``, ``moe``: ``models.transformer``),
 ``ssm`` (``models.ssm_lm``), ``hybrid`` (``models.hybrid``) and ``encdec``
 (``models.encdec``). The reference's ``input_specs``, ``param_specs`` and
-``cache_shapes`` return PartitionSpecs for the trainer's layouts and wait
-for ROADMAP A14.
+``cache_shapes`` return PartitionSpecs for the trainer's layouts under a
+mesh and wait for ROADMAP A14b.
 """
 from __future__ import annotations
 

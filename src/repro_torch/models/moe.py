@@ -21,7 +21,7 @@ and sums in a changing order):
 
 Under a mesh the reference routes inside ``shard_map`` (expert parallelism
 by ``all_to_all``, or expert tensor parallelism with a ``psum``); those
-need the trainer's layouts and wait for ROADMAP A14.
+need the trainer's layouts and wait for ROADMAP A14b.
 """
 from __future__ import annotations
 
@@ -120,7 +120,7 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, shd: ShardCtx = NO_SHARD
         raise NotImplementedError(
             "the MoE FFN under a mesh (expert parallelism, expert tensor "
             "parallelism) is not ported to repro_torch yet (port queue item "
-            "A14 in ROADMAP.md)")
+            "A14b in ROADMAP.md)")
     m = cfg.moe
     b, s, d = x.shape
     probs, gates, eidx = router(p, x, cfg)

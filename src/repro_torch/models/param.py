@@ -2,8 +2,8 @@
 layout (``linear`` weights ``(d_in, d_out)``, stacked layers ``(L, ...)``),
 so a reference parameter tree crosses over leaf for leaf
 (``convert.params_from_reference``). The reference's parameter sharding
-specs, which place parameters over a mesh, wait for the trainer (ROADMAP
-A14).
+specs, which place parameters over a mesh, wait for the mesh half of
+training (ROADMAP A14b).
 
 A model's init is built in two steps. The family's init functions return a
 tree of :class:`Init` leaves (shape, and how to fill it); :func:`stacked`
@@ -16,11 +16,13 @@ on the card (llava-next-34b's is 126 GiB) is drawn in place in bf16.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, replace
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 # float32 elements drawn at a time by materialize: 1 GiB
 CHUNK = 1 << 28
@@ -147,6 +149,66 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def sorted_leaves(tree) -> list:
+    """Leaves in ``jax.tree.leaves``'s order (dict keys sorted), whatever
+    order the dicts were built in: for sums over leaves that must not
+    depend on it."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in sorted_leaves(tree[k])]
+    return [tree]
+
+
 def layer(params: dict, i: int) -> dict:
     """Layer ``i`` of a stacked layer tree (views, no copy)."""
     return tree_map(lambda a: a[i], params)
+
+
+def unstack(params: dict, n: int) -> List[dict]:
+    """The ``n`` layers of a stacked layer tree, each leaf unbound once.
+    Under autograd one ``UnbindBackward`` stacks the layers' gradients;
+    indexing each layer (:func:`layer`) would instead add a zero tensor of
+    the whole stack per layer in backward."""
+    parts = tree_map(lambda a: a.unbind(0), params)
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
+def count_params(params) -> int:
+    return sum(x.numel() for x in tree_leaves(params))
+
+
+def cast_tree(params, dtype: torch.dtype):
+    """Every floating leaf cast to ``dtype``; the rest as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    params)
+
+
+# the matmuls whose outputs ``remat_policy="dots"`` saves: those with no
+# batch dimension, as the reference's dots_with_no_batch_dims_saveable
+# (a (B, S, d) @ (d, f) product reaches aten as one mm)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(body: Callable, cfg) -> Callable:
+    """``body`` under activation checkpointing per ``cfg.remat`` and
+    ``cfg.remat_policy``, as the reference's ``jax.checkpoint`` around its
+    scan body: in backward the body runs again instead of keeping its
+    intermediates (``torch.utils.checkpoint``, non-reentrant); ``"dots"``
+    keeps the matmul outputs and recomputes the rest. With grad mode off
+    the body just runs."""
+    if not cfg.remat:
+        return body
+    kw = {"use_reentrant": False}
+    if getattr(cfg, "remat_policy", "full") == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        return _ckpt.checkpoint(body, *args, **kw)
+    return wrapped

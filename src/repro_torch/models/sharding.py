@@ -5,8 +5,8 @@ decode shards its cache's sequence over it. Its ``cst`` returns ``x``
 unchanged, because eager PyTorch has no sharding constraint and the
 reference's constraint never changes values. The reference's logical-axis
 layouts and spec resolution, and placing parameters over a mesh
-(``shardings_for``), belong to the training slice, ROADMAP A14, where
-parameter placement consumes them.
+(``shardings_for``), belong to the mesh half of training, ROADMAP A14b,
+where parameter placement consumes them.
 """
 from __future__ import annotations
 
@@ -20,10 +20,10 @@ from repro_torch.launch.mesh import Mesh
 
 def shardings_for(shapes_tree, logical_specs_tree, mesh: Mesh):
     """Placing a parameter tree over a mesh is not ported yet (ROADMAP
-    A14, with the trainer that needs it)."""
+    A14b, training on a mesh)."""
     raise NotImplementedError(
         "shardings_for (placing parameters over a mesh) is not ported to "
-        "repro_torch yet (port queue item A14 in ROADMAP.md)")
+        "repro_torch yet (port queue item A14b in ROADMAP.md)")
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """falcon-mamba-style attention-free LM: a stack of mamba1 blocks, as the
 reference's ``models/ssm_lm.py``. Layers are stacked ``(L, ...)`` and
-applied by a Python loop (the reference's ``lax.scan``). The training loss
-waits for ROADMAP A14 with the trainer."""
+applied by a Python loop (the reference's ``lax.scan``), each under remat
+in ``forward``; ``loss_fn`` is the training loss."""
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
@@ -13,6 +13,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba
 from repro_torch.models import param as pm
 from repro_torch.models.sharding import NO_SHARD, ShardCtx
+from repro_torch.models.transformer import ce_loss
 
 
 def _init_layer(cfg: ModelConfig) -> dict:
@@ -34,16 +35,29 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator,
 def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             backend: str = "flash", shd: ShardCtx = NO_SHARD
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (final hidden states (B,S,d), a zero aux loss)."""
+    """Returns (final hidden states (B,S,d), a zero aux loss). Each layer
+    runs under ``param.maybe_remat`` (``cfg.remat``)."""
     h = pm.apply_embedding(p, cfg, batch["tokens"])
-    for i in range(cfg.n_layers):
-        lp = pm.layer(p["layers"], i)
+
+    def body(lp, x):
         y, _, _ = mamba.mamba1_forward(
-            lp["mixer"], pm.apply_rmsnorm(lp["ln"], h, cfg.norm_eps), cfg,
+            lp["mixer"], pm.apply_rmsnorm(lp["ln"], x, cfg.norm_eps), cfg,
             shd)
-        h = h + y
+        return x + y
+
+    body = pm.maybe_remat(body, cfg)
+    for lp in pm.unstack(p["layers"], cfg.n_layers):
+        h = body(lp, h)
     return (pm.apply_rmsnorm(p["ln_f"], h, cfg.norm_eps),
             torch.zeros((), device=h.device))
+
+
+def loss_fn(p, cfg: ModelConfig, batch, backend: str = "flash",
+            shd: ShardCtx = NO_SHARD) -> torch.Tensor:
+    """Chunked cross-entropy of ``batch["labels"]`` through the head."""
+    h, _ = forward(p, cfg, batch, backend, shd)
+    return ce_loss(h, p["head"]["w"].to(pm.DTYPES[cfg.dtype]),
+                   batch["labels"], cfg.loss_chunk)
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,

@@ -4,13 +4,15 @@ optional MoE FFN via ``models.moe``, optional cluster-sparse attention).
 
 Parameters are plain nested dicts of tensors in the reference's layout
 (``models/param.py``); layers are stacked ``(L, ...)`` and applied by a
-Python loop (the reference's ``lax.scan``). Everything runs eagerly.
+Python loop (the reference's ``lax.scan``), each under remat in
+``forward``. Everything runs eagerly.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -146,15 +148,68 @@ def embed_tokens(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
 def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             backend: str = "flash", shd: ShardCtx = NO_SHARD
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (final hidden states (B,S,d), aux loss summed over layers)."""
+    """Returns (final hidden states (B,S,d), aux loss summed over layers).
+    Each layer runs under ``param.maybe_remat`` (``cfg.remat``)."""
     h = embed_tokens(p, cfg, batch)
     pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+
+    def body(lp, x):
+        x, a, _ = _layer(lp, x, pos, cfg, backend, shd)
+        return x, a
+
+    body = pm.maybe_remat(body, cfg)
     aux = torch.zeros((), device=h.device)
-    for i in range(cfg.n_layers):
-        h, a, _ = _layer(pm.layer(p["layers"], i), h, pos, cfg, backend,
-                         shd)
+    for lp in pm.unstack(p["layers"], cfg.n_layers):
+        h, a = body(lp, h)
         aux = aux + a
     return pm.apply_rmsnorm(p["ln_f"], h, cfg.norm_eps), aux
+
+
+def lm_head_weight(p, cfg: ModelConfig) -> torch.Tensor:
+    """The (d, vocab) head: the embedding table's transpose when tied."""
+    if cfg.tie_embeddings:
+        return p["embed"]["table"].T
+    return p["head"]["w"]
+
+
+def _ce_sum(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
+            ) -> torch.Tensor:
+    """Sum over rows of ``logsumexp(logits) - logits[label]``, the logits
+    ``h @ w`` taken in float32."""
+    logits = (h @ w).float()
+    gold = logits.gather(-1, labels[:, None].long())[:, 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def ce_loss(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+            chunk: int = 0) -> torch.Tensor:
+    """Mean cross-entropy of ``h`` (B,S,d) through the head ``w`` (d,V)
+    against ``labels`` (B,S). Where ``chunk`` divides the token count, the
+    logits are formed one chunk of tokens at a time, each chunk under a
+    checkpoint, so neither pass keeps the (tokens x vocab) array: backward
+    forms one chunk's logits again at a time. Otherwise one pass over
+    every token, as the reference's."""
+    b, s, d = h.shape
+    t = b * s
+    hf, lf = h.reshape(t, d), labels.reshape(t)
+    if chunk and chunk < t and t % chunk == 0:
+        ce = _ce_sum
+        if torch.is_grad_enabled():
+            def ce(hc, wc, lc):
+                return checkpoint(_ce_sum, hc, wc, lc, use_reentrant=False)
+        parts = [ce(hf[i:i + chunk], w, lf[i:i + chunk])
+                 for i in range(0, t, chunk)]
+        return torch.stack(parts).sum() / t
+    return _ce_sum(hf, w, lf) / t
+
+
+def loss_fn(p, cfg: ModelConfig, batch, backend: str = "flash",
+            shd: ShardCtx = NO_SHARD) -> torch.Tensor:
+    """The training loss: chunked cross-entropy of the next tokens
+    ``batch["labels"]`` plus ``AUX_COEF`` x the MoE's aux loss."""
+    h, aux = forward(p, cfg, batch, backend, shd)
+    w = lm_head_weight(p, cfg).to(compute_dtype(cfg))
+    return ce_loss(h, w, batch["labels"], cfg.loss_chunk) + AUX_COEF * aux
 
 
 # ---------------------------------------------------------------------------

@@ -1562,3 +1562,90 @@ def test_cuda_cpu_plan_on_a_card_mesh_is_rejected(cuda_device, tmp_path):
         1024).astype(np.float32))
     assert torch.equal(back.matvec(ch.to(cuda_device)).cpu(),
                        back.plan.matvec(ch.to(cuda_device)).cpu())
+
+
+def _c40_calls(device):
+    """One call of each kernel wrapper on card tensors, by kernel, with
+    the floating input that may require grad."""
+    g = torch.Generator(device=device).manual_seed(0)
+    q = torch.randn(1, 2, 128, 64, generator=g, device=device)
+    k = torch.randn(1, 1, 128, 64, generator=g, device=device)
+    v = torch.randn(1, 1, 128, 64, generator=g, device=device)
+    pos = torch.arange(128, dtype=torch.int32, device=device)
+    kpos = pos.expand(1, 1, 128)
+    idx = torch.zeros(1, 1, 1, 1, dtype=torch.int32, device=device)
+    cent = k.reshape(1, 1, 1, 128, 64).mean(3)
+    vals = torch.randn(2, 1, 32, 32, generator=g, device=device)
+    col = torch.zeros(2, 1, dtype=torch.int32, device=device)
+    x = torch.randn(64, 3, generator=g, device=device)
+    return {
+        "B6": (q, lambda t: t_ops.block_attention(t, k, v, kpos, pos, idx,
+                                                  bq=128, bk=128)),
+        "B5": (q[:, :, 0].contiguous(), lambda t: t_ops.decode_attend_fused(
+            t, k, v, kpos, cent, torch.tensor(127, device=device), n_sel=1,
+            bk=128)),
+        "B1": (x, lambda t: t_ops.bsr_spmv_batched(vals[None], col[None],
+                                                  t[None])),
+        "B2": (x, lambda t: t_ops.bsr_spmv(vals, col, t)),
+        "B4": (x[:, :2].contiguous(), lambda t: t_ops.tsne_force(
+            vals, col, t)),
+        "B3": (torch.rand(256, generator=g, device=device),
+               lambda t: t_ops.gamma_exact(
+                   torch.arange(256, device=device),
+                   torch.arange(256, device=device), 2.0, weights=t)),
+    }
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4", "B5", "B6"])
+def test_cuda_kernel_wrappers_raise_c40_under_grad(cuda_device, kernel):
+    """C40: no kernel has a backward, so a wrapper given a card tensor that
+    requires grad, under grad mode, raises naming the kernel; with grad
+    mode off it launches."""
+    t, call = _c40_calls(cuda_device)[kernel]
+    with pytest.raises(NotImplementedError, match=f"{kernel}.*C40"):
+        call(t.clone().requires_grad_())
+    with torch.no_grad():
+        out = call(t.clone().requires_grad_())
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_two_layer_qwen_trains_without_launching_a_kernel(cuda_device):
+    """Qwen2-0.5B at full width, 2 layers, bf16 compute over float32
+    masters: two AdamW steps on one batch with flash attention give finite,
+    falling losses and launch no kernel; the same step with ClusterKV
+    raises C40 at B6; the trained weights then prefill through B6."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.models import model_api
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import trainer
+    cfg = get_config("qwen2-0.5b").with_(n_layers=2, loss_chunk=512)
+    params = model_api.init(cfg, torch.Generator(device=cuda_device)
+                            .manual_seed(0), device=cuda_device)
+    opt = make_optimizer(cfg.optimizer, lr=1e-3, warmup=1, total=2)
+    step, _ = trainer.make_train_step(cfg, None, "flash", optimizer=opt)
+    state = opt.init(params)
+    batch = pipeline.to_device(pipeline.token_batch(cfg, 0, 2, 512),
+                               cuda_device)
+    n6, n5 = t_ba.block_attention.launches, t_da.decode_attend_fused.launches
+    losses = []
+    for _ in range(2):
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        assert np.isfinite(float(m["grad_norm"]))
+    assert (t_ba.block_attention.launches,
+            t_da.decode_attend_fused.launches) == (n6, n5)
+    assert np.isfinite(losses).all() and losses[1] < losses[0]
+    ckv_step, _ = trainer.make_train_step(cfg, None, "clusterkv",
+                                          optimizer=opt)
+    with pytest.raises(NotImplementedError, match="block_attention.*C40"):
+        ckv_step(params, state, batch)
+    with torch.no_grad():
+        _, logits = trainer.make_prefill_step(cfg, backend="clusterkv")(
+            params, {"tokens": batch["tokens"]})
+    torch.cuda.synchronize()
+    assert t_ba.block_attention.launches == n6 + cfg.n_layers
+    assert torch.isfinite(logits).all()

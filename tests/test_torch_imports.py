@@ -22,9 +22,11 @@ FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "examples" / "serve_clusterkv_torch.py",
     ROOT / "examples" / "krr_torch.py",
     ROOT / "examples" / "spectral_torch.py",
+    ROOT / "examples" / "train_lm_torch.py",
     ROOT / "tools" / "time_decode.py",
     ROOT / "tools" / "profile_stream.py",
-    ROOT / "tools" / "profile_service.py"]
+    ROOT / "tools" / "profile_service.py",
+    ROOT / "tools" / "profile_train.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 
 
@@ -82,7 +84,9 @@ def test_port_has_the_expected_modules():
                  "models/mamba.py", "models/ssm_lm.py", "models/hybrid.py",
                  "models/encdec.py", "launch/serve.py",
                  "configs/falcon_mamba_7b.py", "configs/zamba2_1_2b.py",
-                 "configs/whisper_medium.py"):
+                 "configs/whisper_medium.py", "optim/__init__.py",
+                 "optim/optimizers.py", "train/trainer.py",
+                 "launch/ft.py", "launch/analytic.py", "launch/train.py"):
         assert must in names, must
     cu = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert cu == {"bsr_spmv.cu", "gamma_pairs.cu", "tsne_force.cu",
