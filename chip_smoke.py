@@ -13,8 +13,9 @@ seed) served with ClusterKV attention, six decoder-only models of the
 zoo at full width (phase 16), and the SSM LM, the hybrid and the
 encoder-decoder of the zoo at full width and depth through the serving
 launcher (phase 17), and Qwen2-0.5B trained at full width and depth on
-the card, then served from its trained weights (phase 18). Phases, each of
-which fails the run when it fails:
+the card, then served from its trained weights (phase 18), then trained
+on a process mesh of the one card (phase 19). Phases, each of which fails
+the run when it fails:
 
 1. environment: versions, the card, the kernel build with its wall time,
    and the registers and spills ``-Xptxas -v`` reports for every B6
@@ -243,10 +244,27 @@ device time without the host's, which is the larger part of a call.
    whisper-medium (2 + 2 layers), granite-moe-3b-a800m (2 layers, aux
    loss), minicpm3-4b (2 layers, MLA) and mistral-large-123b (1 layer, bf16
    masters, Adafactor) at full width, finite, ms printed; and a ClusterKV
-   train step on the card raising C40's error at B6.
+   train step on the card raising C40's error at B6;
+19. training on a process mesh of the one card: an ``nccl`` group of one
+   rank in this process (``file://`` rendezvous, ``device_id`` cuda:0),
+   torn down at the end, and a (1, 1) ("data", "model") mesh
+   (``launch.mesh.make_test_mesh``). Phase 18's Qwen2-0.5B run (full
+   width and depth, 16 x 4096 tokens in 2 microbatches) for 3 steps
+   through ``make_train_step(mesh=)`` on DTensor parameters and state
+   (``trainer.place_train_state``), against 3 steps without a mesh
+   from the same init: loss and grad norm within rtol 1e-5, seconds a step
+   and peak GiB of both; granite-moe-3b-a800m at full width (2 of 32
+   layers) with ``expert_parallel=True`` (the expert-parallel branch, its
+   all-to-alls over a group of one), one step against one without a mesh,
+   and mistral-large-123b at full width (1 of 88 layers, Adafactor on the
+   shards), two steps against two without;
+   ``launch.train --mesh 1,1`` with a checkpoint directory, its last
+   checkpoint removed and the run resumed through ``restore(shardings=)``;
+   ``pipeline_apply`` at one stage against sequential application. No
+   exchange between two ranks is measured: the machine has one card.
 
 Launch counters are set to 0 just before each path (phases 3-4, 6, 7, 9,
-10, 11, 12, 13, 14, 15, 16, 17, 18) and read just after it; launches made to
+10, 11, 12, 13, 14, 15, 16, 17, 18, 19) and read just after it; launches made to
 compare or time a kernel are not counted. Every kernel must have been
 launched by a path: B6 by the prefills and the service's plan prefills,
 B5 by the ticks of both engines (plan mode) and the scalar steps (plain
@@ -4353,6 +4371,286 @@ def phase_train(args, dev, sync, rehearse, reset_counts, collect_counts,
     return out
 
 
+# ---------------------------------------------------------------------------
+# training on a process mesh (phase 19)
+# ---------------------------------------------------------------------------
+
+# phase 18's run on a (1, 1) ("data", "model") process mesh: 3 steps of
+# its batch, against 3 steps without a mesh from the same init, within the
+# single-card step tests' bounds (tests/test_torch_train.py)
+MESH_STEPS, MESH_RTOL = 3, 1e-5
+# steps at full width and cut depth on the mesh against as many without:
+# (arch, cut, expert_parallel, steps). granite takes the expert-parallel
+# branch; mistral trains with Adafactor, two steps, so the second's loss
+# reads the first's update made on the shards
+MESH_CUTS = (("granite-moe-3b-a800m", {"n_layers": 2}, True, 1),
+             ("mistral-large-123b", {"n_layers": 1}, False, 2))
+MESH_CUT_BATCH, MESH_CUT_SEQ = 2, 1024
+# the launcher's restart on the mesh: the reduced Qwen config, 4 steps
+# saving at 1 and 3, step 3 removed and resumed from 1. The resumed run
+# ends within LAUNCH_ATOL of the uninterrupted one: the card's scatter-add
+# backward sums in a changing order, and AdamW (lr 3e-4) turns a flipped
+# near-zero gradient into at most 2 lr a step
+LAUNCH_ATOL = 4 * 3e-4
+
+
+def _tree_diff(a, b) -> float:
+    """The largest absolute difference of two trees' leaves, by key."""
+    from repro_torch.models import param as pm
+
+    fa = pm.aligned_leaves(a, a)
+    fb = pm.aligned_leaves(b, a)
+    return max(float((_whole(x).float() - _whole(y).float()).abs().max())
+               for x, y in zip(fa, fb))
+
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def mesh_qwen(args, dev, sync, mesh, rehearse, reset_counts, collect_counts,
+              card):
+    """Phase 18's Qwen2-0.5B run on the process mesh against mesh=None."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import pipeline
+    from repro_torch.models import model_api
+    from repro_torch.models import param as pm
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import trainer
+
+    if rehearse:
+        cfg = reduced_config("qwen2-0.5b").with_(remat=True, loss_chunk=64)
+        b, s = 4, 64
+    else:
+        cfg = get_config("qwen2-0.5b")
+        b, s = TRAIN_BATCH, TRAIN_SEQ
+    opt = make_optimizer(cfg.optimizer, warmup=max(TRAIN_STEPS // 20, 1),
+                         total=TRAIN_STEPS)
+    batch = pipeline.to_device(pipeline.token_batch(cfg, 0, b, s, args.seed),
+                               dev)
+    runs = {}
+    for kind in ("plain", "mesh"):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = model_api.init(cfg, torch.Generator(device=dev).manual_seed(
+            args.seed), device=dev)
+        state = opt.init(params)
+        m = mesh if kind == "mesh" else None
+        step, _ = trainer.make_train_step(cfg, m, "flash",
+                                          microbatch=TRAIN_MICRO,
+                                          optimizer=opt)
+        if m is not None:
+            params, state = trainer.place_train_state(cfg, m, opt, params,
+                                                      state)
+        sync()
+        reset_counts()
+        losses, norms, ms = timed_steps(step, params, state, batch, MESH_STEPS,
+                                        sync)
+        launches = collect_counts(f"{cfg.name} training ({kind})")
+        if any(launches.values()):
+            raise AssertionError(f"training launched kernels: {launches}")
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        runs[kind] = {"losses": losses, "grad_norms": norms, "step_ms": ms,
+                      "peak_bytes": peak}
+        del params, state, step
+    for i in range(MESH_STEPS):
+        for key in ("losses", "grad_norms"):
+            got, want = runs["mesh"][key][i], runs["plain"][key][i]
+            if not (math.isfinite(got) and
+                    abs(got - want) <= MESH_RTOL * abs(want)):
+                raise AssertionError(f"mesh step {i + 1}: {key} {got} "
+                                     f"against {want} without a mesh")
+    mesh_ms = float(np.median(runs["mesh"]["step_ms"][1:]))
+    plain_ms = float(np.median(runs["plain"]["step_ms"][1:]))
+    say(f" -- {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}), "
+        f"batch {b} x {s} in {TRAIN_MICRO} microbatches, {MESH_STEPS} steps "
+        f"on mesh {mesh.shape} and without a mesh from seed {args.seed}")
+    for i in range(MESH_STEPS):
+        say(f"  step {i + 1}: mesh loss {runs['mesh']['losses'][i]:.6f} "
+            f"grad norm {runs['mesh']['grad_norms'][i]:.4f} "
+            f"{runs['mesh']['step_ms'][i]:.1f} ms | no mesh loss "
+            f"{runs['plain']['losses'][i]:.6f} grad norm "
+            f"{runs['plain']['grad_norms'][i]:.4f} "
+            f"{runs['plain']['step_ms'][i]:.1f} ms")
+    say(f"  step ms (median of steps 2-{MESH_STEPS}): mesh {mesh_ms:.1f}, "
+        f"no mesh {plain_ms:.1f}; peak GiB: mesh "
+        f"{runs['mesh']['peak_bytes'] / 2 ** 30:.3f}, no mesh "
+        f"{runs['plain']['peak_bytes'] / 2 ** 30:.3f}; world of one, no "
+        f"exchange between ranks measured; {card}")
+    return {"arch": cfg.name, "batch": b, "seq": s, "microbatch": TRAIN_MICRO,
+            "steps": MESH_STEPS, "mesh_shape": mesh.shape, **{
+                f"{kind}_{k}": v for kind, r in runs.items()
+                for k, v in r.items()},
+            "mesh_step_s_median": mesh_ms / 1e3,
+            "plain_step_s_median": plain_ms / 1e3, "card": card}
+
+
+def mesh_cut_step(args, dev, sync, mesh, rehearse, card, arch, cut, ep,
+                  n_steps):
+    """``arch`` at full width and cut depth (``expert_parallel`` as
+    ``ep``): ``n_steps`` on the mesh against as many without, from the
+    same init."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import pipeline
+    from repro_torch.models import model_api, moe
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import trainer
+
+    full = get_config(arch)
+    if rehearse:
+        cfg = reduced_config(arch).with_(optimizer=full.optimizer)
+        cuts, b, s = ["reduced config"], 2, 32
+    else:
+        cfg, b, s = full.with_(**cut), MESH_CUT_BATCH, MESH_CUT_SEQ
+        cuts = [f"{k} {v} of {getattr(full, k)}" for k, v in cut.items()]
+    if ep:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe,
+                                                expert_parallel=True))
+        if moe.mesh_branch(cfg, mesh, s) != "ep":
+            raise AssertionError(f"{cfg.name}'s step on the mesh would not "
+                                 "take the expert-parallel branch")
+    opt = make_optimizer(cfg.optimizer, warmup=1, total=n_steps)
+    batch = pipeline.to_device(pipeline.token_batch(cfg, 0, b, s, args.seed),
+                               dev)
+    got = {}
+    for kind in ("plain", "mesh"):
+        params = model_api.init(cfg, torch.Generator(device=dev).manual_seed(
+            args.seed), device=dev)
+        state = opt.init(params)
+        m = mesh if kind == "mesh" else None
+        step, _ = trainer.make_train_step(cfg, m, "flash", optimizer=opt)
+        if m is not None:
+            params, state = trainer.place_train_state(cfg, m, opt, params,
+                                                      state)
+        got[kind] = timed_steps(step, params, state, batch, n_steps, sync)
+        del params, state, step
+        sync()
+    for i, key in enumerate(("loss", "grad norm")):
+        for j in range(n_steps):
+            a, w = got["mesh"][i][j], got["plain"][i][j]
+            if not (math.isfinite(a) and abs(a - w) <= MESH_RTOL * abs(w)):
+                raise AssertionError(f"{cfg.name} step {j + 1} on the mesh: "
+                                     f"{key} {a} against {w} without one")
+    what = ", ".join(x for x in (cfg.family, "expert_parallel" if ep else "",
+                                 cfg.optimizer) if x)
+    say(f"  {cfg.name} [{what}]: batch {b} x {s}, {n_steps} step(s); loss "
+        f"{got['mesh'][0]} (no mesh {got['plain'][0]}), grad norm "
+        f"{got['mesh'][1]} (no mesh {got['plain'][1]}), ms "
+        f"{[round(x, 1) for x in got['mesh'][2]]} (no mesh "
+        f"{[round(x, 1) for x in got['plain'][2]]}); cut: {'; '.join(cuts)}; "
+        f"{card}")
+    return {"arch": cfg.name, "expert_parallel": ep,
+            "optimizer": cfg.optimizer, "batch": b, "seq": s, "cuts": cuts,
+            **{kind: {"loss": r[0], "grad_norm": r[1], "step_ms": r[2]}
+               for kind, r in got.items()}}
+
+
+def mesh_launcher(args, dev, rehearse):
+    """``launch.train --mesh 1,1`` with a checkpoint directory: run, the
+    last checkpoint removed (the run killed after its first save), run
+    again: it resumes through ``restore(shardings=)``."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as launch
+
+    ckpt = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    argv = ["--arch", "qwen2-0.5b", "--reduced", "--steps", "4", "--batch",
+            "4", "--seq", "128", "--ckpt-every", "2", "--log-every", "1",
+            "--mesh", "1,1", "--ckpt-dir", str(ckpt),
+            "--device", "cpu" if rehearse else "cuda"]
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            first = launch.main(argv)
+        saved = sorted(p.name for p in ckpt.glob("step_*"))
+        if saved != ["step_1", "step_3"]:
+            raise AssertionError(f"the launcher saved {saved}")
+        shutil.rmtree(ckpt / "step_3")
+        with contextlib.redirect_stdout(out):
+            second = launch.main(argv)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    text = out.getvalue()
+    if "resumed from the checkpoint of step 1" not in text:
+        raise AssertionError(f"the launcher did not resume:\n{text}")
+    diff = _tree_diff(first["params"], second["params"])
+    if not diff <= LAUNCH_ATOL:
+        raise AssertionError(f"the resumed run ends {diff} from the "
+                             "uninterrupted one")
+    say(f"  launcher --mesh 1,1: saved {saved}, resumed from step 1 after "
+        f"step 3's checkpoint was removed; largest parameter difference "
+        f"from the uninterrupted run {diff:.3g} (bound {LAUNCH_ATOL:g})")
+    return {"saved": saved, "resumed_from": 1, "max_param_diff": diff}
+
+
+def mesh_pipeline(dev, mesh):
+    """``pipeline_apply`` at one stage against sequential application."""
+    from repro_torch.launch.pp import pipeline_apply
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn(1, 256, 256, generator=g, device=dev) / 16
+    bias = torch.randn(1, 256, generator=g, device=dev) * 0.1
+    x = torch.randn(64, 256, generator=g, device=dev)
+
+    def stage_fn(p, xm):
+        return torch.tanh(xm @ p["w"] + p["b"])
+
+    y = pipeline_apply({"w": w, "b": bias}, x, stage_fn, mesh, "model", 4)
+    want = torch.tanh(x @ w[0] + bias[0])
+    err = float((y - want).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"pipeline_apply at one stage: max error {err}")
+    say(f"  pipeline_apply, one stage, 4 microbatches of 16 x 256: max "
+        f"error {err:.3g} against sequential application")
+    return {"max_abs_err": err}
+
+
+def phase_mesh(args, dev, sync, rehearse, reset_counts, collect_counts,
+               card: str):
+    """Phase 19: training on a process mesh, as a world of one (the one
+    card: nccl refuses two ranks on one device). A (1, 1) ("data",
+    "model") mesh over an nccl group of this process (gloo on the CPU)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t_phase = time.perf_counter()
+    say("== phase 19: training on a process mesh (DTensor parameters and "
+        "state; world of one)")
+    rendezvous = Path(tempfile.mkdtemp(prefix="chip_smoke_pg_")) / "pg"
+    kw = {} if rehearse else {"device_id": torch.device("cuda", 0)}
+    dist.init_process_group("gloo" if rehearse else "nccl",
+                            init_method=f"file://{rendezvous}", rank=0,
+                            world_size=1, **kw)
+    try:
+        mesh = make_test_mesh(1, 1, device=dev)
+        out = {"qwen": mesh_qwen(args, dev, sync, mesh, rehearse,
+                                 reset_counts, collect_counts, card)}
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        for arch, cut, ep, n_steps in MESH_CUTS:
+            out[arch] = mesh_cut_step(args, dev, sync, mesh, rehearse, card,
+                                      arch, cut, ep, n_steps)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        out["launcher"] = mesh_launcher(args, dev, rehearse)
+        out["pipeline"] = mesh_pipeline(dev, mesh)
+        collect_counts("phase 19 checks")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous.parent, ignore_errors=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"  phase 19 wall time: {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=262144,
@@ -4936,6 +5234,12 @@ def main() -> int:
                         collect_counts, smi_line)
     train["launches"] = {name: main_launches[name] - before[name]
                          for name in main_launches}
+    # --------------------------------------------------------------- 19 ---
+    before = dict(main_launches)
+    mesh_train = phase_mesh(args, dev, sync, rehearse, reset_counts,
+                            collect_counts, smi_line)
+    mesh_train["launches"] = {name: main_launches[name] - before[name]
+                              for name in main_launches}
     say("== B6 and B5 at each zoo configuration's heads and dims")
     zoo_checked = check_zoo_shapes(args, dev, rehearse)
     say("== B6 and B5 at the zoo's new shapes, timed")
@@ -4951,6 +5255,7 @@ def main() -> int:
             e["launches_zoo"] = zoo["launches"][e["name"]]
             e["launches_zoo_b"] = zoo_b["launches"][e["name"]]
             e["launches_train"] = train["launches"][e["name"]]
+            e["launches_mesh_train"] = mesh_train["launches"][e["name"]]
         if e["name"] in ("decode_attend_fused", "block_attention"):
             e["zoo_shapes_checked"] = [r for r in zoo_checked
                                        if r["kernel"] == e["name"]]
@@ -4985,7 +5290,7 @@ def main() -> int:
                           "service": service, "stream": stream,
                           "solvers": solvers, "persist": persist,
                           "shard": shard, "zoo": zoo, "zoo_b": zoo_b,
-                          "train": train})
+                          "train": train, "mesh_train": mesh_train})
     kernels = json.dumps({"kernels": entries})
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
     if rehearse:

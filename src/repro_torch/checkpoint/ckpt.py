@@ -37,9 +37,14 @@ Design points:
     the card, as every entry point does;
   - shard-aware: ``save_plan`` of a ``ShardedPlan`` writes the unsharded
     plan plus a note of its axis, and ``restore_plan(mesh=)`` re-shards on
-    load (elastic: the halo analysis runs against the restoring mesh).
-    Placing a model tree over a mesh (``restore(shardings=)``) waits for
-    the mesh half of training, ROADMAP A14b.
+    load (elastic: the halo analysis runs against the restoring mesh);
+  - DTensor trees (training on a process mesh): every rank calls ``save``
+    (gathering each leaf is a collective; a leaf whose leading axis is
+    not split is gathered a run of at most ``GATHER_BYTES`` at a time) and
+    rank 0 alone keeps the host copies and writes the whole arrays;
+    ``restore(shardings=)`` reads each rank's block of each array from the
+    file (memory-mapped) and moves only that block to its device, on any
+    process mesh (the reference's elastic reshard).
 
 When saving a model tree and a plan at the same step, save the model tree
 first: ``save(step, ...)`` replaces the whole ``step_<N>`` directory.
@@ -60,10 +65,19 @@ import torch
 from repro_torch._device import DeviceLike, from_numpy, resolve_device
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} (placing a model tree over a mesh) is not ported to "
-        "repro_torch yet (port queue item A14b in ROADMAP.md)")
+def _is_dtensor(a) -> bool:
+    if not isinstance(a, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(a, DTensor)
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of an initialized
+    process group, or the only process."""
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
 
 
 def _host(a) -> np.ndarray:
@@ -75,6 +89,64 @@ def _host(a) -> np.ndarray:
             a = a.float()
         return a.to("cpu", copy=True).numpy()
     return np.array(a)
+
+
+# bytes of a DTensor gathered whole at a time when it is saved
+GATHER_BYTES = 1 << 30
+
+
+def _gather_host(a, keep: bool) -> Optional[np.ndarray]:
+    """A DTensor gathered whole to the host (a collective every rank of its
+    mesh joins), and kept only where ``keep``. When its leading axis is not
+    split, it is gathered in runs of leading indices of at most
+    ``GATHER_BYTES``, so no rank holds more of it whole on its device."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    a = a.detach()
+    local = a.to_local()
+    step = a.shape[0] if a.ndim else 1
+    if a.ndim and not any(isinstance(t, Shard) and t.dim == 0
+                          for t in a.placements):
+        row = a.numel() // max(a.shape[0], 1) * a.element_size()
+        step = max(1, min(a.shape[0], GATHER_BYTES // max(row, 1)))
+    if step >= (a.shape[0] if a.ndim else 1):
+        whole = a.full_tensor()
+        return _host(whole) if keep else None
+    out = None
+    for i in range(0, a.shape[0], step):
+        piece = DTensor.from_local(local[i:i + step], a.device_mesh,
+                                   a.placements, run_check=False)
+        piece = _host(piece.full_tensor())
+        if keep:
+            if out is None:
+                out = np.empty(tuple(a.shape), piece.dtype)
+            out[i:i + step] = piece
+    return out
+
+
+def _block(shape, sh) -> tuple:
+    """The slices of a ``shape`` array that this rank holds under the
+    sharding ``sh`` (DTensor's layout: of the mesh axes splitting one
+    dim, the first is the outer split)."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.models.sharding import placements
+
+    dm = sh.mesh.device_mesh
+    coord = dm.get_coordinate()
+    index = [0] * len(shape)
+    count = [1] * len(shape)
+    for j, t in enumerate(placements(sh)):
+        if isinstance(t, Shard):
+            index[t.dim] = index[t.dim] * dm.size(j) + coord[j]
+            count[t.dim] *= dm.size(j)
+    out = []
+    for n, i, c in zip(shape, index, count):
+        if n % c:
+            raise ValueError(f"a dim of {n} does not split into {c} equal "
+                             f"shards ({sh.spec})")
+        out.append(slice(i * (n // c), (i + 1) * (n // c)))
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -330,10 +402,17 @@ class Checkpointer:
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, tree: Any, blocking: bool = False) -> None:
-        """Host-gather the tree now and write it in the background."""
+        """Host-gather the tree now and write it in the background. Under
+        a process group every rank calls it (a DTensor leaf is gathered one
+        leaf, or one run of its leading axis, at a time) and rank 0 keeps
+        the host copies and writes them."""
         self.wait()
         flat, skeleton = _flatten(tree)
-        host = [_host(x) for x in flat]
+        writer = _writer()
+        host = [_gather_host(x, writer) if _is_dtensor(x) else
+                (_host(x) if writer else None) for x in flat]
+        if not writer:
+            return
 
         def work():
             tmp = self.dir / f".tmp_step_{step}"
@@ -400,10 +479,12 @@ class Checkpointer:
                 shardings: Any = None,
                 device: DeviceLike = None) -> Tuple[Any, int]:
         """Restore into the structure of ``tree_like``: every leaf a tensor
-        on ``device`` (``None``: the card) in that leaf's dtype."""
-        if shardings is not None:
-            raise _not_ported("restore(shardings=)")
-        dev = resolve_device(device)
+        on ``device`` (``None``: the card) in that leaf's dtype. With
+        ``shardings`` (a tree of ``models.sharding.NamedSharding`` over a
+        process mesh, e.g. ``shardings_for``'s) every leaf is a DTensor
+        at its sharding's placements on that mesh's devices, whatever mesh
+        saved it: each rank reads its own block of each array from the
+        file and moves only that to its device."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -413,14 +494,47 @@ class Checkpointer:
         if n != len(flat):
             raise ValueError(f"checkpoint has {n} leaves, model needs "
                              f"{len(flat)} — structure mismatch")
-        from repro_torch import convert
+        if shardings is not None:
+            out = self._restore_sharded(d, flat, shardings)
+        else:
+            from repro_torch import convert
 
-        out = []
-        for i, leaf in enumerate(flat):
-            a = convert.array_from_reference(np.load(d / f"leaf_{i}.npy"))
-            out.append(from_numpy(a, dev).to(_torch_dtype(leaf))
-                       .reshape(tuple(a.shape)))
+            dev = resolve_device(device)
+            out = []
+            for i, leaf in enumerate(flat):
+                a = convert.array_from_reference(
+                    np.load(d / f"leaf_{i}.npy"))
+                out.append(from_numpy(a, dev).to(_torch_dtype(leaf))
+                           .reshape(tuple(a.shape)))
         return _unflatten(skeleton, out), step
+
+    @staticmethod
+    def _restore_sharded(d: Path, flat, shardings) -> list:
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch import convert
+        from repro_torch.models.sharding import placements
+
+        sflat, _ = _flatten(shardings)
+        if any(sh.mesh.device_mesh is None for sh in sflat):
+            raise ValueError("restore(shardings=) needs shardings over a "
+                             "process mesh (launch.mesh.init_process_mesh)")
+        if len(sflat) != len(flat):
+            raise ValueError(f"{len(sflat)} shardings for {len(flat)} leaves")
+        dev = resolve_device(sflat[0].mesh.device_mesh.device_type
+                             if sflat else "cpu")
+        out = []
+        for i, (leaf, sh) in enumerate(zip(flat, sflat)):
+            whole = np.load(d / f"leaf_{i}.npy", mmap_mode="r")
+            a = convert.array_from_reference(
+                np.array(whole[_block(whole.shape, sh)]))
+            local = from_numpy(a, dev).to(_torch_dtype(leaf)).reshape(
+                tuple(a.shape))
+            out.append(DTensor.from_local(
+                local, sh.mesh.device_mesh, placements(sh), run_check=False,
+                shape=torch.Size(whole.shape),
+                stride=torch.empty(whole.shape, device="meta").stride()))
+        return out
 
     # -- interaction plans ----------------------------------------------------
 

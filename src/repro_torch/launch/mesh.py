@@ -1,4 +1,5 @@
-"""Device meshes: a named grid of devices held by one controller process.
+"""Device meshes: a named grid of devices, held by one controller process
+or spread over a process group.
 
 The reference's ``jax.sharding.Mesh`` lives in one process: ``shard(plan,
 mesh)`` returns one object whose ``matvec`` takes and returns the whole
@@ -14,12 +15,22 @@ where the reference's tests force several host devices with
 ``--xla_force_host_platform_device_count``. Every shard then computes on
 the same device and the exchange copies are no-ops.
 
+Training on a mesh is the other kind: one process per device, as
+``torchrun`` starts them. :func:`init_process_mesh` builds a
+``torch.distributed`` ``DeviceMesh`` over an initialized process group
+and keeps it as the :class:`Mesh`'s ``device_mesh``; parameters, state
+and batch are then DTensors over it (``models.sharding.place``). A
+single-controller mesh has ``device_mesh=None``.
+:func:`make_production_mesh` and :func:`make_test_mesh` give the
+reference's shapes as process meshes.
+
 Importing this module touches no device; meshes are built by functions.
 """
 from __future__ import annotations
 
 import functools
 import math
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -27,7 +38,8 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 
-__all__ = ["Mesh", "make_mesh", "default_mesh"]
+__all__ = ["Mesh", "make_mesh", "default_mesh", "init_process_mesh",
+           "make_production_mesh", "make_test_mesh"]
 
 
 def _indexed(device: DeviceLike) -> torch.device:
@@ -43,9 +55,11 @@ class Mesh:
     """``devices`` (any shape) of ``torch.device``\\ s with one name per
     axis. ``shape`` maps each axis name to its size, as
     ``jax.sharding.Mesh.shape`` does; two meshes are equal when their axes
-    and devices are."""
+    and devices are, and both are process meshes or neither is.
+    ``device_mesh`` is the ``DeviceMesh`` of a process mesh, else
+    ``None``."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], device_mesh=None):
         arr = np.empty(np.shape(devices), dtype=object)
         flat = [_indexed(d) for d in np.asarray(devices, object).flat]
         arr.reshape(-1)[:] = flat
@@ -57,6 +71,7 @@ class Mesh:
             raise ValueError(f"repeated axis name in {axis_names}")
         self.devices = arr
         self.axis_names = axis_names
+        self.device_mesh = device_mesh
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -77,7 +92,8 @@ class Mesh:
 
     def _key(self) -> Tuple:
         return (self.axis_names, self.devices.shape,
-                tuple(str(d) for d in self.devices.flat))
+                tuple(str(d) for d in self.devices.flat),
+                self.device_mesh is not None)
 
     def __eq__(self, other) -> bool:
         return isinstance(other, Mesh) and self._key() == other._key()
@@ -87,7 +103,8 @@ class Mesh:
 
     def __repr__(self) -> str:
         devs = [str(d) for d in self.devices.flat]
-        return f"Mesh({self.shape}, devices={devs})"
+        kind = ", process mesh" if self.device_mesh is not None else ""
+        return f"Mesh({self.shape}, devices={devs}{kind})"
 
 
 def _cuda_devices() -> List[torch.device]:
@@ -128,3 +145,69 @@ def default_mesh(axis: str = "data", device: DeviceLike = None) -> Mesh:
     and no ``device`` it raises: there is no CPU fallback. Shared by
     ``shard`` and the ``dist`` backend, so their memoized shards agree."""
     return _default_mesh(axis, resolve_device(device).type)
+
+
+def init_process_mesh(shape: Sequence[int], axes: Sequence[str],
+                      device: DeviceLike = None) -> Mesh:
+    """A process mesh of ``shape`` over the initialized process group,
+    which must hold exactly ``prod(shape)`` ranks. ``device=None`` (or a
+    CUDA device) puts each rank on its local card (``LOCAL_RANK``, else
+    the rank modulo the card count) under the ``nccl`` backend; ``"cpu"``
+    needs ``gloo``. There is no fallback from one to the other."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = tuple(int(n) for n in shape)
+    need = math.prod(shape)
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            f"a process mesh of shape {shape} needs an initialized process "
+            f"group of {need} ranks (torchrun, or "
+            "torch.distributed.init_process_group)")
+    world = dist.get_world_size()
+    if world != need:
+        raise ValueError(f"mesh shape {shape} needs {need} ranks, the "
+                         f"process group has {world}")
+    kind = "cuda" if device is None else torch.device(device).type
+    backend = dist.get_backend()
+    if kind == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("a process mesh on the card needs a CUDA "
+                               "device; pass device='cpu' (gloo) for one "
+                               "on the CPU")
+        if backend != "nccl":
+            raise ValueError(f"a process mesh on the card needs the nccl "
+                             f"backend, the process group has {backend}")
+        n_cards = torch.cuda.device_count()
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank() % n_cards))
+        torch.cuda.set_device(local)
+        devs = [torch.device("cuda", r % n_cards) for r in range(need)]
+        devs[dist.get_rank()] = torch.device("cuda", local)
+    elif kind == "cpu":
+        if backend != "gloo":
+            raise ValueError(f"a process mesh on the CPU needs the gloo "
+                             f"backend, the process group has {backend}")
+        devs = [torch.device("cpu")] * need
+    else:
+        raise ValueError(f"no process mesh on device type {kind!r}")
+    dm = init_device_mesh(kind, shape, mesh_dim_names=tuple(axes))
+    grid = np.empty(need, dtype=object)
+    grid[:] = devs
+    return Mesh(grid.reshape(shape), axes, device_mesh=dm)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: DeviceLike = None) -> Mesh:
+    """Single pod: (data=16, model=16) = 256 ranks. Multi-pod: (pod=2,
+    data=16, model=16) = 512 ranks (DP across pods). A process group of
+    another size raises."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_process_mesh(shape, axes, device)
+
+
+def make_test_mesh(data: int = 2, model: int = 2,
+                   device: DeviceLike = None) -> Mesh:
+    """Small ``(data, model)`` process mesh for tests (four gloo ranks on
+    the CPU for the default shape)."""
+    return init_process_mesh((data, model), ("data", "model"), device)

@@ -21,7 +21,8 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import param as pm
-from repro_torch.models.sharding import NO_SHARD, ShardCtx
+from repro_torch.models import sharding
+from repro_torch.models.sharding import NO_SHARD, P, ShardCtx
 from repro_torch.models.transformer import ce_loss
 
 
@@ -29,13 +30,16 @@ def _init_attn(cfg: ModelConfig, d_kv_src: int = 0) -> dict:
     d = cfg.d_model
     hq, dh = cfg.n_heads, cfg.head_dim
     dkv = d_kv_src or d
-    return {"wq": pm.linear(d, hq * dh), "wk": pm.linear(dkv, hq * dh),
-            "wv": pm.linear(dkv, hq * dh), "wo": pm.linear(hq * dh, d)}
+    col = ("fsdp", "tp")
+    return {"wq": pm.linear(d, hq * dh, spec=col),
+            "wk": pm.linear(dkv, hq * dh, spec=col),
+            "wv": pm.linear(dkv, hq * dh, spec=col),
+            "wo": pm.linear(hq * dh, d, spec=("tp", "fsdp"))}
 
 
 def _init_mlp(cfg: ModelConfig) -> dict:
-    return {"w1": pm.linear(cfg.d_model, cfg.d_ff),
-            "w2": pm.linear(cfg.d_ff, cfg.d_model)}
+    return {"w1": pm.linear(cfg.d_model, cfg.d_ff, spec=("fsdp", "tp")),
+            "w2": pm.linear(cfg.d_ff, cfg.d_model, spec=("tp", "fsdp"))}
 
 
 def _init_enc_layer(cfg: ModelConfig) -> dict:
@@ -49,29 +53,75 @@ def _init_dec_layer(cfg: ModelConfig) -> dict:
             "ln2": pm.rmsnorm(cfg.d_model), "mlp": _init_mlp(cfg)}
 
 
+def declare(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``param.Init`` leaves (shapes, draws, specs)."""
+    return {"embed": pm.embedding(cfg.vocab, cfg.d_model),
+            "enc": pm.stacked(_init_enc_layer(cfg), cfg.n_enc_layers),
+            "dec": pm.stacked(_init_dec_layer(cfg), cfg.n_layers),
+            "ln_enc": pm.rmsnorm(cfg.d_model),
+            "ln_f": pm.rmsnorm(cfg.d_model),
+            "head": pm.linear(cfg.d_model, cfg.vocab, spec=("fsdp", "tp"))}
+
+
 def init_lm(cfg: ModelConfig, gen: torch.Generator,
             device: DeviceLike = None, dtype: torch.dtype = torch.float32
             ) -> dict:
     """Random parameters drawn from ``gen`` on ``device``, each leaf
     allocated once in ``dtype`` (``param.materialize``)."""
-    p = {"embed": pm.embedding(cfg.vocab, cfg.d_model),
-         "enc": pm.stacked(_init_enc_layer(cfg), cfg.n_enc_layers),
-         "dec": pm.stacked(_init_dec_layer(cfg), cfg.n_layers),
-         "ln_enc": pm.rmsnorm(cfg.d_model),
-         "ln_f": pm.rmsnorm(cfg.d_model),
-         "head": pm.linear(cfg.d_model, cfg.vocab)}
-    return pm.materialize(p, gen, resolve_device(device), dtype)
+    return pm.materialize(declare(cfg), gen, resolve_device(device), dtype)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical PartitionSpec of every parameter, in ``init_lm``'s
+    structure."""
+    return pm.spec_tree(declare(cfg))
 
 
 def _heads(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(B, S, H*dh) -> (B, H, S, dh)."""
+    """(B, S, H*dh) -> (B, H, S, dh) (H: the heads ``x`` holds)."""
     b, s, _ = x.shape
-    return x.reshape(b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+    return x.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
+
+
+def _splits(cfg: ModelConfig, mesh):
+    """The tensor splits of the attention heads and the MLP's hidden
+    columns under a process ``mesh`` (each None where it computes whole:
+    no tensor axis, or a count the axis does not divide)."""
+    split = sharding.tensor_split(mesh)
+    if split is None:
+        return None, None
+    return (split if cfg.n_heads % split.n == 0 else None,
+            split if cfg.d_ff % split.n == 0 else None)
+
+
+def compute_specs(cfg: ModelConfig, mesh, seq: int) -> dict:
+    """Physical PartitionSpecs of the parameters in the mesh train step:
+    every attention's q/k/v columns and output rows and the MLP's over
+    ``tp`` where ``_splits`` splits them, the rest whole."""
+    specs = sharding.whole(param_specs(cfg))
+    attn_split, mlp_split = _splits(cfg, mesh)
+    for stack, blocks in (("enc", ("attn",)), ("dec", ("self", "cross"))):
+        layer = specs[stack]
+        if attn_split is not None:
+            for blk in blocks:
+                for k in ("wq", "wk", "wv"):
+                    layer[blk][k]["w"] = P(None, None, attn_split.axis)
+                layer[blk]["wo"]["w"] = P(None, attn_split.axis, None)
+        if mlp_split is not None:
+            layer["mlp"]["w1"]["w"] = P(None, None, mlp_split.axis)
+            layer["mlp"]["w2"]["w"] = P(None, mlp_split.axis, None)
+    return specs
 
 
 def _mha(lp, xq, xkv, cfg: ModelConfig, qpos, kpos, shd: ShardCtx = NO_SHARD,
          *, causal: bool, backend: str = "flash") -> torch.Tensor:
     b, sq, _ = xq.shape
+    split = _splits(cfg, shd.mesh)[0]
+    if split is not None:               # this rank's heads
+        xq = split.enter(xq)
+        xkv = xq if xkv is None else split.enter(xkv)
+    elif xkv is None:
+        xkv = xq
     q = attn.rope(_heads(pm.apply_linear(lp["wq"], xq), cfg),
                   qpos[None, None, :], cfg.rope_theta)
     k = attn.rope(_heads(pm.apply_linear(lp["wk"], xkv), cfg),
@@ -81,12 +131,19 @@ def _mha(lp, xq, xkv, cfg: ModelConfig, qpos, kpos, shd: ShardCtx = NO_SHARD,
         o = attn.dense_attention(q, k, v, qpos, kpos, causal=causal)
     else:
         o = attn.flash_attention(q, k, v, qpos, kpos, causal=causal)
-    return pm.apply_linear(lp["wo"], o.transpose(1, 2).reshape(b, sq, -1))
+    o = pm.apply_linear(lp["wo"], o.transpose(1, 2).reshape(b, sq, -1))
+    return o if split is None else split.sum(o)
 
 
-def _mlp_apply(lp, x: torch.Tensor) -> torch.Tensor:
-    return pm.apply_linear(lp["w2"], F.gelu(pm.apply_linear(lp["w1"], x),
-                                            approximate="tanh"))
+def _mlp_apply(lp, x: torch.Tensor, cfg: ModelConfig = None,
+               shd: ShardCtx = NO_SHARD) -> torch.Tensor:
+    """The GELU MLP; ``cfg`` is read only under a process mesh."""
+    split = _splits(cfg, shd.mesh)[1]
+    if split is not None:
+        x = split.enter(x)
+    y = pm.apply_linear(lp["w2"], F.gelu(pm.apply_linear(lp["w1"], x),
+                                         approximate="tanh"))
+    return y if split is None else split.sum(y)
 
 
 def encode(p, cfg: ModelConfig, frames: torch.Tensor,
@@ -96,11 +153,13 @@ def encode(p, cfg: ModelConfig, frames: torch.Tensor,
     pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
 
     def body(lp, x):
+        lp = shd.layer(lp, "enc")
         hn = pm.apply_rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        x = x + _mha(lp["attn"], hn, hn, cfg, pos, pos, shd, causal=False,
+        x = x + _mha(lp["attn"], hn, None, cfg, pos, pos, shd, causal=False,
                      backend=backend)
         return x + _mlp_apply(lp["mlp"],
-                              pm.apply_rmsnorm(lp["ln2"], x, cfg.norm_eps))
+                              pm.apply_rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                              cfg, shd)
 
     body = pm.maybe_remat(body, cfg)
     for lp in pm.unstack(p["enc"], cfg.n_enc_layers):
@@ -111,12 +170,13 @@ def encode(p, cfg: ModelConfig, frames: torch.Tensor,
 def _dec_layer(lp, x, enc_out, pos, epos, cfg: ModelConfig, shd: ShardCtx,
                backend: str) -> torch.Tensor:
     hn = pm.apply_rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    x = x + _mha(lp["self"], hn, hn, cfg, pos, pos, shd, causal=True,
+    x = x + _mha(lp["self"], hn, None, cfg, pos, pos, shd, causal=True,
                  backend=backend)
     x = x + _mha(lp["cross"], pm.apply_rmsnorm(lp["ln_x"], x, cfg.norm_eps),
                  enc_out, cfg, pos, epos, shd, causal=False, backend=backend)
     return x + _mlp_apply(lp["mlp"],
-                          pm.apply_rmsnorm(lp["ln2"], x, cfg.norm_eps))
+                          pm.apply_rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                          cfg, shd)
 
 
 def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -129,7 +189,8 @@ def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     epos = torch.arange(enc_out.shape[1], dtype=torch.int32, device=h.device)
 
     def body(lp, x, enc):
-        return _dec_layer(lp, x, enc, pos, epos, cfg, shd, backend)
+        return _dec_layer(shd.layer(lp, "dec"), x, enc, pos, epos, cfg, shd,
+                          backend)
 
     body = pm.maybe_remat(body, cfg)
     for lp in pm.unstack(p["dec"], cfg.n_layers):
@@ -144,6 +205,13 @@ def loss_fn(p, cfg: ModelConfig, batch, backend: str = "flash",
     h, _ = forward(p, cfg, batch, backend, shd)
     return ce_loss(h, p["head"]["w"].to(pm.DTYPES[cfg.dtype]),
                    batch["labels"], cfg.loss_chunk)
+
+
+def cache_specs(cfg: ModelConfig, long_context: bool = False) -> dict:
+    """Logical PartitionSpecs of the self and cross caches (heads over
+    the tensor axis, whatever the context length, as the reference's)."""
+    kv = P(None, "dp", "tp", None, None)
+    return {"k": kv, "v": kv, "xk": kv, "xv": kv, "pos": P()}
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,

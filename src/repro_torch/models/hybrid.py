@@ -14,7 +14,9 @@ attends through the ClusterKV paths: the block-sparse prefill kernel (B6)
 once a group in ``prefill``, the fused decode kernel (B5) once a group in
 ``decode_step``. ``loss_fn`` is the training loss; each mamba2 layer of
 ``forward`` runs under remat, the shared block without, as the
-reference's. The cache's PartitionSpecs wait for ROADMAP A14b.
+reference's. ``param_specs`` and ``cache_specs`` give the parameters'
+and the cache's logical PartitionSpecs (the nested ``"ssm"`` state
+included).
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba
 from repro_torch.models import param as pm
-from repro_torch.models.sharding import NO_SHARD, ShardCtx
+from repro_torch.models import sharding
+from repro_torch.models.sharding import NO_SHARD, P, ShardCtx
 from repro_torch.models.transformer import ce_loss
 
 
@@ -45,13 +48,28 @@ def _heads(cfg: ModelConfig) -> Tuple[int, int, int]:
 def _init_shared(cfg: ModelConfig) -> dict:
     """Shared transformer block over the 2*d concat stream."""
     d2, hq, dh = _heads(cfg)
+    col, row = ("fsdp", "tp"), ("tp", "fsdp")
     return {"ln1": pm.rmsnorm(d2),
-            "wq": pm.linear(d2, hq * dh), "wk": pm.linear(d2, hq * dh),
-            "wv": pm.linear(d2, hq * dh), "wo": pm.linear(hq * dh, d2),
+            "wq": pm.linear(d2, hq * dh, spec=col),
+            "wk": pm.linear(d2, hq * dh, spec=col),
+            "wv": pm.linear(d2, hq * dh, spec=col),
+            "wo": pm.linear(hq * dh, d2, spec=row),
             "ln2": pm.rmsnorm(d2),
-            "wg": pm.linear(d2, cfg.d_ff), "wu": pm.linear(d2, cfg.d_ff),
-            "wd": pm.linear(cfg.d_ff, d2),
-            "out": pm.linear(d2, cfg.d_model)}
+            "wg": pm.linear(d2, cfg.d_ff, spec=col),
+            "wu": pm.linear(d2, cfg.d_ff, spec=col),
+            "wd": pm.linear(cfg.d_ff, d2, spec=row),
+            "out": pm.linear(d2, cfg.d_model, spec=col)}
+
+
+def declare(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``param.Init`` leaves (shapes, draws, specs)."""
+    layer = {"ln": pm.rmsnorm(cfg.d_model), "mixer": mamba.init_mamba2(cfg)}
+    return {"embed": pm.embedding(cfg.vocab, cfg.d_model),
+            "shared": _init_shared(cfg),
+            "layers": pm.stacked(layer,
+                                 _n_groups(cfg) * cfg.shared_attn_every),
+            "ln_f": pm.rmsnorm(cfg.d_model),
+            "head": pm.linear(cfg.d_model, cfg.vocab, spec=("fsdp", "tp"))}
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator,
@@ -59,14 +77,13 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator,
             ) -> dict:
     """Random parameters drawn from ``gen`` on ``device``, each leaf
     allocated once in ``dtype`` (``param.materialize``)."""
-    layer = {"ln": pm.rmsnorm(cfg.d_model), "mixer": mamba.init_mamba2(cfg)}
-    p = {"embed": pm.embedding(cfg.vocab, cfg.d_model),
-         "shared": _init_shared(cfg),
-         "layers": pm.stacked(layer,
-                              _n_groups(cfg) * cfg.shared_attn_every),
-         "ln_f": pm.rmsnorm(cfg.d_model),
-         "head": pm.linear(cfg.d_model, cfg.vocab)}
-    return pm.materialize(p, gen, resolve_device(device), dtype)
+    return pm.materialize(declare(cfg), gen, resolve_device(device), dtype)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical PartitionSpec of every parameter, in ``init_lm``'s
+    structure."""
+    return pm.spec_tree(declare(cfg))
 
 
 def _split_heads(t: torch.Tensor, hq: int, dh: int) -> torch.Tensor:
@@ -74,10 +91,42 @@ def _split_heads(t: torch.Tensor, hq: int, dh: int) -> torch.Tensor:
     return t.reshape(b, s, hq, dh).transpose(1, 2)
 
 
-def _shared_qkv(sp, h2, cfg: ModelConfig, pos):
-    """q, k, v (B, H, S, dh) of the shared block, RoPE at ``pos`` (S,)."""
+def _splits(cfg: ModelConfig, mesh):
+    """The tensor splits of the shared block's attention heads and MLP
+    columns under a process ``mesh`` (each None where it computes whole:
+    no tensor axis, or a count the axis does not divide). The mamba2
+    layers compute whole: their gated norm spans the inner dim."""
+    split = sharding.tensor_split(mesh)
+    if split is None:
+        return None, None
+    return (split if cfg.n_heads % split.n == 0 else None,
+            split if cfg.d_ff % split.n == 0 else None)
+
+
+def compute_specs(cfg: ModelConfig, mesh, seq: int) -> dict:
+    """Physical PartitionSpecs of the parameters in the mesh train step:
+    the shared block's q/k/v and gate/up columns and its output and down
+    rows over ``tp`` where ``_splits`` splits them, the rest whole."""
+    specs = sharding.whole(param_specs(cfg))
+    sh = specs["shared"]
+    attn_split, mlp_split = _splits(cfg, mesh)
+    if attn_split is not None:
+        for k in ("wq", "wk", "wv"):
+            sh[k]["w"] = P(None, attn_split.axis)
+        sh["wo"]["w"] = P(attn_split.axis, None)
+    if mlp_split is not None:
+        sh["wg"]["w"] = sh["wu"]["w"] = P(None, mlp_split.axis)
+        sh["wd"]["w"] = P(mlp_split.axis, None)
+    return specs
+
+
+def _shared_qkv(sp, h2, cfg: ModelConfig, pos, split=None):
+    """q, k, v (B, H, S, dh) of the shared block, RoPE at ``pos`` (S,);
+    under a tensor ``split`` this rank's heads."""
     _, hq, dh = _heads(cfg)
     hn = pm.apply_rmsnorm(sp["ln1"], h2, cfg.norm_eps)
+    if split is not None:
+        hn, hq = split.enter(hn), hq // split.n
     q = _split_heads(pm.apply_linear(sp["wq"], hn), hq, dh)
     k = _split_heads(pm.apply_linear(sp["wk"], hn), hq, dh)
     v = _split_heads(pm.apply_linear(sp["wv"], hn), hq, dh)
@@ -86,34 +135,44 @@ def _shared_qkv(sp, h2, cfg: ModelConfig, pos):
     return q, k, v
 
 
-def _shared_tail(sp, h2, o, cfg: ModelConfig) -> torch.Tensor:
+def _shared_tail(sp, h2, o, cfg: ModelConfig,
+                 splits=(None, None)) -> torch.Tensor:
     """The block after attention: output projection and residual, the
-    SwiGLU MLP and residual, and the projection back to d."""
+    SwiGLU MLP and residual, and the projection back to d; under tensor
+    ``splits`` (``_splits``) the heads' and columns' partial sums are
+    summed over ``tp``."""
     b, s, _ = h2.shape
-    h2 = h2 + pm.apply_linear(sp["wo"], o.transpose(1, 2).reshape(b, s, -1))
+    split_attn, split_mlp = splits
+    a = pm.apply_linear(sp["wo"], o.transpose(1, 2).reshape(b, s, -1))
+    h2 = h2 + (a if split_attn is None else split_attn.sum(a))
     hn = pm.apply_rmsnorm(sp["ln2"], h2, cfg.norm_eps)
+    if split_mlp is not None:
+        hn = split_mlp.enter(hn)
     f = F.silu(pm.apply_linear(sp["wg"], hn)) * pm.apply_linear(sp["wu"], hn)
-    h2 = h2 + pm.apply_linear(sp["wd"], f)
+    m = pm.apply_linear(sp["wd"], f)
+    h2 = h2 + (m if split_mlp is None else split_mlp.sum(m))
     return pm.apply_linear(sp["out"], h2)
 
 
-def _shared_block_kv(sp, h, x0, pos, cfg: ModelConfig, backend: str):
+def _shared_block_kv(sp, h, x0, pos, cfg: ModelConfig, backend: str,
+                     splits=(None, None)):
     """The shared block's d-dim residual contribution, and its k and v."""
     h2 = torch.cat([h, x0], dim=-1)
-    q, k, v = _shared_qkv(sp, h2, cfg, pos)
+    q, k, v = _shared_qkv(sp, h2, cfg, pos, splits[0])
     if backend == "clusterkv" and cfg.clusterkv.enabled:
         o = attn.clusterkv_attention(q, k, v, pos, pos, cfg.clusterkv)
     elif backend == "dense":
         o = attn.dense_attention(q, k, v, pos, pos)
     else:
         o = attn.flash_attention(q, k, v, pos, pos)
-    return _shared_tail(sp, h2, o, cfg), k, v
+    return _shared_tail(sp, h2, o, cfg, splits), k, v
 
 
 def _shared_block(sp, h, x0, pos, cfg: ModelConfig, backend: str,
                   shd: ShardCtx = NO_SHARD) -> torch.Tensor:
     """Returns the d-dim residual contribution of the shared block."""
-    return _shared_block_kv(sp, h, x0, pos, cfg, backend)[0]
+    return _shared_block_kv(sp, h, x0, pos, cfg, backend,
+                            _splits(cfg, shd.mesh))[0]
 
 
 def _group_params(p, g: int, per: int) -> dict:
@@ -131,6 +190,7 @@ def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     per = cfg.shared_attn_every
 
     def mamba_body(lp, x):
+        lp = shd.layer(lp, "layers")
         y, _, _, _ = mamba.mamba2_forward(
             lp["mixer"], pm.apply_rmsnorm(lp["ln"], x, cfg.norm_eps), cfg,
             shd)
@@ -152,6 +212,17 @@ def loss_fn(p, cfg: ModelConfig, batch, backend: str = "flash",
     h, _ = forward(p, cfg, batch, backend, shd)
     return ce_loss(h, p["head"]["w"].to(pm.DTYPES[cfg.dtype]),
                    batch["labels"], cfg.loss_chunk)
+
+
+def cache_specs(cfg: ModelConfig, long_context: bool = False) -> dict:
+    """Logical PartitionSpecs of ``init_cache``'s entries, the nested
+    ``"ssm"`` state included."""
+    kv = (P(None, "dp", None, "seq", None) if long_context
+          else P(None, "dp", "tp", None, None))
+    return {"ssm": {"h": P(None, "dp", "tp", None, None),
+                    "conv_x": P(None, "dp", None, "tp"),
+                    "conv_bc": P(None, "dp", None, None)},
+            "k": kv, "v": kv, "pos": P()}
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,

@@ -42,9 +42,11 @@ def _dims(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def conv1d_init(channels: int, width: int) -> dict:
-    return {"w": pm.normal((width, 1, channels), 1.0 / math.sqrt(width)),
-            "b": pm.Init((channels,))}
+def conv1d_init(channels: int, width: int, tp: str = "tp") -> dict:
+    """Depthwise conv weights; ``tp=None`` leaves the channels unsharded."""
+    return {"w": pm.normal((width, 1, channels), 1.0 / math.sqrt(width),
+                           (None, None, tp)),
+            "b": pm.Init((channels,), spec=(tp,))}
 
 
 def conv1d_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -76,14 +78,15 @@ def conv1d_step(p: dict, buf: torch.Tensor, x1: torch.Tensor
 def init_mamba1(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     di, dt_rank, n = _dims(cfg)
-    return {"in_proj": pm.linear(d, 2 * di),
+    return {"in_proj": pm.linear(d, 2 * di, spec=("fsdp", "tp")),
             "conv": conv1d_init(di, cfg.ssm.d_conv),
-            "x_proj": pm.linear(di, dt_rank + 2 * n),
-            "dt_proj": pm.linear(dt_rank, di, bias=True),
+            "x_proj": pm.linear(di, dt_rank + 2 * n, spec=("tp", None)),
+            "dt_proj": pm.linear(dt_rank, di, spec=(None, "tp"), bias=True),
             # log(1..N) on every inner channel, D = 1: constants, no draw
-            "A_log": pm.constant((di, n), np.log(np.arange(1, n + 1))),
-            "D": pm.Init((di,), fill=1.0),
-            "out_proj": pm.linear(di, d)}
+            "A_log": pm.constant((di, n), np.log(np.arange(1, n + 1)),
+                                 ("tp", None)),
+            "D": pm.Init((di,), fill=1.0, spec=("tp",)),
+            "out_proj": pm.linear(di, d, spec=("tp", "fsdp"))}
 
 
 def _scan_chunk(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
@@ -292,19 +295,20 @@ def init_mamba2(cfg: ModelConfig) -> dict:
     nh = di // m.head_dim
     return {
         # separate projections, as the reference keeps them
-        "z_proj": pm.linear(d, di),
-        "x_proj": pm.linear(d, di),
-        "bc_proj": pm.linear(d, 2 * n),
-        "dt_proj": pm.linear(d, nh),
+        "z_proj": pm.linear(d, di, spec=("fsdp", "tp")),
+        "x_proj": pm.linear(d, di, spec=("fsdp", "tp")),
+        "bc_proj": pm.linear(d, 2 * n, spec=("fsdp", None)),
+        "dt_proj": pm.linear(d, nh, spec=("fsdp", None)),
         "conv_x": conv1d_init(di, m.d_conv),
-        "conv_bc": conv1d_init(2 * n, m.d_conv),
+        "conv_bc": conv1d_init(2 * n, m.d_conv, tp=None),
         # log(linspace(1, 16, nh)), D = 1, dt_bias = 0: constants, no draw
         "A_log": pm.constant((nh,), np.log(
-            np.linspace(1.0, 16.0, nh).astype(np.float32).astype(np.float64))),
-        "D": pm.Init((nh,), fill=1.0),
-        "dt_bias": pm.Init((nh,)),
+            np.linspace(1.0, 16.0, nh).astype(np.float32).astype(np.float64)),
+            ("tp",)),
+        "D": pm.Init((nh,), fill=1.0, spec=("tp",)),
+        "dt_bias": pm.Init((nh,), spec=(None,)),
         "norm": pm.rmsnorm(di),
-        "out_proj": pm.linear(di, d),
+        "out_proj": pm.linear(di, d, spec=("tp", "fsdp")),
     }
 
 

@@ -26,7 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.clusterkv import topk_stable
 from repro_torch.models import attention as attn
 from repro_torch.models import param as pm
-from repro_torch.models.sharding import NO_SHARD, ShardCtx
+from repro_torch.models.sharding import NO_SHARD, P, ShardCtx
 
 NEG_INF = -1e30
 
@@ -40,20 +40,25 @@ def _dims(cfg: ModelConfig):
 def init_mla(cfg: ModelConfig) -> dict:
     d, h = cfg.d_model, cfg.n_heads
     qr, kr, dn, dr, dv = _dims(cfg)
-    return {"q_a": pm.linear(d, qr), "q_ln": pm.rmsnorm(qr),
-            "q_b": pm.linear(qr, h * (dn + dr)),
-            "kv_a": pm.linear(d, kr + dr), "kv_ln": pm.rmsnorm(kr),
-            "kv_b": pm.linear(kr, h * (dn + dv)),
-            "wo": pm.linear(h * dv, d)}
+    return {"q_a": pm.linear(d, qr, spec=("fsdp", None)),
+            "q_ln": pm.rmsnorm(qr),
+            "q_b": pm.linear(qr, h * (dn + dr), spec=(None, "tp")),
+            "kv_a": pm.linear(d, kr + dr, spec=("fsdp", None)),
+            "kv_ln": pm.rmsnorm(kr),
+            "kv_b": pm.linear(kr, h * (dn + dv), spec=(None, "tp")),
+            "wo": pm.linear(h * dv, d, spec=("tp", "fsdp"))}
 
 
-def _q_proj(lp, x, cfg: ModelConfig, pos):
-    """x (B,S,d) -> q_nope (B,H,S,dn), q_rope (B,H,S,dr) (roped)."""
+def _q_proj(lp, x, cfg: ModelConfig, pos, split=None):
+    """x (B,S,d) -> q_nope (B,H,S,dn), q_rope (B,H,S,dr) (roped). Under a
+    tensor ``split`` ``q_b`` holds this rank's heads."""
     b, s, _ = x.shape
     _, _, dn, dr, _ = _dims(cfg)
-    q = pm.apply_linear(lp["q_b"], pm.apply_rmsnorm(
-        lp["q_ln"], pm.apply_linear(lp["q_a"], x)))
-    q = q.reshape(b, s, cfg.n_heads, dn + dr).transpose(1, 2)
+    q_lat = pm.apply_rmsnorm(lp["q_ln"], pm.apply_linear(lp["q_a"], x))
+    if split is not None:
+        q_lat = split.enter(q_lat)
+    q = pm.apply_linear(lp["q_b"], q_lat)
+    q = q.reshape(b, s, -1, dn + dr).transpose(1, 2)
     qrope = attn.rope(q[..., dn:], pos[None, None, :], cfg.rope_theta)
     return q[..., :dn], qrope
 
@@ -70,21 +75,26 @@ def _expand_kv(lp, cn, cfg: ModelConfig):
     """cn (B,S,rank) -> k_nope (B,H,S,dn), v (B,H,S,dv)."""
     b, s, _ = cn.shape
     _, _, dn, _, dv = _dims(cfg)
-    kv = pm.apply_linear(lp["kv_b"], cn).reshape(b, s, cfg.n_heads, dn + dv)
+    kv = pm.apply_linear(lp["kv_b"], cn).reshape(b, s, -1, dn + dv)
     kv = kv.transpose(1, 2)
     return kv[..., :dn], kv[..., dn:]
 
 
-def _attend_latent(lp, x, pos, cfg: ModelConfig, backend: str):
+def _attend_latent(lp, x, pos, cfg: ModelConfig, backend: str,
+                   split=None):
     """Prefill attention through the expanded latent: the (B,S,d) output
-    incl. wo, and the latent (cn, krope) the cache keeps."""
+    incl. wo, and the latent (cn, krope) the cache keeps. Under a tensor
+    ``split`` (a process mesh's ``tp``) ``q_b``/``kv_b`` hold this rank's
+    heads' columns and ``wo`` their rows; the latents are whole."""
     b, s, _ = x.shape
-    qn, qrope = _q_proj(lp, x, cfg, pos)
+    qn, qrope = _q_proj(lp, x, cfg, pos, split)
     cn, krope = _kv_latent(lp, x, cfg, pos)
-    kn, v = _expand_kv(lp, cn, cfg)
+    cl, kl = (cn, krope) if split is None else (split.enter(cn),
+                                                split.enter(krope))
+    kn, v = _expand_kv(lp, cl, cfg)
     q = torch.cat([qn, qrope], dim=-1)
-    k = torch.cat([kn, krope[:, None].expand(*kn.shape[:-1],
-                                             krope.shape[-1])], dim=-1)
+    k = torch.cat([kn, kl[:, None].expand(*kn.shape[:-1],
+                                          kl.shape[-1])], dim=-1)
     if backend == "clusterkv" and cfg.clusterkv.enabled:
         o = attn.clusterkv_attention(q, k, v, pos, pos, cfg.clusterkv,
                                      causal=True)
@@ -92,14 +102,15 @@ def _attend_latent(lp, x, pos, cfg: ModelConfig, backend: str):
         o = attn.dense_attention(q, k, v, pos, pos, causal=True)
     else:
         o = attn.flash_attention(q, k, v, pos, pos, causal=True)
-    o = o.transpose(1, 2).reshape(b, s, -1)
-    return pm.apply_linear(lp["wo"], o), cn, krope
+    o = pm.apply_linear(lp["wo"], o.transpose(1, 2).reshape(b, s, -1))
+    return (o if split is None else split.sum(o)), cn, krope
 
 
 def mla_attention(lp, x, pos, cfg: ModelConfig, shd: ShardCtx = NO_SHARD,
-                  backend: str = "flash") -> torch.Tensor:
-    """Full (train/prefill) MLA attention, returns (B,S,d) incl. wo."""
-    return _attend_latent(lp, x, pos, cfg, backend)[0]
+                  backend: str = "flash", split=None) -> torch.Tensor:
+    """Full (train/prefill) MLA attention, returns (B,S,d) incl. wo;
+    ``split`` as ``_attend_latent``'s."""
+    return _attend_latent(lp, x, pos, cfg, backend, split)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +128,14 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
             "kr": torch.zeros((cfg.n_layers, batch_size, max_seq, dr),
                               dtype=dtype, device=dev),
             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def cache_specs(cfg: ModelConfig, long_context: bool = False) -> dict:
+    """Logical PartitionSpecs of the latent cache (sequence over ``seq``
+    for a long context)."""
+    c = P(None, "dp", "seq", None) if long_context else P(None, "dp", None,
+                                                          None)
+    return {"c": c, "kr": c, "pos": P()}
 
 
 def prefill(p, cfg: ModelConfig, batch, backend: str = "flash"):

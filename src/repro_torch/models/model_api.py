@@ -2,23 +2,27 @@
 
 A family module exposes ``init_lm(cfg, gen, device, dtype)``, ``forward``,
 ``loss_fn``, ``init_cache(cfg, batch, max_seq)``, ``prefill`` and
-``decode_step``: the
+``decode_step``, and the logical PartitionSpecs ``param_specs(cfg)`` and
+``cache_specs(cfg, long_context)``: the
 decoder-only families (``dense``, ``vlm``, ``moe``: ``models.transformer``),
 ``ssm`` (``models.ssm_lm``), ``hybrid`` (``models.hybrid``) and ``encdec``
-(``models.encdec``). The reference's ``input_specs``, ``param_specs`` and
-``cache_shapes`` return PartitionSpecs for the trainer's layouts under a
-mesh and wait for ROADMAP A14b.
+(``models.encdec``). ``input_specs`` and ``cache_shapes`` give a shape
+cell's inputs and decode cache as ``meta`` tensors (the counterpart of the
+reference's ``ShapeDtypeStruct`` values and ``eval_shape``) beside their
+logical specs, which ``models.sharding`` resolves onto a mesh.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig
 from repro_torch.models import param as pm
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
+from repro_torch.models import sharding
+from repro_torch.models.sharding import P
 
 _FAMILY = {"dense": transformer, "vlm": transformer, "moe": transformer,
            "ssm": ssm_lm, "hybrid": hybrid, "encdec": encdec}
@@ -40,6 +44,67 @@ def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree of ``cfg`` on the ``meta`` device: shapes and
     dtypes, no memory."""
     return init(cfg, torch.Generator(), device="meta")
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical PartitionSpec of every parameter (no allocation)."""
+    return module_for(cfg).param_specs(cfg)
+
+
+def compute_specs(cfg: ModelConfig, mesh, seq: int) -> dict:
+    """Physical PartitionSpec of each parameter as the mesh train step
+    computes with it at sequence length ``seq``: the family's split
+    (``transformer.compute_specs``: tensor-parallel attention and MLP, the
+    MoE FFN's experts), or every parameter gathered whole."""
+    mod = module_for(cfg)
+    if hasattr(mod, "compute_specs"):
+        return mod.compute_specs(cfg, mesh, seq)
+    return sharding.whole(param_specs(cfg))
+
+
+def input_specs(cfg: ModelConfig, shape_name: str
+                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, P]]:
+    """``meta`` tensors + logical PartitionSpecs for every model input of
+    the shape cell ``shape_name`` (no allocation)."""
+    seq, batch, kind = SHAPES[shape_name]
+    d = cfg.d_model
+
+    def S(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    i32, bf16 = torch.int32, torch.bfloat16
+    if kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            specs = {"embeddings": S((batch, seq, d), bf16)}
+            parts = {"embeddings": P("dp", None, None)}
+        elif cfg.family == "encdec":
+            specs = {"frames": S((batch, seq, d), bf16),
+                     "tokens": S((batch, seq), i32)}
+            parts = {"frames": P("dp", None, None), "tokens": P("dp", None)}
+        else:
+            specs = {"tokens": S((batch, seq), i32)}
+            parts = {"tokens": P("dp", None)}
+        if kind == "train":
+            specs["labels"] = S((batch, seq), i32)
+            parts["labels"] = P("dp", None)
+        return specs, parts
+    # decode: one new token against a seq-long cache
+    if cfg.family == "vlm":
+        return ({"tokens": S((batch, 1, d), bf16)},
+                {"tokens": P("dp", None, None)})
+    return {"tokens": S((batch, 1), i32)}, {"tokens": P("dp", None)}
+
+
+def cache_shapes(cfg: ModelConfig, shape_name: str):
+    """The decode cache of a shape cell as ``meta`` tensors, and its
+    logical specs (a long-context cell shards the sequence)."""
+    seq, batch, kind = SHAPES[shape_name]
+    if kind != "decode":
+        raise ValueError(f"{shape_name} is a {kind} cell, not a decode cell")
+    mod = module_for(cfg)
+    shapes = mod.init_cache(cfg, batch, seq, device="meta")
+    specs = mod.cache_specs(cfg, long_context=shape_name.startswith("long"))
+    return shapes, specs
 
 
 def make_small_batch(cfg: ModelConfig, gen: torch.Generator, batch: int = 2,

@@ -2,8 +2,9 @@
 layout (``linear`` weights ``(d_in, d_out)``, stacked layers ``(L, ...)``),
 so a reference parameter tree crosses over leaf for leaf
 (``convert.params_from_reference``). The reference's parameter sharding
-specs, which place parameters over a mesh, wait for the mesh half of
-training (ROADMAP A14b).
+specs ride on the same declarations: every leaf carries its logical
+``spec`` (``models/sharding.py``'s tokens), and :func:`spec_tree` reads
+them off without allocating anything.
 
 A model's init is built in two steps. The family's init functions return a
 tree of :class:`Init` leaves (shape, and how to fill it); :func:`stacked`
@@ -35,44 +36,57 @@ class Init:
     """A parameter leaf not allocated yet: its shape, and either ``scale``
     (standard normal draws times ``scale``), the constant ``fill``, or
     ``values``: float32 constants along the last axis, the same for every
-    index of the leading axes (no draw)."""
+    index of the leading axes (no draw). ``spec`` is its logical
+    PartitionSpec, one token (or ``None``) per axis."""
     shape: tuple
     scale: Optional[float] = None
     fill: float = 0.0
     values: Optional[tuple] = None
+    spec: tuple = ()
 
 
-def normal(shape: tuple, scale: float) -> Init:
-    return Init(tuple(shape), scale=scale)
+def normal(shape: tuple, scale: float, spec: tuple = ()) -> Init:
+    return Init(tuple(shape), scale=scale, spec=tuple(spec))
 
 
-def linear(d_in: int, d_out: int, *, bias: bool = False,
-           scale: Optional[float] = None) -> dict:
+def linear(d_in: int, d_out: int, *, spec: tuple = (None, None),
+           bias: bool = False, scale: Optional[float] = None) -> dict:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    p = {"w": normal((d_in, d_out), scale)}
+    p = {"w": normal((d_in, d_out), scale, spec)}
     if bias:
-        p["b"] = Init((d_out,))
+        p["b"] = Init((d_out,), spec=(spec[-1],))
     return p
 
 
-def constant(shape: tuple, values) -> Init:
+def constant(shape: tuple, values, spec: tuple = ()) -> Init:
     """A leaf of ``shape`` holding ``values`` (float32 constants, one per
     index of the last axis) at every index of the leading axes."""
-    return Init(tuple(shape), values=tuple(float(v) for v in values))
+    return Init(tuple(shape), values=tuple(float(v) for v in values),
+                spec=tuple(spec))
 
 
-def embedding(vocab: int, d: int) -> dict:
-    return {"table": normal((vocab, d), d ** -0.5)}
+def embedding(vocab: int, d: int, spec: tuple = ("tp", "fsdp")) -> dict:
+    return {"table": normal((vocab, d), d ** -0.5, spec)}
 
 
 def rmsnorm(d: int) -> dict:
-    return {"scale": Init((d,), fill=1.0)}
+    return {"scale": Init((d,), fill=1.0, spec=(None,))}
 
 
 def stacked(tree: dict, n: int) -> dict:
     """``n`` independent copies of a layer tree of :class:`Init` leaves,
-    stacked along a new leading axis (each copy drawn on its own)."""
-    return tree_map(lambda s: replace(s, shape=(n,) + s.shape), tree)
+    stacked along a new leading axis (each copy drawn on its own; the
+    stacked axis is not sharded)."""
+    return tree_map(lambda s: replace(s, shape=(n,) + s.shape,
+                                      spec=(None,) + s.spec), tree)
+
+
+def spec_tree(tree) -> dict:
+    """The logical PartitionSpecs (``sharding.P``) of a tree of
+    :class:`Init` leaves, in the same structure."""
+    from repro_torch.models.sharding import P
+
+    return tree_map(lambda s: P(*s.spec), tree)
 
 
 def materialize(tree, gen: torch.Generator, device: torch.device,
@@ -136,17 +150,45 @@ def apply_lm_head(p: dict, cfg, h_last: torch.Tensor) -> torch.Tensor:
     return (h_last @ w.to(h_last.dtype)).float()
 
 
-def tree_map(fn: Callable, tree):
-    """``fn`` over every leaf of a nested dict."""
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over every leaf of a nested dict, with the matching leaves
+    of ``rest`` (trees with at least ``tree``'s keys)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
     return [tree]
+
+
+def aligned_leaves(tree, params) -> List:
+    """The entries of ``tree`` (gradients, specs, or a state tree whose
+    leaves may be dicts of moments) in ``tree_leaves(params)`` order,
+    matched by key whatever order ``tree``'s dicts keep."""
+    out: List = []
+
+    def walk(t, p, path):
+        if isinstance(p, dict):
+            if not isinstance(t, dict) or set(t) != set(p):
+                raise ValueError(f"tree at {path or '/'} does not match the "
+                                 "parameters' keys")
+            for k in p:
+                walk(t[k], p[k], f"{path}/{k}")
+        else:
+            out.append(t)
+    walk(tree, params, "")
+    return out
+
+
+def as_tree(params, leaves: list):
+    """``leaves`` (in ``tree_leaves(params)`` order) in ``params``'s
+    structure."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), params)
 
 
 def sorted_leaves(tree) -> list:
@@ -156,6 +198,10 @@ def sorted_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in sorted_leaves(tree[k])]
     return [tree]
+
+
+# the top-level keys of the stacked layer trees, across the families
+STACKS = ("layers", "enc", "dec")
 
 
 def layer(params: dict, i: int) -> dict:

@@ -12,7 +12,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba
 from repro_torch.models import param as pm
-from repro_torch.models.sharding import NO_SHARD, ShardCtx
+from repro_torch.models.sharding import NO_SHARD, P, ShardCtx
 from repro_torch.models.transformer import ce_loss
 
 
@@ -20,16 +20,26 @@ def _init_layer(cfg: ModelConfig) -> dict:
     return {"ln": pm.rmsnorm(cfg.d_model), "mixer": mamba.init_mamba1(cfg)}
 
 
+def declare(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``param.Init`` leaves (shapes, draws, specs)."""
+    return {"embed": pm.embedding(cfg.vocab, cfg.d_model),
+            "layers": pm.stacked(_init_layer(cfg), cfg.n_layers),
+            "ln_f": pm.rmsnorm(cfg.d_model),
+            "head": pm.linear(cfg.d_model, cfg.vocab, spec=("fsdp", "tp"))}
+
+
 def init_lm(cfg: ModelConfig, gen: torch.Generator,
             device: DeviceLike = None, dtype: torch.dtype = torch.float32
             ) -> dict:
     """Random parameters drawn from ``gen`` on ``device``, each leaf
     allocated once in ``dtype`` (``param.materialize``)."""
-    p = {"embed": pm.embedding(cfg.vocab, cfg.d_model),
-         "layers": pm.stacked(_init_layer(cfg), cfg.n_layers),
-         "ln_f": pm.rmsnorm(cfg.d_model),
-         "head": pm.linear(cfg.d_model, cfg.vocab)}
-    return pm.materialize(p, gen, resolve_device(device), dtype)
+    return pm.materialize(declare(cfg), gen, resolve_device(device), dtype)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical PartitionSpec of every parameter, in ``init_lm``'s
+    structure."""
+    return pm.spec_tree(declare(cfg))
 
 
 def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -40,6 +50,7 @@ def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     h = pm.apply_embedding(p, cfg, batch["tokens"])
 
     def body(lp, x):
+        lp = shd.layer(lp, "layers")
         y, _, _ = mamba.mamba1_forward(
             lp["mixer"], pm.apply_rmsnorm(lp["ln"], x, cfg.norm_eps), cfg,
             shd)
@@ -58,6 +69,14 @@ def loss_fn(p, cfg: ModelConfig, batch, backend: str = "flash",
     h, _ = forward(p, cfg, batch, backend, shd)
     return ce_loss(h, p["head"]["w"].to(pm.DTYPES[cfg.dtype]),
                    batch["labels"], cfg.loss_chunk)
+
+
+def cache_specs(cfg: ModelConfig, long_context: bool = False) -> dict:
+    """Logical PartitionSpecs of the recurrent state (the same for any
+    context length: it does not grow)."""
+    return {"h": P(None, "dp", "tp", None),
+            "conv": P(None, "dp", None, "tp"),
+            "pos": P()}
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,

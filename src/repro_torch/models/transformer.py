@@ -20,7 +20,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import param as pm
-from repro_torch.models.sharding import NO_SHARD, ShardCtx
+from repro_torch.models import sharding
+from repro_torch.models.sharding import NO_SHARD, P, ShardCtx
 
 AUX_COEF = 0.01
 DTYPES = pm.DTYPES
@@ -37,16 +38,18 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _init_attn(cfg: ModelConfig) -> dict:
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {"wq": pm.linear(d, hq * dh, bias=cfg.qkv_bias),
-            "wk": pm.linear(d, hkv * dh, bias=cfg.qkv_bias),
-            "wv": pm.linear(d, hkv * dh, bias=cfg.qkv_bias),
-            "wo": pm.linear(hq * dh, d)}
+    col, row = ("fsdp", "tp"), ("tp", "fsdp")
+    return {"wq": pm.linear(d, hq * dh, spec=col, bias=cfg.qkv_bias),
+            "wk": pm.linear(d, hkv * dh, spec=col, bias=cfg.qkv_bias),
+            "wv": pm.linear(d, hkv * dh, spec=col, bias=cfg.qkv_bias),
+            "wo": pm.linear(hq * dh, d, spec=row)}
 
 
 def _init_mlp(cfg: ModelConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
-    return {"wg": pm.linear(d, f), "wu": pm.linear(d, f),
-            "wd": pm.linear(f, d)}
+    return {"wg": pm.linear(d, f, spec=("fsdp", "tp")),
+            "wu": pm.linear(d, f, spec=("fsdp", "tp")),
+            "wd": pm.linear(f, d, spec=("tp", "fsdp"))}
 
 
 def _init_layer(cfg: ModelConfig) -> dict:
@@ -58,19 +61,30 @@ def _init_layer(cfg: ModelConfig) -> dict:
                     else _init_mlp(cfg))}
 
 
-def init_lm(cfg: ModelConfig, gen: torch.Generator,
-            device: DeviceLike = None, dtype: torch.dtype = torch.float32
-            ) -> dict:
-    """Random parameters drawn from ``gen`` on ``device``, each leaf
-    allocated once in ``dtype`` (``param.materialize``)."""
+def declare(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``param.Init`` leaves (shapes, draws, specs)."""
     p = {}
     if not cfg.embedding_inputs:
         p["embed"] = pm.embedding(cfg.vocab, cfg.d_model)
     p["layers"] = pm.stacked(_init_layer(cfg), cfg.n_layers)
     p["ln_f"] = pm.rmsnorm(cfg.d_model)
     if not cfg.tie_embeddings:
-        p["head"] = pm.linear(cfg.d_model, cfg.vocab)
-    return pm.materialize(p, gen, resolve_device(device), dtype)
+        p["head"] = pm.linear(cfg.d_model, cfg.vocab, spec=("fsdp", "tp"))
+    return p
+
+
+def init_lm(cfg: ModelConfig, gen: torch.Generator,
+            device: DeviceLike = None, dtype: torch.dtype = torch.float32
+            ) -> dict:
+    """Random parameters drawn from ``gen`` on ``device``, each leaf
+    allocated once in ``dtype`` (``param.materialize``)."""
+    return pm.materialize(declare(cfg), gen, resolve_device(device), dtype)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical PartitionSpec of every parameter, in ``init_lm``'s
+    structure."""
+    return pm.spec_tree(declare(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -114,23 +128,86 @@ def _attn_out(lp, o, b, s):
                            o.transpose(1, 2).reshape(b, s, -1))
 
 
+def _splits(cfg: ModelConfig, mesh):
+    """The tensor splits of a layer's attention and dense MLP under a
+    process ``mesh`` (Megatron-style: heads and the MLP's hidden columns
+    over ``tp``, the output projections' rows summed over it), each None
+    where that part computes whole: no tensor axis, or a count the axis
+    does not divide."""
+    split = sharding.tensor_split(mesh)
+    if split is None:
+        return None, None
+    n = split.n
+    heads = cfg.n_heads % n == 0 and (cfg.mla is not None
+                                      or cfg.n_kv_heads % n == 0)
+    attn = split if heads else None
+    mlp = split if (cfg.moe is None and cfg.d_ff % n == 0) else None
+    return attn, mlp
+
+
 def _layer(lp, x, pos, cfg: ModelConfig, backend: str,
            shd: ShardCtx = NO_SHARD):
     """One layer: (x, aux loss, (k, v)); MLA layers return no k/v (their
-    cache is the latent, see ``mla.prefill``)."""
+    cache is the latent, see ``mla.prefill``). Under a process mesh with a
+    tensor axis the attention heads and the dense MLP's columns are this
+    rank's share (``compute_specs``), and the layer's k/v are its heads'."""
     b, s, _ = x.shape
+    split_attn, split_mlp = _splits(cfg, shd.mesh)
     h = pm.apply_rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if cfg.mla is not None:
         x = x + mla_mod.mla_attention(lp["attn"], h, pos, cfg, shd,
-                                      backend)
+                                      backend, split_attn)
         kv = None
+    elif split_attn is not None:
+        n = split_attn.n
+        lcfg = cfg.with_(n_heads=cfg.n_heads // n,
+                         n_kv_heads=cfg.n_kv_heads // n,
+                         d_head=cfg.head_dim)
+        q, k, v = _project_qkv(lp["attn"], split_attn.enter(h), lcfg, pos)
+        o = _attn_out(lp, _attend(q, k, v, pos, lcfg, backend), b, s)
+        x = x + split_attn.sum(o)
+        kv = (k, v)
     else:
         q, k, v = _project_qkv(lp["attn"], h, cfg, pos)
         x = x + _attn_out(lp, _attend(q, k, v, pos, cfg, backend), b, s)
         kv = (k, v)
     h = pm.apply_rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    f, aux = _ffn(lp["ffn"], h, cfg, shd)
+    if split_mlp is not None:
+        f = split_mlp.sum(pm.apply_swiglu(lp["ffn"], split_mlp.enter(h)))
+        aux = torch.zeros((), device=x.device)
+    else:
+        f, aux = _ffn(lp["ffn"], h, cfg, shd)
     return x + f, aux, kv
+
+
+def compute_specs(cfg: ModelConfig, mesh, seq: int) -> dict:
+    """Physical PartitionSpecs of the parameters as the mesh train step
+    computes with them (``model_api.compute_specs``): the attention's
+    q/k/v columns and output rows and the dense MLP's over ``tp`` where
+    ``_splits`` splits them, the MoE FFN's as ``moe.compute_specs``, the
+    rest whole."""
+    specs = sharding.whole(param_specs(cfg))
+    layer = specs["layers"]
+    attn, mlp = _splits(cfg, mesh)
+    if attn is not None and cfg.mla is not None:
+        for k in ("q_b", "kv_b"):
+            layer["attn"][k]["w"] = P(None, None, attn.axis)
+        layer["attn"]["wo"]["w"] = P(None, attn.axis, None)
+    elif attn is not None:
+        for k in ("wq", "wk", "wv"):
+            layer["attn"][k]["w"] = P(None, None, attn.axis)
+            if "b" in layer["attn"][k]:
+                layer["attn"][k]["b"] = P(None, attn.axis)
+        layer["attn"]["wo"]["w"] = P(None, attn.axis, None)
+    if mlp is not None:
+        for k, spec in (("wg", P(None, None, mlp.axis)),
+                        ("wu", P(None, None, mlp.axis)),
+                        ("wd", P(None, mlp.axis, None))):
+            layer["ffn"][k]["w"] = spec
+    if cfg.moe is not None:
+        layer["ffn"] = pm.tree_map(lambda s: P(None, *s),
+                                   moe_mod.compute_specs(cfg, mesh, seq))
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +231,7 @@ def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
 
     def body(lp, x):
-        x, a, _ = _layer(lp, x, pos, cfg, backend, shd)
+        x, a, _ = _layer(shd.layer(lp, "layers"), x, pos, cfg, backend, shd)
         return x, a
 
     body = pm.maybe_remat(body, cfg)
@@ -227,6 +304,16 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev),
             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def cache_specs(cfg: ModelConfig, long_context: bool = False) -> dict:
+    """Logical PartitionSpecs of ``init_cache``'s entries: heads over the
+    tensor axis, or for a long context the sequence over ``seq``."""
+    if cfg.mla is not None:
+        return mla_mod.cache_specs(cfg, long_context)
+    kv = (P(None, "dp", None, "seq", None) if long_context
+          else P(None, "dp", "tp", None, None))
+    return {"k": kv, "v": kv, "pos": P()}
 
 
 def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",

@@ -332,14 +332,18 @@ def test_plan_config_fields_and_preconditioner_names():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda p: t_sharding.shardings_for({}, {}, p.shard().mesh), "A14"),
+    (lambda p: t_sharding.place({"w": torch.zeros(4)}, {
+        "w": t_sharding.NamedSharding(p.shard().mesh, t_sharding.P())}),
+     "A14"),
 ])
 def test_not_yet_ported_entry_points_raise(own_plan, call, item):
-    """What the port still lacks raises with its ROADMAP item; sharding a
-    plan itself works (ROADMAP A11, tests/test_torch_shardplan.py), and
-    placing parameters over its mesh waits for training (A14)."""
+    """What a plan's mesh cannot do raises with its ROADMAP item: sharding
+    a plan works (ROADMAP A11, tests/test_torch_shardplan.py), but placing
+    parameters over its single-controller mesh raises, since training on a
+    mesh (A14b) places DTensors over a process mesh
+    (tests/test_torch_mesh.py)."""
     _, plan = own_plan
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises((NotImplementedError, ValueError), match=item):
         call(plan)
 
 

@@ -160,8 +160,17 @@ def test_ckpt_structure_mismatch_and_shardings_raise(tmp_path):
     ck.save(0, _tree(), blocking=True)
     with pytest.raises(ValueError, match="structure mismatch"):
         ck.restore({"only": torch.zeros(3)}, device=CPU)
-    with pytest.raises(NotImplementedError, match="A14"):
-        ck.restore(_tree(), shardings={"a": None}, device=CPU)
+    # shardings place leaves over a process mesh; a single-controller
+    # mesh has no process group
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import NamedSharding, P
+
+    mesh = make_mesh((1,), ("data",), [CPU])
+    sh = NamedSharding(mesh, P())
+    with pytest.raises(ValueError, match="process mesh"):
+        ck.restore(_tree(), shardings={"a": sh, "b": {"c": sh, "step": sh},
+                                       "layers": [sh, None, sh]},
+                   device=CPU)
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         Checkpointer(tmp_path / "empty").restore(_tree(), device=CPU)
 

@@ -1649,3 +1649,59 @@ def test_cuda_two_layer_qwen_trains_without_launching_a_kernel(cuda_device):
     torch.cuda.synchronize()
     assert t_ba.block_attention.launches == n6 + cfg.n_layers
     assert torch.isfinite(logits).all()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch,ep", [("qwen2-0.5b", False),
+                                     ("granite-moe-3b-a800m", True),
+                                     ("mistral-large-123b", False)])
+def test_cuda_mesh_step_matches_the_step_without_a_mesh(cuda_device, tmp_path,
+                                                        arch, ep):
+    """Training on a process mesh of the one card (an nccl group of one
+    rank, a (1, 1) ("data", "model") mesh): two steps through
+    ``make_train_step(mesh=)`` on DTensor parameters and state against two
+    without a mesh from the same init, at full width and 2 layers (granite
+    with expert parallelism, its all-to-alls over a group of one; mistral
+    with Adafactor, its sums all-reduced over groups of one): loss and grad
+    norm within rtol 1e-5."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model_api
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import trainer
+    cfg = get_config(arch).with_(n_layers=2)
+    if ep:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe,
+                                                expert_parallel=True))
+    opt = make_optimizer(cfg.optimizer, lr=1e-3, warmup=1, total=2)
+    batch = pipeline.to_device(pipeline.token_batch(cfg, 0, 2, 512),
+                               cuda_device)
+    card = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1, device_id=card)
+    try:
+        mesh = make_test_mesh(1, 1)
+        got = {}
+        for m in (None, mesh):
+            params = model_api.init(cfg, torch.Generator(
+                device=cuda_device).manual_seed(0), device=cuda_device)
+            state = opt.init(params)
+            if m is not None:
+                params, state = trainer.place_train_state(cfg, m, opt,
+                                                          params, state)
+            step, _ = trainer.make_train_step(cfg, m, "flash", optimizer=opt)
+            metrics = []
+            for _ in range(2):
+                params, state, out = step(params, state, batch)
+                metrics.append((float(out["loss"]),
+                                float(out["grad_norm"])))
+            got[m is None] = metrics
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(got[False], got[True], rtol=1e-5)
+    assert np.isfinite(got[False]).all()

@@ -132,21 +132,33 @@ def test_sharded_decode_selects_like_the_reference(clusters, qpos):
     assert_close(got, want)
 
 
-def _cfg(clusters):
-    return r_reduced("qwen2-0.5b").with_(
+GRANITE = "granite-moe-3b-a800m"
+
+
+def _cfg(clusters, arch="qwen2-0.5b"):
+    return r_reduced(arch).with_(
         dtype="float32",
         clusterkv=RCKV(enabled=True, block_q=32, block_k=32,
                        blocks_per_query=2, decode_clusters=clusters))
 
 
-@pytest.fixture(scope="module")
-def model():
-    rcfg = _cfg(2)
+def _models(clusters, arch="qwen2-0.5b"):
+    rcfg = _cfg(clusters, arch)
     rp, _ = r_api.init(rcfg, jax.random.PRNGKey(0))
     tcfg = t_convert.config_from_reference(rcfg)
     tp = t_convert.params_from_reference(jax.tree.map(np.asarray, rp), tcfg,
                                          device="cpu")
     return rcfg, rp, tcfg, tp
+
+
+@pytest.fixture(scope="module")
+def model():
+    return _models(2)
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    return _models(2, GRANITE)
 
 
 def _prefilled(model, tokens, max_seq):
@@ -164,6 +176,16 @@ def test_sharded_long_decode_steps_match_the_reference(model):
     """``decode_step(sharded_long=True)`` with a mesh in ``shd``: on a
     one-device mesh the reference's own sharded step runs in this process
     and the two agree step by step (budget 2 of 4 tiles)."""
+    _sharded_steps_match_the_reference(model)
+
+
+def test_sharded_long_moe_decode_steps_match_the_reference(moe_model):
+    """The same for a MoE config (granite): its FFN under the one-device
+    mesh too."""
+    _sharded_steps_match_the_reference(moe_model)
+
+
+def _sharded_steps_match_the_reference(model):
     rcfg, rp, tcfg, tp = model
     tok = np.random.default_rng(5).integers(0, 256, (1, 96)).astype(np.int32)
     rc, tc, nxt = _prefilled(model, tok, 128)
@@ -185,16 +207,23 @@ def test_sharded_long_decode_steps_match_the_reference(model):
 def test_sharded_long_decode_at_a_covering_budget_is_the_unsharded_one():
     """Four shards of a 128-slot cache, every tile selected on each side:
     the sharded steps give the unsharded steps' tokens and logits."""
-    rcfg = _cfg(64)
-    rp, _ = r_api.init(rcfg, jax.random.PRNGKey(0))
-    tcfg = t_convert.config_from_reference(rcfg)
-    tp = t_convert.params_from_reference(jax.tree.map(np.asarray, rp), tcfg,
-                                         device="cpu")
+    _covering_budget_is_unsharded(_models(64), 4)
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_sharded_long_moe_decode_at_a_covering_budget_is_the_unsharded_one(
+        n_dev):
+    """The same for a MoE config (granite) on two and four shards."""
+    _covering_budget_is_unsharded(_models(64, GRANITE), n_dev)
+
+
+def _covering_budget_is_unsharded(models, n_dev):
     tok = np.random.default_rng(6).integers(0, 256, (1, 96)).astype(np.int32)
-    _, tc, nxt = _prefilled((rcfg, rp, tcfg, tp), tok, 128)
+    rcfg, rp, tcfg, tp = models
+    _, tc, nxt = _prefilled(models, tok, 128)
     ts = {key: (val.clone() if torch.is_tensor(val) else val)
           for key, val in tc.items()}
-    shd = t_shd.ShardCtx(cpu_mesh(4))
+    shd = t_shd.ShardCtx(cpu_mesh(n_dev))
     a, b = torch.from_numpy(nxt), torch.from_numpy(nxt)
     for _ in range(4):
         la, tc = t_tf.decode_step(tp, tcfg, tc, a, "clusterkv")
@@ -213,10 +242,22 @@ def test_sharded_long_decode_at_a_covering_budget_is_the_unsharded_one():
 
 
 def test_the_shard_context_and_shardings_for():
+    """``cst`` leaves a plain tensor as it is (the reference's constraint
+    never changes values); ``shardings_for`` fits the resolved specs to the
+    leaves' shapes as the reference's does (on a (2, 2) mesh)."""
     tmesh = cpu_mesh(2, ("data", "model"))
     x = torch.ones(3)
     assert t_shd.ShardCtx(tmesh).cst(x, "dp") is x
     assert t_shd.ShardCtx(tmesh).mesh == tmesh
     assert t_shd.NO_SHARD.mesh is None
-    with pytest.raises(NotImplementedError, match="A14"):
-        t_shd.shardings_for({}, {}, tmesh)
+    rmesh = jax.sharding.AbstractMesh((2, 2), ("data", "model"))
+    shapes = {"w": (6, 8), "b": (3,), "e": (4, 8, 5)}
+    logical = {"w": ("fsdp", "tp"), "b": ("tp",), "e": ("ep", "fsdp", "tp")}
+    got = t_shd.shardings_for(
+        {k: torch.empty(v, device="meta") for k, v in shapes.items()},
+        {k: t_shd.P(*v) for k, v in logical.items()}, tmesh)
+    for k, v in shapes.items():
+        want = r_shd.fit_spec(v, r_shd.resolve_spec(
+            jax.sharding.PartitionSpec(*logical[k]), rmesh), rmesh)
+        assert tuple(got[k].spec) == tuple(want), k
+        assert got[k].mesh is tmesh

@@ -455,15 +455,21 @@ def test_plan_service_serves_granite_as_the_reference(granite):
 
 def test_what_the_zoo_does_not_serve_raises(granite, mla_model):
     _, _, tcfg, tp = granite
+    # the MoE FFN under a one-device mesh is the FFN without one (as the
+    # reference's, whose shard_map then spans one device), so the
+    # long-context sharded decode serves a MoE config (shards routed one
+    # after another on a larger single-controller mesh: test_torch_mesh)
     shd = t_shd.ShardCtx(t_mesh.make_mesh((1,), ("data",), ["cpu"]))
-    x = torch.zeros((1, 4, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="A14"):
-        t_moe.moe_ffn(t_pm.layer(tp["layers"], 0)["ffn"], x, tcfg, shd)
+    x = torch.randn((1, 4, tcfg.d_model), generator=torch.Generator()
+                    .manual_seed(0))
+    ffn = t_pm.layer(tp["layers"], 0)["ffn"]
+    got, want = t_moe.moe_ffn(ffn, x, tcfg, shd), t_moe.moe_ffn(ffn, x, tcfg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     cache = t_tf.init_cache(tcfg, 1, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        t_tf.decode_step(tp, tcfg, cache, torch.zeros((1, 1),
-                                                      dtype=torch.int64),
-                         "clusterkv", sharded_long=True, shd=shd)
+    logits, _ = t_tf.decode_step(tp, tcfg, cache,
+                                 torch.zeros((1, 1), dtype=torch.int64),
+                                 "clusterkv", sharded_long=True, shd=shd)
+    assert logits.shape == (1, tcfg.vocab) and torch.isfinite(logits).all()
     _, _, mcfg, mp = mla_model
     with pytest.raises(NotImplementedError, match="MLA"):
         TEngine(mcfg, mp, slots=1, max_seq=64, device="cpu")

@@ -187,9 +187,30 @@ def test_adafactor_state_is_factored():
 
 
 def test_state_specs_and_unknown_optimizer_raise():
+    """Both optimizers' ``state_specs`` equal the reference's on a spec
+    tree of 1-, 2- and 3-axis leaves (every config's tree is held in
+    ``test_torch_mesh.py``); an unknown optimizer raises."""
+    from jax.sharding import PartitionSpec as RP
+
+    from repro_torch.models.sharding import P
+
+    logical = {"w": ("fsdp", "tp"), "b": ("tp",),
+               "layers": {"e": (None, "ep", "fsdp"), "s": (None,)}}
+
+    def specs(cls, tree):
+        if isinstance(tree, dict):
+            return {k: specs(cls, v) for k, v in tree.items()}
+        return cls(*tree)
+
+    def tuples(tree):
+        if isinstance(tree, dict):
+            return {k: tuples(v) for k, v in tree.items()}
+        return tuple(tree)
+
     for name in ("adamw", "adafactor"):
-        with pytest.raises(NotImplementedError, match="A14b"):
-            t_opt.make_optimizer(name).state_specs({})
+        got = t_opt.make_optimizer(name).state_specs(specs(P, logical))
+        want = r_opt.make_optimizer(name).state_specs(specs(RP, logical))
+        assert tuples(got) == tuples(want)
     with pytest.raises(ValueError):
         t_opt.make_optimizer("sgd")
 

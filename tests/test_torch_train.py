@@ -388,11 +388,24 @@ def test_serving_steps_are_the_family_functions():
 
 
 def test_training_on_a_mesh_raises_naming_a14b():
+    """Training on a mesh (ROADMAP A14b) takes a process mesh: a
+    single-controller ``Mesh`` (no ``device_mesh``, no process group) is
+    refused, saying why. (The mesh step itself is held against the
+    reference's in ``test_torch_mesh.py``.)"""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import P as t_shd_P
+
     cfg = t_base.reduced_config("qwen2-0.5b")
-    with pytest.raises(NotImplementedError, match="A14b"):
-        t_tr.make_train_step(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A14b"):
-        t_tr.train_shardings(cfg, None, None, None)
+    mesh = make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    for m in (mesh, object()):
+        with pytest.raises(ValueError, match="A14b.*process mesh"):
+            t_tr.make_train_step(cfg, mesh=m)
+    (pin, _, bin_), out = t_tr.train_shardings(
+        cfg, mesh, t_opt.make_optimizer("adamw"),
+        {"tokens": t_shd_P("dp", None)})
+    assert bin_ == {"tokens": t_shd_P(("data",), None)}
+    assert out[2] == {"loss": t_shd_P(), "grad_norm": t_shd_P()}
+    assert pin["ln_f"]["scale"] == t_shd_P(None)
 
 
 # ---------------------------------------------------------------------------
