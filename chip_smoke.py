@@ -14,7 +14,8 @@ zoo at full width (phase 16), and the SSM LM, the hybrid and the
 encoder-decoder of the zoo at full width and depth through the serving
 launcher (phase 17), and Qwen2-0.5B trained at full width and depth on
 the card, then served from its trained weights (phase 18), then trained
-on a process mesh of the one card (phase 19). Phases, each of which fails
+on a process mesh of the one card (phase 19), then dry-run over a traced
+world of 256 ranks (phase 20). Phases, each of which fails
 the run when it fails:
 
 1. environment: versions, the card, the kernel build with its wall time,
@@ -260,11 +261,23 @@ device time without the host's, which is the larger part of a call.
    shards), two steps against two without;
    ``launch.train --mesh 1,1`` with a checkpoint directory, its last
    checkpoint removed and the run resumed through ``restore(shardings=)``;
-   ``pipeline_apply`` at one stage against sequential application. No
-   exchange between two ranks is measured: the machine has one card.
+   ``pipeline_apply`` at one stage against sequential application, its
+   output and its backward's gradients. No exchange between two ranks is
+   measured: the machine has one card;
+20. the dry run (``launch.dryrun``) and the roofline: three cells traced
+   at once, each in its own process, over a ``fake`` process group with
+   fake CUDA tensors (nothing allocated): phase 19's Qwen2-0.5B step
+   (16 x 4096 tokens in 2 microbatches) on a (1, 1) world, whose
+   predicted per-rank peak must be within 15 % of the peak phase 19
+   measured in this run; Qwen2-0.5B ``train_4k`` on the production 16x16
+   world; its ``prefill_32k`` through ClusterKV there, which must trace
+   B6 as the opaque op ``repro_torch::block_attention``. Traced FLOPs
+   against the analytic model, the roofline of the three records (H100
+   rates applied to counts), and B5 per call at the tick shape through
+   its op against its ``CUDA`` implementation called directly.
 
 Launch counters are set to 0 just before each path (phases 3-4, 6, 7, 9,
-10, 11, 12, 13, 14, 15, 16, 17, 18, 19) and read just after it; launches made to
+10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20) and read just after it; launches made to
 compare or time a kernel are not counted. Every kernel must have been
 launched by a path: B6 by the prefills and the service's plan prefills,
 B5 by the ticks of both engines (plan mode) and the scalar steps (plain
@@ -4589,13 +4602,16 @@ def mesh_launcher(args, dev, rehearse):
 
 
 def mesh_pipeline(dev, mesh):
-    """``pipeline_apply`` at one stage against sequential application."""
+    """``pipeline_apply`` at one stage against sequential application: the
+    output, and the gradients of ``sum(y * cot)`` with respect to the stage
+    weights, biases and ``x`` through its backward (ROADMAP C47)."""
     from repro_torch.launch.pp import pipeline_apply
 
     g = torch.Generator(device=dev).manual_seed(0)
     w = torch.randn(1, 256, 256, generator=g, device=dev) / 16
     bias = torch.randn(1, 256, generator=g, device=dev) * 0.1
     x = torch.randn(64, 256, generator=g, device=dev)
+    cot = torch.randn(64, 256, generator=g, device=dev)
 
     def stage_fn(p, xm):
         return torch.tanh(xm @ p["w"] + p["b"])
@@ -4605,9 +4621,22 @@ def mesh_pipeline(dev, mesh):
     err = float((y - want).abs().max())
     if not err <= 1e-5:
         raise AssertionError(f"pipeline_apply at one stage: max error {err}")
+    leaves = [t.clone().requires_grad_(True) for t in (w, bias, x)]
+    yp = pipeline_apply({"w": leaves[0], "b": leaves[1]}, leaves[2],
+                        stage_fn, mesh, "model", 4)
+    got = torch.autograd.grad((yp * cot).sum(), leaves)
+    ref = [t.clone().requires_grad_(True) for t in (w, bias, x)]
+    want = torch.autograd.grad(
+        (torch.tanh(ref[2] @ ref[0][0] + ref[1][0]) * cot).sum(), ref)
+    gerr = max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(got, want))
+    if not gerr <= 1e-5:
+        raise AssertionError(f"pipeline_apply's backward at one stage: "
+                             f"relative error {gerr}")
     say(f"  pipeline_apply, one stage, 4 microbatches of 16 x 256: max "
-        f"error {err:.3g} against sequential application")
-    return {"max_abs_err": err}
+        f"error {err:.3g} against sequential application; its backward's "
+        f"gradients of w, b and x within {gerr:.3g} x their largest")
+    return {"max_abs_err": err, "grad_rel_err": gerr}
 
 
 def phase_mesh(args, dev, sync, rehearse, reset_counts, collect_counts,
@@ -4649,6 +4678,187 @@ def phase_mesh(args, dev, sync, rehearse, reset_counts, collect_counts,
     out["wall_s"] = time.perf_counter() - t_phase
     say(f"  phase 19 wall time: {out['wall_s']:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the dry run on the card (phase 20)
+# ---------------------------------------------------------------------------
+
+# the predicted peak of phase 19's Qwen step against its measured one
+DRYRUN_PEAK_TOL = 0.15
+DRYRUN_TAG = "chip_smoke"
+DRYRUN_CELL = r"""
+import json, sys
+sys.path.insert(0, SRC)
+from repro_torch.configs import reduced_config
+from repro_torch.launch import dryrun
+kw = json.loads(KW)
+if kw.pop("reduced"):
+    kw["cfg"] = reduced_config(kw["arch"])
+for key in ("sizes", "mesh"):
+    if kw.get(key) is not None:
+        kw[key] = tuple(kw[key])
+arch, shape = kw.pop("arch"), kw.pop("shape")
+print(json.dumps(dryrun.run_cell(arch, shape, False, **kw)))
+"""
+
+
+def dryrun_cells(rehearse: bool) -> dict:
+    """Phase 20's cells (``launch.dryrun.run_cell`` keywords): Qwen2-0.5B's
+    phase 19 step (batch 16 x 4096 in 2 microbatches, 8 rows each) on a
+    fake (1, 1) world, its ``train_4k`` cell on the production 16x16
+    world, and its ``prefill_32k`` cell through ClusterKV there (B6 as
+    the opaque op). Fake CUDA tensors on the card; in the CPU rehearsal
+    fake CPU tensors at the reduced config and small sizes."""
+    dev = "cpu" if rehearse else "cuda"
+    one = dict(mesh=(1, 1), microbatch=TRAIN_MICRO,
+               sizes=(64, 4) if rehearse else (TRAIN_SEQ, TRAIN_BATCH))
+    return {
+        "phase19_step": dict(arch="qwen2-0.5b", shape="train_4k", **one),
+        "train_4k": dict(arch="qwen2-0.5b", shape="train_4k", mesh=None,
+                         sizes=(64, 16) if rehearse else None),
+        "prefill_32k_clusterkv": dict(
+            arch="qwen2-0.5b", shape="prefill_32k", mesh=None,
+            backend="clusterkv", sizes=(64, 16) if rehearse else None),
+    }, dev
+
+
+def time_b5_op(timer, dev, rehearse: bool) -> dict:
+    """B5 per call at the tick shape of phases 9/10 (4 slots, S 8192, 16
+    tiles, plan mode, bf16) through the opaque op
+    ``torch.ops.repro_torch.decode_attend`` and through its ``CUDA``
+    implementation called directly (the ctypes launch, no dispatcher), on
+    the same prepared inputs, alternating; and through the wrapper the
+    paths call."""
+    from repro_torch.kernels import decode_attend as k_da
+
+    if rehearse:
+        say("  B5 through the op against the direct call: not timed on the "
+            "CPU (the op has a CUDA implementation only)")
+        return {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, s5, n5 = 4, 8192, 16
+    q, k, v, pos, cent = decode_inputs(gen, b, 2, 7, s5, 64, 128,
+                                       torch.bfloat16, dev, holes=0.0)
+    qp = torch.tensor([s5 - 1, s5 // 2, s5 // 3, s5 // 4], dtype=torch.int32,
+                      device=dev)
+    qk = q.reshape(b, 2, 7, 64).contiguous()
+    args = (qk, k, v, pos, cent.contiguous(), qp, None, None, None, n5, 128,
+            True, False, 128)
+    runs = {"op": lambda: torch.ops.repro_torch.decode_attend(*args),
+            "direct": lambda: k_da.launch(*args),
+            "wrapper": lambda: k_da.decode_attend_fused(
+                q, k, v, pos, cent, qp, n_sel=n5, bk=128, plan_mode=True,
+                has_self=False, window=128)}
+    with uncounted(k_da.decode_attend_fused):
+        if not torch.equal(runs["op"](), runs["direct"]()):
+            raise AssertionError("B5 through the op and the direct call "
+                                 "differ")
+    got = {name: [] for name in runs}
+    with uncounted(k_da.decode_attend_fused):
+        for _ in range(3):
+            for name in ("op", "direct", "direct", "op", "wrapper"):
+                got[name].append(timer(runs[name], 200))
+    out = {name: float(np.median(v)) for name, v in got.items()}
+    out["op_minus_direct_us"] = (out["op"] - out["direct"]) * 1e3
+    say(f"  B5 per call, tick shape (B=4 Hkv=2 g=7 S=8192 n_sel=16 bf16 "
+        f"plan mode), back to back: through the op {out['op']:.5f} ms, "
+        f"direct {out['direct']:.5f} ms (the op adds "
+        f"{out['op_minus_direct_us']:.2f} us), through the wrapper "
+        f"{out['wrapper']:.5f} ms; medians of 3 x (op, direct) pairs")
+    return out
+
+
+def phase_dryrun(args, dev, timer, rehearse: bool, mesh_train: dict,
+                 card: str) -> dict:
+    """Phase 20: ``launch.dryrun`` and ``launch.roofline`` on the card. The
+    three cells trace at once, each in its own process (phase 19 held a
+    real nccl group in this one; a fake world forms its own), over the
+    ``fake`` process group with fake tensors: nothing is allocated. The
+    predicted per-rank peak of phase 19's step must be within
+    ``DRYRUN_PEAK_TOL`` of the peak phase 19 measured in this run."""
+    from repro_torch.launch import analytic, roofline
+
+    t_phase = time.perf_counter()
+    say("== phase 20: the dry run (fake world, fake tensors) and the "
+        "roofline")
+    cells, device = dryrun_cells(rehearse)
+    src = str(Path(__file__).resolve().parent / "src")
+    procs = {}
+    try:
+        for name, kw in cells.items():
+            kw = dict(kw, device=device, tag=DRYRUN_TAG, reduced=rehearse)
+            code = f"SRC = {src!r}\nKW = {json.dumps(kw)!r}\n" + DRYRUN_CELL
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c", code], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        recs = {}
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=900)
+            if p.returncode != 0:
+                raise AssertionError(f"dry run {name}: exit {p.returncode}\n"
+                                     f"{err[-3000:]}")
+            recs[name] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for name, rec in recs.items():
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {name}: {rec.get('error')}\n"
+                                 f"{rec.get('traceback')}")
+        say(f"  {name}: {rec['arch']} {rec['shape']} on {rec['mesh']} "
+            f"({rec['chips']} ranks, {rec['world']}), backend "
+            f"{rec['backend']}, microbatch {rec['microbatch']}, traced in "
+            f"{rec['trace_s']} s: {rec['cost']['flops']:.4g} FLOPs, peak "
+            f"{rec['memory']['peak_bytes'] / 2 ** 30:.3f} GiB a rank, "
+            f"collectives {rec['collectives']['entry']['counts']} "
+            f"({rec['collectives']['weighted_bytes']:.4g} weighted bytes); "
+            f"opaque kernel ops {rec.get('kernel_ops')}")
+    b6 = recs["prefill_32k_clusterkv"].get("kernel_ops", {})
+    if not rehearse and b6.get("block_attention", 0) <= 0:
+        raise AssertionError(f"the ClusterKV prefill cell traced no B6 op: "
+                             f"{b6}")
+    # the prediction against phase 19's measured peak
+    step = recs["phase19_step"]
+    predicted = step["memory"]["peak_bytes"]
+    measured = mesh_train["qwen"]["mesh_peak_bytes"]
+    rel = (predicted - measured) / measured if measured else float("nan")
+    say(f"  phase 19's Qwen step, one rank: predicted peak "
+        f"{predicted / 2 ** 30:.3f} GiB against {measured / 2 ** 30:.3f} "
+        f"GiB measured in phase 19 ({rel:+.2%}); {card}")
+    if not rehearse and not abs(rel) <= DRYRUN_PEAK_TOL:
+        raise AssertionError(f"the dry run's peak is {rel:+.2%} from phase "
+                             f"19's (limit {DRYRUN_PEAK_TOL:.0%})")
+    # traced FLOPs against the analytic model (its 256-row cell, per rank)
+    rows_step = TRAIN_BATCH if not rehearse else 4
+    flops = {}
+    for name, chips, rows in (("phase19_step", 1, rows_step),
+                              ("train_4k", 256, 256)):
+        ana = analytic.cell_model("qwen2-0.5b", "train_4k",
+                                  chips=chips).flops / chips * rows / 256
+        flops[name] = {"traced": recs[name]["cost"]["flops"],
+                       "analytic": ana,
+                       "ratio": recs[name]["cost"]["flops"] / ana}
+        say(f"  {name}: traced {flops[name]['traced']:.4g} FLOPs a rank "
+            f"against the analytic {ana:.4g} (ratio "
+            f"{flops[name]['ratio']:.3f})")
+    say(f"  roofline (H100 rates on the counts, no time measured): "
+        f"torch {torch.__version__}, fake backend formed "
+        f"{recs['train_4k']['chips']} ranks as {recs['train_4k']['mesh']}")
+    rows = roofline.main(["--tag", DRYRUN_TAG])
+    b5 = time_b5_op(timer, dev, rehearse)
+    wall = time.perf_counter() - t_phase
+    say(f"  phase 20 wall time: {wall:.1f} s")
+    return {"records": {n: {k: r.get(k) for k in (
+                "arch", "shape", "mesh", "chips", "backend", "microbatch",
+                "sizes", "trace_s", "cost", "memory", "collectives",
+                "kernel_ops")} for n, r in recs.items()},
+            "predicted_peak_bytes": predicted,
+            "measured_peak_bytes": measured, "peak_rel_diff": rel,
+            "flops": flops, "roofline": rows, "b5_op": b5,
+            "torch": torch.__version__, "wall_s": wall}
 
 
 def main() -> int:
@@ -5240,6 +5450,12 @@ def main() -> int:
                             collect_counts, smi_line)
     mesh_train["launches"] = {name: main_launches[name] - before[name]
                               for name in main_launches}
+    # --------------------------------------------------------------- 20 ---
+    before = dict(main_launches)
+    dry = phase_dryrun(args, dev, timer, rehearse, mesh_train, smi_line)
+    collect_counts("phase 20 (the dry run launches none)")
+    dry["launches"] = {name: main_launches[name] - before[name]
+                       for name in main_launches}
     say("== B6 and B5 at each zoo configuration's heads and dims")
     zoo_checked = check_zoo_shapes(args, dev, rehearse)
     say("== B6 and B5 at the zoo's new shapes, timed")
@@ -5290,7 +5506,8 @@ def main() -> int:
                           "service": service, "stream": stream,
                           "solvers": solvers, "persist": persist,
                           "shard": shard, "zoo": zoo, "zoo_b": zoo_b,
-                          "train": train, "mesh_train": mesh_train})
+                          "train": train, "mesh_train": mesh_train,
+                          "dryrun": dry})
     kernels = json.dumps({"kernels": entries})
     say(f"== done in {time.perf_counter() - t_start:.1f} s")
     if rehearse:

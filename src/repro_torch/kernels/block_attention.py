@@ -12,8 +12,10 @@ dtype.
 
 For a tensor on the CPU ``block_attention`` returns its plain version
 (``core.clusterkv.sparse_block_attention``, the same arithmetic in
-PyTorch); for a CUDA tensor it launches ``csrc/block_attention.cu`` or
-raises. It counts its launches in ``block_attention.launches``.
+PyTorch); for a CUDA tensor it checks the call and runs the opaque op
+``torch.ops.repro_torch.block_attention`` (``kernels/library.py``), whose
+``CUDA`` implementation :func:`launch` launches ``csrc/block_attention.cu``,
+or raises. It counts its launches in ``block_attention.launches``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.core.clusterkv import sparse_block_attention
 from repro_torch.kernels import _build
+from repro_torch.kernels.library import LIB
 
 # (bq == bk, dh, dv) the CUDA kernel is instantiated for, per dtype: head
 # dim 64 at every tile size, 128 (llava-next-34b, mistral-large-123b,
@@ -101,16 +104,36 @@ def block_attention(q: torch.Tensor, k_sorted: torch.Tensor,
     for t in (q, k_sorted, v_sorted, kpos, qpos, idx):
         if not t.is_contiguous():
             raise ValueError("the CUDA kernel needs contiguous tensors")
+    return torch.ops.repro_torch.block_attention(
+        q, k_sorted, v_sorted, kpos, qpos, idx, bq, bk, causal)
+
+
+def launch(q, k_sorted, v_sorted, kpos, qpos, idx, bq: int, bk: int,
+           causal: bool) -> torch.Tensor:
+    """The ``CUDA`` implementation of ``repro_torch::block_attention``: one
+    launch of ``csrc/block_attention.cu`` on the current stream, on inputs
+    ``block_attention`` has checked."""
+    b, hq, s, dh = q.shape
+    hkv, s_k, dv = k_sorted.shape[1], k_sorted.shape[2], v_sorted.shape[3]
     out = torch.empty((b, hq, s, dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         code = _build.load().repro_block_attention(
             q.data_ptr(), k_sorted.data_ptr(), v_sorted.data_ptr(),
             kpos.data_ptr(), qpos.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            b, hq, hkv, s, s_k, dh, dv, bq, bk, n_sel, int(causal),
+            b, hq, hkv, s, s_k, dh, dv, bq, bk, idx.shape[3], int(causal),
             DTYPES[q.dtype], _build.current_stream())
     _build.check(code, "block_attention")
     block_attention.launches += 1
     return out
 
 
+def _fake(q, k_sorted, v_sorted, kpos, qpos, idx, bq: int, bk: int,
+          causal: bool) -> torch.Tensor:
+    """The output's shape, dtype and device; no data is read."""
+    b, hq, s, _ = q.shape
+    return q.new_empty((b, hq, s, v_sorted.shape[3]))
+
+
 block_attention.launches = 0
+LIB.impl("block_attention", launch, "CUDA")
+torch.library.register_fake("repro_torch::block_attention", _fake, lib=LIB)

@@ -16,12 +16,14 @@ contracts:
   (the reference's ``_plan_decode_xla``) over plan-ordered caches.
 
 Those are the plain version. For a tensor on the CPU
-``decode_attend_fused`` returns it; for a CUDA tensor it runs
-``csrc/decode_attend.cu`` or raises: three launches on the current stream
+``decode_attend_fused`` returns it; for a CUDA tensor it prepares the call
+and runs the opaque op ``torch.ops.repro_torch.decode_attend``
+(``kernels/library.py``), whose ``CUDA`` implementation :func:`launch` runs
+``csrc/decode_attend.cu``, or raises: three launches on the current stream
 (selection per (member, kv head); one block per (member, kv head, selected
 tile) plus one for the self column, each writing a partial softmax; their
 fixed-order combine), into one scratch buffer for the partials and the
-selection that the wrapper allocates. q and the centroids go in as they
+selection that :func:`launch` allocates. q and the centroids go in as they
 come (float32 or bfloat16) and the output comes out in q's dtype, so the
 call adds no casts around the launches. It counts one launch per call in
 ``decode_attend_fused.launches`` and, per contract, in
@@ -35,6 +37,7 @@ import torch
 
 from repro_torch.core import clusterkv as ckv
 from repro_torch.kernels import _build
+from repro_torch.kernels.library import LIB
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -102,8 +105,12 @@ def decode_attend_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qk = q if q.dtype in DTYPES else q.float()
     qk = qk.reshape(b, hkv, g, dh).contiguous()
     ck = (cent if cent.dtype in DTYPES else cent.float()).contiguous()
-    qp = torch.as_tensor(qpos, device=dev).to(torch.int32).reshape(-1)
-    qp = qp.expand(b).contiguous()
+    qp = (qpos.to(dev) if isinstance(qpos, torch.Tensor)
+          else torch.tensor(qpos, device=dev)).to(torch.int32).reshape(-1)
+    if qp.numel() not in (1, b):
+        raise ValueError(f"qpos must be a scalar or ({b},), got "
+                         f"{tuple(qp.shape)}")
+    qp = qp.repeat(b) if qp.numel() == 1 else qp.contiguous()
     use_self = bool(plan_mode and has_self)
     ks = k_self.float().contiguous() if use_self else None
     vs = v_self.float().contiguous() if use_self else None
@@ -112,7 +119,22 @@ def decode_attend_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 or not sel_out.is_contiguous()):
         raise ValueError("sel_out must be a contiguous (B, Hkv, n_sel) int32 "
                          "tensor")
-    out = torch.empty((b, hq, dv), dtype=qk.dtype, device=dev)
+    out = torch.ops.repro_torch.decode_attend(
+        qk, k, v, pos, ck, qp, ks, vs, sel_out, n_sel, bk, bool(plan_mode),
+        use_self, int(window))
+    return out if out.dtype == q.dtype else out.to(q.dtype)
+
+
+def launch(qk, k, v, pos, ck, qp, ks, vs, sel_out, n_sel: int, bk: int,
+           plan_mode: bool, use_self: bool, window: int) -> torch.Tensor:
+    """The ``CUDA`` implementation of ``repro_torch::decode_attend``: the
+    three launches of ``csrc/decode_attend.cu`` on the current stream, on
+    the inputs ``decode_attend_fused`` prepared (q as (B,Hkv,g,dh), int32
+    positions of each member). Returns (B,Hkv*g,dv) in ``qk``'s dtype."""
+    b, hkv, g, dh = qk.shape
+    s, dv = k.shape[2], v.shape[3]
+    dev = qk.device
+    out = torch.empty((b, hkv * g, dv), dtype=qk.dtype, device=dev)
     # per (member, kv head, part, query row): max, live sum, (dv,) sums;
     # then the selection as int32, unless it goes to sel_out
     scratch = torch.empty(
@@ -136,9 +158,18 @@ def decode_attend_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         decode_attend_fused.plan_mode_launches += 1
     else:
         decode_attend_fused.plain_mode_launches += 1
-    return out if out.dtype == q.dtype else out.to(q.dtype)
+    return out
+
+
+def _fake(qk, k, v, pos, ck, qp, ks, vs, sel_out, n_sel: int, bk: int,
+          plan_mode: bool, use_self: bool, window: int) -> torch.Tensor:
+    """The output's shape, dtype and device; no data is read."""
+    b, hkv, g, _ = qk.shape
+    return qk.new_empty((b, hkv * g, v.shape[3]))
 
 
 decode_attend_fused.launches = 0
 decode_attend_fused.plain_mode_launches = 0
 decode_attend_fused.plan_mode_launches = 0
+LIB.impl("decode_attend", launch, "CUDA")
+torch.library.register_fake("repro_torch::decode_attend", _fake, lib=LIB)

@@ -153,7 +153,10 @@ def init_process_mesh(shape: Sequence[int], axes: Sequence[str],
     which must hold exactly ``prod(shape)`` ranks. ``device=None`` (or a
     CUDA device) puts each rank on its local card (``LOCAL_RANK``, else
     the rank modulo the card count) under the ``nccl`` backend; ``"cpu"``
-    needs ``gloo``. There is no fallback from one to the other."""
+    needs ``gloo``. There is no fallback from one to the other. Under the
+    ``fake`` backend (``torch.testing._internal.distributed.fake_pg``,
+    the dry run's traced world of many ranks in one process) either
+    device type is taken and none is touched."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -170,7 +173,14 @@ def init_process_mesh(shape: Sequence[int], axes: Sequence[str],
                          f"process group has {world}")
     kind = "cuda" if device is None else torch.device(device).type
     backend = dist.get_backend()
-    if kind == "cuda":
+    if backend == "fake":
+        # a traced world (launch.dryrun): ranks that exist only as a
+        # process group's size; no device is touched
+        if kind not in ("cuda", "cpu"):
+            raise ValueError(f"no process mesh on device type {kind!r}")
+        devs = [torch.device(kind, 0) if kind == "cuda"
+                else torch.device("cpu")] * need
+    elif kind == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("a process mesh on the card needs a CUDA "
                                "device; pass device='cpu' (gloo) for one "

@@ -345,6 +345,67 @@ def clusterkv_percall_decode(q, k, v, kpos, qpos, cfg: ClusterKVConfig):
     return clusterkv_plan_decode(q, ks, vs, ps, cent, qpos, cfg)
 
 
+def write_position(c, row, qi, seq=None, dim: int = 2) -> None:
+    """Write ``row`` (``c`` without axis ``dim``) at sequence position
+    ``qi`` (a 0-d integer tensor) of the cache ``c``, in place, with no
+    read of ``qi``'s value on the host. With ``seq`` (a
+    ``models.sharding.SeqSplit``) ``c`` is this rank's slice of the
+    sequence and only the rank that holds ``qi`` changes it; the others
+    write back what they hold."""
+    row = row.unsqueeze(dim).to(c.dtype)
+    if seq is None:
+        c.index_copy_(dim, qi.reshape(1), row)
+        return
+    inside = (qi >= seq.start) & (qi < seq.start + seq.size)
+    at = (qi - seq.start).clamp(0, seq.size - 1).reshape(1)
+    c.index_copy_(dim, at, torch.where(inside, row, c.index_select(dim, at)))
+
+
+def _slice_partials(q, k, v, kp, qpos, *, window: int = 0,
+                    cfg: ClusterKVConfig | None = None):
+    """The partial softmax ``(m, l, o)`` of a single-token decode over one
+    slice of a cache's sequence: q (B,Hq,dh); k/v (B,Hkv,S_slice,dh|dv);
+    kp (B,Hkv,S_slice) the slice's positions. With ``cfg`` the top-c
+    tiles of the slice by its own centroids (``decode_select``) only;
+    without, every position, masked outside ``window``."""
+    b, hq, dh = q.shape
+    hkv, s_l = k.shape[1], k.shape[2]
+    if cfg is not None:
+        bk = min(cfg.block_k, s_l)
+        n_sel = min(cfg.decode_clusters, s_l // bk)
+        cent = ckv.block_centroids(k, bk)
+        idx = ckv.decode_select(q.float(), cent.float(), n_sel)
+        k, v = ckv.gather_tiles(k, idx, bk), ckv.gather_tiles(v, idx, bk)
+        kp = ckv.gather_tiles(kp, idx, bk)
+    qg = q.reshape(b, hkv, hq // hkv, dh).float()
+    logit = torch.einsum("bhgd,bhtd->bhgt", qg, k.float()) / float(dh) ** 0.5
+    ok = kp[:, :, None, :] <= qpos
+    if window:
+        ok = ok & (kp[:, :, None, :] > qpos - window)
+    logit = torch.where(ok, logit, NEG_INF)
+    m = logit.amax(dim=-1)
+    p = torch.exp(logit - m[..., None])
+    return m, p.sum(-1), torch.einsum("bhgt,bhtd->bhgd", p, v.float())
+
+
+def decode_seq_split(q, k, v, kpos, qpos, seq, *, window: int = 0,
+                     cfg: ClusterKVConfig | None = None):
+    """Single-token decode over this rank's slice of a cache whose sequence
+    is split over a process mesh axis (``seq``, a
+    ``models.sharding.SeqSplit``): a partial softmax ``(m, l, o)`` over the
+    slice, combined over the axis by max and sum (the reference's
+    ``pmax``/``psum``). q (B,Hq,dh); k/v (B,Hkv,S_local,dh|dv), the slice;
+    kpos (S_local,) its positions; qpos a scalar. With ``cfg`` every rank
+    first selects the top-c tiles of its own slice, as
+    ``clusterkv_decode_sharded`` does per shard; without, it attends every
+    position (masked beyond ``qpos`` and outside ``window``). No rank
+    reads another's slice."""
+    b, hq, _ = q.shape
+    m, l, o = _slice_partials(q, k, v, kpos.expand(b, *k.shape[1:3]), qpos,
+                              window=window, cfg=cfg)
+    return seq.combine(m, l, o).reshape(b, hq, -1).to(q.dtype)
+
+
 def clusterkv_decode_sharded(q, k, v, kpos, qpos, cfg: ClusterKVConfig,
                              mesh, axis: str = "data"):
     """Long-context decode with the cache sequence sharded over ``axis``
@@ -361,11 +422,7 @@ def clusterkv_decode_sharded(q, k, v, kpos, qpos, cfg: ClusterKVConfig,
     b, hq, dh = q.shape
     hkv, s = k.shape[1], k.shape[2]
     devices = mesh.devices_along(axis)
-    shards = len(devices)
-    s_local = s // shards
-    bk = min(cfg.block_k, s_local)
-    n_sel = min(cfg.decode_clusters, s_local // bk)
-    g = hq // hkv
+    s_local = s // len(devices)
     if kpos.ndim == 1:
         kpos = kpos.expand(b, hkv, s)
     home = q.device
@@ -373,23 +430,13 @@ def clusterkv_decode_sharded(q, k, v, kpos, qpos, cfg: ClusterKVConfig,
     ms, ls, os_ = [], [], []
     for d, dev in enumerate(devices):
         part = slice(d * s_local, (d + 1) * s_local)
-        kl, vl = k[:, :, part].to(dev), v[:, :, part].to(dev)
-        pl = kpos[:, :, part].to(dev)
-        qh = q.to(dev)
-        cent = ckv.block_centroids(kl, bk)
-        idx = ckv.decode_select(qh.float(), cent.float(), n_sel)
-        ksel = ckv.gather_tiles(kl, idx, bk).float()    # (b, hkv, c*bk, dh)
-        vsel = ckv.gather_tiles(vl, idx, bk).float()
-        psel = ckv.gather_tiles(pl, idx, bk)            # (b, hkv, c*bk)
-        qg = qh.reshape(b, hkv, g, dh).float()
-        logit = torch.einsum("bhgd,bhtd->bhgt", qg, ksel) / float(dh) ** 0.5
-        logit = torch.where(psel[:, :, None, :] <= qp.to(dev), logit,
-                            NEG_INF)
-        m = logit.amax(dim=-1)
-        p = torch.exp(logit - m[..., None])
+        m, l, o = _slice_partials(q.to(dev), k[:, :, part].to(dev),
+                                  v[:, :, part].to(dev),
+                                  kpos[:, :, part].to(dev), qp.to(dev),
+                                  cfg=cfg)
         ms.append(m.to(home))
-        ls.append(p.sum(-1).to(home))
-        os_.append(torch.einsum("bhgt,bhtd->bhgd", p, vsel).to(home))
+        ls.append(l.to(home))
+        os_.append(o.to(home))
     mm = torch.stack(ms).amax(dim=0)
     alpha = [torch.exp(m - mm) for m in ms]
     ll = sum(l * a for l, a in zip(ls, alpha))

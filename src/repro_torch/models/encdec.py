@@ -238,7 +238,7 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
     epos = torch.arange(enc_out.shape[1], dtype=torch.int32, device=h.device)
     ks, vs, xks, xvs = [], [], [], []
     for i in range(cfg.n_layers):
-        lp = pm.layer(p["dec"], i)
+        lp = shd.layer(pm.layer(p["dec"], i), "dec")
         hn = pm.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps)
         ks.append(attn.rope(_heads(pm.apply_linear(lp["self"]["wk"], hn),
                                    cfg), pos[None, None, :],
@@ -263,7 +263,9 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
     (B, 1). Where the reference returns new cache arrays, the port writes
     the new self key/value rows into ``cache["k"]``/``cache["v"]`` in
     place; the returned cache shares them. Cross attention attends every
-    position of ``xk``/``xv`` (C38)."""
+    position of ``xk``/``xv`` (C38). Under a process mesh each rank
+    decodes with its heads and MLP columns (``_splits``), its caches its
+    heads'."""
     h = pm.apply_embedding(p, cfg, tokens)
     b = h.shape[0]
     dev = h.device
@@ -272,8 +274,13 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
     rope_pos = qpos.reshape(1, 1, 1).to(torch.int32)
     kpos = torch.arange(cache["k"].shape[3], dtype=torch.int32, device=dev)
     xpos = torch.arange(cache["xk"].shape[3], dtype=torch.int32, device=dev)
+    split = _splits(cfg, shd.mesh)[0]
+
+    def tp_sum(a):
+        return a if split is None else split.sum(a)
+
     for i in range(cfg.n_layers):
-        lp = pm.layer(p["dec"], i)
+        lp = shd.layer(pm.layer(p["dec"], i), "dec")
         hn = pm.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps)
         q = attn.rope(_heads(pm.apply_linear(lp["self"]["wq"], hn), cfg),
                       rope_pos, cfg.rope_theta)
@@ -281,10 +288,10 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
                        rope_pos, cfg.rope_theta)
         v1 = _heads(pm.apply_linear(lp["self"]["wv"], hn), cfg)
         kc, vc = cache["k"][i], cache["v"][i]            # (B,H,S,dh) views
-        kc[:, :, qi] = k1[:, :, 0].to(kc.dtype)
-        vc[:, :, qi] = v1[:, :, 0].to(vc.dtype)
+        attn.write_position(kc, k1[:, :, 0], qi)
+        attn.write_position(vc, v1[:, :, 0], qi)
         o = attn.decode_attention(q[:, :, 0], kc, vc, kpos, qpos)
-        h = h + pm.apply_linear(lp["self"]["wo"], o.reshape(b, 1, -1))
+        h = h + tp_sum(pm.apply_linear(lp["self"]["wo"], o.reshape(b, 1, -1)))
         # cross attention over the cached encoder k/v, every position
         hn = pm.apply_rmsnorm(lp["ln_x"], h, cfg.norm_eps)
         qx = attn.rope(_heads(pm.apply_linear(lp["cross"]["wq"], hn), cfg),
@@ -292,8 +299,10 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
         ox = attn.decode_attention(qx[:, :, 0], cache["xk"][i],
                                    cache["xv"][i], xpos,
                                    attn.INT32_MAX - 1)
-        h = h + pm.apply_linear(lp["cross"]["wo"], ox.reshape(b, 1, -1))
+        h = h + tp_sum(pm.apply_linear(lp["cross"]["wo"],
+                                       ox.reshape(b, 1, -1)))
         h = h + _mlp_apply(lp["mlp"],
-                           pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps))
+                           pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
+                           cfg, shd)
     logits = pm.apply_lm_head(p, cfg, h[:, 0])
     return logits, dict(cache, pos=cache["pos"] + 1)

@@ -244,7 +244,10 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
             shd: ShardCtx = NO_SHARD) -> Tuple[Dict, torch.Tensor]:
     """Forward over the prompt: each group's shared-block k/v (in
     ``cfg.dtype``), every mamba2 layer's final state and conv buffers
-    (float32), and the last position's logits."""
+    (float32), and the last position's logits. Under a process mesh the
+    shared block computes this rank's heads (``_splits``; its k/v are
+    theirs) and the mamba2 layers, gathered one at a time, compute
+    whole."""
     x0 = pm.apply_embedding(p, cfg, batch["tokens"])
     h = x0
     s = h.shape[1]
@@ -252,14 +255,16 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
     per = cfg.shared_attn_every
     dt = pm.DTYPES[cfg.dtype]
     ks, vs, hs, cxs, cbcs = [], [], [], [], []
+    splits = _splits(cfg, shd.mesh)
     for g in range(_n_groups(cfg)):
-        out, k, v = _shared_block_kv(p["shared"], h, x0, pos, cfg, backend)
+        out, k, v = _shared_block_kv(p["shared"], h, x0, pos, cfg, backend,
+                                     splits)
         ks.append(k.to(dt))
         vs.append(v.to(dt))
         h = h + out
         gp = _group_params(p, g, per)
         for j in range(per):
-            lp = pm.layer(gp, j)
+            lp = shd.layer(pm.layer(gp, j), "layers")
             y, h_fin, cx, cbc = mamba.mamba2_forward(
                 lp["mixer"], pm.apply_rmsnorm(lp["ln"], h, cfg.norm_eps),
                 cfg, shd)
@@ -286,46 +291,68 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
     cache shares them. With ``backend="clusterkv"`` (and the config's
     ClusterKV on) each group's shared block attends through
     ``attention.clusterkv_decode`` (B5), or, with ``sharded_long=True``
-    and a mesh in ``shd``, through ``clusterkv_decode_sharded``."""
+    and a single-controller mesh in ``shd``, through
+    ``clusterkv_decode_sharded``. Under a process mesh the shared block
+    computes this rank's heads; with ``shd.seq`` the k/v cache is this
+    rank's slice of the sequence (every head, the new row gathered over
+    ``tp``), attended through ``attention.decode_seq_split``."""
     x0 = pm.apply_embedding(p, cfg, tokens)
     h = x0
-    b = h.shape[0]
     dev = h.device
     qpos = torch.as_tensor(cache["pos"], device=dev)
     qi = qpos.long()
     s_max = cache["k"].shape[3]
     kpos = torch.arange(s_max, dtype=torch.int32, device=dev)
-    rope_pos = qpos.reshape(1, 1, 1).to(torch.int32)
+    rope_pos = qpos.reshape(1).to(torch.int32)
     per = cfg.shared_attn_every
-    _, hq, dh = _heads(cfg)
     sp = p["shared"]
     ssm = cache["ssm"]
+    splits = _splits(cfg, shd.mesh)
+    split = splits[0]
+    seq = shd.seq
+    if seq is not None:
+        # a long-context cache on a process mesh: every head, this rank's
+        # slice of the sequence
+        kpos = torch.arange(seq.start, seq.start + seq.size,
+                            dtype=torch.int32, device=dev)
+        nh = _heads(cfg)[1] // (1 if split is None else split.n)
+        heads = slice(None) if split is None else slice(
+            split.index * nh, (split.index + 1) * nh)
     for g in range(_n_groups(cfg)):
         h2 = torch.cat([h, x0], dim=-1)
-        hn = pm.apply_rmsnorm(sp["ln1"], h2, cfg.norm_eps)
-        q = _split_heads(pm.apply_linear(sp["wq"], hn), hq, dh)
-        k1 = _split_heads(pm.apply_linear(sp["wk"], hn), hq, dh)
-        v1 = _split_heads(pm.apply_linear(sp["wv"], hn), hq, dh)
-        q = attn.rope(q, rope_pos, cfg.rope_theta)
-        k1 = attn.rope(k1, rope_pos, cfg.rope_theta)
+        q, k1, v1 = _shared_qkv(sp, h2, cfg, rope_pos, split)
         kc, vc = cache["k"][g], cache["v"][g]            # (B,H,S,dh) views
-        kc[:, :, qi] = k1[:, :, 0].to(kc.dtype)
-        vc[:, :, qi] = v1[:, :, 0].to(vc.dtype)
         q1 = q[:, :, 0]
-        if backend == "clusterkv" and cfg.clusterkv.enabled:
-            if sharded_long and shd.mesh is not None:
+        ckv_on = backend == "clusterkv" and cfg.clusterkv.enabled
+        if seq is not None:
+            k1, v1 = k1[:, :, 0], v1[:, :, 0]
+            if split is not None:
+                k1, v1 = split.gather(k1, 1), split.gather(v1, 1)
+            attn.write_position(kc, k1, qi, seq)
+            attn.write_position(vc, v1, qi, seq)
+            if ckv_on and not sharded_long:
+                raise ValueError("a cache whose sequence is split over a "
+                                 "process mesh decodes ClusterKV with "
+                                 "sharded_long=True")
+            o = attn.decode_seq_split(q1, kc[:, heads], vc[:, heads], kpos,
+                                      qpos, seq,
+                                      cfg=cfg.clusterkv if ckv_on else None)
+        else:
+            attn.write_position(kc, k1[:, :, 0], qi)
+            attn.write_position(vc, v1[:, :, 0], qi)
+            if ckv_on and sharded_long and shd.mesh is not None:
                 o = attn.clusterkv_decode_sharded(q1, kc, vc, kpos, qpos,
                                                   cfg.clusterkv, shd.mesh)
-            else:
+            elif ckv_on:
                 o = attn.clusterkv_decode(q1, kc, vc, kpos, qpos,
                                           cfg.clusterkv)
-        else:
-            o = attn.decode_attention(q1, kc, vc, kpos, qpos)
-        h = h + _shared_tail(sp, h2, o[:, :, None], cfg)
+            else:
+                o = attn.decode_attention(q1, kc, vc, kpos, qpos)
+        h = h + _shared_tail(sp, h2, o[:, :, None], cfg, splits)
         gp = _group_params(p, g, per)
         for j in range(per):
             i = g * per + j
-            lp = pm.layer(gp, j)
+            lp = shd.layer(pm.layer(gp, j), "layers")
             y, hst, cx, cbc = mamba.mamba2_step(
                 lp["mixer"], pm.apply_rmsnorm(lp["ln"], h, cfg.norm_eps),
                 ssm["h"][i], ssm["conv_x"][i], ssm["conv_bc"][i], cfg)

@@ -138,19 +138,33 @@ def cache_specs(cfg: ModelConfig, long_context: bool = False) -> dict:
     return {"c": c, "kr": c, "pos": P()}
 
 
-def prefill(p, cfg: ModelConfig, batch, backend: str = "flash"):
+def _mlp(lp, hn, split):
+    """The layer's SwiGLU MLP; under a tensor ``split`` this rank's
+    columns, summed over ``tp``."""
+    if split is None:
+        return pm.apply_swiglu(lp["ffn"], hn)
+    return split.sum(pm.apply_swiglu(lp["ffn"], split.enter(hn)))
+
+
+def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
+            shd: ShardCtx = NO_SHARD, splits=(None, None)):
+    """Forward over the prompt: the latent cache (``c``, ``kr``) and the
+    last logits. Under a process mesh the layers are gathered one at a
+    time (``shd.layer``) and ``splits`` (the transformer's ``_splits``)
+    give this rank's heads and MLP columns; the latents are whole."""
     dt = pm.DTYPES[cfg.dtype]
     h = p["embed"]["table"][batch["tokens"].long()].to(dt)
     b, s, _ = h.shape
     pos = torch.arange(s, dtype=torch.int32, device=h.device)
     cs, krs = [], []
     for i in range(cfg.n_layers):
-        lp = pm.layer(p["layers"], i)
+        lp = shd.layer(pm.layer(p["layers"], i), "layers")
         hn = pm.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps)
-        a, cn, krope = _attend_latent(lp["attn"], hn, pos, cfg, backend)
+        a, cn, krope = _attend_latent(lp["attn"], hn, pos, cfg, backend,
+                                      splits[0])
         h = h + a
         hn = pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps)
-        h = h + pm.apply_swiglu(lp["ffn"], hn)
+        h = h + _mlp(lp, hn, splits[1])
         cs.append(cn.to(dt))
         krs.append(krope.to(dt))
     cache = {"c": torch.stack(cs), "kr": torch.stack(krs),
@@ -160,17 +174,26 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash"):
 
 def _absorbed_scores_attend(lp, qn, qrope, cc, krc, kpos, qpos,
                             cfg: ModelConfig, shd: ShardCtx, backend: str,
-                            sharded_long: bool):
+                            sharded_long: bool, split=None):
     """Absorbed-form attention over the latent cache.
 
-    qn (B,H,dn), qrope (B,H,dr); cc (B,S,rank); krc (B,S,dr).
+    qn (B,H,dn), qrope (B,H,dr) (H: this rank's heads under a tensor
+    ``split``, whose ``kv_b`` holds their columns); cc (B,S,rank); krc
+    (B,S,dr), or this rank's slice of the sequence (``shd.seq``).
     Returns o_lat (B,H,rank) float32."""
     _, kr, dn, dr, dv = _dims(cfg)
-    wk = lp["kv_b"]["w"].reshape(kr, cfg.n_heads, dn + dv)[..., :dn]
+    wk = lp["kv_b"]["w"].reshape(kr, -1, dn + dv)[..., :dn]
     q_lat = torch.einsum("bhd,rhd->bhr", qn.float(), wk.float())
     scale = 1.0 / math.sqrt(dn + dr)
-    if backend == "clusterkv" and cfg.clusterkv.enabled \
-            and shd.mesh is not None and sharded_long:
+    ckv_on = backend == "clusterkv" and cfg.clusterkv.enabled
+    if shd.seq is not None:
+        if ckv_on and not sharded_long:
+            raise ValueError("a cache whose sequence is split over a "
+                             "process mesh decodes ClusterKV with "
+                             "sharded_long=True")
+        return _latent_decode_seq(q_lat, qrope, cc, krc, kpos, qpos, cfg,
+                                  shd.seq, scale, split, ckv_on)
+    if ckv_on and shd.mesh is not None and sharded_long:
         return _latent_decode_sharded(q_lat, qrope, cc, krc, kpos, qpos,
                                       cfg, shd, scale)
     logits = (torch.einsum("bhr,bsr->bhs", q_lat, cc.float())
@@ -181,6 +204,36 @@ def _absorbed_scores_attend(lp, qn, qrope, cc, krc, kpos, qpos,
     return torch.einsum("bhs,bsr->bhr", w, cc.float())
 
 
+def _latent_partials(q_lat, qrope, cc, krc, kpos, qpos, cfg: ModelConfig,
+                     scale, head_mean=None):
+    """The partial softmax ``(m, l, o)`` of the absorbed decode over one
+    slice of the latent cache (cc (B,S_slice,rank), krc (B,S_slice,dr),
+    kpos (S_slice,)): with ``head_mean`` (the mean over every head of a
+    (B,H,tiles) score) the top-c latent tiles by it only, as the ClusterKV
+    decode selects per slice; without, every position."""
+    b, s_l, rank = cc.shape
+    qr = qrope.float()
+    cs, ks, ps = cc.float(), krc.float(), kpos.expand(b, s_l)
+    if head_mean is not None:
+        bk = min(cfg.clusterkv.block_k, s_l)
+        nkb = s_l // bk
+        n_sel = min(cfg.clusterkv.decode_clusters, nkb)
+        cb = cc.reshape(b, nkb, bk, rank)
+        krb = krc.reshape(b, nkb, bk, -1)
+        sc = (torch.einsum("bhr,bkr->bhk", q_lat, cb.mean(dim=2).float())
+              + torch.einsum("bhd,bkd->bhk", qr, krb.mean(dim=2).float()))
+        idx = topk_stable(head_mean(sc), n_sel)            # (b, n_sel)
+        bi = torch.arange(b, device=cc.device)[:, None]
+        cs = cb[bi, idx].reshape(b, -1, rank).float()
+        ks = krb[bi, idx].reshape(b, n_sel * bk, -1).float()
+        ps = kpos.reshape(nkb, bk)[idx].reshape(b, -1)
+    lg = (q_lat @ cs.mT + qr @ ks.mT) * scale               # (b, H, t)
+    lg = torch.where(ps[:, None, :] <= qpos, lg, NEG_INF)
+    m = lg.amax(dim=-1)
+    pexp = torch.exp(lg - m[..., None])
+    return m, pexp.sum(-1), pexp @ cs
+
+
 def _latent_decode_sharded(q_lat, qrope, cc, krc, kpos, qpos,
                            cfg: ModelConfig, shd: ShardCtx, scale):
     """ClusterKV decode on the latent cache, its sequence split over the
@@ -189,35 +242,19 @@ def _latent_decode_sharded(q_lat, qrope, cc, krc, kpos, qpos,
     partials combine by max and sum on ``q_lat``'s device (the reference's
     ``pmax``/``psum``). Each shard's slice goes to its own device."""
     devices = shd.mesh.devices_along("data")
-    b, s, rank = cc.shape
-    s_local = s // len(devices)
-    bk = min(cfg.clusterkv.block_k, s_local)
-    nkb = s_local // bk
-    n_sel = min(cfg.clusterkv.decode_clusters, nkb)
+    s_local = cc.shape[1] // len(devices)
     home = q_lat.device
     qp = torch.as_tensor(qpos, device=home)
-    bi = torch.arange(b)[:, None]
     ms, ls, os_ = [], [], []
     for d, dev in enumerate(devices):
         part = slice(d * s_local, (d + 1) * s_local)
-        cb = cc[:, part].to(dev).reshape(b, nkb, bk, rank)
-        krb = krc[:, part].to(dev).reshape(b, nkb, bk, -1)
-        pb = kpos[part].to(dev).reshape(nkb, bk)
-        ql, qr = q_lat.to(dev), qrope.to(dev).float()
-        sc = (torch.einsum("bhr,bkr->bhk", ql, cb.mean(dim=2).float())
-              + torch.einsum("bhd,bkd->bhk", qr, krb.mean(dim=2).float()))
-        idx = topk_stable(sc.mean(dim=1), n_sel)            # (b, n_sel)
-        bid = bi.to(dev)
-        csel = cb[bid, idx].reshape(b, -1, rank).float()
-        ksel = krb[bid, idx].reshape(b, n_sel * bk, -1).float()
-        psel = pb[idx].reshape(b, -1)
-        lg = (ql @ csel.mT + qr @ ksel.mT) * scale          # (b, H, c*bk)
-        lg = torch.where(psel[:, None, :] <= qp.to(dev), lg, NEG_INF)
-        m = lg.amax(dim=-1)
-        pexp = torch.exp(lg - m[..., None])
+        m, l, o = _latent_partials(
+            q_lat.to(dev), qrope.to(dev), cc[:, part].to(dev),
+            krc[:, part].to(dev), kpos[part].to(dev), qp.to(dev), cfg, scale,
+            lambda sc: sc.mean(dim=1))
         ms.append(m.to(home))
-        ls.append(pexp.sum(-1).to(home))
-        os_.append((pexp @ csel).to(home))
+        ls.append(l.to(home))
+        os_.append(o.to(home))
     mm = torch.stack(ms).amax(dim=0)
     alpha = [torch.exp(m - mm) for m in ms]
     ll = sum(l * a for l, a in zip(ls, alpha))
@@ -225,11 +262,36 @@ def _latent_decode_sharded(q_lat, qrope, cc, krc, kpos, qpos,
     return oo / torch.clamp_min(ll, 1e-30)[..., None]
 
 
+def _latent_decode_seq(q_lat, qrope, cc, krc, kpos, qpos, cfg: ModelConfig,
+                       seq, scale, split, clusterkv: bool):
+    """Decode on this rank's slice of a latent cache whose sequence is
+    split over a process mesh axis (``seq``): ``_latent_partials`` of the
+    slice (with ``clusterkv`` the head mean over every head: under a
+    tensor ``split`` this rank's heads' sum, summed over ``tp``), combined
+    over the split (``seq.combine``)."""
+    import torch.distributed as dist
+
+    def head_mean(sc):
+        if split is None:
+            return sc.mean(dim=1)
+        sc = sc.sum(dim=1)
+        dist.all_reduce(sc, group=split.group)
+        return sc / cfg.n_heads
+
+    return seq.combine(*_latent_partials(q_lat, qrope, cc, krc, kpos, qpos,
+                                         cfg, scale,
+                                         head_mean if clusterkv else None))
+
+
 def decode_step(p, cfg: ModelConfig, cache, tokens,
                 backend: str = "flash", sharded_long: bool = False,
-                shd: ShardCtx = NO_SHARD) -> Tuple[torch.Tensor, Dict]:
+                shd: ShardCtx = NO_SHARD, splits=(None, None)
+                ) -> Tuple[torch.Tensor, Dict]:
     """One absorbed decode step at the cache's scalar position (the
-    reference's ``dynamic_update_slice`` takes no per-slot vector)."""
+    reference's ``dynamic_update_slice`` takes no per-slot vector). Under
+    a process mesh ``splits`` (the transformer's ``_splits``) give this
+    rank's heads and MLP columns, and with ``shd.seq`` the cache is this
+    rank's slice of the sequence."""
     qpos = torch.as_tensor(cache["pos"], device=cache["c"].device)
     if qpos.ndim:
         raise ValueError("MLA decode takes a scalar cache position; per-slot "
@@ -238,27 +300,33 @@ def decode_step(p, cfg: ModelConfig, cache, tokens,
     h = p["embed"]["table"][tokens.long()].to(dt)
     b = h.shape[0]
     _, kr, dn, _, dv = _dims(cfg)
-    s_max = cache["c"].shape[2]
-    kpos = torch.arange(s_max, dtype=torch.int32, device=h.device)
+    split_attn, split_mlp = splits
+    seq = shd.seq
+    if seq is None:
+        kpos = torch.arange(cache["c"].shape[2], dtype=torch.int32,
+                            device=h.device)
+    else:
+        kpos = torch.arange(seq.start, seq.start + seq.size,
+                            dtype=torch.int32, device=h.device)
     rope_pos = qpos[None].to(torch.int32)
     qi = qpos.long()
     for i in range(cfg.n_layers):
-        lp = pm.layer(p["layers"], i)
+        lp = shd.layer(pm.layer(p["layers"], i), "layers")
         cc, krc = cache["c"][i], cache["kr"][i]        # (B,S,rank) views
         hn = pm.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps)
-        qn, qrope = _q_proj(lp["attn"], hn, cfg, rope_pos)
+        qn, qrope = _q_proj(lp["attn"], hn, cfg, rope_pos, split_attn)
         cn1, kr1 = _kv_latent(lp["attn"], hn, cfg, rope_pos)
-        cc[:, qi] = cn1[:, 0].to(cc.dtype)
-        krc[:, qi] = kr1[:, 0].to(krc.dtype)
+        attn.write_position(cc, cn1[:, 0], qi, seq, dim=1)
+        attn.write_position(krc, kr1[:, 0], qi, seq, dim=1)
         o_lat = _absorbed_scores_attend(
             lp["attn"], qn[:, :, 0], qrope[:, :, 0], cc, krc, kpos, qpos,
-            cfg, shd, backend, sharded_long)
-        wv = lp["attn"]["kv_b"]["w"].reshape(kr, cfg.n_heads, dn + dv)[
-            ..., dn:]
+            cfg, shd, backend, sharded_long, split_attn)
+        wv = lp["attn"]["kv_b"]["w"].reshape(kr, -1, dn + dv)[..., dn:]
         o = torch.einsum("bhr,rhd->bhd", o_lat, wv.float())
-        h = h + pm.apply_linear(lp["attn"]["wo"], o.reshape(b, 1, -1).to(dt))
+        a = pm.apply_linear(lp["attn"]["wo"], o.reshape(b, 1, -1).to(dt))
+        h = h + (a if split_attn is None else split_attn.sum(a))
         hn = pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps)
-        h = h + pm.apply_swiglu(lp["ffn"], hn)
+        h = h + _mlp(lp, hn, split_mlp)
     logits = pm.apply_lm_head(p, cfg, h[:, 0])
     return logits, {"c": cache["c"], "kr": cache["kr"],
                     "pos": cache["pos"] + 1}

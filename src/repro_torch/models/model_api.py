@@ -62,11 +62,14 @@ def compute_specs(cfg: ModelConfig, mesh, seq: int) -> dict:
     return sharding.whole(param_specs(cfg))
 
 
-def input_specs(cfg: ModelConfig, shape_name: str
+def input_specs(cfg: ModelConfig, shape_name: str, sizes=None
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, P]]:
     """``meta`` tensors + logical PartitionSpecs for every model input of
-    the shape cell ``shape_name`` (no allocation)."""
+    the shape cell ``shape_name`` (no allocation); ``sizes`` = (seq,
+    batch) replaces the cell's."""
     seq, batch, kind = SHAPES[shape_name]
+    if sizes is not None:
+        seq, batch = sizes
     d = cfg.d_model
 
     def S(shape, dtype):
@@ -95,10 +98,13 @@ def input_specs(cfg: ModelConfig, shape_name: str
     return {"tokens": S((batch, 1), i32)}, {"tokens": P("dp", None)}
 
 
-def cache_shapes(cfg: ModelConfig, shape_name: str):
+def cache_shapes(cfg: ModelConfig, shape_name: str, sizes=None):
     """The decode cache of a shape cell as ``meta`` tensors, and its
-    logical specs (a long-context cell shards the sequence)."""
+    logical specs (a long-context cell shards the sequence); ``sizes`` =
+    (seq, batch) replaces the cell's."""
     seq, batch, kind = SHAPES[shape_name]
+    if sizes is not None:
+        seq, batch = sizes
     if kind != "decode":
         raise ValueError(f"{shape_name} is a {kind} cell, not a decode cell")
     mod = module_for(cfg)

@@ -77,6 +77,15 @@ def init_moe(cfg: ModelConfig) -> dict:
     return p
 
 
+def expert_counts(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """How many entries of ``flat_e`` name each of the ``n_experts``
+    experts (int64): ``bincount``'s values at a length fixed by the
+    shapes, so that a trace with no data (``launch.dryrun``) can run it."""
+    return torch.zeros(n_experts, dtype=torch.int64,
+                       device=flat_e.device).scatter_add_(
+        0, flat_e.long(), torch.ones_like(flat_e, dtype=torch.int64))
+
+
 def route(eidx: torch.Tensor, n_experts: int, capacity: int):
     """The sort-based routing of ``(T, k)`` expert ids: ``order`` (the
     stable sort of the flattened ids), ``keep`` (rank inside the expert
@@ -86,7 +95,7 @@ def route(eidx: torch.Tensor, n_experts: int, capacity: int):
     flat_e = eidx.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    counts = expert_counts(flat_e, n_experts)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(t * k, device=eidx.device) - starts[sorted_e]
     keep = rank < capacity
@@ -198,7 +207,7 @@ def load_balance_loss(probs, eidx, n_experts: int,
     expert counts over the batch's shards (the loss is then this shard's
     share: with ``p_e`` the mean over its own rows, the mean over the
     shards is the whole batch's loss)."""
-    f = torch.bincount(eidx.reshape(-1), minlength=n_experts).float()
+    f = expert_counts(eidx.reshape(-1), n_experts).float()
     if count_sum is not None:
         f = count_sum(f)
     f = f / torch.clamp_min(f.sum(), 1.0)

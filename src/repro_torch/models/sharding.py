@@ -257,19 +257,38 @@ class _EnterGroup(torch.autograd.Function):
         return g, None
 
 
+def _all_gather(x: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
+    """The ``n`` ranks' ``x`` of ``group`` concatenated along ``dim``, in
+    rank order (no autograd: a serving step's)."""
+    import torch.distributed as dist
+
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(
+        out, x, group=group)
+    return out.movedim(0, dim)
+
+
 @dataclass(frozen=True)
 class TensorSplit:
     """The ``n``-way tensor-parallel axis of a process mesh: ``enter``
-    before a column-split matmul, ``sum`` after the row-split one."""
+    before a column-split matmul, ``sum`` after the row-split one;
+    ``index`` is this rank's position on the axis (its block of heads or
+    columns)."""
     axis: str
     n: int
     group: Any
+    index: int = 0
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         return _EnterGroup.apply(x, self.group)
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         return _SumOverGroup.apply(x, self.group)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's block of ``x`` along ``dim``, whole."""
+        return _all_gather(x, dim, self.n, self.group)
 
 
 def tensor_split(mesh: Optional[Mesh]) -> Optional[TensorSplit]:
@@ -281,17 +300,55 @@ def tensor_split(mesh: Optional[Mesh]) -> Optional[TensorSplit]:
     tp = tp_axis(mesh)
     if tp is None or mesh.shape[tp] == 1:
         return None
-    return TensorSplit(tp, mesh.shape[tp], mesh.device_mesh.get_group(tp))
+    dm = mesh.device_mesh
+    return TensorSplit(tp, mesh.shape[tp], dm.get_group(tp),
+                       dm.get_local_rank(tp))
+
+
+@dataclass(frozen=True)
+class SeqSplit:
+    """A decode cache whose sequence is split over the ``n`` ranks of a
+    process mesh axis: this rank holds positions ``[start, start + size)``
+    of it. Attention over it computes a partial softmax ``(m, l, o)`` on
+    the slice and ``combine``s the partials over ``group`` (the
+    reference's ``pmax``/``psum``)."""
+    axis: str
+    n: int
+    group: Any
+    index: int
+    size: int
+
+    @property
+    def start(self) -> int:
+        return self.index * self.size
+
+    def combine(self, m: torch.Tensor, l: torch.Tensor, o: torch.Tensor
+                ) -> torch.Tensor:
+        """``o / l`` of the whole sequence from this rank's partial max
+        ``m``, sum ``l`` and weighted values ``o`` (``o`` has one more
+        trailing dim)."""
+        import torch.distributed as dist
+
+        mm = m.clone()
+        dist.all_reduce(mm, op=dist.ReduceOp.MAX, group=self.group)
+        alpha = torch.exp(m - mm)
+        ll, oo = l * alpha, o * alpha[..., None]
+        dist.all_reduce(ll, group=self.group)
+        dist.all_reduce(oo, group=self.group)
+        return oo / torch.clamp(ll, min=1e-30)[..., None]
 
 
 @dataclass(frozen=True)
 class ShardCtx:
     """Threaded through model code: the mesh of the sharded paths (the
     long-context decode shards its cache over it; on a process mesh the
-    layers split heads, MLP columns and experts over it), and the mesh
-    train step's per-layer gather (``layer``)."""
+    layers split heads, MLP columns and experts over it), the mesh
+    steps' per-layer gather (``layer``), and, in a decode step on a
+    process mesh whose cache sequence is split, this rank's slice of it
+    (``seq``)."""
     mesh: Optional[Mesh] = None
     gather: Optional[Callable[[dict, str], dict]] = None
+    seq: Optional[SeqSplit] = None
 
     def cst(self, x: torch.Tensor, *tokens) -> torch.Tensor:
         """The reference's activation sharding constraint, which never

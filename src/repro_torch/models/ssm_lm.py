@@ -95,7 +95,7 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
     s = h.shape[1]
     hs, convs = [], []
     for i in range(cfg.n_layers):
-        lp = pm.layer(p["layers"], i)
+        lp = shd.layer(pm.layer(p["layers"], i), "layers")
         y, h_fin, conv_buf = mamba.mamba1_forward(
             lp["mixer"], pm.apply_rmsnorm(lp["ln"], h, cfg.norm_eps), cfg,
             shd)
@@ -116,7 +116,7 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
     shares them."""
     h = pm.apply_embedding(p, cfg, tokens)
     for i in range(cfg.n_layers):
-        lp = pm.layer(p["layers"], i)
+        lp = shd.layer(pm.layer(p["layers"], i), "layers")
         y, hst, conv_buf = mamba.mamba1_step(
             lp["mixer"], pm.apply_rmsnorm(lp["ln"], h, cfg.norm_eps),
             cache["h"][i], cache["conv"][i], cfg)

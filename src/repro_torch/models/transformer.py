@@ -318,17 +318,20 @@ def cache_specs(cfg: ModelConfig, long_context: bool = False) -> dict:
 
 def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
             shd: ShardCtx = NO_SHARD) -> Tuple[Dict, torch.Tensor]:
-    """Forward over the prompt, returning a filled cache + last logits."""
+    """Forward over the prompt, returning a filled cache + last logits.
+    Under a process mesh (``shd.mesh``) each rank computes its rows with
+    its heads (``_splits``), and its k/v are its heads' cache."""
     if cfg.mla is not None:
-        return mla_mod.prefill(p, cfg, batch, backend)
+        return mla_mod.prefill(p, cfg, batch, backend, shd,
+                               _splits(cfg, shd.mesh))
     h = embed_tokens(p, cfg, batch)
     b, s, _ = h.shape
     pos = torch.arange(s, dtype=torch.int32, device=h.device)
     dt = compute_dtype(cfg)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        h, _, (k, v) = _layer(pm.layer(p["layers"], i), h, pos, cfg,
-                              backend, shd)
+        h, _, (k, v) = _layer(shd.layer(pm.layer(p["layers"], i), "layers"),
+                              h, pos, cfg, backend, shd)
         ks.append(k.to(dt))
         vs.append(v.to(dt))
     cache = {"k": torch.stack(ks), "v": torch.stack(vs),
@@ -346,14 +349,19 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
     masks at its own position). Where the reference returns new cache
     arrays, the port writes the new key/value rows into ``cache["k"]`` and
     ``cache["v"]`` in place (no copy of the cache per token); the returned
-    cache shares them. ``sharded_long=True`` with a mesh in ``shd`` (and
-    the ``clusterkv`` backend at a scalar position) splits each layer's
-    cache sequence over the mesh's ``data`` axis
-    (``attention.clusterkv_decode_sharded``). A vlm model (embedding
-    inputs) continues from token embeddings ``tokens`` (B, 1, d)."""
+    cache shares them. ``sharded_long=True`` with a single-controller mesh
+    in ``shd`` (and the ``clusterkv`` backend at a scalar position) splits
+    each layer's cache sequence over the mesh's ``data`` axis
+    (``attention.clusterkv_decode_sharded``). Under a process mesh each
+    rank decodes its rows with its heads (``_splits``); when its cache is
+    a slice of the sequence (``shd.seq``, every kv head), it writes the
+    new row where it holds it (the heads gathered over ``tp``) and attends
+    its slice, the partials combined over the split
+    (``attention.decode_seq_split``). A vlm model (embedding inputs)
+    continues from token embeddings ``tokens`` (B, 1, d)."""
     if cfg.mla is not None:
         return mla_mod.decode_step(p, cfg, cache, tokens, backend,
-                                   sharded_long, shd)
+                                   sharded_long, shd, _splits(cfg, shd.mesh))
     dt = compute_dtype(cfg)
     if tokens.ndim == 3:
         h = tokens.to(dt)
@@ -376,41 +384,83 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
         # it writes back what row S - 1 holds
         fits = (qi < s_max)[:, None, None]
         qi = qi.clamp(max=s_max - 1)
+    split_attn, split_mlp = _splits(cfg, shd.mesh)
+    lcfg = cfg if split_attn is None else cfg.with_(
+        n_heads=cfg.n_heads // split_attn.n,
+        n_kv_heads=cfg.n_kv_heads // split_attn.n, d_head=cfg.head_dim)
+    seq = shd.seq
+    if seq is not None:
+        # a long-context cache on a process mesh: every kv head, this
+        # rank's slice of the sequence
+        kpos = torch.arange(seq.start, seq.start + seq.size,
+                            dtype=torch.int32, device=dev)
+        heads = slice(None) if split_attn is None else slice(
+            split_attn.index * lcfg.n_kv_heads,
+            (split_attn.index + 1) * lcfg.n_kv_heads)
     for i in range(cfg.n_layers):
-        lp = pm.layer(p["layers"], i)
+        lp = shd.layer(pm.layer(p["layers"], i), "layers")
         kc, vc = cache["k"][i], cache["v"][i]          # (B,Hkv,S,dh) views
         hn = pm.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps)
-        q, k, v = _project_qkv(lp["attn"], hn, cfg, rope_pos)
-        if per_slot:
-            kc[bi, :, qi] = torch.where(fits, k[:, :, 0].to(kc.dtype),
-                                        kc[bi, :, qi])
-            vc[bi, :, qi] = torch.where(fits, v[:, :, 0].to(vc.dtype),
-                                        vc[bi, :, qi])
-        else:
-            kc[:, :, qi] = k[:, :, 0].to(kc.dtype)
-            vc[:, :, qi] = v[:, :, 0].to(vc.dtype)
+        if split_attn is not None:
+            hn = split_attn.enter(hn)
+        q, k, v = _project_qkv(lp["attn"], hn, lcfg, rope_pos)
         q1 = q[:, :, 0]                                 # (B,Hq,dh)
-        if backend == "clusterkv" and cfg.clusterkv.enabled:
-            if per_slot:
-                # continuous batching: per-call ordering over every slot's
-                # cache region (the baseline the plan service amortizes)
-                o = attn.clusterkv_percall_decode(q1, kc, vc, kpos, qpos,
-                                                  cfg.clusterkv)
-            elif sharded_long and shd.mesh is not None:
-                o = attn.clusterkv_decode_sharded(
-                    q1, kc, vc, kpos, qpos, cfg.clusterkv, shd.mesh)
-            else:
-                o = attn.clusterkv_decode(q1, kc, vc, kpos, qpos,
-                                          cfg.clusterkv)
+        if seq is not None:
+            k1, v1 = k[:, :, 0], v[:, :, 0]
+            if split_attn is not None:
+                k1, v1 = split_attn.gather(k1, 1), split_attn.gather(v1, 1)
+            attn.write_position(kc, k1, qi, seq)
+            attn.write_position(vc, v1, qi, seq)
+            ckv_cfg = None
+            if backend == "clusterkv" and cfg.clusterkv.enabled:
+                if not sharded_long:
+                    raise ValueError("a cache whose sequence is split over "
+                                     "a process mesh decodes ClusterKV "
+                                     "with sharded_long=True")
+                ckv_cfg = cfg.clusterkv
+            o = attn.decode_seq_split(q1, kc[:, heads], vc[:, heads], kpos,
+                                      qpos, seq, window=cfg.swa_window,
+                                      cfg=ckv_cfg)
         else:
-            o = attn.decode_attention(q1, kc, vc, kpos, mask_qpos,
-                                      window=cfg.swa_window)
-        h = h + pm.apply_linear(lp["attn"]["wo"], o.reshape(b, 1, -1))
+            if per_slot:
+                kc[bi, :, qi] = torch.where(fits, k[:, :, 0].to(kc.dtype),
+                                            kc[bi, :, qi])
+                vc[bi, :, qi] = torch.where(fits, v[:, :, 0].to(vc.dtype),
+                                            vc[bi, :, qi])
+            else:
+                attn.write_position(kc, k[:, :, 0], qi)
+                attn.write_position(vc, v[:, :, 0], qi)
+            o = _decode_attend(q1, kc, vc, kpos, qpos, mask_qpos, per_slot,
+                               cfg, backend, sharded_long, shd)
+        a = pm.apply_linear(lp["attn"]["wo"], o.reshape(b, 1, -1))
+        h = h + (a if split_attn is None else split_attn.sum(a))
         hn = pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps)
-        h = h + _ffn(lp["ffn"], hn, cfg, shd)[0]
+        if split_mlp is not None:
+            h = h + split_mlp.sum(pm.apply_swiglu(lp["ffn"],
+                                                  split_mlp.enter(hn)))
+        else:
+            h = h + _ffn(lp["ffn"], hn, cfg, shd)[0]
     logits = pm.apply_lm_head(p, cfg, h[:, 0])
     new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"] + 1}
     return logits, new_cache
+
+
+def _decode_attend(q1, kc, vc, kpos, qpos, mask_qpos, per_slot: bool,
+                   cfg: ModelConfig, backend: str, sharded_long: bool,
+                   shd: ShardCtx):
+    """One layer's single-token attention over a whole-sequence cache."""
+    if backend == "clusterkv" and cfg.clusterkv.enabled:
+        if per_slot:
+            # continuous batching: per-call ordering over every slot's
+            # cache region (the baseline the plan service amortizes)
+            return attn.clusterkv_percall_decode(q1, kc, vc, kpos, qpos,
+                                                 cfg.clusterkv)
+        if sharded_long and shd.mesh is not None:
+            return attn.clusterkv_decode_sharded(q1, kc, vc, kpos, qpos,
+                                                 cfg.clusterkv, shd.mesh)
+        return attn.clusterkv_decode(q1, kc, vc, kpos, qpos, cfg.clusterkv)
+    return attn.decode_attention(q1, kc, vc, kpos, mask_qpos,
+                                 window=cfg.swa_window)
 
 
 def plan_prefill(p, cfg: ModelConfig, batch, perms) -> torch.Tensor:

@@ -56,8 +56,9 @@ from repro_torch.models import model_api
 from repro_torch.models import param as pm
 from repro_torch.models.param import as_tree, tree_leaves, tree_map
 from repro_torch.models.sharding import (NO_SHARD, NamedSharding, P,
-                                         ShardCtx, dp_axes, placements,
-                                         shardings_for, spec_tree)
+                                         SeqSplit, ShardCtx, dp_axes,
+                                         fit_spec, placements, resolve_spec,
+                                         shardings_for, spec_tree, tp_axis)
 from repro_torch.optim.optimizers import make_optimizer
 
 
@@ -141,48 +142,81 @@ def _accumulate(gacc, err, g, compress: bool):
     return err
 
 
-def _mesh_step(cfg: ModelConfig, mesh, backend: str, microbatch: int,
-               compress_grads: bool, opt) -> Callable:
-    """The train step on a process mesh (see the module's docstring)."""
-    import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+def _gather(mesh):
+    """``gather(local, held, spec)``: ``local``, this rank's shard of a
+    tensor split as ``held`` (placements), as the local tensor a step
+    computes with: gathered over the batch axes, split over the tensor
+    axis as ``spec`` says. Its backward sums the gradient over the batch
+    axes and gives this rank's shard of it."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
 
-    mod = model_api.module_for(cfg)
     dm = mesh.device_mesh
     names = mesh.axis_names
     dpx = dp_axes(mesh)
 
-    def batch_axes():
-        coord = dm.get_coordinate()
-        rank, n = 0, 1
-        for a in names:                 # the mesh's order: first is outer
-            if a in dpx:
-                j = names.index(a)
-                rank, n = rank * mesh.shape[a] + coord[j], n * mesh.shape[a]
-        return rank, n
-
     def gather(local, held, spec):
-        """``local``, this rank's shard of a tensor split as ``held``
-        (placements), as the local tensor the step computes with: gathered
-        over the batch axes, split over the tensor axis as ``spec`` says. Its
-        backward sums the gradient over the batch axes and gives this
-        rank's shard of it."""
         target = placements(NamedSharding(mesh, spec))
         grad = [Partial() if (a in dpx and isinstance(t, Replicate)) else t
                 for a, t in zip(names, target)]
         return DTensor.from_local(local, dm, held, run_check=False) \
             .redistribute(dm, target).to_local(grad_placements=grad)
+    return gather
 
-    def one_layer(p, spec):
-        """(placements of one layer of the stacked leaf ``p``, its spec)."""
-        if any(isinstance(t, Shard) and t.dim == 0 for t in p.placements):
-            raise ValueError("the layer axis of a stacked parameter is not "
-                             "split on a mesh (models.param.stacked)")
-        return (tuple(Shard(t.dim - 1) if isinstance(t, Shard) else t
-                      for t in p.placements), P(*spec[1:]))
+
+def _one_layer(p, spec):
+    """(placements of one layer of the stacked leaf ``p``, its spec)."""
+    from torch.distributed.tensor import Shard
+
+    if any(isinstance(t, Shard) and t.dim == 0 for t in p.placements):
+        raise ValueError("the layer axis of a stacked parameter is not "
+                         "split on a mesh (models.param.stacked)")
+    return (tuple(Shard(t.dim - 1) if isinstance(t, Shard) else t
+                  for t in p.placements), P(*spec[1:]))
+
+
+def _local_tree(cfg: ModelConfig, mesh, params, seq: int, live=None):
+    """``(tree, layer_gather)``: the parameters as the families compute
+    with them on a process mesh at sequence length ``seq``, and the
+    ``ShardCtx.gather`` that gathers one layer of a stacked tree. ``live``
+    (this rank's local shards in
+    ``tree_leaves`` order; default their ``to_local()``) stand in for the
+    DTensors. The stacked layer trees (``param.STACKS``) stay split until
+    each layer's body gathers its layer (``ShardCtx.layer``); the rest is
+    gathered here, as ``model_api.compute_specs`` says."""
+    from torch.distributed.tensor import DTensor
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        if not isinstance(p, DTensor):
+            raise TypeError("on a mesh every parameter must be a "
+                            "DTensor (models.sharding.place)")
+    if live is None:
+        live = [p.to_local() for p in leaves]
+    gather = _gather(mesh)
+    cspecs = model_api.compute_specs(cfg, mesh, seq)
+    stacks = [k for k in params if k in pm.STACKS]
+    layer_specs = {k: pm.tree_map(_one_layer, params[k], cspecs[k])
+                   for k in stacks}
+    tree = as_tree(params, live)
+    local = {k: v if k in stacks else pm.tree_map(
+        lambda x, p, spec: gather(x, p.placements, spec),
+        v, params[k], cspecs[k]) for k, v in tree.items()}
+    return local, lambda lp, k: pm.tree_map(
+        lambda x, spec: gather(x, *spec), lp, layer_specs[k])
+
+
+def _mesh_step(cfg: ModelConfig, mesh, backend: str, microbatch: int,
+               compress_grads: bool, opt) -> Callable:
+    """The train step on a process mesh (see the module's docstring)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    mod = model_api.module_for(cfg)
+    dm = mesh.device_mesh
+    dpx = dp_axes(mesh)
 
     def step(params, opt_state, batch: Dict[str, torch.Tensor]):
-        rank, n_dp = batch_axes()
+        rank, n_dp = _batch_block(mesh, dpx)
         rows = next(iter(batch.values())).shape[0]
         if rows % microbatch or (rows // microbatch) % n_dp:
             raise ValueError(
@@ -192,17 +226,7 @@ def _mesh_step(cfg: ModelConfig, mesh, backend: str, microbatch: int,
         b = rows // microbatch
         mine = b // n_dp
         seq = next(iter(batch.values())).shape[1]
-        cspecs = model_api.compute_specs(cfg, mesh, seq)
         leaves = tree_leaves(params)
-        for p in leaves:
-            if not isinstance(p, DTensor):
-                raise TypeError("on a mesh every parameter must be a "
-                                "DTensor (models.sharding.place)")
-        stacks = [k for k in params if k in pm.STACKS]
-        layer_specs = {k: pm.tree_map(one_layer, params[k], cspecs[k])
-                       for k in stacks}
-        shd = ShardCtx(mesh, gather=lambda lp, k: pm.tree_map(
-            lambda x, spec: gather(x, *spec), lp, layer_specs[k]))
         gacc = err = None
         if microbatch > 1:
             gacc = [torch.zeros_like(p.to_local(), dtype=torch.float32)
@@ -220,16 +244,15 @@ def _mesh_step(cfg: ModelConfig, mesh, backend: str, microbatch: int,
                 # the stacked layer trees stay split until each layer's
                 # body gathers its layer (ShardCtx.layer); the rest is
                 # gathered here
-                tree = as_tree(params, live)
-                local = {k: v if k in stacks else pm.tree_map(
-                    lambda x, p, spec: gather(x, p.placements, spec),
-                    v, params[k], cspecs[k]) for k, v in tree.items()}
-                loss = mod.loss_fn(local, cfg, mb, backend, shd)
+                local, layer_gather = _local_tree(cfg, mesh, params, seq,
+                                                  live)
+                loss = mod.loss_fn(local, cfg, mb, backend,
+                                   ShardCtx(mesh, gather=layer_gather))
                 # this rank's share of the mean over the batch's shards
                 g = torch.autograd.grad(loss / n_dp, live, allow_unused=True,
                                         materialize_grads=True)
             loss_sum = loss_sum + loss.detach().float()
-            del local, tree
+            del local, layer_gather
             if microbatch == 1:
                 gacc = list(g)
             else:
@@ -249,6 +272,18 @@ def _mesh_step(cfg: ModelConfig, mesh, backend: str, microbatch: int,
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return step
+
+
+def _batch_block(mesh, axes) -> Tuple[int, int]:
+    """(this rank's block, the number of blocks) of a tensor dim split
+    over the mesh ``axes``, in the mesh's axis order (the first is
+    outer, as DTensor lays out a dim split over several axes)."""
+    coord = mesh.device_mesh.get_coordinate()
+    rank, n = 0, 1
+    for j, a in enumerate(mesh.axis_names):
+        if a in axes:
+            rank, n = rank * mesh.shape[a] + coord[j], n * mesh.shape[a]
+    return rank, n
 
 
 def train_shardings(cfg: ModelConfig, mesh, opt, batch_parts):
@@ -280,8 +315,12 @@ def place_train_state(cfg: ModelConfig, mesh, opt, params, opt_state):
 
 def make_prefill_step(cfg: ModelConfig, mesh=None, backend: str = "flash"):
     """``step(params, batch)`` -> ``(cache, last logits)``: the family's
-    ``prefill``. ``mesh`` goes to the family in its shard context."""
+    ``prefill``. ``mesh`` goes to the family in its shard context; on a
+    process mesh (parameters DTensors at ``param_specs``) see
+    :func:`_mesh_serving`."""
     mod = model_api.module_for(cfg)
+    if getattr(mesh, "device_mesh", None) is not None:
+        return _mesh_serving(cfg, mesh, backend, "prefill")
     shd = ShardCtx(mesh)
 
     def step(params, batch):
@@ -294,9 +333,12 @@ def make_decode_step(cfg: ModelConfig, mesh=None, backend: str = "flash",
                      sharded_long: bool = False):
     """``step(params, cache, batch)`` -> ``(logits, cache)``: the family's
     ``decode_step`` of ``batch["tokens"]`` (or of ``batch`` itself), the
-    cache written in place. With ``sharded_long`` and a ``mesh`` the
-    long-context decode splits the cache over it."""
+    cache written in place. With ``sharded_long`` and a single-controller
+    ``mesh`` the long-context decode splits the cache over it; on a
+    process mesh see :func:`_mesh_serving`."""
     mod = model_api.module_for(cfg)
+    if getattr(mesh, "device_mesh", None) is not None:
+        return _mesh_serving(cfg, mesh, backend, "decode", sharded_long)
     shd = ShardCtx(mesh)
 
     def step(params, cache, batch):
@@ -304,4 +346,151 @@ def make_decode_step(cfg: ModelConfig, mesh=None, backend: str = "flash",
         return mod.decode_step(params, cfg, cache, tokens, backend,
                                sharded_long, shd)
 
+    return step
+
+
+def _fitted(mesh, shape, spec) -> tuple:
+    """DTensor placements of logical ``spec`` fitted to ``shape``."""
+    return placements(NamedSharding(mesh, fit_spec(
+        tuple(shape), resolve_spec(spec, mesh), mesh)))
+
+
+def _cache_placements(cfg: ModelConfig, mesh, shapes, long_context: bool):
+    """(target, computed) placements of each cache leaf: ``cache_specs``
+    fitted to the global ``shapes``, and how the family computes it on a
+    process mesh: the same, except that the recurrent states (the ssm
+    family's, the hybrid's ``"ssm"``) are computed whole over the tensor
+    axis (ROADMAP C44)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    specs = model_api.module_for(cfg).cache_specs(cfg, long_context)
+    target = pm.tree_map(lambda sh, sp: _fitted(mesh, sh.shape, sp), shapes,
+                         specs)
+    tp = tp_axis(mesh)
+    j = mesh.axis_names.index(tp) if tp is not None else None
+
+    def whole_over_tp(pl):
+        return tuple(Replicate() if (i == j and isinstance(t, Shard)) else t
+                     for i, t in enumerate(pl))
+    computed = dict(target)
+    if cfg.family == "ssm":
+        computed = {k: whole_over_tp(v) for k, v in target.items()}
+    elif cfg.family == "hybrid":
+        computed["ssm"] = pm.tree_map(whole_over_tp, target["ssm"])
+    return target, computed
+
+
+def _seq_split(mesh, cache, target):
+    """The ``SeqSplit`` of a decode cache whose k/v (or MLA latent)
+    sequence axis is split over one mesh axis, else None."""
+    from torch.distributed.tensor import Shard
+
+    key, dim = ("c", 2) if "c" in cache else ("k", 3)
+    if key not in cache:
+        return None
+    axes = [mesh.axis_names[i] for i, t in enumerate(target[key])
+            if isinstance(t, Shard) and t.dim == dim]
+    if not axes:
+        return None
+    if len(axes) > 1:
+        raise ValueError(f"the cache sequence is split over {axes}; the "
+                         "decode combines over one axis")
+    a = axes[0]
+    dm = mesh.device_mesh
+    size = cache[key].shape[dim] // mesh.shape[a]
+    return SeqSplit(a, mesh.shape[a], dm.get_group(a), dm.get_local_rank(a),
+                    size)
+
+
+def _mesh_serving(cfg: ModelConfig, mesh, backend: str, kind: str,
+                  sharded_long: bool = False):
+    """The prefill (``kind="prefill"``) or decode step on a process mesh.
+
+    Parameters are DTensors at ``param_specs``, gathered as the mesh train
+    step gathers them (``model_api.compute_specs``, the stacked layers one
+    at a time through ``ShardCtx.layer``). Every rank is handed the same
+    whole batch and takes its rows: the reference's batch spec
+    ``P("dp", ...)`` fitted to the batch (a batch the batch axes do not
+    divide is computed whole on every rank). The cache is a tree of
+    DTensors at ``cache_specs`` fitted to its shapes (long-context specs
+    when the decode is ``sharded_long``): the prefill returns each rank's
+    part of it, and the decode gathers over the tensor axis only the
+    recurrent states the family computes whole, then returns every leaf
+    at its placement again. When the k/v sequence is split (a long
+    context), each rank holds its slice and the attention combines the
+    slices' partial softmaxes over that axis (``ShardCtx.seq``). The
+    logits come back as a DTensor at ``P("dp", "tp")``."""
+    from torch.distributed.tensor import DTensor
+
+    mod = model_api.module_for(cfg)
+    dm = mesh.device_mesh
+
+    def rows_of(batch_value):
+        rows = batch_value.shape[0]
+        pl = _fitted(mesh, (rows,), P("dp"))
+        axes = [mesh.axis_names[i] for i, t in enumerate(pl)
+                if not t.is_replicate()]
+        blk, n = _batch_block(mesh, axes)
+        return rows, slice(blk * (rows // n), (blk + 1) * (rows // n))
+
+    def out_logits(logits, rows):
+        whole = (rows, logits.shape[-1])
+        pl = _fitted(mesh, whole, P("dp", None))
+        return DTensor.from_local(logits, dm, pl, run_check=False,
+                                  shape=whole, stride=(whole[1], 1)
+                                  ).redistribute(
+            dm, _fitted(mesh, whole, P("dp", "tp")))
+
+    def out_cache(cache, target, computed):
+        def one(x, tgt, cmp):
+            shape = list(x.shape)
+            for a, t in zip(mesh.axis_names, cmp):
+                if t.is_shard():
+                    shape[t.dim] *= mesh.shape[a]
+            stride = [1] * len(shape)
+            for i in range(len(shape) - 2, -1, -1):
+                stride[i] = stride[i + 1] * shape[i + 1]
+            return DTensor.from_local(
+                x, dm, cmp, run_check=False, shape=torch.Size(shape),
+                stride=tuple(stride)).redistribute(dm, tgt)
+        return pm.tree_map(one, cache, target, computed)
+
+    if kind == "prefill":
+        def step(params, batch):
+            first = next(iter(batch.values()))
+            rows, mine = rows_of(first)
+            seq = first.shape[1]
+            local, gather = _local_tree(cfg, mesh, params, seq)
+            mb = {k: v[mine] for k, v in batch.items()}
+            with torch.no_grad():
+                cache, logits = mod.prefill(local, cfg, mb, backend,
+                                            ShardCtx(mesh, gather=gather))
+            # the placements are fitted to init_cache's shapes (the same
+            # batch and heads; the encoder's cross caches may be longer)
+            shapes = mod.init_cache(cfg, rows, seq, device="meta")
+            target, computed = _cache_placements(cfg, mesh, shapes, False)
+            return (out_cache(cache, target, computed),
+                    out_logits(logits, rows))
+        return step
+
+    def step(params, cache, batch):
+        tokens = batch["tokens"] if isinstance(batch, dict) else batch
+        rows, mine = rows_of(tokens)
+        local, gather = _local_tree(cfg, mesh, params, tokens.shape[1])
+        target, computed = _cache_placements(cfg, mesh, cache, sharded_long)
+        for x, tgt in zip(tree_leaves(cache), tree_leaves(target)):
+            if tuple(x.placements) != tuple(tgt):
+                raise ValueError(
+                    f"a cache leaf is placed {x.placements}, the decode step "
+                    f"takes it at {tgt} (cache_specs(long_context="
+                    f"{sharded_long}))")
+        seq = _seq_split(mesh, cache, target)
+        lc = pm.tree_map(lambda x, cmp: x.redistribute(dm, cmp).to_local(),
+                         cache, computed)
+        with torch.no_grad():
+            logits, lc = mod.decode_step(local, cfg, lc, tokens[mine],
+                                         backend, sharded_long,
+                                         ShardCtx(mesh, gather=gather,
+                                                  seq=seq))
+        return out_logits(logits, rows), out_cache(lc, target, computed)
     return step

@@ -20,30 +20,36 @@ import numpy as np
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 
 
-def _entry(job, rank, world, rendezvous, out, args):
+def _entry(job, rank, world, rendezvous, out, group, args):
     sys.path.insert(0, SRC)
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     try:
-        dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
-                                rank=rank, world_size=world)
+        if group:
+            dist.init_process_group("gloo",
+                                    init_method=f"file://{rendezvous}",
+                                    rank=rank, world_size=world)
         result = globals()[job](rank, world, out, **args)
         if result is not None:
             np.savez(os.path.join(out, f"rank{rank}.npz"), **result)
-        dist.barrier()
-        dist.destroy_process_group()
+        if group:
+            dist.barrier()
+            dist.destroy_process_group()
     except BaseException:
         with open(os.path.join(out, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         os._exit(1)
 
 
-def spawn(job: str, world: int, out, timeout: float, **args):
+def spawn(job: str, world: int, out, timeout: float, group: bool = True,
+          **args):
     """Run ``job`` on ``world`` gloo ranks; return each rank's results
     (dicts of arrays). Raises with the failing ranks' tracebacks, or when
-    the time limit passes (every rank is then killed)."""
+    the time limit passes (every rank is then killed). ``group=False``
+    starts the processes without a process group (a job that forms its
+    own, e.g. a dry run's fake world)."""
     out = Path(out)
     out.mkdir(parents=True, exist_ok=True)
     for f in out.glob("rank*"):
@@ -53,7 +59,7 @@ def spawn(job: str, world: int, out, timeout: float, **args):
     rendezvous = out / f"rendezvous_{os.getpid()}_{time.monotonic_ns()}"
     procs = [ctx.Process(target=_entry, args=(job, r, world,
                                               str(rendezvous), str(out),
-                                              args))
+                                              group, args))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -253,28 +259,41 @@ def launch_restart(rank, world, out, ckpt_dir):
     return res
 
 
-def pipeline(rank, world, out, w, b, x, microbatches, split):
+def pipeline(rank, world, out, w, b, x, microbatches, split, cot=None):
     """``pipeline_apply`` of ``tanh(x @ w[s] + b[s])`` stages over a
     ``world``-rank ("model",) mesh; the stage weights whole on every rank,
-    or (``split``) DTensors, one stage per rank."""
+    or (``split``) DTensors, one stage per rank. With a cotangent ``cot``
+    also the gradients of ``sum(y * cot)`` with respect to ``w``, ``b`` and
+    ``x`` on this rank (a DTensor's gradient gathered whole)."""
     import torch
+    from torch.distributed.tensor import DTensor
 
     from repro_torch.launch.mesh import init_process_mesh
     from repro_torch.launch.pp import pipeline_apply
     from repro_torch.models.sharding import NamedSharding, P, place
 
     mesh = init_process_mesh((world,), ("model",), "cpu")
+    grad = cot is not None
     params = {"w": torch.from_numpy(w), "b": torch.from_numpy(b)}
     if split:
         params = place(params, {k: NamedSharding(mesh, P("model"))
                                 for k in params})
+    params = {k: v.detach().requires_grad_(grad) for k, v in params.items()}
+    xt = torch.from_numpy(x).requires_grad_(grad)
 
     def stage_fn(p, xm):
         return torch.tanh(xm @ p["w"] + p["b"])
 
-    y = pipeline_apply(params, torch.from_numpy(x), stage_fn, mesh,
-                       microbatches=microbatches)
-    return {"y": y.numpy()}
+    y = pipeline_apply(params, xt, stage_fn, mesh, microbatches=microbatches)
+    res = {"y": y.detach().numpy()}
+    if grad:
+        (y * torch.from_numpy(cot)).sum().backward()
+        for k, v in params.items():
+            g = v.grad
+            res[f"d{k}"] = (g.full_tensor() if isinstance(g, DTensor)
+                            else g).numpy()
+        res["dx"] = xt.grad.numpy()
+    return res
 
 
 def adafactor_leaves(rank, world, out, leaves):
@@ -333,3 +352,126 @@ def adafactor_leaves(rank, world, out, leaves):
         res[f"{name}/most_bytes"] = np.int64(peak.most)
         res[f"{name}/shard_numel"] = np.int64(mp["w"].to_local().numel())
     return res
+
+
+def serve_config(arch: str, ckv):
+    """The reduced config of ``arch`` in float32, with ClusterKV switched
+    on at the overrides ``ckv`` (a dict) when given: the same on both
+    packages' sides of ``tests/test_torch_dryrun.py``."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+
+    cfg = reduced_config(arch).with_(dtype="float32")
+    if ckv:
+        cfg = cfg.with_(clusterkv=dataclasses.replace(
+            cfg.clusterkv, enabled=True, **ckv))
+    return cfg
+
+
+def serve_cases(rank, world, out, ref_dir, cases):
+    """Prefill and decode on a (2, 2) ("data", "model") mesh. Per case
+    (name, arch, ClusterKV overrides, backend, long): the reference's
+    parameters (``<name>_init.npz``) placed at ``param_specs``; one
+    ``make_prefill_step(mesh=)`` on ``<name>_prefill.npz``; two
+    ``make_decode_step(mesh=, sharded_long=long)`` steps from the cache of
+    ``<name>_cache.npz`` placed at ``cache_specs(long)``, on the tokens of
+    ``<name>_decode.npz``. Rank 0 returns the logits and caches whole."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import convert
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model_api
+    from repro_torch.models.sharding import place, shardings_for
+    from repro_torch.train import trainer
+
+    mesh = make_test_mesh(2, 2, device="cpu")
+    res = {}
+    for name, arch, ckv, backend, long_ctx in cases:
+        cfg = serve_config(arch, ckv)
+        init = dict(np.load(os.path.join(ref_dir, f"{name}_init.npz")))
+        params = convert.params_from_reference(nest(init, "p0"), cfg, "cpu")
+        params = place(params, shardings_for(
+            params, model_api.param_specs(cfg), mesh))
+        mod = model_api.module_for(cfg)
+        pre = {k: torch.from_numpy(v) for k, v in
+               np.load(os.path.join(ref_dir, f"{name}_prefill.npz")).items()}
+        cache, logits = trainer.make_prefill_step(cfg, mesh, backend)(
+            params, pre)
+        assert isinstance(logits, DTensor)
+        flat = flatten(cache, f"{name}/prefill_cache", {})
+        flat[f"{name}/prefill_logits"] = logits.full_tensor().numpy()
+        c0 = nest({k: torch.from_numpy(v) for k, v in np.load(os.path.join(
+            ref_dir, f"{name}_cache.npz")).items()}, "c")
+        cache = place(c0, shardings_for(c0, mod.cache_specs(cfg, long_ctx),
+                                        mesh))
+        toks = np.load(os.path.join(ref_dir, f"{name}_decode.npz"))["tokens"]
+        step = trainer.make_decode_step(cfg, mesh, backend,
+                                        sharded_long=long_ctx)
+        for i in range(toks.shape[0]):
+            logits, cache = step(params, cache,
+                                 {"tokens": torch.from_numpy(toks[i])})
+            flat[f"{name}/decode_logits{i}"] = logits.full_tensor().numpy()
+        flatten(cache, f"{name}/decode_cache", flat)
+        if rank == 0:
+            res.update(flat)
+    return res if rank == 0 else None
+
+
+def _count_record(rec) -> dict:
+    """A dry-run record's status, FLOPs, peak and collective counts and
+    bytes as arrays (``counts/<op>``, ``bytes/<op>``)."""
+    if rec["status"] != "ok":
+        raise AssertionError(rec.get("traceback") or rec.get("error"))
+    out = {"flops": np.int64(rec["cost"]["flops"]),
+           "peak_bytes": np.int64(rec["memory"]["peak_bytes"])}
+    coll = rec["collectives"]
+    for op, n in coll["entry"]["counts"].items():
+        out[f"counts/{op}"] = np.int64(n)
+        out[f"bytes/{op}"] = np.float64(coll["entry"]["bytes_by_op"][op])
+        assert coll["body"]["counts"][op] == 0
+    out["weighted_bytes"] = np.float64(coll["weighted_bytes"])
+    return out
+
+
+def dryrun_cell(rank, world, out, arch, shape, mesh, reduced, sizes,
+                microbatch=1, backend=None):
+    """One dry-run cell traced on a fake world of shape ``mesh`` in this
+    process (no process group before it): its counts."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_cell(arch, shape, False, backend, save=False,
+                          microbatch=microbatch, mesh=tuple(mesh),
+                          device="cpu",
+                          cfg=reduced_config(arch) if reduced else None,
+                          sizes=sizes)
+    return _count_record(rec)
+
+
+def dryrun_real(rank, world, out, arch, shape, reduced, sizes,
+                microbatch=1):
+    """The same cell's step run for real on a (2, 2) gloo mesh under the
+    dry run's counters, its arguments drawn from a seed: each rank's
+    counts."""
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+
+    gen = torch.Generator().manual_seed(0)
+
+    def make(shape_, dtype, device):
+        if dtype.is_floating_point:
+            return (torch.rand(shape_, generator=gen) * 0.02).to(dtype)
+        return torch.randint(0, 1 << 20, shape_, generator=gen).to(dtype)
+
+    mesh = make_test_mesh(2, 2, device="cpu")
+    rec = dryrun.run_cell(arch, shape, False, save=False,
+                          microbatch=microbatch, mesh=mesh, device="cpu",
+                          cfg=reduced_config(arch) if reduced else None,
+                          sizes=sizes, make=make)
+    assert rec["world"] == "process group"
+    return _count_record(rec)

@@ -1705,3 +1705,47 @@ def test_cuda_mesh_step_matches_the_step_without_a_mesh(cuda_device, tmp_path,
         dist.destroy_process_group()
     np.testing.assert_allclose(got[False], got[True], rtol=1e-5)
     assert np.isfinite(got[False]).all()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_b5_b6_ops_launch_once_and_equal_their_cuda_implementation(
+        cuda_device):
+    """B6 and B5 through their opaque ops (``kernels/library.py``) launch
+    their kernels once a call (counted there) and give, bit for bit, what
+    their ``CUDA`` implementations give called directly; under
+    ``FakeTensorMode`` the same wrappers launch nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    b, hq, hkv, s, dh, bq, n_sel = 2, 14, 2, 512, 64, 128, 2
+    q = torch.randn((b, hq, s, dh), generator=gen, device=cuda_device).bfloat16()
+    k = torch.randn((b, hkv, s, dh), generator=gen,
+                    device=cuda_device).bfloat16()
+    kpos = torch.arange(s, dtype=torch.int32, device=cuda_device).expand(
+        b, hkv, s).contiguous()
+    qpos = torch.arange(s, dtype=torch.int32, device=cuda_device)
+    idx = torch.arange(n_sel, dtype=torch.int32, device=cuda_device).expand(
+        b, hkv, s // bq, n_sel).contiguous()
+    n0 = t_ba.block_attention.launches
+    got = t_ops.block_attention(q, k, k, kpos, qpos, idx, bq=bq, bk=bq)
+    assert t_ba.block_attention.launches == n0 + 1
+    want = t_ba.launch(q, k, k, kpos, qpos, idx, bq, bq, True)
+    assert torch.equal(got, want)
+    q1 = torch.randn((b, hq, dh), generator=gen, device=cuda_device).bfloat16()
+    cent = t_ckv.block_centroids(k.float(), bq)
+    n0 = t_da.decode_attend_fused.launches
+    got = t_ops.decode_attend_fused(q1, k, k, kpos, cent, s - 1, n_sel=n_sel,
+                                    bk=bq)
+    assert t_da.decode_attend_fused.launches == n0 + 1
+    qp = torch.full((b,), s - 1, dtype=torch.int32, device=cuda_device)
+    want = t_da.launch(q1.reshape(b, hkv, hq // hkv, dh).contiguous(), k, k,
+                       kpos, cent.contiguous(), qp, None, None, None, n_sel,
+                       bq, False, False, 0)
+    assert torch.equal(got, want)
+    n0 = (t_ba.block_attention.launches, t_da.decode_attend_fused.launches)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        out = t_ops.block_attention(torch.empty_like(q), k, k, kpos, qpos,
+                                    idx, bq=bq, bk=bq)
+        assert out.shape == q.shape
+    assert (t_ba.block_attention.launches,
+            t_da.decode_attend_fused.launches) == n0
