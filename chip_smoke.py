@@ -264,17 +264,22 @@ device time without the host's, which is the larger part of a call.
    ``pipeline_apply`` at one stage against sequential application, its
    output and its backward's gradients. No exchange between two ranks is
    measured: the machine has one card;
-20. the dry run (``launch.dryrun``) and the roofline: three cells traced
+20. the dry run (``launch.dryrun``) and the roofline: six cells traced
    at once, each in its own process, over a ``fake`` process group with
    fake CUDA tensors (nothing allocated): phase 19's Qwen2-0.5B step
    (16 x 4096 tokens in 2 microbatches) on a (1, 1) world, whose
    predicted per-rank peak must be within 15 % of the peak phase 19
-   measured in this run; Qwen2-0.5B ``train_4k`` on the production 16x16
-   world; its ``prefill_32k`` through ClusterKV there, which must trace
-   B6 as the opaque op ``repro_torch::block_attention``. Traced FLOPs
-   against the analytic model, the roofline of the three records (H100
-   rates applied to counts), and B5 per call at the tick shape through
-   its op against its ``CUDA`` implementation called directly.
+   measured in this run; Qwen2-0.5B's and h2o-danube-3-4b's ``train_4k``
+   on the production 16x16 world and on a fake 16x1 world (16 rows a
+   rank, no tensor split); Qwen2-0.5B's ``prefill_32k`` through ClusterKV
+   on the 16x16 world, which must trace B6 (a rank's heads) as the opaque
+   op ``repro_torch::block_attention``. Each 16x16 ``train_4k`` cell's
+   FLOPs a rank against its 16x1 trace / 16 and against the analytic
+   model: Qwen's ratio to the 16x1 trace must be at most 1.3, and
+   h2o-danube's predicted peak a rank below the card's memory. The
+   roofline of the records (H100 rates applied to counts), and B5 per
+   call at the tick shape through its op against its ``CUDA``
+   implementation called directly.
 
 Launch counters are set to 0 just before each path (phases 3-4, 6, 7, 9,
 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20) and read just after it; launches made to
@@ -4686,6 +4691,8 @@ def phase_mesh(args, dev, sync, rehearse, reset_counts, collect_counts,
 
 # the predicted peak of phase 19's Qwen step against its measured one
 DRYRUN_PEAK_TOL = 0.15
+# a 16x16 rank's traced FLOPs against its 16x1 trace / 16 (Qwen2-0.5B)
+DRYRUN_SPLIT_RATIO = 1.3
 DRYRUN_TAG = "chip_smoke"
 DRYRUN_CELL = r"""
 import json, sys
@@ -4706,21 +4713,32 @@ print(json.dumps(dryrun.run_cell(arch, shape, False, **kw)))
 def dryrun_cells(rehearse: bool) -> dict:
     """Phase 20's cells (``launch.dryrun.run_cell`` keywords): Qwen2-0.5B's
     phase 19 step (batch 16 x 4096 in 2 microbatches, 8 rows each) on a
-    fake (1, 1) world, its ``train_4k`` cell on the production 16x16
-    world, and its ``prefill_32k`` cell through ClusterKV there (B6 as
-    the opaque op). Fake CUDA tensors on the card; in the CPU rehearsal
-    fake CPU tensors at the reduced config and small sizes."""
+    fake (1, 1) world; its and h2o-danube-3-4b's ``train_4k`` cells on
+    the production 16x16 world and on a fake 16x1 world (the same 256
+    rows, 16 a rank, no tensor split); Qwen2-0.5B's ``prefill_32k`` cell
+    through ClusterKV on 16x16 (B6 as the opaque op). Fake CUDA tensors on
+    the card; in the CPU rehearsal fake CPU tensors at the reduced configs
+    and small sizes."""
     dev = "cpu" if rehearse else "cuda"
     one = dict(mesh=(1, 1), microbatch=TRAIN_MICRO,
                sizes=(64, 4) if rehearse else (TRAIN_SEQ, TRAIN_BATCH))
-    return {
-        "phase19_step": dict(arch="qwen2-0.5b", shape="train_4k", **one),
-        "train_4k": dict(arch="qwen2-0.5b", shape="train_4k", mesh=None,
-                         sizes=(64, 16) if rehearse else None),
-        "prefill_32k_clusterkv": dict(
-            arch="qwen2-0.5b", shape="prefill_32k", mesh=None,
-            backend="clusterkv", sizes=(64, 16) if rehearse else None),
-    }, dev
+    small = (64, 16) if rehearse else None
+    cells = {"phase19_step": dict(arch="qwen2-0.5b", shape="train_4k",
+                                  **one)}
+    for key, arch in DRYRUN_TRAIN.items():
+        cells[key] = dict(arch=arch, shape="train_4k", mesh=None,
+                          sizes=small)
+        cells[key + "_16x1"] = dict(arch=arch, shape="train_4k",
+                                    mesh=(16, 1), sizes=small)
+    cells["prefill_32k_clusterkv"] = dict(
+        arch="qwen2-0.5b", shape="prefill_32k", mesh=None,
+        backend="clusterkv", sizes=small)
+    return cells, dev
+
+
+# phase 20's train_4k cells on 16x16 and 16x1, by record name
+DRYRUN_TRAIN = {"train_4k": "qwen2-0.5b",
+                "h2o_train_4k": "h2o-danube-3-4b"}
 
 
 def time_b5_op(timer, dev, rehearse: bool) -> dict:
@@ -4832,18 +4850,45 @@ def phase_dryrun(args, dev, timer, rehearse: bool, mesh_train: dict,
         raise AssertionError(f"the dry run's peak is {rel:+.2%} from phase "
                              f"19's (limit {DRYRUN_PEAK_TOL:.0%})")
     # traced FLOPs against the analytic model (its 256-row cell, per rank)
+    # and, for the 16x16 cells, against the 16x1 trace of the same rows
     rows_step = TRAIN_BATCH if not rehearse else 4
     flops = {}
-    for name, chips, rows in (("phase19_step", 1, rows_step),
-                              ("train_4k", 256, 256)):
-        ana = analytic.cell_model("qwen2-0.5b", "train_4k",
+    for name, chips, rows in [("phase19_step", 1, rows_step)] + [
+            (key, 256, 256) for key in DRYRUN_TRAIN]:
+        arch = recs[name]["arch"]
+        ana = analytic.cell_model(arch, "train_4k",
                                   chips=chips).flops / chips * rows / 256
-        flops[name] = {"traced": recs[name]["cost"]["flops"],
-                       "analytic": ana,
-                       "ratio": recs[name]["cost"]["flops"] / ana}
-        say(f"  {name}: traced {flops[name]['traced']:.4g} FLOPs a rank "
-            f"against the analytic {ana:.4g} (ratio "
-            f"{flops[name]['ratio']:.3f})")
+        got = {"traced": recs[name]["cost"]["flops"], "analytic": ana,
+               "ratio": recs[name]["cost"]["flops"] / ana}
+        line = (f"  {name}: {arch} traced {got['traced']:.4g} FLOPs a rank "
+                f"against the analytic {ana:.4g} (ratio {got['ratio']:.3f})")
+        if name in DRYRUN_TRAIN:
+            per_rank = recs[name + "_16x1"]["cost"]["flops"] / 16
+            got["traced_16x1_over_16"] = per_rank
+            got["ratio_16x1"] = got["traced"] / per_rank
+            got["peak_bytes"] = recs[name]["memory"]["peak_bytes"]
+            line += (f"; against its 16x1 trace / 16 {per_rank:.4g} (ratio "
+                     f"{got['ratio_16x1']:.3f}); peak "
+                     f"{got['peak_bytes'] / 1e9:.3f} GB a rank")
+        flops[name] = got
+        say(line)
+    ratio = flops["train_4k"]["ratio_16x1"]
+    if not rehearse and not ratio <= DRYRUN_SPLIT_RATIO:
+        raise AssertionError(f"Qwen2-0.5B train_4k on 16x16 traces {ratio:.3f}"
+                             f"x its 16x1 trace / 16 (limit "
+                             f"{DRYRUN_SPLIT_RATIO})")
+    peak_h2o = flops["h2o_train_4k"]["peak_bytes"]
+    card_bytes = (torch.cuda.get_device_properties(0).total_memory
+                  if not rehearse else None)
+    say(f"  h2o-danube-3-4b train_4k on 16x16: predicted peak "
+        f"{peak_h2o / 1e9:.3f} GB a rank against the card's "
+        f"{card_bytes / 1e9:.3f} GB" if card_bytes else
+        f"  h2o-danube-3-4b train_4k on 16x16: predicted peak "
+        f"{peak_h2o / 1e9:.3f} GB a rank (no card in the rehearsal)")
+    if card_bytes and not peak_h2o < card_bytes:
+        raise AssertionError(f"h2o-danube-3-4b train_4k's predicted peak "
+                             f"{peak_h2o / 1e9:.3f} GB a rank does not fit "
+                             f"the card's {card_bytes / 1e9:.3f} GB")
     say(f"  roofline (H100 rates on the counts, no time measured): "
         f"torch {torch.__version__}, fake backend formed "
         f"{recs['train_4k']['chips']} ranks as {recs['train_4k']['mesh']}")
@@ -4857,8 +4902,8 @@ def phase_dryrun(args, dev, timer, rehearse: bool, mesh_train: dict,
                 "kernel_ops")} for n, r in recs.items()},
             "predicted_peak_bytes": predicted,
             "measured_peak_bytes": measured, "peak_rel_diff": rel,
-            "flops": flops, "roofline": rows, "b5_op": b5,
-            "torch": torch.__version__, "wall_s": wall}
+            "flops": flops, "card_bytes": card_bytes, "roofline": rows,
+            "b5_op": b5, "torch": torch.__version__, "wall_s": wall}
 
 
 def main() -> int:

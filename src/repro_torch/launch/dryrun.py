@@ -26,10 +26,18 @@ counters watch rank 0's local ops (every rank's shards have one shape):
 - ``memory.peak_bytes``: the rank's peak of live tensors, its arguments
   included (``torch.distributed._tools.mem_tracker.MemTracker``).
 
+Neither counter sees the ops DTensor runs inside its sharding propagation
+(fake tensors of an op's global shapes, which no rank holds).
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--device cpu]
-Results land in results/dryrun_torch/<arch>__<shape>__<mesh>.json. The
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k --mesh 16x1
+Results land in results/dryrun_torch/<arch>__<shape>__<mesh>.json. ``--mesh
+DxM`` (or ``PxDxM``) traces a fake world of that shape over ("data",
+"model") (or ("pod", "data", "model")) in place of the production one:
+``16x1`` is the same 256-row cell with 16 rows a rank and no tensor
+split. The
 trace touches no card; ``--device`` names the device the fake tensors
 claim (default ``cuda``, what the card runs: the kernels' opaque ops;
 ``cpu`` traces the plain versions, and is what a box without CUDA can
@@ -174,6 +182,8 @@ class StepCounters(TorchDispatchMode):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
+        if _PROPAGATING[0]:
+            return func(*args, **kwargs)
         packet = func._overloadpacket
         ns = func.namespace
         if packet not in flop_registry and ns not in _COLLECTIVE_NAMESPACES \
@@ -207,6 +217,51 @@ class StepCounters(TorchDispatchMode):
         return _sections(self.collectives, _fresh())
 
 
+# DTensor's sharding propagation runs each op once per new signature on
+# fake tensors of the op's GLOBAL shapes (``_propagate_tensor_meta_non_cached``)
+# to learn its output's metadata. It reuses the fake mode it finds active, so
+# under the dry run's ``FakeTensorMode`` those global-shaped tensors reach
+# the counters as if a rank held them (llama4-maverick's gradient clip
+# formed a float32 copy of its stacked experts' gradient whole, 21.5 GB a
+# layer, ROADMAP C51). The counters skip the ops run inside it; on a card it
+# allocates nothing.
+_PROPAGATING = [0]
+
+
+@contextlib.contextmanager
+def _propagation_marked():
+    """Mark the ops DTensor runs inside its sharding propagation (for the
+    counters to skip them) while the block runs."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    inner = ShardingPropagator._propagate_tensor_meta_non_cached
+
+    def marked(self, op_schema):
+        _PROPAGATING[0] += 1
+        try:
+            return inner(self, op_schema)
+        finally:
+            _PROPAGATING[0] -= 1
+    ShardingPropagator._propagate_tensor_meta_non_cached = marked
+    try:
+        yield
+    finally:
+        ShardingPropagator._propagate_tensor_meta_non_cached = inner
+
+
+def _step_mem_tracker():
+    """A ``MemTracker`` that skips the ops of DTensor's sharding
+    propagation (``_propagation_marked``)."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    class StepMemTracker(MemTracker):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if _PROPAGATING[0]:
+                return func(*args, **(kwargs or {}))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+    return StepMemTracker()
+
+
 def _local_bytes(args: tuple) -> int:
     from torch.distributed.tensor import DTensor
 
@@ -224,14 +279,12 @@ def trace_step(fn: Callable, args: tuple) -> dict:
     ``{"flops", "collectives", "kernel_ops", "peak_bytes",
     "argument_bytes"}`` of this rank (``args`` count as live from the
     start; ``kernel_ops`` counts the calls of the opaque B5/B6 ops)."""
-    from torch.distributed._tools.mem_tracker import MemTracker
-
     leaves = [t for a in args for t in pm.tree_leaves(a)
               if isinstance(t, torch.Tensor)]
-    mt = MemTracker()
+    mt = _step_mem_tracker()
     mt.track_external(*leaves)
     counters = StepCounters()
-    with mt:
+    with _propagation_marked(), mt:
         with counters:
             fn(*args)
         peak = mt.get_tracker_snapshot("peak")
@@ -469,7 +522,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="the device the fake tensors claim (default cuda; "
                          "no card is touched)")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM (or PxDxM): a fake world of this shape in "
+                         "place of the production mesh")
     args = ap.parse_args(argv)
+    shape = (tuple(int(n) for n in args.mesh.lower().split("x"))
+             if args.mesh else None)
+    if shape is not None and len(shape) not in (2, 3):
+        ap.error(f"--mesh {args.mesh}: give DxM or PxDxM")
 
     cells = []
     if args.all:
@@ -478,25 +538,28 @@ def main(argv=None):
     else:
         cells.append((args.arch, args.shape))
     meshes = [args.multi_pod] if not args.both_meshes else [False, True]
+    if shape is not None:
+        meshes = [False]
 
     recs = []
-    for arch, shape in cells:
+    for arch, cell in cells:
         for mp in meshes:
-            mesh_name = production_shape(mp)[2]
+            mesh_name = (mesh_name_of(shape) if shape is not None
+                         else production_shape(mp)[2])
             suffix = f"__{args.tag}" if args.tag else ""
-            out = RESULTS / f"{arch}__{shape}__{mesh_name}{suffix}.json"
+            out = RESULTS / f"{arch}__{cell}__{mesh_name}{suffix}.json"
             if args.skip_done and out.exists() \
                     and json.loads(out.read_text()).get("status") == "ok":
-                print(f"SKIP {arch} {shape} {mesh_name}")
+                print(f"SKIP {arch} {cell} {mesh_name}")
                 continue
-            rec = run_cell(arch, shape, mp, args.backend,
+            rec = run_cell(arch, cell, mp, args.backend,
                            microbatch=args.microbatch, tag=args.tag,
                            layout=args.layout, expert_parallel=args.ep,
                            param_dtype=args.param_dtype, remat=args.remat,
-                           device=args.device)
+                           mesh=shape, device=args.device)
             flops = (rec.get("cost") or {}).get("flops")
             peak = (rec.get("memory") or {}).get("peak_bytes")
-            print(f"{rec['status']:5s} {arch:28s} {shape:12s} {mesh_name:10s} "
+            print(f"{rec['status']:5s} {arch:28s} {cell:12s} {mesh_name:10s} "
                   f"trace={rec.get('trace_s')}s flops/rank={flops} "
                   f"peak/rank={peak} {rec.get('error', '')}", flush=True)
             recs.append(rec)

@@ -78,6 +78,16 @@ def dense_attention(q, k, v, qpos, kpos, *, causal=True, window=0):
     return o.reshape(b, hq, s, v.shape[-1]).to(q.dtype)
 
 
+def no_query_heads(q, k, v):
+    """The attention output (B, 0, S, dv) of a rank of a head-aligned
+    split that holds no query head (``sharding.head_split``): zeros, tied
+    to ``q``, ``k`` and ``v`` so that backward reaches their projections
+    on this rank as on the others (their weights' gradients are summed
+    over the split, and every rank must take part)."""
+    tie = q.sum() + k.sum() + v.sum()
+    return q.new_zeros(q.shape[:3] + v.shape[3:]) + 0 * tie
+
+
 def flash_attention(q, k, v, qpos, kpos, *, causal=True, window=0,
                     block: int = 512):
     """Blockwise online-softmax attention, a loop over key tiles."""

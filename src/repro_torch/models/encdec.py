@@ -8,7 +8,10 @@ Cross attention in ``decode_step`` attends every position of the cached
 encoder keys, ``xk``/``xv``, as the reference's does: after
 ``model_api.grow_cache`` has zero-padded them to the cache length, the
 padded positions take part (ROADMAP C38). ``loss_fn`` is the training
-loss; each layer of ``encode`` and ``forward`` runs under remat.
+loss; each layer of ``encode`` and ``forward`` runs under remat. Under a
+process mesh with a tensor axis every attention splits its heads
+head-aligned, every MLP its hidden columns, and the vocab is split
+(``sharding.VocabSplit``), as the reference's specs say.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import param as pm
 from repro_torch.models import sharding
 from repro_torch.models.sharding import NO_SHARD, P, ShardCtx
-from repro_torch.models.transformer import ce_loss
+from repro_torch.models.transformer import ce_loss, vocab_specs
 
 
 def _init_attn(cfg: ModelConfig, d_kv_src: int = 0) -> dict:
@@ -79,37 +82,41 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 def _heads(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """(B, S, H*dh) -> (B, H, S, dh) (H: the heads ``x`` holds)."""
-    b, s, _ = x.shape
-    return x.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
+    b, s, w = x.shape
+    return x.reshape(b, s, w // cfg.head_dim, cfg.head_dim).transpose(1, 2)
 
 
 def _splits(cfg: ModelConfig, mesh):
-    """The tensor splits of the attention heads and the MLP's hidden
-    columns under a process ``mesh`` (each None where it computes whole:
-    no tensor axis, or a count the axis does not divide)."""
+    """``(heads, MLP, vocab)``: the tensor splits under a process
+    ``mesh`` (all None without a tensor axis): every attention's heads
+    head-aligned (``sharding.head_split``, its own kv groups), the MLP's
+    hidden columns, and the vocab."""
     split = sharding.tensor_split(mesh)
     if split is None:
-        return None, None
-    return (split if cfg.n_heads % split.n == 0 else None,
-            split if cfg.d_ff % split.n == 0 else None)
+        return None, None, None
+    return (sharding.head_split(split, cfg.n_heads, cfg.n_heads), split,
+            sharding.vocab_split(mesh, cfg.vocab))
 
 
 def compute_specs(cfg: ModelConfig, mesh, seq: int) -> dict:
     """Physical PartitionSpecs of the parameters in the mesh train step:
-    every attention's q/k/v columns and output rows and the MLP's over
-    ``tp`` where ``_splits`` splits them, the rest whole."""
+    every attention's q/k/v columns and output rows by head, the MLP's
+    columns and rows over ``tp``, the embedding's and head's vocab; the
+    norms whole."""
     specs = sharding.whole(param_specs(cfg))
-    attn_split, mlp_split = _splits(cfg, mesh)
+    heads, mlp, vocab = _splits(cfg, mesh)
+    if heads is None:
+        return specs
     for stack, blocks in (("enc", ("attn",)), ("dec", ("self", "cross"))):
         layer = specs[stack]
-        if attn_split is not None:
-            for blk in blocks:
-                for k in ("wq", "wk", "wv"):
-                    layer[blk][k]["w"] = P(None, None, attn_split.axis)
-                layer[blk]["wo"]["w"] = P(None, attn_split.axis, None)
-        if mlp_split is not None:
-            layer["mlp"]["w1"]["w"] = P(None, None, mlp_split.axis)
-            layer["mlp"]["w2"]["w"] = P(None, mlp_split.axis, None)
+        for blk in blocks:
+            layer[blk]["wq"]["w"] = heads.q_spec(3, 2, cfg.head_dim)
+            for k in ("wk", "wv"):
+                layer[blk][k]["w"] = heads.kv_spec(3, 2, cfg.head_dim)
+            layer[blk]["wo"]["w"] = heads.q_spec(3, 1, cfg.head_dim)
+        layer["mlp"]["w1"]["w"] = mlp.spec(3, 2, cfg.d_ff)
+        layer["mlp"]["w2"]["w"] = mlp.spec(3, 1, cfg.d_ff)
+    vocab_specs(specs, vocab)
     return specs
 
 
@@ -127,11 +134,14 @@ def _mha(lp, xq, xkv, cfg: ModelConfig, qpos, kpos, shd: ShardCtx = NO_SHARD,
     k = attn.rope(_heads(pm.apply_linear(lp["wk"], xkv), cfg),
                   kpos[None, None, :], cfg.rope_theta)
     v = _heads(pm.apply_linear(lp["wv"], xkv), cfg)
-    if backend == "dense":
+    if q.shape[1] == 0:
+        o = attn.no_query_heads(q, k, v)
+    elif backend == "dense":
         o = attn.dense_attention(q, k, v, qpos, kpos, causal=causal)
     else:
         o = attn.flash_attention(q, k, v, qpos, kpos, causal=causal)
-    o = pm.apply_linear(lp["wo"], o.transpose(1, 2).reshape(b, sq, -1))
+    o = pm.apply_linear(lp["wo"], o.transpose(1, 2).reshape(
+        b, sq, o.shape[1] * o.shape[3]))
     return o if split is None else split.sum(o)
 
 
@@ -184,7 +194,8 @@ def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (final decoder hidden states (B,S,d), a zero aux loss)."""
     enc_out = encode(p, cfg, batch["frames"], backend, shd)
-    h = pm.apply_embedding(p, cfg, batch["tokens"])
+    h = pm.apply_embedding(p, cfg, batch["tokens"],
+                           _splits(cfg, shd.mesh)[2])
     pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     epos = torch.arange(enc_out.shape[1], dtype=torch.int32, device=h.device)
 
@@ -204,7 +215,8 @@ def loss_fn(p, cfg: ModelConfig, batch, backend: str = "flash",
     """Chunked cross-entropy of ``batch["labels"]`` through the head."""
     h, _ = forward(p, cfg, batch, backend, shd)
     return ce_loss(h, p["head"]["w"].to(pm.DTYPES[cfg.dtype]),
-                   batch["labels"], cfg.loss_chunk)
+                   batch["labels"], cfg.loss_chunk,
+                   _splits(cfg, shd.mesh)[2])
 
 
 def cache_specs(cfg: ModelConfig, long_context: bool = False) -> dict:
@@ -229,9 +241,12 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
             shd: ShardCtx = NO_SHARD) -> Tuple[Dict, torch.Tensor]:
     """Encoder pass + decoder prompt pass; caches the self k/v and the
     cross k/v of the encoder output (in ``cfg.dtype``), and returns the
-    last position's logits."""
+    last position's logits. Under a process mesh each rank caches its
+    heads (every head, gathered over ``tp``, where they do not split
+    evenly) and returns its vocab columns."""
+    heads, _, vocab = _splits(cfg, shd.mesh)
     enc_out = encode(p, cfg, batch["frames"], backend, shd)
-    h = pm.apply_embedding(p, cfg, batch["tokens"])
+    h = pm.apply_embedding(p, cfg, batch["tokens"], vocab)
     s = h.shape[1]
     dt = pm.DTYPES[cfg.dtype]
     pos = torch.arange(s, dtype=torch.int32, device=h.device)
@@ -251,9 +266,11 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
                           cfg).to(dt))
         h = _dec_layer(lp, h, enc_out, pos, epos, cfg, shd, backend)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-             "xk": torch.stack(xks), "xv": torch.stack(xvs),
-             "pos": torch.tensor(s, dtype=torch.int32, device=h.device)}
-    return cache, pm.apply_lm_head(p, cfg, h[:, -1])
+             "xk": torch.stack(xks), "xv": torch.stack(xvs)}
+    if heads is not None and not heads.even:
+        cache = {k: heads.gather_kv(c, 2) for k, c in cache.items()}
+    cache["pos"] = torch.tensor(s, dtype=torch.int32, device=h.device)
+    return cache, pm.apply_lm_head(p, cfg, h[:, -1], vocab)
 
 
 def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
@@ -265,8 +282,11 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
     place; the returned cache shares them. Cross attention attends every
     position of ``xk``/``xv`` (C38). Under a process mesh each rank
     decodes with its heads and MLP columns (``_splits``), its caches its
-    heads'."""
-    h = pm.apply_embedding(p, cfg, tokens)
+    heads' (every head where they do not split evenly: it attends its own
+    and writes every head's new row, gathered over ``tp``), and returns
+    its vocab columns of the logits."""
+    split, _, vocab = _splits(cfg, shd.mesh)
+    h = pm.apply_embedding(p, cfg, tokens, vocab)
     b = h.shape[0]
     dev = h.device
     qpos = torch.as_tensor(cache["pos"], device=dev)
@@ -274,10 +294,16 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
     rope_pos = qpos.reshape(1, 1, 1).to(torch.int32)
     kpos = torch.arange(cache["k"].shape[3], dtype=torch.int32, device=dev)
     xpos = torch.arange(cache["xk"].shape[3], dtype=torch.int32, device=dev)
-    split = _splits(cfg, shd.mesh)[0]
+    every_head = split is not None and not split.even
+    heads = slice(*split.kv) if every_head else slice(None)
 
     def tp_sum(a):
         return a if split is None else split.sum(a)
+
+    def attend(q1, kc, vc, kp, qp):
+        if q1.shape[1] == 0:
+            return q1.new_zeros(q1.shape[:2] + vc.shape[3:])
+        return attn.decode_attention(q1, kc[:, heads], vc[:, heads], kp, qp)
 
     for i in range(cfg.n_layers):
         lp = shd.layer(pm.layer(p["dec"], i), "dec")
@@ -287,22 +313,25 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
         k1 = attn.rope(_heads(pm.apply_linear(lp["self"]["wk"], hn), cfg),
                        rope_pos, cfg.rope_theta)
         v1 = _heads(pm.apply_linear(lp["self"]["wv"], hn), cfg)
+        k1, v1 = k1[:, :, 0], v1[:, :, 0]
+        if every_head:
+            k1, v1 = split.gather_kv(k1, 1), split.gather_kv(v1, 1)
         kc, vc = cache["k"][i], cache["v"][i]            # (B,H,S,dh) views
-        attn.write_position(kc, k1[:, :, 0], qi)
-        attn.write_position(vc, v1[:, :, 0], qi)
-        o = attn.decode_attention(q[:, :, 0], kc, vc, kpos, qpos)
-        h = h + tp_sum(pm.apply_linear(lp["self"]["wo"], o.reshape(b, 1, -1)))
+        attn.write_position(kc, k1, qi)
+        attn.write_position(vc, v1, qi)
+        o = attend(q[:, :, 0], kc, vc, kpos, qpos)
+        h = h + tp_sum(pm.apply_linear(lp["self"]["wo"], o.reshape(
+            b, 1, o.shape[1] * o.shape[2])))
         # cross attention over the cached encoder k/v, every position
         hn = pm.apply_rmsnorm(lp["ln_x"], h, cfg.norm_eps)
         qx = attn.rope(_heads(pm.apply_linear(lp["cross"]["wq"], hn), cfg),
                        rope_pos, cfg.rope_theta)
-        ox = attn.decode_attention(qx[:, :, 0], cache["xk"][i],
-                                   cache["xv"][i], xpos,
-                                   attn.INT32_MAX - 1)
-        h = h + tp_sum(pm.apply_linear(lp["cross"]["wo"],
-                                       ox.reshape(b, 1, -1)))
+        ox = attend(qx[:, :, 0], cache["xk"][i], cache["xv"][i], xpos,
+                    attn.INT32_MAX - 1)
+        h = h + tp_sum(pm.apply_linear(lp["cross"]["wo"], ox.reshape(
+            b, 1, ox.shape[1] * ox.shape[2])))
         h = h + _mlp_apply(lp["mlp"],
                            pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
                            cfg, shd)
-    logits = pm.apply_lm_head(p, cfg, h[:, 0])
+    logits = pm.apply_lm_head(p, cfg, h[:, 0], vocab)
     return logits, dict(cache, pos=cache["pos"] + 1)

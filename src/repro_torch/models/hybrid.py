@@ -16,7 +16,10 @@ once a group in ``prefill``, the fused decode kernel (B5) once a group in
 ``forward`` runs under remat, the shared block without, as the
 reference's. ``param_specs`` and ``cache_specs`` give the parameters'
 and the cache's logical PartitionSpecs (the nested ``"ssm"`` state
-included).
+included). Under a process mesh with a tensor axis the shared block's
+heads split head-aligned and its MLP and ``out`` columns over ``tp``, the
+mamba2 layers their heads (``mamba.inner_split``), and the vocab
+(``sharding.VocabSplit``), as the reference's specs say.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from repro_torch.models import mamba
 from repro_torch.models import param as pm
 from repro_torch.models import sharding
 from repro_torch.models.sharding import NO_SHARD, P, ShardCtx
-from repro_torch.models.transformer import ce_loss
+from repro_torch.models.transformer import ce_loss, vocab_specs
 
 
 def _n_groups(cfg: ModelConfig) -> int:
@@ -92,44 +95,54 @@ def _split_heads(t: torch.Tensor, hq: int, dh: int) -> torch.Tensor:
 
 
 def _splits(cfg: ModelConfig, mesh):
-    """The tensor splits of the shared block's attention heads and MLP
-    columns under a process ``mesh`` (each None where it computes whole:
-    no tensor axis, or a count the axis does not divide). The mamba2
-    layers compute whole: their gated norm spans the inner dim."""
+    """``(heads, MLP, mamba2, vocab)``: the tensor splits under a process
+    ``mesh`` (all None without a tensor axis): the shared block's heads
+    head-aligned (``sharding.head_split``, its own kv groups), its MLP's
+    and ``out``'s columns, the mamba2 layers' heads
+    (``mamba.inner_split``) and the vocab."""
     split = sharding.tensor_split(mesh)
     if split is None:
-        return None, None
-    return (split if cfg.n_heads % split.n == 0 else None,
-            split if cfg.d_ff % split.n == 0 else None)
+        return None, None, None, None
+    return (sharding.head_split(split, cfg.n_heads, cfg.n_heads,
+                                "the shared block"), split,
+            mamba.inner_split(cfg, split),
+            sharding.vocab_split(mesh, cfg.vocab))
 
 
 def compute_specs(cfg: ModelConfig, mesh, seq: int) -> dict:
     """Physical PartitionSpecs of the parameters in the mesh train step:
-    the shared block's q/k/v and gate/up columns and its output and down
-    rows over ``tp`` where ``_splits`` splits them, the rest whole."""
+    the shared block's q/k/v columns and ``wo`` rows by head, its gate/up
+    and ``out`` columns and down rows over ``tp``, the mamba2 layers'
+    heads (``mamba.compute_specs``), the embedding's and head's vocab; the
+    norms whole."""
     specs = sharding.whole(param_specs(cfg))
+    heads, mlp, inner, vocab = _splits(cfg, mesh)
+    if heads is None:
+        return specs
     sh = specs["shared"]
-    attn_split, mlp_split = _splits(cfg, mesh)
-    if attn_split is not None:
-        for k in ("wq", "wk", "wv"):
-            sh[k]["w"] = P(None, attn_split.axis)
-        sh["wo"]["w"] = P(attn_split.axis, None)
-    if mlp_split is not None:
-        sh["wg"]["w"] = sh["wu"]["w"] = P(None, mlp_split.axis)
-        sh["wd"]["w"] = P(mlp_split.axis, None)
+    dh = _heads(cfg)[2]
+    sh["wq"]["w"] = heads.q_spec(2, 1, dh)
+    sh["wk"]["w"] = sh["wv"]["w"] = heads.kv_spec(2, 1, dh)
+    sh["wo"]["w"] = heads.q_spec(2, 0, dh)
+    sh["wg"]["w"] = sh["wu"]["w"] = mlp.spec(2, 1, cfg.d_ff)
+    sh["wd"]["w"] = mlp.spec(2, 0, cfg.d_ff)
+    sh["out"]["w"] = mlp.spec(2, 1, cfg.d_model)
+    specs["layers"]["mixer"].update(mamba.compute_specs(cfg, inner))
+    vocab_specs(specs, vocab)
     return specs
 
 
 def _shared_qkv(sp, h2, cfg: ModelConfig, pos, split=None):
     """q, k, v (B, H, S, dh) of the shared block, RoPE at ``pos`` (S,);
-    under a tensor ``split`` this rank's heads."""
+    under a ``sharding.HeadSplit`` this rank's heads."""
     _, hq, dh = _heads(cfg)
+    hkv = hq
     hn = pm.apply_rmsnorm(sp["ln1"], h2, cfg.norm_eps)
     if split is not None:
-        hn, hq = split.enter(hn), hq // split.n
+        hn, hq, hkv = split.enter(hn), split.n_q_local, split.n_kv_local
     q = _split_heads(pm.apply_linear(sp["wq"], hn), hq, dh)
-    k = _split_heads(pm.apply_linear(sp["wk"], hn), hq, dh)
-    v = _split_heads(pm.apply_linear(sp["wv"], hn), hq, dh)
+    k = _split_heads(pm.apply_linear(sp["wk"], hn), hkv, dh)
+    v = _split_heads(pm.apply_linear(sp["wv"], hn), hkv, dh)
     q = attn.rope(q, pos[None, None, :], cfg.rope_theta)
     k = attn.rope(k, pos[None, None, :], cfg.rope_theta)
     return q, k, v
@@ -139,19 +152,23 @@ def _shared_tail(sp, h2, o, cfg: ModelConfig,
                  splits=(None, None)) -> torch.Tensor:
     """The block after attention: output projection and residual, the
     SwiGLU MLP and residual, and the projection back to d; under tensor
-    ``splits`` (``_splits``) the heads' and columns' partial sums are
-    summed over ``tp``."""
+    ``splits`` (the first two of ``_splits``) the heads' and columns'
+    partial sums are summed over ``tp``, and each rank projects its
+    columns of ``out``, concatenated over ``tp``."""
     b, s, _ = h2.shape
-    split_attn, split_mlp = splits
-    a = pm.apply_linear(sp["wo"], o.transpose(1, 2).reshape(b, s, -1))
+    split_attn, split_mlp = splits[:2]
+    a = pm.apply_linear(sp["wo"], o.transpose(1, 2).reshape(
+        b, s, o.shape[1] * o.shape[3]))
     h2 = h2 + (a if split_attn is None else split_attn.sum(a))
     hn = pm.apply_rmsnorm(sp["ln2"], h2, cfg.norm_eps)
     if split_mlp is not None:
         hn = split_mlp.enter(hn)
     f = F.silu(pm.apply_linear(sp["wg"], hn)) * pm.apply_linear(sp["wu"], hn)
     m = pm.apply_linear(sp["wd"], f)
-    h2 = h2 + (m if split_mlp is None else split_mlp.sum(m))
-    return pm.apply_linear(sp["out"], h2)
+    if split_mlp is None:
+        return pm.apply_linear(sp["out"], h2 + m)
+    h2 = split_mlp.enter(h2 + split_mlp.sum(m))
+    return split_mlp.cat(pm.apply_linear(sp["out"], h2), 2, cfg.d_model)
 
 
 def _shared_block_kv(sp, h, x0, pos, cfg: ModelConfig, backend: str,
@@ -159,7 +176,9 @@ def _shared_block_kv(sp, h, x0, pos, cfg: ModelConfig, backend: str,
     """The shared block's d-dim residual contribution, and its k and v."""
     h2 = torch.cat([h, x0], dim=-1)
     q, k, v = _shared_qkv(sp, h2, cfg, pos, splits[0])
-    if backend == "clusterkv" and cfg.clusterkv.enabled:
+    if q.shape[1] == 0:
+        o = attn.no_query_heads(q, k, v)
+    elif backend == "clusterkv" and cfg.clusterkv.enabled:
         o = attn.clusterkv_attention(q, k, v, pos, pos, cfg.clusterkv)
     elif backend == "dense":
         o = attn.dense_attention(q, k, v, pos, pos)
@@ -184,7 +203,8 @@ def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             backend: str = "flash", shd: ShardCtx = NO_SHARD
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (final hidden states (B,S,d), a zero aux loss)."""
-    x0 = pm.apply_embedding(p, cfg, batch["tokens"])
+    _, _, inner, vocab = _splits(cfg, shd.mesh)
+    x0 = pm.apply_embedding(p, cfg, batch["tokens"], vocab)
     h = x0
     pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     per = cfg.shared_attn_every
@@ -193,7 +213,7 @@ def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         lp = shd.layer(lp, "layers")
         y, _, _, _ = mamba.mamba2_forward(
             lp["mixer"], pm.apply_rmsnorm(lp["ln"], x, cfg.norm_eps), cfg,
-            shd)
+            shd, inner)
         return x + y
 
     mamba_body = pm.maybe_remat(mamba_body, cfg)
@@ -211,7 +231,8 @@ def loss_fn(p, cfg: ModelConfig, batch, backend: str = "flash",
     """Chunked cross-entropy of ``batch["labels"]`` through the head."""
     h, _ = forward(p, cfg, batch, backend, shd)
     return ce_loss(h, p["head"]["w"].to(pm.DTYPES[cfg.dtype]),
-                   batch["labels"], cfg.loss_chunk)
+                   batch["labels"], cfg.loss_chunk,
+                   _splits(cfg, shd.mesh)[3])
 
 
 def cache_specs(cfg: ModelConfig, long_context: bool = False) -> dict:
@@ -246,19 +267,24 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
     ``cfg.dtype``), every mamba2 layer's final state and conv buffers
     (float32), and the last position's logits. Under a process mesh the
     shared block computes this rank's heads (``_splits``; its k/v are
-    theirs) and the mamba2 layers, gathered one at a time, compute
-    whole."""
-    x0 = pm.apply_embedding(p, cfg, batch["tokens"])
+    theirs where the heads split evenly, else every head, gathered over
+    ``tp``), the mamba2 layers, gathered one at a time, this rank's heads
+    (their states and conv_x buffers too), and the logits its vocab
+    columns."""
+    splits = _splits(cfg, shd.mesh)
+    heads, _, inner, vocab = splits
+    x0 = pm.apply_embedding(p, cfg, batch["tokens"], vocab)
     h = x0
     s = h.shape[1]
     pos = torch.arange(s, dtype=torch.int32, device=h.device)
     per = cfg.shared_attn_every
     dt = pm.DTYPES[cfg.dtype]
     ks, vs, hs, cxs, cbcs = [], [], [], [], []
-    splits = _splits(cfg, shd.mesh)
     for g in range(_n_groups(cfg)):
         out, k, v = _shared_block_kv(p["shared"], h, x0, pos, cfg, backend,
                                      splits)
+        if heads is not None and not heads.even:
+            k, v = heads.gather_kv(k, 1), heads.gather_kv(v, 1)
         ks.append(k.to(dt))
         vs.append(v.to(dt))
         h = h + out
@@ -267,7 +293,7 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
             lp = shd.layer(pm.layer(gp, j), "layers")
             y, h_fin, cx, cbc = mamba.mamba2_forward(
                 lp["mixer"], pm.apply_rmsnorm(lp["ln"], h, cfg.norm_eps),
-                cfg, shd)
+                cfg, shd, inner)
             h = h + y
             hs.append(h_fin)
             cxs.append(cx.float())
@@ -276,7 +302,7 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
                      "conv_bc": torch.stack(cbcs)},
              "k": torch.stack(ks), "v": torch.stack(vs),
              "pos": torch.tensor(s, dtype=torch.int32, device=h.device)}
-    return cache, pm.apply_lm_head(p, cfg, h[:, -1])
+    return cache, pm.apply_lm_head(p, cfg, h[:, -1], vocab)
 
 
 def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
@@ -295,8 +321,13 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
     ``clusterkv_decode_sharded``. Under a process mesh the shared block
     computes this rank's heads; with ``shd.seq`` the k/v cache is this
     rank's slice of the sequence (every head, the new row gathered over
-    ``tp``), attended through ``attention.decode_seq_split``."""
-    x0 = pm.apply_embedding(p, cfg, tokens)
+    ``tp``), attended through ``attention.decode_seq_split``; where the
+    heads do not split evenly the cache holds every head, its new row
+    gathered over ``tp`` likewise. The mamba2 layers step their heads'
+    states, and the logits are this rank's vocab columns."""
+    splits = _splits(cfg, shd.mesh)
+    split, _, inner, vocab = splits
+    x0 = pm.apply_embedding(p, cfg, tokens, vocab)
     h = x0
     dev = h.device
     qpos = torch.as_tensor(cache["pos"], device=dev)
@@ -307,27 +338,28 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
     per = cfg.shared_attn_every
     sp = p["shared"]
     ssm = cache["ssm"]
-    splits = _splits(cfg, shd.mesh)
-    split = splits[0]
     seq = shd.seq
+    # the cache holds every head: a long context's (this rank's slice of
+    # the sequence), or one whose heads do not split evenly
+    every_head = split is not None and (seq is not None or not split.even)
+    heads = slice(*split.kv) if every_head else slice(None)
     if seq is not None:
-        # a long-context cache on a process mesh: every head, this rank's
-        # slice of the sequence
         kpos = torch.arange(seq.start, seq.start + seq.size,
                             dtype=torch.int32, device=dev)
-        nh = _heads(cfg)[1] // (1 if split is None else split.n)
-        heads = slice(None) if split is None else slice(
-            split.index * nh, (split.index + 1) * nh)
     for g in range(_n_groups(cfg)):
         h2 = torch.cat([h, x0], dim=-1)
         q, k1, v1 = _shared_qkv(sp, h2, cfg, rope_pos, split)
         kc, vc = cache["k"][g], cache["v"][g]            # (B,H,S,dh) views
         q1 = q[:, :, 0]
+        k1, v1 = k1[:, :, 0], v1[:, :, 0]
+        if every_head:
+            k1, v1 = split.gather_kv(k1, 1), split.gather_kv(v1, 1)
         ckv_on = backend == "clusterkv" and cfg.clusterkv.enabled
-        if seq is not None:
-            k1, v1 = k1[:, :, 0], v1[:, :, 0]
-            if split is not None:
-                k1, v1 = split.gather(k1, 1), split.gather(v1, 1)
+        if q1.shape[1] == 0:
+            attn.write_position(kc, k1, qi, seq)
+            attn.write_position(vc, v1, qi, seq)
+            o = q1.new_zeros(q1.shape[:2] + vc.shape[3:])
+        elif seq is not None:
             attn.write_position(kc, k1, qi, seq)
             attn.write_position(vc, v1, qi, seq)
             if ckv_on and not sharded_long:
@@ -338,8 +370,9 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
                                       qpos, seq,
                                       cfg=cfg.clusterkv if ckv_on else None)
         else:
-            attn.write_position(kc, k1[:, :, 0], qi)
-            attn.write_position(vc, v1[:, :, 0], qi)
+            attn.write_position(kc, k1, qi)
+            attn.write_position(vc, v1, qi)
+            kc, vc = kc[:, heads], vc[:, heads]
             if ckv_on and sharded_long and shd.mesh is not None:
                 o = attn.clusterkv_decode_sharded(q1, kc, vc, kpos, qpos,
                                                   cfg.clusterkv, shd.mesh)
@@ -355,11 +388,11 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
             lp = shd.layer(pm.layer(gp, j), "layers")
             y, hst, cx, cbc = mamba.mamba2_step(
                 lp["mixer"], pm.apply_rmsnorm(lp["ln"], h, cfg.norm_eps),
-                ssm["h"][i], ssm["conv_x"][i], ssm["conv_bc"][i], cfg)
+                ssm["h"][i], ssm["conv_x"][i], ssm["conv_bc"][i], cfg, inner)
             ssm["h"][i].copy_(hst)
             ssm["conv_x"][i].copy_(cx)
             ssm["conv_bc"][i].copy_(cbc)
             h = h + y
-    logits = pm.apply_lm_head(p, cfg, h[:, 0])
+    logits = pm.apply_lm_head(p, cfg, h[:, 0], vocab)
     return logits, {"ssm": ssm, "k": cache["k"], "v": cache["v"],
                     "pos": cache["pos"] + 1}

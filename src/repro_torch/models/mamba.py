@@ -14,6 +14,16 @@ bit.
 
 The conv weight keeps the reference's ``(width, 1, C)`` layout (a reference
 tree crosses over leaf for leaf) and is transposed at apply time.
+
+Under a tensor split (``split``, a process mesh's ``tp``: the reference's
+specs split the inner dim) a block computes this rank's inner channels
+(mamba1) or heads (mamba2) with the weights' blocks ``compute_specs``
+names: the input projections' columns, the conv, ``dt``, ``A_log`` and
+``D`` of its channels, the scan on them alone, and the output projection's
+rows summed over the split. mamba1's ``x_proj`` rows give partial sums of
+``dt``/``B``/``C`` summed over the split (``TensorSplit.total``); mamba2's
+``B``/``C`` projection and conv stay whole, as the reference's, and its
+gated norm sums its squares over the split.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import param as pm
+from repro_torch.models import sharding
 from repro_torch.models.sharding import NO_SHARD, ShardCtx
 
 
@@ -226,16 +237,68 @@ def selective_scan(xc, dt, a_mat, bc, cc, chunk: int):
     return y[:, :s], h
 
 
-def mamba1_forward(lp, x, cfg: ModelConfig, shd: ShardCtx = NO_SHARD):
+def inner_split(cfg: ModelConfig, split):
+    """``split`` where it takes the mamba layers' inner dim (None without
+    one): mamba1's channels and mamba2's heads must divide over it, else
+    it raises, naming the count."""
+    if split is None:
+        return None
+    di, _, _ = _dims(cfg)
+    count, what = ((di // cfg.ssm.head_dim, "mamba2 heads")
+                   if cfg.ssm.version == 2 else (di, "mamba1 inner channels"))
+    if count % split.n:
+        raise ValueError(f"{count} {what} do not split over the "
+                         f"{split.n}-way {split.axis!r} axis")
+    return split
+
+
+def compute_specs(cfg: ModelConfig, split) -> dict:
+    """Compute specs of a stacked mamba block's weights under ``split``
+    (``inner_split``'s): this rank's channels (or heads) of every leaf the
+    reference splits over ``tp``, plus mamba2's per-head ``dt_proj``
+    columns, ``dt_bias`` and gated-norm scale, which it computes with its
+    heads alone; the rest whole."""
+    di, _, _ = _dims(cfg)
+    if cfg.ssm.version == 1:
+        lo, hi = split.block(di)
+        return {"in_proj": {"w": sharding.Part(
+                    None, None, None, axis=split.axis, dim=2,
+                    blocks=((lo, hi), (di + lo, di + hi)))},
+                "conv": {"w": split.spec(4, 3, di), "b": split.spec(2, 1, di)},
+                "x_proj": {"w": split.spec(3, 1, di)},
+                "dt_proj": {"w": split.spec(3, 2, di),
+                            "b": split.spec(2, 1, di)},
+                "A_log": split.spec(3, 1, di), "D": split.spec(2, 1, di),
+                "out_proj": {"w": split.spec(3, 1, di)}}
+    nh = di // cfg.ssm.head_dim
+    return {"z_proj": {"w": split.spec(3, 2, di)},
+            "x_proj": {"w": split.spec(3, 2, di)},
+            "dt_proj": {"w": split.spec(3, 2, nh)},
+            "conv_x": {"w": split.spec(4, 3, di), "b": split.spec(2, 1, di)},
+            "A_log": split.spec(2, 1, nh), "D": split.spec(2, 1, nh),
+            "dt_bias": split.spec(2, 1, nh),
+            "norm": {"scale": split.spec(2, 1, di)},
+            "out_proj": {"w": split.spec(3, 1, di)}}
+
+
+def mamba1_forward(lp, x, cfg: ModelConfig, shd: ShardCtx = NO_SHARD,
+                   split=None):
     """One mamba1 block (the caller adds the residual). x (B,S,d). Returns
-    (out, final state (B,di,N) float32, conv buffer (B,width-1,di))."""
+    (out, final state (B,di,N) float32, conv buffer (B,width-1,di)); under
+    a tensor ``split`` (``inner_split``) the state and buffer hold this
+    rank's channels."""
     m = cfg.ssm
-    di, dt_rank, n = _dims(cfg)
+    _, dt_rank, n = _dims(cfg)
+    di = lp["A_log"].shape[0]                  # this rank's channels
+    if split is not None:
+        x = split.enter(x)
     xz = pm.apply_linear(lp["in_proj"], x)
     xin, z = xz[..., :di], xz[..., di:]
     xin = shd.cst(xin, "dp", None, "tp")
     xc = F.silu(conv1d_apply(lp["conv"], xin))
     proj = pm.apply_linear(lp["x_proj"], xc)
+    if split is not None:
+        proj = split.total(proj)
     dt = F.softplus(pm.apply_linear(lp["dt_proj"], proj[..., :dt_rank]))
     bc = proj[..., dt_rank:dt_rank + n]
     cc = proj[..., dt_rank + n:]
@@ -245,7 +308,8 @@ def mamba1_forward(lp, x, cfg: ModelConfig, shd: ShardCtx = NO_SHARD):
     y = y.to(x.dtype) + lp["D"].to(x.dtype) * xc
     y = y * F.silu(z)
     conv_buf = xin[:, -(m.d_conv - 1):, :]
-    return pm.apply_linear(lp["out_proj"], y), h_fin, conv_buf
+    out = pm.apply_linear(lp["out_proj"], y)
+    return (out if split is None else split.sum(out)), h_fin, conv_buf
 
 
 def mamba1_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -259,16 +323,20 @@ def mamba1_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
                                 dtype=dtype, device=dev)}
 
 
-def mamba1_step(lp, x1, h, conv_buf, cfg: ModelConfig):
-    """Decode: x1 (B,1,d); h (B,di,N); conv_buf (B,width-1,di). Returns
-    (out (B,1,d), h, conv_buf)."""
-    di, dt_rank, n = _dims(cfg)
+def mamba1_step(lp, x1, h, conv_buf, cfg: ModelConfig, split=None):
+    """Decode: x1 (B,1,d); h (B,di,N); conv_buf (B,width-1,di) (under a
+    tensor ``split`` this rank's channels). Returns (out (B,1,d), h,
+    conv_buf)."""
+    _, dt_rank, n = _dims(cfg)
+    di = lp["A_log"].shape[0]
     f32 = torch.float32
     xz = pm.apply_linear(lp["in_proj"], x1)
     xin, z = xz[..., :di], xz[..., di:]
     conv_buf, xc = conv1d_step(lp["conv"], conv_buf, xin)
     xc = F.silu(xc)
     proj = pm.apply_linear(lp["x_proj"], xc)
+    if split is not None:
+        proj = split.sum(proj)
     dt = F.softplus(pm.apply_linear(lp["dt_proj"], proj[..., :dt_rank]))
     bc = proj[..., dt_rank:dt_rank + n]
     cc = proj[..., dt_rank + n:]
@@ -280,7 +348,8 @@ def mamba1_step(lp, x1, h, conv_buf, cfg: ModelConfig):
     y = torch.einsum("bdn,bn->bd", h, cc[:, 0].to(f32))
     y = y + lp["D"].to(f32) * xc[:, 0].to(f32)
     y = (y * F.silu(z[:, 0]).to(f32)).to(x1.dtype)
-    return pm.apply_linear(lp["out_proj"], y[:, None]), h, conv_buf
+    out = pm.apply_linear(lp["out_proj"], y[:, None])
+    return (out if split is None else split.sum(out)), h, conv_buf
 
 
 # ---------------------------------------------------------------------------
@@ -372,19 +441,26 @@ def ssd(x, dt, a_head, bmat, cmat, chunk: int):
     return y[:, :s], carry
 
 
-def mamba2_forward(lp, x, cfg: ModelConfig, shd: ShardCtx = NO_SHARD):
+def mamba2_forward(lp, x, cfg: ModelConfig, shd: ShardCtx = NO_SHARD,
+                   split=None):
     """One mamba2 block. x (B,S,d). Returns (out, final state (B,H,P,N)
-    float32, conv_x buffer, conv_bc buffer)."""
+    float32, conv_x buffer, conv_bc buffer); under a tensor ``split``
+    (``inner_split``) the state and the conv_x buffer hold this rank's
+    heads."""
     m = cfg.ssm
-    di, _, n = _dims(cfg)
-    nh = di // m.head_dim
+    d_inner, _, n = _dims(cfg)
+    nh = lp["A_log"].shape[0]                  # this rank's heads
+    di = nh * m.head_dim
     f32 = torch.float32
-    z = pm.apply_linear(lp["z_proj"], x)
-    xraw = pm.apply_linear(lp["x_proj"], x)
+    xs = x if split is None else split.enter(x)
+    z = pm.apply_linear(lp["z_proj"], xs)
+    xraw = pm.apply_linear(lp["x_proj"], xs)
     bcraw = pm.apply_linear(lp["bc_proj"], x)
-    dt = pm.apply_linear(lp["dt_proj"], x)
+    dt = pm.apply_linear(lp["dt_proj"], xs)
     xin = F.silu(conv1d_apply(lp["conv_x"], xraw))
     bcin = F.silu(conv1d_apply(lp["conv_bc"], bcraw))
+    if split is not None:
+        bcin = split.enter(bcin)
     bmat, cmat = bcin[..., :n], bcin[..., n:]
     dt = F.softplus(dt + lp["dt_bias"].to(dt.dtype))
     a_head = -torch.exp(lp["A_log"]).to(f32)
@@ -394,10 +470,12 @@ def mamba2_forward(lp, x, cfg: ModelConfig, shd: ShardCtx = NO_SHARD):
                    cmat.to(f32), m.chunk)
     y = y + lp["D"].to(f32)[None, None, :, None] * xh.to(f32)
     y = y.reshape(bsz, s, di).to(x.dtype)
-    y = pm.apply_rmsnorm(lp["norm"], y * F.silu(z), cfg.norm_eps)
+    y = pm.apply_rmsnorm(lp["norm"], y * F.silu(z), cfg.norm_eps, split,
+                         d_inner)
     w = m.d_conv - 1
-    return (pm.apply_linear(lp["out_proj"], y), h_fin, xraw[:, -w:, :],
-            bcraw[:, -w:, :])
+    out = pm.apply_linear(lp["out_proj"], y)
+    return ((out if split is None else split.sum(out)), h_fin,
+            xraw[:, -w:, :], bcraw[:, -w:, :])
 
 
 def mamba2_state(cfg: ModelConfig, n_layers: int, batch: int,
@@ -414,12 +492,15 @@ def mamba2_state(cfg: ModelConfig, n_layers: int, batch: int,
                                     2 * m.d_state), dtype=dtype, device=dev)}
 
 
-def mamba2_step(lp, x1, h, conv_x_buf, conv_bc_buf, cfg: ModelConfig):
-    """Decode: x1 (B,1,d); h (B,H,P,N); conv bufs (B,w-1,*). Returns
+def mamba2_step(lp, x1, h, conv_x_buf, conv_bc_buf, cfg: ModelConfig,
+                split=None):
+    """Decode: x1 (B,1,d); h (B,H,P,N); conv bufs (B,w-1,*) (under a tensor
+    ``split`` ``h`` and the conv_x buffer hold this rank's heads). Returns
     (out (B,1,d), h, conv_x_buf, conv_bc_buf)."""
     m = cfg.ssm
-    di, _, n = _dims(cfg)
-    nh = di // m.head_dim
+    d_inner, _, n = _dims(cfg)
+    nh = lp["A_log"].shape[0]
+    di = nh * m.head_dim
     f32 = torch.float32
     z = pm.apply_linear(lp["z_proj"], x1)
     xin = pm.apply_linear(lp["x_proj"], x1)
@@ -439,6 +520,8 @@ def mamba2_step(lp, x1, h, conv_x_buf, conv_bc_buf, cfg: ModelConfig):
     y = torch.einsum("bhpn,bn->bhp", h, cmat[:, 0].to(f32))
     y = y + lp["D"].to(f32)[None, :, None] * xh
     y = y.reshape(x1.shape[0], di).to(x1.dtype)
-    y = pm.apply_rmsnorm(lp["norm"], y * F.silu(z[:, 0]), cfg.norm_eps)
-    return (pm.apply_linear(lp["out_proj"], y[:, None]), h, conv_x_buf,
+    y = pm.apply_rmsnorm(lp["norm"], y * F.silu(z[:, 0]), cfg.norm_eps,
+                         split, d_inner)
+    out = pm.apply_linear(lp["out_proj"], y[:, None])
+    return ((out if split is None else split.sum(out)), h, conv_x_buf,
             conv_bc_buf)

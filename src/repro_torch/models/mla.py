@@ -49,6 +49,17 @@ def init_mla(cfg: ModelConfig) -> dict:
             "wo": pm.linear(h * dv, d, spec=("tp", "fsdp"))}
 
 
+def compute_specs(cfg: ModelConfig, heads) -> dict:
+    """Compute specs of a stacked MLA layer's head-split weights under a
+    ``sharding.HeadSplit`` of its heads: ``q_b``'s and ``kv_b``'s columns
+    and ``wo``'s rows by head; ``q_a``/``kv_a`` and the norms stay whole,
+    as the reference's specs leave them."""
+    _, _, dn, dr, dv = _dims(cfg)
+    return {"q_b": {"w": heads.q_spec(3, 2, dn + dr)},
+            "kv_b": {"w": heads.q_spec(3, 2, dn + dv)},
+            "wo": {"w": heads.q_spec(3, 1, dv)}}
+
+
 def _q_proj(lp, x, cfg: ModelConfig, pos, split=None):
     """x (B,S,d) -> q_nope (B,H,S,dn), q_rope (B,H,S,dr) (roped). Under a
     tensor ``split`` ``q_b`` holds this rank's heads."""
@@ -147,13 +158,14 @@ def _mlp(lp, hn, split):
 
 
 def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
-            shd: ShardCtx = NO_SHARD, splits=(None, None)):
+            shd: ShardCtx = NO_SHARD, splits=(None, None, None)):
     """Forward over the prompt: the latent cache (``c``, ``kr``) and the
     last logits. Under a process mesh the layers are gathered one at a
     time (``shd.layer``) and ``splits`` (the transformer's ``_splits``)
-    give this rank's heads and MLP columns; the latents are whole."""
+    give this rank's heads, MLP columns and vocab; the latents are
+    whole."""
     dt = pm.DTYPES[cfg.dtype]
-    h = p["embed"]["table"][batch["tokens"].long()].to(dt)
+    h = pm.apply_embedding(p, cfg, batch["tokens"], splits[2])
     b, s, _ = h.shape
     pos = torch.arange(s, dtype=torch.int32, device=h.device)
     cs, krs = [], []
@@ -169,7 +181,7 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
         krs.append(krope.to(dt))
     cache = {"c": torch.stack(cs), "kr": torch.stack(krs),
              "pos": torch.tensor(s, dtype=torch.int32, device=h.device)}
-    return cache, pm.apply_lm_head(p, cfg, h[:, -1])
+    return cache, pm.apply_lm_head(p, cfg, h[:, -1], splits[2])
 
 
 def _absorbed_scores_attend(lp, qn, qrope, cc, krc, kpos, qpos,
@@ -285,22 +297,22 @@ def _latent_decode_seq(q_lat, qrope, cc, krc, kpos, qpos, cfg: ModelConfig,
 
 def decode_step(p, cfg: ModelConfig, cache, tokens,
                 backend: str = "flash", sharded_long: bool = False,
-                shd: ShardCtx = NO_SHARD, splits=(None, None)
+                shd: ShardCtx = NO_SHARD, splits=(None, None, None)
                 ) -> Tuple[torch.Tensor, Dict]:
     """One absorbed decode step at the cache's scalar position (the
     reference's ``dynamic_update_slice`` takes no per-slot vector). Under
     a process mesh ``splits`` (the transformer's ``_splits``) give this
-    rank's heads and MLP columns, and with ``shd.seq`` the cache is this
-    rank's slice of the sequence."""
+    rank's heads, MLP columns and vocab, and with ``shd.seq`` the cache is
+    this rank's slice of the sequence."""
     qpos = torch.as_tensor(cache["pos"], device=cache["c"].device)
     if qpos.ndim:
         raise ValueError("MLA decode takes a scalar cache position; per-slot "
                          "positions (continuous batching) are not served")
     dt = pm.DTYPES[cfg.dtype]
-    h = p["embed"]["table"][tokens.long()].to(dt)
+    split_attn, split_mlp, vocab = splits
+    h = pm.apply_embedding(p, cfg, tokens, vocab)
     b = h.shape[0]
     _, kr, dn, _, dv = _dims(cfg)
-    split_attn, split_mlp = splits
     seq = shd.seq
     if seq is None:
         kpos = torch.arange(cache["c"].shape[2], dtype=torch.int32,
@@ -327,6 +339,6 @@ def decode_step(p, cfg: ModelConfig, cache, tokens,
         h = h + (a if split_attn is None else split_attn.sum(a))
         hn = pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps)
         h = h + _mlp(lp, hn, split_mlp)
-    logits = pm.apply_lm_head(p, cfg, h[:, 0])
+    logits = pm.apply_lm_head(p, cfg, h[:, 0], vocab)
     return logits, {"c": cache["c"], "kr": cache["kr"],
                     "pos": cache["pos"] + 1}

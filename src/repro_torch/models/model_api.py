@@ -21,7 +21,6 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import SHAPES, ModelConfig
 from repro_torch.models import param as pm
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
-from repro_torch.models import sharding
 from repro_torch.models.sharding import P
 
 _FAMILY = {"dense": transformer, "vlm": transformer, "moe": transformer,
@@ -52,14 +51,13 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 
 def compute_specs(cfg: ModelConfig, mesh, seq: int) -> dict:
-    """Physical PartitionSpec of each parameter as the mesh train step
-    computes with it at sequence length ``seq``: the family's split
-    (``transformer.compute_specs``: tensor-parallel attention and MLP, the
-    MoE FFN's experts), or every parameter gathered whole."""
-    mod = module_for(cfg)
-    if hasattr(mod, "compute_specs"):
-        return mod.compute_specs(cfg, mesh, seq)
-    return sharding.whole(param_specs(cfg))
+    """Physical PartitionSpec of each parameter as the mesh steps compute
+    with it at sequence length ``seq``: the family's split over the
+    tensor axis of every leaf the reference's ``param_specs`` split over
+    ``tp`` (heads head-aligned, MLP columns, the MoE FFN's experts, the
+    mamba layers' inner dim, the vocab), as a ``P`` naming the axis or a
+    ``sharding.Part``; the rest whole."""
+    return module_for(cfg).compute_specs(cfg, mesh, seq)
 
 
 def input_specs(cfg: ModelConfig, shape_name: str, sizes=None

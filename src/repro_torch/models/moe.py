@@ -248,19 +248,14 @@ def mesh_branch(cfg: ModelConfig, mesh, seq: int) -> str:
     return "tp"
 
 
-def _shared_split(cfg: ModelConfig, mesh):
-    """The tensor split of the shared experts' hidden dim under ``mesh``
-    (None: whole on every rank)."""
-    split = tensor_split(mesh)
-    fs = cfg.moe.d_ff_expert * cfg.moe.n_shared_experts
-    return split if split is not None and fs % split.n == 0 else None
 
 
 def compute_specs(cfg: ModelConfig, mesh, seq: int) -> dict:
     """Physical PartitionSpecs of one layer's FFN weights as it takes them
     under ``mesh``: the experts' as the reference's ``shard_map``
-    in_specs, the shared experts' column/row split over ``tp`` (or whole),
-    the router whole."""
+    in_specs, the shared experts' column/row split over ``tp`` (a
+    ``sharding.Part`` where ``tp`` does not divide their hidden dim), the
+    router whole."""
     if mesh_branch(cfg, mesh, seq) == "ep":
         ex = P(ep_axis(mesh), None, None)
         out = {"wg": ex, "wu": ex, "wd": ex}
@@ -270,10 +265,12 @@ def compute_specs(cfg: ModelConfig, mesh, seq: int) -> dict:
                "wd": P(None, tp, None)}
     out["router"] = {"w": P(None, None)}
     if cfg.moe.n_shared_experts:
-        split = _shared_split(cfg, mesh)
-        tp = split.axis if split is not None else None
-        out["shared"] = {"wg": P(None, tp), "wu": P(None, tp),
-                         "wd": P(tp, None)}
+        split = tensor_split(mesh)
+        fs = cfg.moe.d_ff_expert * cfg.moe.n_shared_experts
+        out["shared"] = {"wg": P(None, None), "wu": P(None, None),
+                         "wd": P(None, None)} if split is None else {
+            "wg": split.spec(2, 1, fs), "wu": split.spec(2, 1, fs),
+            "wd": split.spec(2, 0, fs)}
     return out
 
 
@@ -402,7 +399,7 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, shd: ShardCtx = NO_SHARD
                          p["wd"], _capacity(t, m)).reshape(b, s, d)
     if "shared" in p:
         sh = p["shared"]
-        split = _shared_split(cfg, mesh) if process else None
+        split = tensor_split(mesh) if process else None
         xs = split.enter(x) if split is not None else x
         h = torch.nn.functional.silu(xs @ sh["wg"].to(x.dtype)) \
             * (xs @ sh["wu"].to(x.dtype))

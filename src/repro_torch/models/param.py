@@ -123,9 +123,17 @@ def apply_linear(p: dict, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     return y
 
 
-def apply_rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def apply_rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5,
+                  split=None, size: int = 0) -> torch.Tensor:
+    """RMSNorm over the last dim. Under a tensor ``split``
+    (``sharding.TensorSplit``) ``x`` and ``p["scale"]`` hold this rank's
+    block of a dim of ``size``: the sum of squares is summed over the
+    split (``total``)."""
     x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    if split is None:
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
+    else:
+        var = split.total((x32 * x32).sum(dim=-1, keepdim=True)) / size
     y = x32 * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
 
@@ -137,16 +145,26 @@ def apply_swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     return apply_linear(p["wd"], h)
 
 
-def apply_embedding(p: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """Token ids -> rows of the embedding table in the compute dtype."""
-    return p["embed"]["table"][tokens.long()].to(DTYPES[cfg.dtype])
+def apply_embedding(p: dict, cfg, tokens: torch.Tensor, vocab=None
+                    ) -> torch.Tensor:
+    """Token ids -> rows of the embedding table in the compute dtype; under
+    a ``vocab`` split (``sharding.VocabSplit``) the table is this rank's
+    rows and the lookup is summed over the split."""
+    table = p["embed"]["table"]
+    if vocab is not None:
+        return vocab.lookup(table, tokens).to(DTYPES[cfg.dtype])
+    return table[tokens.long()].to(DTYPES[cfg.dtype])
 
 
-def apply_lm_head(p: dict, cfg, h_last: torch.Tensor) -> torch.Tensor:
+def apply_lm_head(p: dict, cfg, h_last: torch.Tensor, vocab=None
+                  ) -> torch.Tensor:
     """float32 logits of the final hidden states: the final RMSNorm, then
-    the head (the embedding table's transpose when ``cfg.tie_embeddings``)."""
+    the head (the embedding table's transpose when ``cfg.tie_embeddings``);
+    under a ``vocab`` split this rank's columns."""
     w = p["embed"]["table"].T if cfg.tie_embeddings else p["head"]["w"]
     h_last = apply_rmsnorm(p["ln_f"], h_last, cfg.norm_eps)
+    if vocab is not None:
+        h_last = vocab.split.enter(h_last)
     return (h_last @ w.to(h_last.dtype)).float()
 
 

@@ -61,6 +61,57 @@ class P(tuple):
         return "P(" + ", ".join(map(repr, self)) + ")"
 
 
+def ceil_block(size: int, n: int, r: int) -> Tuple[int, int]:
+    """Rank ``r``'s block ``[start, stop)`` of ``size`` items over ``n``
+    ranks: ceil boundaries, so an earlier rank holds at least as many as a
+    later one (rank 0, which the dry run counts, the most); where ``n``
+    divides ``size`` it is DTensor's ``Shard`` chunk."""
+    return -(-r * size // n), -(-(r + 1) * size // n)
+
+
+class Part(P):
+    """A compute spec (``model_api.compute_specs``) that is no DTensor
+    placement: the leaf gathered as its entries say (none names ``axis``),
+    so whole over the tensor axis ``axis``, then this rank's ``blocks``
+    (``(start, stop)`` pairs) of tensor dim ``dim``, concatenated. Its
+    gradient is summed over ``axis``: each rank's blocks land where they
+    belong and zeros elsewhere, and ranks that share a block (a kv head
+    held by several ranks) add theirs up. The head-aligned and uneven
+    splits take it; an even split of one block is a plain ``P``."""
+
+    def __new__(cls, *entries, axis, dim: int, blocks):
+        self = super().__new__(cls, *entries)
+        self.axis, self.dim, self.blocks = axis, dim, tuple(blocks)
+        return self
+
+    def __repr__(self) -> str:
+        return (f"Part({', '.join(map(repr, self))}; {self.axis!r} dim "
+                f"{self.dim} blocks {list(self.blocks)})")
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's blocks of ``x`` (the leaf whole over ``axis``)."""
+        parts = [x.narrow(self.dim, a, b - a) for a, b in self.blocks]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, self.dim)
+
+    def inner(self) -> "Part":
+        """The spec of one layer of a stacked leaf (its leading axis off)."""
+        return Part(*self[1:], axis=self.axis, dim=self.dim - 1,
+                    blocks=self.blocks)
+
+
+def inner_spec(spec: P) -> P:
+    """The spec of one layer of a stacked leaf at ``spec``."""
+    return spec.inner() if isinstance(spec, Part) else P(*spec[1:])
+
+
+def stacked_spec(spec: P) -> P:
+    """The spec of a stack of layers at ``spec`` (a leading axis on)."""
+    if isinstance(spec, Part):
+        return Part(None, *spec, axis=spec.axis, dim=spec.dim + 1,
+                    blocks=spec.blocks)
+    return P(None, *spec)
+
+
 @dataclass(frozen=True)
 class NamedSharding:
     """A mesh and a spec over its axis names."""
@@ -230,7 +281,10 @@ class _SumOverGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         import torch.distributed as dist
-        out = x.clone()
+        # contiguous: ranks may hold one value in differently strided
+        # layouts (their shares' shapes differ), and the collective sums
+        # their buffers in memory order
+        out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=group)
         return out
 
@@ -252,7 +306,7 @@ class _EnterGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         import torch.distributed as dist
-        g = g.clone()
+        g = g.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(g, group=ctx.group)
         return g, None
 
@@ -286,9 +340,72 @@ class TensorSplit:
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         return _SumOverGroup.apply(x, self.group)
 
-    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """Every rank's block of ``x`` along ``dim``, whole."""
-        return _all_gather(x, dim, self.n, self.group)
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the group of every rank's partial ``x``, which each
+        rank then uses for its own share: both passes all-reduce (``sum``
+        then ``enter``)."""
+        return self.enter(self.sum(x))
+
+    def block(self, size: int, rank: Optional[int] = None
+              ) -> Tuple[int, int]:
+        """This rank's (or ``rank``'s) block of ``size`` items
+        (:func:`ceil_block`)."""
+        return ceil_block(size, self.n, self.index if rank is None else rank)
+
+    def spec(self, ndim: int, dim: int, size: int, width: int = 1,
+             blocks=None) -> P:
+        """The compute spec of a leaf of ``ndim`` dims whose dim ``dim``
+        (``size`` items of ``width`` each) this rank takes its block of:
+        the tensor axis there where the block is DTensor's even chunk, else
+        a :class:`Part` (``blocks``, in items, replace the block)."""
+        if blocks is None and size % self.n == 0:
+            return P(*[self.axis if i == dim else None for i in range(ndim)])
+        blocks = blocks if blocks is not None else (self.block(size),)
+        return Part(*([None] * ndim), axis=self.axis, dim=dim,
+                    blocks=[(a * width, b * width) for a, b in blocks])
+
+    def gather_blocks(self, x: torch.Tensor, dim: int, blocks
+                      ) -> torch.Tensor:
+        """Every rank's block of a dim along ``dim``, whole: ``blocks[r]``
+        is rank ``r``'s ``(start, stop)``; blocks may repeat (a kv head
+        held by several ranks: the first holder's is taken) and may differ
+        in size (each is padded to the largest for one all-gather). No
+        autograd (a serving step's)."""
+        size = max(b - a for a, b in blocks)
+        own = x.shape[dim]
+        if own < size:
+            pad = [0, 0] * (x.ndim - 1 - dim) + [0, size - own]
+            x = torch.nn.functional.pad(x, pad)
+        every = _all_gather(x, dim, self.n, self.group)
+        parts, done = [], 0
+        for r, (a, b) in enumerate(blocks):
+            if b > done:
+                parts.append(every.narrow(dim, r * size + done - a, b - done))
+                done = b
+        return torch.cat(parts, dim)
+
+    def cat(self, x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+        """Every rank's block (:meth:`block` of ``size``) of a dim along
+        ``dim`` concatenated whole, for a replicated use: backward takes
+        this rank's block of the gradient."""
+        return _CatOverGroup.apply(x, dim, size, self)
+
+
+class _CatOverGroup(torch.autograd.Function):
+    """Forward: every rank's block of a dim, whole. Backward: this rank's
+    block of the output's gradient (the same on every rank: what follows
+    runs replicated over the group)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, size, split):
+        ctx.dim, ctx.blk = dim, split.block(size)
+        return split.gather_blocks(x, dim, [split.block(size, r)
+                                            for r in range(split.n)])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.blk
+        return g.narrow(ctx.dim, a, b - a), None, None, None
 
 
 def tensor_split(mesh: Optional[Mesh]) -> Optional[TensorSplit]:
@@ -303,6 +420,194 @@ def tensor_split(mesh: Optional[Mesh]) -> Optional[TensorSplit]:
     dm = mesh.device_mesh
     return TensorSplit(tp, mesh.shape[tp], dm.get_group(tp),
                        dm.get_local_rank(tp))
+
+
+def head_blocks(n_q: int, n_kv: int, n: int, r: int):
+    """Rank ``r``'s ``(q heads, kv heads)`` blocks of a head-aligned
+    split of ``n_q`` query heads in ``n_kv`` groups over ``n`` ranks,
+    Megatron-style. With ``n_kv >= n`` each rank holds whole kv groups
+    (:func:`ceil_block` of the groups) with all their query heads. With
+    fewer kv heads than ranks, kv head ``k`` is held by ranks
+    ``[ceil(k n / n_kv), ceil((k + 1) n / n_kv))`` and its group's query
+    heads are split over them by :func:`ceil_block`, unevenly where they
+    do not divide (Qwen2-0.5B's 7 over 8 ranks: one rank holds none)."""
+    g = n_q // n_kv
+    if n_kv >= n:
+        k0, k1 = ceil_block(n_kv, n, r)
+        return (k0 * g, k1 * g), (k0, k1)
+    k = r * n_kv // n
+    lo = ceil_block(n, n_kv, k)
+    j0, j1 = ceil_block(g, lo[1] - lo[0], r - lo[0])
+    return (k * g + j0, k * g + j1), (k, k + 1)
+
+
+@dataclass(frozen=True)
+class HeadSplit:
+    """Attention heads over a tensor split, head-aligned
+    (:func:`head_blocks`): this rank's query heads ``q`` and kv heads
+    ``kv`` (each ``(start, stop)``). ``enter``/``sum`` are the split's; a
+    kv head held by several ranks has its projections' gradient summed
+    over them (the weights' compute spec is a :class:`Part`)."""
+    split: TensorSplit
+    n_q: int
+    n_kv: int
+    q: Tuple[int, int]
+    kv: Tuple[int, int]
+
+    @property
+    def axis(self):
+        return self.split.axis
+
+    @property
+    def n(self) -> int:
+        return self.split.n
+
+    @property
+    def group(self):
+        return self.split.group
+
+    @property
+    def even(self) -> bool:
+        """Every rank holds ``n_kv / n`` whole kv groups: the plain
+        Megatron split (DTensor's even chunk of every head column)."""
+        return self.n_kv % self.split.n == 0
+
+    @property
+    def n_q_local(self) -> int:
+        return self.q[1] - self.q[0]
+
+    @property
+    def n_kv_local(self) -> int:
+        return self.kv[1] - self.kv[0]
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return self.split.enter(x)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.split.sum(x)
+
+    def kv_blocks(self) -> list:
+        """Every rank's kv heads."""
+        return [head_blocks(self.n_q, self.n_kv, self.n, r)[1]
+                for r in range(self.n)]
+
+    def q_spec(self, ndim: int, dim: int, width: int) -> P:
+        """Compute spec of a leaf whose dim ``dim`` holds ``width``
+        columns (or rows) per query head."""
+        if self.even:
+            return self.split.spec(ndim, dim, self.n_q * width)
+        return self.split.spec(ndim, dim, self.n_q, width, (self.q,))
+
+    def kv_spec(self, ndim: int, dim: int, width: int) -> P:
+        """The same for ``width`` per kv head."""
+        if self.even:
+            return self.split.spec(ndim, dim, self.n_kv * width)
+        return self.split.spec(ndim, dim, self.n_kv, width, (self.kv,))
+
+    def gather_kv(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every kv head of ``x``, which holds this rank's along ``dim``
+        (no autograd: a serving step's)."""
+        return self.split.gather_blocks(x, dim, self.kv_blocks())
+
+
+def head_split(split: Optional[TensorSplit], n_q: int, n_kv: int,
+               what: str = "attention") -> Optional[HeadSplit]:
+    """The head-aligned split of ``n_q`` query heads in ``n_kv`` kv groups
+    over ``split`` (None without one). A count it cannot take raises,
+    naming it: a query head count the kv heads do not divide."""
+    if split is None:
+        return None
+    if n_kv <= 0 or n_q % n_kv:
+        raise ValueError(f"{what}: {n_q} query heads do not form {n_kv} kv "
+                         f"groups, so they cannot split head-aligned over "
+                         f"the {split.n}-way {split.axis!r} axis")
+    q, kv = head_blocks(n_q, n_kv, split.n, split.index)
+    return HeadSplit(split, n_q, n_kv, q, kv)
+
+
+class _MaxOverGroup(torch.autograd.Function):
+    """The max over ``group`` of every rank's ``x``, as a constant (the
+    cross-entropy's shift: the loss does not depend on it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None
+
+
+@dataclass(frozen=True)
+class VocabSplit:
+    """The vocab over a tensor split, as the reference's embedding
+    ``("tp", "fsdp")`` and head ``("fsdp", "tp")`` specs: this rank holds
+    the rows (and head columns) ``block`` of ``vocab`` (:func:`ceil_block`;
+    uneven where the split does not divide it). The embedding is a masked
+    lookup summed over the split; the logits are this rank's columns; the
+    cross-entropy all-reduces its max, its sum of exponentials and the
+    target's logit."""
+    split: TensorSplit
+    vocab: int
+
+    @property
+    def block(self) -> Tuple[int, int]:
+        return self.split.block(self.vocab)
+
+    def spec(self, ndim: int, dim: int) -> P:
+        """The compute spec of a leaf whose dim ``dim`` is the vocab."""
+        return self.split.spec(ndim, dim, self.vocab)
+
+    def lookup(self, table: torch.Tensor, tokens: torch.Tensor
+               ) -> torch.Tensor:
+        """Rows of the embedding for ``tokens``: this rank's ``table``
+        rows where a token falls in its block, zeros elsewhere, summed
+        over the split."""
+        lo, hi = self.block
+        t = tokens.long() - lo
+        mine = (t >= 0) & (t < hi - lo)
+        rows = table[t.clamp(0, hi - lo - 1)]
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        return self.split.sum(rows)
+
+    def ce_sum(self, h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
+               ) -> torch.Tensor:
+        """Sum over rows of ``logsumexp(logits) - logits[label]``, the
+        logits ``h @ w`` (this rank's columns) in float32: the max, the sum
+        of exponentials and the target's logit all-reduced over the
+        split. ``h`` is replicated and already ``enter``ed."""
+        lo, hi = self.block
+        logits = (h @ w).float()
+        m = _MaxOverGroup.apply(logits.amax(-1), self.split.group)
+        se = self.split.sum(torch.exp(logits - m[:, None]).sum(-1))
+        t = labels.long() - lo
+        mine = (t >= 0) & (t < hi - lo)
+        gold = logits.gather(-1, t.clamp(0, hi - lo - 1)[:, None])[:, 0]
+        gold = self.split.sum(torch.where(mine, gold,
+                                          torch.zeros_like(gold)))
+        return (torch.log(se) + m - gold).sum()
+
+    def gather(self, logits: torch.Tensor) -> torch.Tensor:
+        """Every column of ``logits`` (..., this rank's block), whole (no
+        autograd)."""
+        return self.split.gather_blocks(
+            logits, logits.ndim - 1,
+            [self.split.block(self.vocab, r) for r in range(self.split.n)])
+
+
+def vocab_split(mesh: Optional[Mesh], vocab: int) -> Optional[VocabSplit]:
+    """The vocab split of ``mesh``'s tensor axis (None where there is
+    none); a vocab smaller than the axis raises."""
+    split = tensor_split(mesh)
+    if split is None:
+        return None
+    if vocab < split.n:
+        raise ValueError(f"a vocab of {vocab} does not split over the "
+                         f"{split.n}-way {split.axis!r} axis")
+    return VocabSplit(split, vocab)
 
 
 @dataclass(frozen=True)
@@ -342,7 +647,8 @@ class SeqSplit:
 class ShardCtx:
     """Threaded through model code: the mesh of the sharded paths (the
     long-context decode shards its cache over it; on a process mesh the
-    layers split heads, MLP columns and experts over it), the mesh
+    families split over it what the reference's specs split: heads, MLP
+    columns, experts, mamba channels, the vocab), the mesh
     steps' per-layer gather (``layer``), and, in a decode step on a
     process mesh whose cache sequence is split, this rank's slice of it
     (``seq``)."""

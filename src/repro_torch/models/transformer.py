@@ -105,6 +105,8 @@ def _project_qkv(lp, x, cfg: ModelConfig, pos):
 
 
 def _attend(q, k, v, pos, cfg: ModelConfig, backend: str):
+    if q.shape[1] == 0:
+        return attn.no_query_heads(q, k, v)
     if backend == "clusterkv" and cfg.clusterkv.enabled:
         return attn.clusterkv_attention(q, k, v, pos, pos, cfg.clusterkv,
                                         causal=True)
@@ -124,25 +126,38 @@ def _ffn(lp, x, cfg: ModelConfig, shd: ShardCtx):
 
 
 def _attn_out(lp, o, b, s):
-    return pm.apply_linear(lp["attn"]["wo"],
-                           o.transpose(1, 2).reshape(b, s, -1))
+    return pm.apply_linear(lp["attn"]["wo"], o.transpose(1, 2).reshape(
+        b, s, o.shape[1] * o.shape[3]))
 
 
 def _splits(cfg: ModelConfig, mesh):
-    """The tensor splits of a layer's attention and dense MLP under a
-    process ``mesh`` (Megatron-style: heads and the MLP's hidden columns
-    over ``tp``, the output projections' rows summed over it), each None
-    where that part computes whole: no tensor axis, or a count the axis
-    does not divide."""
+    """``(attention, MLP, vocab)``: the tensor splits under a process
+    ``mesh`` (Megatron-style), each None without a tensor axis. The
+    attention's heads split head-aligned (``sharding.head_split``: with
+    fewer kv heads than ranks each kv head is held by several ranks, and
+    its group's query heads are split over them, unevenly where they do
+    not divide; MLA's heads are their own groups), the dense MLP's hidden
+    columns over ``tp`` (``None`` for a MoE FFN, which ``models.moe``
+    splits), and the vocab of the embedding, LM head and cross-entropy
+    (``sharding.vocab_split``). A count the split cannot take raises."""
     split = sharding.tensor_split(mesh)
     if split is None:
-        return None, None
-    n = split.n
-    heads = cfg.n_heads % n == 0 and (cfg.mla is not None
-                                      or cfg.n_kv_heads % n == 0)
-    attn = split if heads else None
-    mlp = split if (cfg.moe is None and cfg.d_ff % n == 0) else None
-    return attn, mlp
+        return None, None, None
+    if cfg.mla is not None:
+        if cfg.n_heads < split.n:
+            raise ValueError(f"MLA's {cfg.n_heads} heads do not split over "
+                             f"the {split.n}-way {split.axis!r} axis")
+        attn = sharding.head_split(split, cfg.n_heads, cfg.n_heads, "MLA")
+    else:
+        attn = sharding.head_split(split, cfg.n_heads, cfg.n_kv_heads)
+    mlp = split if cfg.moe is None else None
+    return attn, mlp, sharding.vocab_split(mesh, cfg.vocab)
+
+
+def local_cfg(cfg: ModelConfig, heads) -> ModelConfig:
+    """``cfg`` with this rank's heads of a ``sharding.HeadSplit``."""
+    return cfg.with_(n_heads=heads.n_q_local, n_kv_heads=heads.n_kv_local,
+                     d_head=cfg.head_dim)
 
 
 def _layer(lp, x, pos, cfg: ModelConfig, backend: str,
@@ -152,17 +167,14 @@ def _layer(lp, x, pos, cfg: ModelConfig, backend: str,
     tensor axis the attention heads and the dense MLP's columns are this
     rank's share (``compute_specs``), and the layer's k/v are its heads'."""
     b, s, _ = x.shape
-    split_attn, split_mlp = _splits(cfg, shd.mesh)
+    split_attn, split_mlp, _ = _splits(cfg, shd.mesh)
     h = pm.apply_rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if cfg.mla is not None:
         x = x + mla_mod.mla_attention(lp["attn"], h, pos, cfg, shd,
                                       backend, split_attn)
         kv = None
     elif split_attn is not None:
-        n = split_attn.n
-        lcfg = cfg.with_(n_heads=cfg.n_heads // n,
-                         n_kv_heads=cfg.n_kv_heads // n,
-                         d_head=cfg.head_dim)
+        lcfg = local_cfg(cfg, split_attn)
         q, k, v = _project_qkv(lp["attn"], split_attn.enter(h), lcfg, pos)
         o = _attn_out(lp, _attend(q, k, v, pos, lcfg, backend), b, s)
         x = x + split_attn.sum(o)
@@ -182,32 +194,44 @@ def _layer(lp, x, pos, cfg: ModelConfig, backend: str,
 
 def compute_specs(cfg: ModelConfig, mesh, seq: int) -> dict:
     """Physical PartitionSpecs of the parameters as the mesh train step
-    computes with them (``model_api.compute_specs``): the attention's
-    q/k/v columns and output rows and the dense MLP's over ``tp`` where
-    ``_splits`` splits them, the MoE FFN's as ``moe.compute_specs``, the
-    rest whole."""
+    computes with them (``model_api.compute_specs``), from ``_splits``:
+    the attention's q/k/v (or MLA's ``q_b``/``kv_b``) columns and output
+    rows by head (a ``sharding.Part`` where the head-aligned split is not
+    DTensor's even chunk), the dense MLP's columns and rows, the MoE FFN's
+    as ``moe.compute_specs``, the embedding's rows and the head's columns
+    by vocab; the norms whole."""
     specs = sharding.whole(param_specs(cfg))
     layer = specs["layers"]
-    attn, mlp = _splits(cfg, mesh)
+    attn, mlp, vocab = _splits(cfg, mesh)
     if attn is not None and cfg.mla is not None:
-        for k in ("q_b", "kv_b"):
-            layer["attn"][k]["w"] = P(None, None, attn.axis)
-        layer["attn"]["wo"]["w"] = P(None, attn.axis, None)
+        layer["attn"].update(mla_mod.compute_specs(cfg, attn))
     elif attn is not None:
+        dh = cfg.head_dim
         for k in ("wq", "wk", "wv"):
-            layer["attn"][k]["w"] = P(None, None, attn.axis)
+            spec = attn.q_spec if k == "wq" else attn.kv_spec
+            layer["attn"][k]["w"] = spec(3, 2, dh)
             if "b" in layer["attn"][k]:
-                layer["attn"][k]["b"] = P(None, attn.axis)
-        layer["attn"]["wo"]["w"] = P(None, attn.axis, None)
+                layer["attn"][k]["b"] = spec(2, 1, dh)
+        layer["attn"]["wo"]["w"] = attn.q_spec(3, 1, dh)
     if mlp is not None:
-        for k, spec in (("wg", P(None, None, mlp.axis)),
-                        ("wu", P(None, None, mlp.axis)),
-                        ("wd", P(None, mlp.axis, None))):
-            layer["ffn"][k]["w"] = spec
+        layer["ffn"]["wg"]["w"] = mlp.spec(3, 2, cfg.d_ff)
+        layer["ffn"]["wu"]["w"] = mlp.spec(3, 2, cfg.d_ff)
+        layer["ffn"]["wd"]["w"] = mlp.spec(3, 1, cfg.d_ff)
     if cfg.moe is not None:
-        layer["ffn"] = pm.tree_map(lambda s: P(None, *s),
+        layer["ffn"] = pm.tree_map(sharding.stacked_spec,
                                    moe_mod.compute_specs(cfg, mesh, seq))
+    if vocab is not None:
+        vocab_specs(specs, vocab)
     return specs
+
+
+def vocab_specs(specs: dict, vocab) -> None:
+    """Set the compute specs of a family's embedding rows and LM head
+    columns (where it has them) to ``vocab``'s split, in place."""
+    if "embed" in specs:
+        specs["embed"]["table"] = vocab.spec(2, 0)
+    if "head" in specs:
+        specs["head"]["w"] = vocab.spec(2, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -215,11 +239,13 @@ def compute_specs(cfg: ModelConfig, mesh, seq: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    dt = compute_dtype(cfg)
+def embed_tokens(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                 vocab=None):
+    """The input embeddings: a vlm's own, or the tokens' rows (under a
+    ``vocab`` split, ``param.apply_embedding``'s)."""
     if cfg.embedding_inputs:
-        return batch["embeddings"].to(dt)
-    return p["embed"]["table"][batch["tokens"].long()].to(dt)
+        return batch["embeddings"].to(compute_dtype(cfg))
+    return pm.apply_embedding(p, cfg, batch["tokens"], vocab)
 
 
 def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -227,7 +253,7 @@ def forward(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (final hidden states (B,S,d), aux loss summed over layers).
     Each layer runs under ``param.maybe_remat`` (``cfg.remat``)."""
-    h = embed_tokens(p, cfg, batch)
+    h = embed_tokens(p, cfg, batch, _splits(cfg, shd.mesh)[2])
     pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
 
     def body(lp, x):
@@ -259,25 +285,30 @@ def _ce_sum(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
 
 
 def ce_loss(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
-            chunk: int = 0) -> torch.Tensor:
+            chunk: int = 0, vocab=None) -> torch.Tensor:
     """Mean cross-entropy of ``h`` (B,S,d) through the head ``w`` (d,V)
     against ``labels`` (B,S). Where ``chunk`` divides the token count, the
     logits are formed one chunk of tokens at a time, each chunk under a
     checkpoint, so neither pass keeps the (tokens x vocab) array: backward
     forms one chunk's logits again at a time. Otherwise one pass over
-    every token, as the reference's."""
+    every token, as the reference's. Under a ``vocab`` split
+    (``sharding.VocabSplit``) ``w`` is this rank's columns and each chunk
+    is ``vocab.ce_sum``."""
     b, s, d = h.shape
     t = b * s
     hf, lf = h.reshape(t, d), labels.reshape(t)
+    ce_sum = _ce_sum
+    if vocab is not None:
+        hf, ce_sum = vocab.split.enter(hf), vocab.ce_sum
     if chunk and chunk < t and t % chunk == 0:
-        ce = _ce_sum
+        ce = ce_sum
         if torch.is_grad_enabled():
             def ce(hc, wc, lc):
-                return checkpoint(_ce_sum, hc, wc, lc, use_reentrant=False)
+                return checkpoint(ce_sum, hc, wc, lc, use_reentrant=False)
         parts = [ce(hf[i:i + chunk], w, lf[i:i + chunk])
                  for i in range(0, t, chunk)]
         return torch.stack(parts).sum() / t
-    return _ce_sum(hf, w, lf) / t
+    return ce_sum(hf, w, lf) / t
 
 
 def loss_fn(p, cfg: ModelConfig, batch, backend: str = "flash",
@@ -286,7 +317,8 @@ def loss_fn(p, cfg: ModelConfig, batch, backend: str = "flash",
     ``batch["labels"]`` plus ``AUX_COEF`` x the MoE's aux loss."""
     h, aux = forward(p, cfg, batch, backend, shd)
     w = lm_head_weight(p, cfg).to(compute_dtype(cfg))
-    return ce_loss(h, w, batch["labels"], cfg.loss_chunk) + AUX_COEF * aux
+    return ce_loss(h, w, batch["labels"], cfg.loss_chunk,
+                   _splits(cfg, shd.mesh)[2]) + AUX_COEF * aux
 
 
 # ---------------------------------------------------------------------------
@@ -320,11 +352,15 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
             shd: ShardCtx = NO_SHARD) -> Tuple[Dict, torch.Tensor]:
     """Forward over the prompt, returning a filled cache + last logits.
     Under a process mesh (``shd.mesh``) each rank computes its rows with
-    its heads (``_splits``), and its k/v are its heads' cache."""
+    its heads (``_splits``): its k/v are its heads' cache where the heads
+    split evenly, else every kv head (gathered over ``tp``: the cache
+    spec leaves the heads whole there); the logits are its vocab
+    columns."""
+    splits = _splits(cfg, shd.mesh)
     if cfg.mla is not None:
-        return mla_mod.prefill(p, cfg, batch, backend, shd,
-                               _splits(cfg, shd.mesh))
-    h = embed_tokens(p, cfg, batch)
+        return mla_mod.prefill(p, cfg, batch, backend, shd, splits)
+    split_attn, _, vocab = splits
+    h = embed_tokens(p, cfg, batch, vocab)
     b, s, _ = h.shape
     pos = torch.arange(s, dtype=torch.int32, device=h.device)
     dt = compute_dtype(cfg)
@@ -332,11 +368,13 @@ def prefill(p, cfg: ModelConfig, batch, backend: str = "flash",
     for i in range(cfg.n_layers):
         h, _, (k, v) = _layer(shd.layer(pm.layer(p["layers"], i), "layers"),
                               h, pos, cfg, backend, shd)
+        if split_attn is not None and not split_attn.even:
+            k, v = split_attn.gather_kv(k, 1), split_attn.gather_kv(v, 1)
         ks.append(k.to(dt))
         vs.append(v.to(dt))
     cache = {"k": torch.stack(ks), "v": torch.stack(vs),
              "pos": torch.tensor(s, dtype=torch.int32, device=h.device)}
-    return cache, pm.apply_lm_head(p, cfg, h[:, -1])
+    return cache, pm.apply_lm_head(p, cfg, h[:, -1], vocab)
 
 
 def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
@@ -357,16 +395,22 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
     a slice of the sequence (``shd.seq``, every kv head), it writes the
     new row where it holds it (the heads gathered over ``tp``) and attends
     its slice, the partials combined over the split
-    (``attention.decode_seq_split``). A vlm model (embedding inputs)
-    continues from token embeddings ``tokens`` (B, 1, d)."""
+    (``attention.decode_seq_split``). Where the heads do not split evenly
+    (``sharding.HeadSplit.even``) the cache holds every kv head on every
+    rank: each rank attends its own, and writes every head's new row,
+    gathered over ``tp``. The logits are this rank's vocab columns. A vlm
+    model (embedding inputs) continues from token embeddings ``tokens``
+    (B, 1, d)."""
+    splits = _splits(cfg, shd.mesh)
     if cfg.mla is not None:
         return mla_mod.decode_step(p, cfg, cache, tokens, backend,
-                                   sharded_long, shd, _splits(cfg, shd.mesh))
+                                   sharded_long, shd, splits)
+    split_attn, split_mlp, vocab = splits
     dt = compute_dtype(cfg)
     if tokens.ndim == 3:
         h = tokens.to(dt)
     else:
-        h = p["embed"]["table"][tokens.long()].to(dt)
+        h = pm.apply_embedding(p, cfg, tokens, vocab)
     b = h.shape[0]
     dev = h.device
     qpos = torch.as_tensor(cache["pos"], device=dev)
@@ -384,19 +428,16 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
         # it writes back what row S - 1 holds
         fits = (qi < s_max)[:, None, None]
         qi = qi.clamp(max=s_max - 1)
-    split_attn, split_mlp = _splits(cfg, shd.mesh)
-    lcfg = cfg if split_attn is None else cfg.with_(
-        n_heads=cfg.n_heads // split_attn.n,
-        n_kv_heads=cfg.n_kv_heads // split_attn.n, d_head=cfg.head_dim)
+    lcfg = cfg if split_attn is None else local_cfg(cfg, split_attn)
     seq = shd.seq
+    # the cache holds every kv head: a long context's (this rank's slice
+    # of the sequence), or one whose heads do not split evenly
+    every_head = split_attn is not None and (seq is not None
+                                             or not split_attn.even)
+    heads = slice(*split_attn.kv) if every_head else slice(None)
     if seq is not None:
-        # a long-context cache on a process mesh: every kv head, this
-        # rank's slice of the sequence
         kpos = torch.arange(seq.start, seq.start + seq.size,
                             dtype=torch.int32, device=dev)
-        heads = slice(None) if split_attn is None else slice(
-            split_attn.index * lcfg.n_kv_heads,
-            (split_attn.index + 1) * lcfg.n_kv_heads)
     for i in range(cfg.n_layers):
         lp = shd.layer(pm.layer(p["layers"], i), "layers")
         kc, vc = cache["k"][i], cache["v"][i]          # (B,Hkv,S,dh) views
@@ -405,10 +446,10 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
             hn = split_attn.enter(hn)
         q, k, v = _project_qkv(lp["attn"], hn, lcfg, rope_pos)
         q1 = q[:, :, 0]                                 # (B,Hq,dh)
+        k1, v1 = k[:, :, 0], v[:, :, 0]
+        if every_head:
+            k1, v1 = split_attn.gather_kv(k1, 1), split_attn.gather_kv(v1, 1)
         if seq is not None:
-            k1, v1 = k[:, :, 0], v[:, :, 0]
-            if split_attn is not None:
-                k1, v1 = split_attn.gather(k1, 1), split_attn.gather(v1, 1)
             attn.write_position(kc, k1, qi, seq)
             attn.write_position(vc, v1, qi, seq)
             ckv_cfg = None
@@ -418,21 +459,25 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
                                      "a process mesh decodes ClusterKV "
                                      "with sharded_long=True")
                 ckv_cfg = cfg.clusterkv
-            o = attn.decode_seq_split(q1, kc[:, heads], vc[:, heads], kpos,
-                                      qpos, seq, window=cfg.swa_window,
-                                      cfg=ckv_cfg)
+            o = q1.new_zeros(q1.shape[:2] + vc.shape[3:]) \
+                if q1.shape[1] == 0 else attn.decode_seq_split(
+                    q1, kc[:, heads], vc[:, heads], kpos, qpos, seq,
+                    window=cfg.swa_window, cfg=ckv_cfg)
         else:
             if per_slot:
-                kc[bi, :, qi] = torch.where(fits, k[:, :, 0].to(kc.dtype),
+                kc[bi, :, qi] = torch.where(fits, k1.to(kc.dtype),
                                             kc[bi, :, qi])
-                vc[bi, :, qi] = torch.where(fits, v[:, :, 0].to(vc.dtype),
+                vc[bi, :, qi] = torch.where(fits, v1.to(vc.dtype),
                                             vc[bi, :, qi])
             else:
-                attn.write_position(kc, k[:, :, 0], qi)
-                attn.write_position(vc, v[:, :, 0], qi)
-            o = _decode_attend(q1, kc, vc, kpos, qpos, mask_qpos, per_slot,
-                               cfg, backend, sharded_long, shd)
-        a = pm.apply_linear(lp["attn"]["wo"], o.reshape(b, 1, -1))
+                attn.write_position(kc, k1, qi)
+                attn.write_position(vc, v1, qi)
+            o = q1.new_zeros(q1.shape[:2] + vc.shape[3:]) \
+                if q1.shape[1] == 0 else _decode_attend(
+                    q1, kc[:, heads], vc[:, heads], kpos, qpos, mask_qpos,
+                    per_slot, cfg, backend, sharded_long, shd)
+        a = pm.apply_linear(lp["attn"]["wo"],
+                            o.reshape(b, 1, o.shape[1] * o.shape[2]))
         h = h + (a if split_attn is None else split_attn.sum(a))
         hn = pm.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps)
         if split_mlp is not None:
@@ -440,7 +485,7 @@ def decode_step(p, cfg: ModelConfig, cache, tokens, backend: str = "flash",
                                                   split_mlp.enter(hn)))
         else:
             h = h + _ffn(lp["ffn"], hn, cfg, shd)[0]
-    logits = pm.apply_lm_head(p, cfg, h[:, 0])
+    logits = pm.apply_lm_head(p, cfg, h[:, 0], vocab)
     new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"] + 1}
     return logits, new_cache
 

@@ -27,9 +27,13 @@ batch. Each rank then
     ``redistribute`` whose backward sums the gradient over them and
     scatters it back to the parameter's placement), keeping split over
     the tensor axis what the family computes split
-    (``model_api.compute_specs``: attention heads, MLP columns and their
-    output rows, Megatron-style, and the MoE experts as the FFN takes
-    them). The stacked layer trees (``param.STACKS``) are gathered one
+    (``model_api.compute_specs``: attention heads head-aligned, MLP
+    columns and their output rows, Megatron-style, the MoE experts as the
+    FFN takes them, the mamba layers' inner dim, the embedding's and LM
+    head's vocab). A ``sharding.Part`` spec (a block that is not DTensor's
+    even chunk: an uneven or head-aligned split) is gathered whole over
+    the tensor axis and cut to the rank's block, its gradient summed over
+    that axis. The stacked layer trees (``param.STACKS``) are gathered one
     layer at a time, inside the layer's remat (``ShardCtx.layer``), so a
     rank holds its shards of every layer and one layer gathered (two while
     backward recomputes one; every layer's, with ``cfg.remat`` off, as
@@ -55,10 +59,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model_api
 from repro_torch.models import param as pm
 from repro_torch.models.param import as_tree, tree_leaves, tree_map
-from repro_torch.models.sharding import (NO_SHARD, NamedSharding, P,
+from repro_torch.models.sharding import (NO_SHARD, NamedSharding, P, Part,
                                          SeqSplit, ShardCtx, dp_axes,
-                                         fit_spec, placements, resolve_spec,
-                                         shardings_for, spec_tree, tp_axis)
+                                         fit_spec, inner_spec, placements,
+                                         resolve_spec, shardings_for,
+                                         spec_tree, vocab_split)
 from repro_torch.optim.optimizers import make_optimizer
 
 
@@ -146,8 +151,9 @@ def _gather(mesh):
     """``gather(local, held, spec)``: ``local``, this rank's shard of a
     tensor split as ``held`` (placements), as the local tensor a step
     computes with: gathered over the batch axes, split over the tensor
-    axis as ``spec`` says. Its backward sums the gradient over the batch
-    axes and gives this rank's shard of it."""
+    axis as ``spec`` says (a ``Part``: whole over it, then this rank's
+    blocks). Its backward sums the gradient over the batch axes (and a
+    ``Part``'s over its axis) and gives this rank's shard of it."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     dm = mesh.device_mesh
@@ -156,10 +162,12 @@ def _gather(mesh):
 
     def gather(local, held, spec):
         target = placements(NamedSharding(mesh, spec))
-        grad = [Partial() if (a in dpx and isinstance(t, Replicate)) else t
-                for a, t in zip(names, target)]
-        return DTensor.from_local(local, dm, held, run_check=False) \
+        summed = dpx + ((spec.axis,) if isinstance(spec, Part) else ())
+        grad = [Partial() if (a in summed and isinstance(t, Replicate))
+                else t for a, t in zip(names, target)]
+        out = DTensor.from_local(local, dm, held, run_check=False) \
             .redistribute(dm, target).to_local(grad_placements=grad)
+        return spec.take(out) if isinstance(spec, Part) else out
     return gather
 
 
@@ -171,7 +179,7 @@ def _one_layer(p, spec):
         raise ValueError("the layer axis of a stacked parameter is not "
                          "split on a mesh (models.param.stacked)")
     return (tuple(Shard(t.dim - 1) if isinstance(t, Shard) else t
-                  for t in p.placements), P(*spec[1:]))
+                  for t in p.placements), inner_spec(spec))
 
 
 def _local_tree(cfg: ModelConfig, mesh, params, seq: int, live=None):
@@ -356,28 +364,14 @@ def _fitted(mesh, shape, spec) -> tuple:
 
 
 def _cache_placements(cfg: ModelConfig, mesh, shapes, long_context: bool):
-    """(target, computed) placements of each cache leaf: ``cache_specs``
-    fitted to the global ``shapes``, and how the family computes it on a
-    process mesh: the same, except that the recurrent states (the ssm
-    family's, the hybrid's ``"ssm"``) are computed whole over the tensor
-    axis (ROADMAP C44)."""
-    from torch.distributed.tensor import Replicate, Shard
-
+    """The placements of each cache leaf: ``cache_specs`` fitted to the
+    global ``shapes``. The families compute each leaf so on a process
+    mesh: a dim split over ``tp`` where the fitted spec keeps it (the
+    split is then even: heads, channels), whole where it drops it (every
+    kv head gathered over ``tp``)."""
     specs = model_api.module_for(cfg).cache_specs(cfg, long_context)
-    target = pm.tree_map(lambda sh, sp: _fitted(mesh, sh.shape, sp), shapes,
-                         specs)
-    tp = tp_axis(mesh)
-    j = mesh.axis_names.index(tp) if tp is not None else None
-
-    def whole_over_tp(pl):
-        return tuple(Replicate() if (i == j and isinstance(t, Shard)) else t
-                     for i, t in enumerate(pl))
-    computed = dict(target)
-    if cfg.family == "ssm":
-        computed = {k: whole_over_tp(v) for k, v in target.items()}
-    elif cfg.family == "hybrid":
-        computed["ssm"] = pm.tree_map(whole_over_tp, target["ssm"])
-    return target, computed
+    return pm.tree_map(lambda sh, sp: _fitted(mesh, sh.shape, sp), shapes,
+                       specs)
 
 
 def _seq_split(mesh, cache, target):
@@ -414,16 +408,20 @@ def _mesh_serving(cfg: ModelConfig, mesh, backend: str, kind: str,
     divide is computed whole on every rank). The cache is a tree of
     DTensors at ``cache_specs`` fitted to its shapes (long-context specs
     when the decode is ``sharded_long``): the prefill returns each rank's
-    part of it, and the decode gathers over the tensor axis only the
-    recurrent states the family computes whole, then returns every leaf
-    at its placement again. When the k/v sequence is split (a long
-    context), each rank holds its slice and the attention combines the
-    slices' partial softmaxes over that axis (``ShardCtx.seq``). The
-    logits come back as a DTensor at ``P("dp", "tp")``."""
+    part of it, the decode takes and returns each rank's part, and no
+    leaf is gathered (``_cache_placements``). When the k/v sequence is
+    split (a long context), each rank holds its slice and the attention
+    combines the slices' partial softmaxes over that axis
+    (``ShardCtx.seq``). Each rank computes its vocab columns of the
+    logits (``sharding.VocabSplit``); they come back as a DTensor at
+    ``P("dp", "tp")`` (gathered whole first where ``tp`` does not divide
+    the vocab)."""
     from torch.distributed.tensor import DTensor
 
     mod = model_api.module_for(cfg)
     dm = mesh.device_mesh
+    vocab = vocab_split(mesh, cfg.vocab)
+    split_cols = vocab is not None and cfg.vocab % vocab.split.n == 0
 
     def rows_of(batch_value):
         rows = batch_value.shape[0]
@@ -434,26 +432,28 @@ def _mesh_serving(cfg: ModelConfig, mesh, backend: str, kind: str,
         return rows, slice(blk * (rows // n), (blk + 1) * (rows // n))
 
     def out_logits(logits, rows):
-        whole = (rows, logits.shape[-1])
-        pl = _fitted(mesh, whole, P("dp", None))
+        if vocab is not None and not split_cols:
+            logits = vocab.gather(logits)
+        whole = (rows, cfg.vocab)
+        pl = _fitted(mesh, whole, P("dp", "tp" if split_cols else None))
         return DTensor.from_local(logits, dm, pl, run_check=False,
                                   shape=whole, stride=(whole[1], 1)
                                   ).redistribute(
             dm, _fitted(mesh, whole, P("dp", "tp")))
 
-    def out_cache(cache, target, computed):
-        def one(x, tgt, cmp):
+    def out_cache(cache, target):
+        def one(x, tgt):
             shape = list(x.shape)
-            for a, t in zip(mesh.axis_names, cmp):
+            for a, t in zip(mesh.axis_names, tgt):
                 if t.is_shard():
                     shape[t.dim] *= mesh.shape[a]
             stride = [1] * len(shape)
             for i in range(len(shape) - 2, -1, -1):
                 stride[i] = stride[i + 1] * shape[i + 1]
             return DTensor.from_local(
-                x, dm, cmp, run_check=False, shape=torch.Size(shape),
-                stride=tuple(stride)).redistribute(dm, tgt)
-        return pm.tree_map(one, cache, target, computed)
+                x, dm, tgt, run_check=False, shape=torch.Size(shape),
+                stride=tuple(stride))
+        return pm.tree_map(one, cache, target)
 
     if kind == "prefill":
         def step(params, batch):
@@ -468,16 +468,15 @@ def _mesh_serving(cfg: ModelConfig, mesh, backend: str, kind: str,
             # the placements are fitted to init_cache's shapes (the same
             # batch and heads; the encoder's cross caches may be longer)
             shapes = mod.init_cache(cfg, rows, seq, device="meta")
-            target, computed = _cache_placements(cfg, mesh, shapes, False)
-            return (out_cache(cache, target, computed),
-                    out_logits(logits, rows))
+            target = _cache_placements(cfg, mesh, shapes, False)
+            return out_cache(cache, target), out_logits(logits, rows)
         return step
 
     def step(params, cache, batch):
         tokens = batch["tokens"] if isinstance(batch, dict) else batch
         rows, mine = rows_of(tokens)
         local, gather = _local_tree(cfg, mesh, params, tokens.shape[1])
-        target, computed = _cache_placements(cfg, mesh, cache, sharded_long)
+        target = _cache_placements(cfg, mesh, cache, sharded_long)
         for x, tgt in zip(tree_leaves(cache), tree_leaves(target)):
             if tuple(x.placements) != tuple(tgt):
                 raise ValueError(
@@ -485,12 +484,11 @@ def _mesh_serving(cfg: ModelConfig, mesh, backend: str, kind: str,
                     f"takes it at {tgt} (cache_specs(long_context="
                     f"{sharded_long}))")
         seq = _seq_split(mesh, cache, target)
-        lc = pm.tree_map(lambda x, cmp: x.redistribute(dm, cmp).to_local(),
-                         cache, computed)
+        lc = pm.tree_map(lambda x: x.to_local(), cache)
         with torch.no_grad():
             logits, lc = mod.decode_step(local, cfg, lc, tokens[mine],
                                          backend, sharded_long,
                                          ShardCtx(mesh, gather=gather,
                                                   seq=seq))
-        return out_logits(logits, rows), out_cache(lc, target, computed)
+        return out_logits(logits, rows), out_cache(lc, target)
     return step

@@ -435,31 +435,37 @@ def _count_record(rec) -> dict:
     return out
 
 
-def dryrun_cell(rank, world, out, arch, shape, mesh, reduced, sizes,
-                microbatch=1, backend=None):
-    """One dry-run cell traced on a fake world of shape ``mesh`` in this
-    process (no process group before it): its counts."""
+def _cell_config(arch, reduced, over):
     from repro_torch.configs import reduced_config
+
+    if not reduced:
+        return None
+    return reduced_config(arch).with_(**(over or {}))
+
+
+def dryrun_cell(rank, world, out, arch, shape, mesh, reduced, sizes,
+                microbatch=1, backend=None, over=None):
+    """One dry-run cell traced on a fake world of shape ``mesh`` in this
+    process (no process group before it): its counts. ``over`` replaces
+    fields of the reduced config."""
     from repro_torch.launch import dryrun
 
     rec = dryrun.run_cell(arch, shape, False, backend, save=False,
                           microbatch=microbatch, mesh=tuple(mesh),
-                          device="cpu",
-                          cfg=reduced_config(arch) if reduced else None,
+                          device="cpu", cfg=_cell_config(arch, reduced, over),
                           sizes=sizes)
     return _count_record(rec)
 
 
 def dryrun_real(rank, world, out, arch, shape, reduced, sizes,
-                microbatch=1):
-    """The same cell's step run for real on a (2, 2) gloo mesh under the
-    dry run's counters, its arguments drawn from a seed: each rank's
-    counts."""
+                microbatch=1, mesh=(2, 2), over=None):
+    """The same cell's step run for real on a ``mesh`` ("data", "model")
+    gloo mesh under the dry run's counters, its arguments drawn from a
+    seed: each rank's counts."""
     import torch
 
-    from repro_torch.configs import reduced_config
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.mesh import init_process_mesh
 
     gen = torch.Generator().manual_seed(0)
 
@@ -468,10 +474,136 @@ def dryrun_real(rank, world, out, arch, shape, reduced, sizes,
             return (torch.rand(shape_, generator=gen) * 0.02).to(dtype)
         return torch.randint(0, 1 << 20, shape_, generator=gen).to(dtype)
 
-    mesh = make_test_mesh(2, 2, device="cpu")
+    pmesh = init_process_mesh(tuple(mesh), ("data", "model"), "cpu")
     rec = dryrun.run_cell(arch, shape, False, save=False,
-                          microbatch=microbatch, mesh=mesh, device="cpu",
-                          cfg=reduced_config(arch) if reduced else None,
+                          microbatch=microbatch, mesh=pmesh, device="cpu",
+                          cfg=_cell_config(arch, reduced, over),
                           sizes=sizes, make=make)
     assert rec["world"] == "process group"
     return _count_record(rec)
+
+
+def split_config(arch: str, over: dict):
+    """The reduced config of ``arch`` in float32 with the fields ``over``
+    replaced: the same on both packages' sides of
+    ``tests/test_torch_mesh_split.py``."""
+    from repro_torch.configs import reduced_config
+
+    return reduced_config(arch).with_(dtype="float32", **over)
+
+
+def split_cases(rank, world, out, ref_dir, cases, shape):
+    """Per case (name, arch, config overrides) on a ``shape`` ("data",
+    "model") mesh: one AdamW train step from the reference's parameters
+    and state (``<name>_init.npz``) on ``token_batch``'s 4 x 32 tokens,
+    then ``make_prefill_step`` on ``<name>_prefill.npz`` and two
+    ``make_decode_step`` steps from ``<name>_cache.npz`` on
+    ``<name>_decode.npz``'s tokens. Rank 0 returns the metrics, the
+    updated parameters, the logits and the caches whole."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.data import pipeline
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.models import model_api
+    from repro_torch.models.sharding import place, shardings_for
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import trainer
+
+    mesh = init_process_mesh(tuple(shape), ("data", "model"), "cpu")
+    res = {}
+    for name, arch, over in cases:
+        cfg = split_config(arch, over)
+        init = dict(np.load(os.path.join(ref_dir, f"{name}_init.npz")))
+        params = convert.params_from_reference(nest(init, "p0"), cfg, "cpu")
+        opt = make_optimizer("adamw", lr=1e-3, warmup=1, total=10)
+        state = convert.opt_state_from_reference(nest(init, "s0"), params,
+                                                 opt)
+        batch = {k: torch.from_numpy(v) for k, v in
+                 pipeline.token_batch(cfg, 0, 4, 32).items()}
+        mp, ms = trainer.place_train_state(cfg, mesh, opt, params, state)
+        step, _ = trainer.make_train_step(cfg, mesh, "flash", optimizer=opt)
+        p1, _, m = step(mp, ms, batch)
+        flat = flatten(p1, f"{name}/p1", {})
+        flat[f"{name}/loss"] = np.float64(m["loss"])
+        flat[f"{name}/grad_norm"] = np.float64(m["grad_norm"])
+        # serving from the initial parameters
+        params = place(convert.params_from_reference(nest(init, "p0"), cfg,
+                                                     "cpu"),
+                       shardings_for(params, model_api.param_specs(cfg),
+                                     mesh))
+        pre = {k: torch.from_numpy(v) for k, v in
+               np.load(os.path.join(ref_dir, f"{name}_prefill.npz")).items()}
+        cache, logits = trainer.make_prefill_step(cfg, mesh, "flash")(
+            params, pre)
+        flatten(cache, f"{name}/prefill_cache", flat)
+        flat[f"{name}/prefill_logits"] = logits.full_tensor().numpy()
+        c0 = nest({k: torch.from_numpy(v) for k, v in np.load(os.path.join(
+            ref_dir, f"{name}_cache.npz")).items()}, "c")
+        mod = model_api.module_for(cfg)
+        cache = place(c0, shardings_for(c0, mod.cache_specs(cfg), mesh))
+        toks = np.load(os.path.join(ref_dir, f"{name}_decode.npz"))["tokens"]
+        dstep = trainer.make_decode_step(cfg, mesh, "flash")
+        for i in range(toks.shape[0]):
+            logits, cache = dstep(params, cache,
+                                  {"tokens": torch.from_numpy(toks[i])})
+            flat[f"{name}/decode_logits{i}"] = logits.full_tensor().numpy()
+        flatten(cache, f"{name}/decode_cache", flat)
+        if rank == 0:
+            res.update(flat)
+    return res if rank == 0 else None
+
+
+def split_specs(rank, world, out, shape, reduced):
+    """Which leaves ``model_api.compute_specs`` splits over the tensor
+    axis, for every architecture's config (reduced or full), on a fake
+    world of ``shape`` over ("data", "model") formed here: ``<arch>/<leaf
+    path>`` -> 1 where its compute spec names "model" (or is a
+    ``sharding.Part`` of it), else 0."""
+    from repro_torch.configs import ARCH_IDS, get_config, reduced_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model_api
+    from repro_torch.models.sharding import Part
+
+    res = {}
+    with dryrun.fake_world(tuple(shape), ("data", "model"), "cpu") as mesh:
+        for arch in ARCH_IDS:
+            cfg = reduced_config(arch) if reduced else get_config(arch)
+
+            def walk(t, path):
+                if isinstance(t, dict):
+                    for k, v in t.items():
+                        walk(v, f"{path}/{k}")
+                    return
+                split = isinstance(t, Part) and t.axis == "model" or any(
+                    e == "model" or (isinstance(e, tuple) and "model" in e)
+                    for e in t)
+                res[path] = np.int64(split)
+            walk(model_api.compute_specs(cfg, mesh, 4096), arch)
+    return res
+
+
+def dryrun_propagation(rank, world, out):
+    """``dryrun.trace_step`` of one DTensor op on a fake (1, 4) world under
+    ``FakeTensorMode``, as the dry run traces a step: a float32 (4, 512,
+    512) tensor split over "model" scaled by a plain scalar and cast to
+    bf16. Its peak, the shard's and the whole tensor's bytes."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.launch import dryrun
+
+    shape, local = (4, 512, 512), (4, 128, 512)
+    with dryrun.fake_world((1, 4), ("data", "model"), "cpu") as mesh:
+        with FakeTensorMode():
+            t = DTensor.from_local(
+                torch.empty(local), mesh.device_mesh, (Shard(1), Shard(1)),
+                run_check=False, shape=shape,
+                stride=(shape[1] * shape[2], shape[2], 1))
+            s = torch.ones(())
+            got = dryrun.trace_step(
+                lambda x, y: (x.float() * y).to(torch.bfloat16), (t, s))
+    return {"peak_bytes": np.int64(got["peak_bytes"]),
+            "local_bytes": np.int64(4 * np.prod(local)),
+            "whole_bytes": np.int64(4 * np.prod(shape))}
