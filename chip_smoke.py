@@ -13,14 +13,15 @@ seed) served with ClusterKV attention, six decoder-only models of the
 zoo at full width (phase 16), and the SSM LM, the hybrid and the
 encoder-decoder of the zoo at full width and depth through the serving
 launcher (phase 17), and Qwen2-0.5B trained at full width and depth on
-the card, then served from its trained weights (phase 18), then trained
+the card, then served from its trained weights, then trained through
+ClusterKV (B6's forward and its hand-written backward, phase 18), then trained
 on a process mesh of the one card (phase 19), then dry-run over a traced
 world of 256 ranks (phase 20). Phases, each of which fails
 the run when it fails:
 
 1. environment: versions, the card, the kernel build with its wall time,
    and the registers and spills ``-Xptxas -v`` reports for every B6
-   instantiation (bf16 and float32);
+   instantiation (bf16 and float32), its backward's (dQ and dK/dV) too;
 2. every kernel against its plain PyTorch version on the card, on the
    paper's §4.1 micro matrices (16 dense tiles per row block, banded and
    scattered; B1/B2 also under padded masks — kept counts spread over
@@ -36,7 +37,11 @@ the run when it fails:
    mode, plan mode with holes with and without the self column, g = 1 and
    7, float32 and bf16; at head dim 128 with g = 7 and 12; the same tiles
    selected as the plain path; and one NaN key tile, selected first as
-   ``topk_stable`` ranks it);
+   ``topk_stable`` ranks it); B6's backward under autograd (the forward's
+   statistics, the key-tile lists, dQ and dK/dV) against the plain
+   backward at every shape the forward supports, both dtypes, causal and
+   not, and the key-tile lists bit-equal to theirs with ids outside the
+   cache;
 3. the main path at full size — per-stage build times, ``matvec`` through
    the ``cuda`` backend for (n,) and (n, 8) charges against the ``bsr``
    and ``csr`` reference paths, the single-plan kernel entry on the plan's
@@ -244,8 +249,22 @@ device time without the host's, which is the larger part of a call.
    falcon-mamba-7b (2 layers), zamba2-1.2b (one group of 6),
    whisper-medium (2 + 2 layers), granite-moe-3b-a800m (2 layers, aux
    loss), minicpm3-4b (2 layers, MLA) and mistral-large-123b (1 layer, bf16
-   masters, Adafactor) at full width, finite, ms printed; and a ClusterKV
-   train step on the card raising C40's error at B6;
+   masters, Adafactor) at full width, finite, ms printed. Then ClusterKV
+   training: the Qwen2-0.5B run again (same weights, batch, steps,
+   microbatches and remat) with ``--backend clusterkv``, B6's forward
+   twice a layer a microbatch (remat's recompute) and its backward once,
+   step ms, tokens/s and peak beside the flash run's, losses finite and
+   falling; one ClusterKV step of granite-moe-3b-a800m and minicpm3-4b
+   (MLA, B6 at 96 / 64) at full width and 2 layers; a 2-layer full-width
+   Qwen ClusterKV step through the kernels against the same step through
+   B6's plain forward and backward (loss rel 1e-3, grad norm rel 1e-2)
+   and through B6's forward kernel and plain backward (each attention
+   projection's gradient in each layer rel 2e-2), with four faults
+   planted in B6's backward that must break that limit; B6's backward at Qwen's training microbatch and a llava-next-34b and
+   a minicpm3-4b layer, held against its plain version and timed beside
+   it, beside ``torch.autograd.grad`` of SDPA with the equivalent boolean
+   mask and its bound; and C40's raise for B1-B5 (B5's wrapper under
+   grad);
 19. training on a process mesh of the one card: an ``nccl`` group of one
    rank in this process (``file://`` rendezvous, ``device_id`` cuda:0),
    torn down at the end, and a (1, 1) ("data", "model") mesh
@@ -264,7 +283,7 @@ device time without the host's, which is the larger part of a call.
    ``pipeline_apply`` at one stage against sequential application, its
    output and its backward's gradients. No exchange between two ranks is
    measured: the machine has one card;
-20. the dry run (``launch.dryrun``) and the roofline: six cells traced
+20. the dry run (``launch.dryrun``) and the roofline: seven cells traced
    at once, each in its own process, over a ``fake`` process group with
    fake CUDA tensors (nothing allocated): phase 19's Qwen2-0.5B step
    (16 x 4096 tokens in 2 microbatches) on a (1, 1) world, whose
@@ -273,7 +292,10 @@ device time without the host's, which is the larger part of a call.
    on the production 16x16 world and on a fake 16x1 world (16 rows a
    rank, no tensor split); Qwen2-0.5B's ``prefill_32k`` through ClusterKV
    on the 16x16 world, which must trace B6 (a rank's heads) as the opaque
-   op ``repro_torch::block_attention``. Each 16x16 ``train_4k`` cell's
+   op ``repro_torch::block_attention``; Qwen2-0.5B's ``train_4k`` through
+   ClusterKV on 16x16, which must trace B6's forward and backward as the
+   opaque ops ``block_attention_with_stats`` and
+   ``block_attention_backward``. Each 16x16 ``train_4k`` cell's
    FLOPs a rank against its 16x1 trace / 16 and against the analytic
    model: Qwen's ratio to the 16x1 trace must be at most 1.3, and
    h2o-danube's predicted peak a rank below the card's memory. The
@@ -284,7 +306,9 @@ device time without the host's, which is the larger part of a call.
 Launch counters are set to 0 just before each path (phases 3-4, 6, 7, 9,
 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20) and read just after it; launches made to
 compare or time a kernel are not counted. Every kernel must have been
-launched by a path: B6 by the prefills and the service's plan prefills,
+launched by a path: B6 by the prefills and the service's plan prefills
+and by ClusterKV training (phase 18), B6's backward and its key-tile
+lists by ClusterKV training,
 B5 by the ticks of both engines (plan mode) and the scalar steps (plain
 mode; phase 18 serves its trained weights through both), B1
 once per 48-member ``PlanBatch.matvec``, by every streamed plan's and
@@ -1188,6 +1212,65 @@ def check_attention_kernels(args, dev, rehearse, cases):
                 f"key tile: selected first, selected tiles equal, "
                 f"{int(nan.any(-1).sum())} NaN rows as in the plain "
                 f"version, err elsewhere {err:.2e}")
+
+
+def check_b6_backward(args, dev, rehearse, cases):
+    """Phase 2, B6's backward: ``ops.block_attention`` under autograd (B6's
+    forward with its statistics, then the key-tile lists, dQ and dK/dV
+    kernels) against the plain backward at every shape the forward
+    supports, both dtypes, causal and not (GQA g = 3, one duplicate tile
+    id), within ``B6_BWD_REL_TOL`` x scale (+ one bf16 spacing); the lists
+    bit-equal to their plain version with ids outside the cache."""
+    from repro_torch.kernels import block_attention as k_ba
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 23)
+    for dtype, shapes in ((torch.float32, k_ba.SUPPORTED_F32),
+                          (torch.bfloat16, k_ba.SUPPORTED)):
+        ulps = BF16_ULPS if dtype == torch.bfloat16 else 0
+        for bq, dh, dv in sorted(shapes):
+            for causal in (True, False):
+                q, k, _, kpos, qpos, idx = attention_inputs(
+                    gen, 1, 6, 2, 4 * bq, dh, bq, 3, dtype, dev)
+                v = torch.randn((1, 2, 4 * bq, dv), generator=gen,
+                                device=dev).to(dtype)
+                idx[0, 1, 2, 1] = idx[0, 1, 2, 0]
+                live = [t.clone().requires_grad_() for t in (q, k, v)]
+                out = ops.block_attention(*live, kpos, qpos, idx, bq=bq,
+                                          bk=bq, causal=causal)
+                dout = torch.randn(tuple(out.shape), generator=gen,
+                                   device=dev).to(dtype)
+                got = torch.autograd.grad(out, live, dout)
+                want = k_ba.block_attention_backward_plain(
+                    q, k, v, kpos, qpos, idx, out.detach(), None, dout,
+                    bq=bq, bk=bq, causal=causal)
+                errs = [check_close(
+                    f"B6 backward {dtype} bq={bq} dh={dh} dv={dv} "
+                    f"causal={causal} {name}", g_.float(), w.float(),
+                    rel_tol=B6_BWD_REL_TOL, bf16_ulps=ulps)[0]
+                    for name, g_, w in zip(("dq", "dk", "dv"), got, want)]
+                cases.append({"kernel": "block_attention_backward",
+                              "dtype": str(dtype), "S": 4 * bq, "g": 3,
+                              "dh": dh, "dv": dv, "bq": bq, "n_sel": 3,
+                              "causal": causal, "max_abs_err": max(errs),
+                              "errs": errs,
+                              "tolerance": f"{B6_BWD_REL_TOL:g} x scale"
+                              + (f" + {ulps} bf16 spacing" if ulps else "")})
+        worst = max(c["max_abs_err"] for c in cases
+                    if c["kernel"] == "block_attention_backward"
+                    and c["dtype"] == str(dtype))
+        say(f"  B6 backward {str(dtype):14s} at {sorted(shapes)}, causal "
+            f"and not: largest dq/dk/dv err {worst:.2e} (tolerance "
+            f"{B6_BWD_REL_TOL:g} x scale"
+            + (f" + {ulps} bf16 spacing)" if ulps else ")"))
+    idx = torch.randint(-1, 9, (2, 3, 6, 4), generator=gen, device=dev,
+                        dtype=torch.int32)
+    got, want = k_ba.key_tile_lists(idx, 8), k_ba.key_tile_lists_plain(idx, 8)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("the key-tile lists differ from their plain "
+                             "version")
+    say("  key-tile lists (2 x 3 kv heads, 6 x 4 ids in [-1, 8], 8 tiles): "
+        "bit-equal to their plain version")
 
 
 def time_attention_kernels(args, dev, timer, rehearse, launches):
@@ -4331,56 +4414,609 @@ def train_families(args, dev, sync, rehearse, card):
     return out
 
 
-def clusterkv_train_raises(args, dev, rehearse):
-    """C40 on the card: a train step through ClusterKV reaches B6 under
-    grad, and its wrapper raises instead of dropping the gradient."""
-    from repro_torch.configs import (ClusterKVConfig, get_config,
-                                     reduced_config)
-    from repro_torch.data import pipeline
-    from repro_torch.models import model_api
-    from repro_torch.train import trainer
+def c40_still_raises(args, dev, rehearse):
+    """C40 on the card for B1-B5: a kernel without a backward raises under
+    grad where it would launch (B5's wrapper, one decode step's shape);
+    B6 differentiates (the ClusterKV runs of this phase)."""
+    from repro_torch.kernels import decode_attend as k_da
+    from repro_torch.kernels import ops
 
-    cfg = (reduced_config("qwen2-0.5b").with_(clusterkv=ClusterKVConfig(
-        enabled=True, block_q=32, block_k=32)) if rehearse
-           else get_config("qwen2-0.5b").with_(n_layers=2))
-    params = model_api.init(cfg, torch.Generator(device=dev).manual_seed(
-        args.seed), device=dev)
-    step, opt = trainer.make_train_step(cfg, None, "clusterkv")
-    batch = pipeline.to_device(pipeline.token_batch(cfg, 0, 1, 256), dev)
+    if rehearse:
+        say("  C40: B1-B5 raise under grad on the card only (the CPU takes "
+            "their plain versions)")
+        return None
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 183)
+    q, k, v, pos, cent = decode_inputs(gen, 1, 2, 7, 1024, 64, 128,
+                                       torch.bfloat16, dev, holes=0.0)
+    qp = torch.tensor([1023], dtype=torch.int32, device=dev)
     try:
-        step(params, opt.init(params), batch)
+        with uncounted(k_da.decode_attend_fused):
+            ops.decode_attend_fused(q.requires_grad_(), k, v, pos, cent, qp,
+                                    n_sel=4, bk=128)
     except NotImplementedError as e:
         if "C40" not in str(e):
             raise
-        say(f"  backend clusterkv under grad: NotImplementedError: {e}")
+        say(f"  C40 still holds for B1-B5: {str(e)[:96]}...")
         return str(e)
-    if rehearse:
-        # on the CPU the plain version differentiates, so the step runs
-        say("  backend clusterkv under grad on the CPU: the plain version "
-            "trains (the card raises)")
-        return None
-    raise AssertionError("a ClusterKV train step on the card did not raise "
+    raise AssertionError("B5's wrapper under grad on the card did not raise "
                          "C40's error")
 
 
-def phase_train(args, dev, sync, rehearse, reset_counts, collect_counts,
-                card: str):
+# the ClusterKV step with B6's kernels against the same step with B6's
+# plain forward and backward on the card (2 layers of Qwen2-0.5B at full
+# width, bf16 compute): the kernel and the plain version round their
+# bf16 outputs one bf16 spacing (2^-8) apart at most, which a bf16 model
+# carries into the loss as an average over the tokens and into the
+# gradient norm through two layers' bf16 products
+CKV_PLAIN_LOSS_RTOL, CKV_PLAIN_GNORM_RTOL = 1e-3, 1e-2
+# ... and each attention projection's gradient in each layer (wq, wk, wv
+# with their biases, wo), ||kernel - yardstick|| / ||yardstick||, where
+# the yardstick step runs B6's forward kernel and its plain backward: the
+# same forward, so every tile selection is the same and only the
+# backward differs. The limit sits between that step's reading and those
+# of the kernel step with a fault planted in B6's backward (CKV_FAULTS),
+# each of which it must catch: on an H100 the sound step reads 5.82e-3 at
+# most (wk's bias in layer 0; its gradient nearly cancels, as dK sums to 0
+# over each row's keys before RoPE), dk 1/16 too large 6.39e-2, near their
+# geometric mean. Against the fully plain step the leaves read up to 0.33:
+# layer 0's output rounds another way there and layer 1 selects other tiles
+CKV_LEAF_RTOL = 2e-2
+CKV_LEAVES = ("wq/w", "wq/b", "wk/w", "wk/b", "wv/w", "wv/b", "wo/w")
+# faults planted in the (dq, dk, dv) that B6's kernels hand autograd: one
+# gradient zeroed, and dk 1/16 too large (a wrong scale)
+CKV_FAULTS = (("dq zeroed", lambda dq, dk, dv: (dq * 0, dk, dv)),
+              ("dk zeroed", lambda dq, dk, dv: (dq, dk * 0, dv)),
+              ("dv zeroed", lambda dq, dk, dv: (dq, dk, dv * 0)),
+              ("dk x 17/16", lambda dq, dk, dv: (dq, dk * 1.0625, dv)))
+# B6's backward against its plain version: float32 sums in another order;
+# dS = p o (dP - D) subtracts two sums of dv products whose rounding does
+# not shrink with dS (tests/test_torch_cuda.py, B6_BWD_REL), plus one bf16
+# spacing of each element
+B6_BWD_REL_TOL = 1e-4
+# the layer shapes B6's backward is timed at: Qwen2-0.5B's training
+# microbatch (8 x 4096 tokens), one llava-next-34b and one minicpm3-4b
+# prefill layer (as phase 16's forward); 16 of 32 tiles of 128
+B6_BWD_SHAPES = (("qwen2-0.5b", 8, 14, 2, 64, 64),
+                 ("llava-next-34b", 1, 56, 8, 128, 128),
+                 ("minicpm3-4b", 1, 40, 40, 96, 64))
+# one ClusterKV step of these at full width and cut depth (phase 18's
+# families cut, FAMILY_BATCH x FAMILY_SEQ tokens)
+CKV_FAMILIES = ("granite-moe-3b-a800m", "minicpm3-4b")
+
+
+def train_qwen_clusterkv(args, dev, sync, rehearse, reset_counts,
+                         collect_counts, card, flash: dict):
+    """Qwen2-0.5B trained through ClusterKV at full width and depth: the
+    flash run's batch, steps, microbatches, remat and schedule with
+    ``--backend clusterkv``. B6's forward runs twice a layer a microbatch
+    (the first pass and remat's recompute), its backward (key-tile
+    lists, dQ, dK/dV) once; step ms, tokens/s and peak beside the flash
+    run's."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.models import model_api
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import trainer
+
+    if rehearse:
+        cfg = qwen_config(True).with_(remat=True, loss_chunk=64)
+        b, s = 4, 64
+    else:
+        cfg = get_config("qwen2-0.5b")
+        b, s = TRAIN_BATCH, TRAIN_SEQ
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = model_api.init(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed), device=dev)
+    opt = make_optimizer(cfg.optimizer, warmup=max(TRAIN_STEPS // 20, 1),
+                         total=TRAIN_STEPS)
+    step, _ = trainer.make_train_step(cfg, None, "clusterkv",
+                                      microbatch=TRAIN_MICRO, optimizer=opt)
+    state = opt.init(params)
+    batch = pipeline.to_device(pipeline.token_batch(cfg, 0, b, s, args.seed),
+                               dev)
+    ckv = cfg.clusterkv
+    nkb = s // ckv.block_k
+    say(f" -- {cfg.name} through ClusterKV (tiles {ckv.block_q}, "
+        f"{min(ckv.blocks_per_query, nkb)} of {nkb} key tiles a query "
+        f"tile): the flash run's weights, batch {b} x {s} in {TRAIN_MICRO} "
+        f"microbatches, remat {cfg.remat}, {cfg.dtype} compute")
+    sync()
+    reset_counts()
+    losses, norms, ms = timed_steps(step, params, state, batch, TRAIN_STEPS,
+                                    sync)
+    launches = collect_counts(f"{cfg.name} ClusterKV training")
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    for i, (l, g, t) in enumerate(zip(losses, norms, ms)):
+        say(f"  step {i + 1}: loss {l:.6f}  grad norm {g:.4f}  {t:.1f} ms")
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"non-finite ClusterKV training metrics: "
+                             f"{losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{TRAIN_STEPS - 1} ClusterKV steps on one "
+                             f"batch did not lower its loss: {losses}")
+    per = cfg.n_layers * TRAIN_MICRO * TRAIN_STEPS
+    want = {"block_attention": 2 * per, "key_tile_lists": per,
+            "block_attention_backward": per}
+    if not rehearse and any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"ClusterKV training launched {launches}, "
+                             f"expected {want}")
+    step_ms = float(np.median(ms[1:]))
+    tokens = b * s
+    say(f"  ClusterKV step ms (median of steps 2-{TRAIN_STEPS}) "
+        f"{step_ms:.1f}; {tokens / (step_ms * 1e-3):.0f} tokens/s; peak "
+        f"{peak / 2 ** 30:.2f} GiB; the flash run in the same call: "
+        f"{flash['step_ms_median']:.1f} ms, {flash['tokens_per_s']:.0f} "
+        f"tokens/s, {flash['peak_bytes'] / 2 ** 30:.2f} GiB; launches B6 "
+        f"{launches['block_attention']}, lists "
+        f"{launches['key_tile_lists']}, backward "
+        f"{launches['block_attention_backward']}; {card}")
+    out = {"arch": cfg.name, "batch": b, "seq": s, "microbatch": TRAIN_MICRO,
+           "losses": losses, "grad_norms": norms, "step_ms": ms,
+           "step_ms_median": step_ms,
+           "tokens_per_s": tokens / (step_ms * 1e-3), "peak_bytes": peak,
+           "launches_training": launches,
+           "flash_step_ms_median": flash["step_ms_median"],
+           "flash_tokens_per_s": flash["tokens_per_s"],
+           "flash_peak_bytes": flash["peak_bytes"]}
+    del params, state, batch, opt, step
+    return out
+
+
+def train_families_clusterkv(args, dev, sync, rehearse, reset_counts,
+                             collect_counts, card):
+    """One ClusterKV step each of granite-moe-3b-a800m (dh 64, MoE) and
+    minicpm3-4b (MLA: B6 at q/k 96, v 64) at full width and phase 18's
+    cut depth: finite, and B6's forward and backward launched."""
+    from repro_torch.configs import ClusterKVConfig, get_config, \
+        reduced_config
+    from repro_torch.data import pipeline
+    from repro_torch.models import model_api
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import trainer
+
+    cuts = dict(TRAIN_FAMILIES)
+    out = {}
+    for arch in CKV_FAMILIES:
+        if rehearse:
+            cfg = reduced_config(arch).with_(clusterkv=ClusterKVConfig(
+                enabled=True, block_q=32, block_k=32))
+            b, s = 2, 64
+        else:
+            cfg, b, s = get_config(arch).with_(**cuts[arch]), FAMILY_BATCH, \
+                FAMILY_SEQ
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        params = model_api.init(cfg, torch.Generator(device=dev).manual_seed(
+            args.seed), device=dev)
+        opt = make_optimizer(cfg.optimizer, warmup=1, total=1)
+        step, _ = trainer.make_train_step(cfg, None, "clusterkv",
+                                          optimizer=opt)
+        batch = pipeline.to_device(pipeline.token_batch(cfg, 0, b, s,
+                                                        args.seed), dev)
+        sync()
+        reset_counts()
+        losses, norms, ms = timed_steps(step, params, opt.init(params),
+                                        batch, 1, sync)
+        launches = collect_counts(f"{cfg.name} ClusterKV step")
+        if not (math.isfinite(losses[0]) and math.isfinite(norms[0])):
+            raise AssertionError(f"{cfg.name} ClusterKV step: loss "
+                                 f"{losses[0]}, grad norm {norms[0]}")
+        if not rehearse and not (launches["block_attention"] > 0 and
+                                 launches["block_attention_backward"] > 0):
+            raise AssertionError(f"{cfg.name}'s ClusterKV step launched "
+                                 f"{launches}")
+        say(f"  {cfg.name} through ClusterKV, {cfg.n_layers} layers at full "
+            f"width, batch {b} x {s}: loss {losses[0]:.4f}, grad norm "
+            f"{norms[0]:.4f}, {ms[0]:.1f} ms; B6 "
+            f"{launches['block_attention']}, backward "
+            f"{launches['block_attention_backward']}; {card}")
+        out[arch] = {"layers": cfg.n_layers, "batch": b, "seq": s,
+                     "loss": losses[0], "grad_norm": norms[0],
+                     "step_ms": ms[0], "launches": launches}
+        del params, batch, step, opt
+        sync()
+    return out
+
+
+class PlainB6(torch.autograd.Function):
+    """B6's plain forward and plain backward as one autograd function, on
+    any device: the yardstick the kernels' ClusterKV step is held to on
+    the card (never a path of the port)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kpos, qpos, idx, bq, bk, causal):
+        from repro_torch.core.clusterkv import sparse_block_attention
+        out, m, l = sparse_block_attention(q, k, v, kpos, qpos, idx, bq, bk,
+                                           causal=causal, stats=True)
+        ctx.save_for_backward(q, k, v, kpos, qpos, idx, out,
+                              torch.stack([m, l]))
+        ctx.tiles = (bq, bk, causal)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels import block_attention as k_ba
+        q, k, v, kpos, qpos, idx, out, stats = ctx.saved_tensors
+        bq, bk, causal = ctx.tiles
+        grads = k_ba.block_attention_backward_plain(
+            q, k, v, kpos, qpos, idx, out, stats,
+            dout.to(out.dtype).contiguous(), bq=bq, bk=bk, causal=causal)
+        return (*grads, None, None, None, None, None, None)
+
+
+class KernelForwardPlainBackward(torch.autograd.Function):
+    """B6's forward kernel, and its plain backward on that forward's output
+    (the statistics recomputed by the plain forward): the yardstick the
+    kernels' gradients are held to with every activation the same."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kpos, qpos, idx, bq, bk, causal):
+        from repro_torch.kernels import block_attention as k_ba
+        out = k_ba.block_attention(q, k, v, kpos, qpos, idx, bq=bq, bk=bk,
+                                   causal=causal)
+        ctx.save_for_backward(q, k, v, kpos, qpos, idx, out)
+        ctx.tiles = (bq, bk, causal)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels import block_attention as k_ba
+        q, k, v, kpos, qpos, idx, out = ctx.saved_tensors
+        bq, bk, causal = ctx.tiles
+        grads = k_ba.block_attention_backward_plain(
+            q, k, v, kpos, qpos, idx, out, None,
+            dout.to(out.dtype).contiguous(), bq=bq, bk=bk, causal=causal)
+        return (*grads, None, None, None, None, None, None)
+
+
+class PlantedFault(torch.autograd.Function):
+    """q, k and v unchanged on the way in; on the way back the gradients
+    that B6's backward hands them go through ``fault``: a broken backward
+    for :func:`ckv_step_against_plain` to catch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, fault):
+        ctx.fault = fault
+        return q.clone(), k.clone(), v.clone()
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv):
+        return (*ctx.fault(dq, dk, dv), None)
+
+
+def ckv_step_against_plain(args, dev, sync, rehearse, card):
+    """A ClusterKV step of Qwen2-0.5B at full width, 2 layers, bf16 compute,
+    batch 2 x 4096, through B6's kernels against the same step, from the
+    same weights, with ``ops.block_attention`` swapped for that step only:
+    through B6's plain forward and backward (:class:`PlainB6`), loss and
+    gradient norm within ``CKV_PLAIN_*``; through B6's forward kernel and
+    plain backward (:class:`KernelForwardPlainBackward`), the gradient of
+    each attention projection of each layer within ``CKV_LEAF_RTOL``. The
+    kernel step with each fault of ``CKV_FAULTS`` planted in B6's backward
+    must break that limit: the check's own power, read in the same run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import block_attention as k_ba
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_api
+    from repro_torch.models import param as pm
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import trainer
+
+    if rehearse:
+        cfg, b, s = qwen_config(True).with_(remat=True), 2, 64
+    else:
+        cfg, b, s = get_config("qwen2-0.5b").with_(n_layers=2), 2, TRAIN_SEQ
+    params = model_api.init(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed + 184), device=dev)
+    batch = pipeline.to_device(pipeline.token_batch(cfg, 0, b, s, args.seed),
+                               dev)
+    kernel_path = ops.block_attention
+
+    def through(fn_cls):
+        def path(q, k, v, kpos, qpos, idx, *, bq, bk, causal=True):
+            return fn_cls.apply(q.contiguous(), k.contiguous(),
+                                v.contiguous(), kpos.to(torch.int32),
+                                qpos.to(torch.int32), idx.to(torch.int32),
+                                bq, bk, causal)
+        return path
+
+    def faulty(fault):
+        def path(q, k, v, *rest, **kw):
+            return kernel_path(*PlantedFault.apply(q, k, v, fault), *rest,
+                               **kw)
+        return path
+
+    def leaves(grads):
+        attn = grads["layers"]["attn"]
+        return {f"{name} layer {i}": attn[name.split("/")[0]][
+            name.split("/")[1]][i].float() for name in CKV_LEAVES
+            for i in range(cfg.n_layers)}
+
+    counted = (k_ba.block_attention, k_ba.key_tile_lists,
+               k_ba.block_attention_backward)
+    runs, picks = {}, {}
+    for name, fn in (("kernel", kernel_path), ("plain", through(PlainB6)),
+                     ("plain backward", through(KernelForwardPlainBackward)),
+                     *((f, faulty(fn_)) for f, fn_ in CKV_FAULTS)):
+        opt = RecordingOptimizer(make_optimizer(cfg.optimizer, warmup=1,
+                                                total=1))
+        step, _ = trainer.make_train_step(cfg, None, "clusterkv",
+                                          optimizer=opt)
+        p = pm.tree_map(lambda t: t.clone(), params)
+        n0 = k_ba.block_attention_backward.launches
+        picks[name] = []
+
+        def recorded(*a, _fn=fn, _into=picks[name], **kw):
+            _into.append(a[5].clone())           # idx: the tiles selected
+            return _fn(*a, **kw)
+        ops.block_attention = recorded
+        try:
+            with uncounted(*counted):
+                _, _, m = step(p, opt.init(p), batch)
+                sync()
+                n1 = k_ba.block_attention_backward.launches
+        finally:
+            ops.block_attention = kernel_path
+        runs[name] = (float(m["loss"]), float(m["grad_norm"]), n1 - n0,
+                      leaves(opt.grads))
+        del p, step, opt
+    (lk, gk, nk, ck), (lp, gp, npl, cp) = runs["kernel"], runs["plain"]
+    loss_rel, gn_rel = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
+    yard, n_yard = runs["plain backward"][3], runs["plain backward"][2]
+
+    def leaf_rel(c, w):
+        return {n: float((c[n] - w[n]).norm() / w[n].norm()) for n in w}
+    sound = leaf_rel(ck, yard)
+    faults = {f: leaf_rel(runs[f][3], yard) for f, _ in CKV_FAULTS}
+    worst = max(sound, key=sound.get)
+    # for the record: the fully plain step's leaves, whose layer-1 tile
+    # selection follows layer 0's output rounded another way
+    loose = leaf_rel(ck, cp)
+    moved = [float((a != w).float().mean())
+             for a, w in zip(picks["kernel"], picks["plain"])]
+    say(f"  {cfg.name} {cfg.n_layers} layers, batch {b} x {s}, one "
+        f"ClusterKV step: through B6's kernels loss {lk:.6f}, grad norm "
+        f"{gk:.5f}; through B6's plain forward and backward {lp:.6f}, "
+        f"{gp:.5f}: loss rel {loss_rel:.2e} (limit {CKV_PLAIN_LOSS_RTOL:g}), "
+        f"grad norm rel {gn_rel:.2e} (limit {CKV_PLAIN_GNORM_RTOL:g}); "
+        f"attention projections' gradients against B6's forward kernel "
+        f"with its plain backward: largest rel {sound[worst]:.2e} ({worst}; "
+        f"limit {CKV_LEAF_RTOL:g}); {card}")
+    say("    per leaf, kernels against the plain backward: " + ", ".join(
+        f"{n} {r:.2e}" for n, r in sound.items()))
+    say("    per leaf, kernels against the plain forward and backward (no "
+        "limit): " + ", ".join(f"{n} {r:.2e}" for n, r in loose.items())
+        + "; share of idx entries that differ, each B6 forward in order: "
+        + ", ".join(f"{x:.4f}" for x in moved))
+    for f, rel in faults.items():
+        top = max(rel, key=rel.get)
+        say(f"    fault planted in B6's backward, {f}: largest {rel[top]:.2e} "
+            f"({top}); loss rel {abs(runs[f][0] - lp) / abs(lp):.2e}, grad "
+            f"norm rel {abs(runs[f][1] - gp) / abs(gp):.2e}")
+    if not rehearse and not (nk == cfg.n_layers and npl == 0
+                             and n_yard == 0):
+        raise AssertionError(f"the kernel step ran B6's backward {nk} times, "
+                             f"the plain steps {npl} and {n_yard}")
+    if not (loss_rel <= CKV_PLAIN_LOSS_RTOL and gn_rel <= CKV_PLAIN_GNORM_RTOL
+            and sound[worst] <= CKV_LEAF_RTOL):
+        raise AssertionError(f"ClusterKV step through B6's kernels against "
+                             f"its plain version: loss {lk} vs {lp}, grad "
+                             f"norm {gk} vs {gp}, {worst} rel {sound[worst]}")
+    missed = [f for f, rel in faults.items()
+              if max(rel.values()) <= CKV_LEAF_RTOL]
+    if missed:
+        raise AssertionError(f"faults planted in B6's backward pass the "
+                             f"per-leaf limit {CKV_LEAF_RTOL:g}: {missed}")
+    del params, batch
+    return {"layers": cfg.n_layers, "batch": b, "seq": s,
+            "kernel": {"loss": lk, "grad_norm": gk},
+            "plain": {"loss": lp, "grad_norm": gp}, "loss_rel": loss_rel,
+            "grad_norm_rel": gn_rel, "leaf_rel": sound,
+            "leaf_rel_plain_forward": loose, "idx_moved": moved,
+            "faults": {f: {"leaf_rel": rel, "loss": runs[f][0],
+                           "grad_norm": runs[f][1]}
+                       for f, rel in faults.items()},
+            "limits": [CKV_PLAIN_LOSS_RTOL, CKV_PLAIN_GNORM_RTOL,
+                       CKV_LEAF_RTOL]}
+
+
+def b6_backward_bound(b, hq, hkv, s, dh, dv, n_sel, elem: int):
+    """Least time of B6's backward: the gradient needs S, dP, dV, dK and
+    dQ once each a selected tile pair (tiles of 128), 2 bq bk (3 dh + 2 dv)
+    operations, at the bf16 rate (float32 CUDA-core rate in float32);
+    bytes: q, k, v, the output, its cotangent, idx, positions and
+    statistics read, dq, dk, dv written, each once. Returns the bound, the
+    operations it counts, and the operations the kernels execute: 2 bq bk
+    (4 dh + 3 dv), S and dP once in the dQ kernel and again in the dK/dV
+    kernel, which keeps each block's sums its own (no atomics); the op's
+    FLOP formula counts these."""
+    pairs = b * hq * (s // 128) * n_sel
+    ops_ = 2.0 * 128 * 128 * (3 * dh + 2 * dv) * pairs
+    executed = 2.0 * 128 * 128 * (4 * dh + 3 * dv) * pairs
+    byts = elem * (b * hq * s * (dh + 2 * dv) * 2 + b * hkv * s * (dh + dv)
+                   * 2) + 4 * (b * hkv * s + s + b * hkv * (s // 128) * n_sel
+                               + 2 * b * hq * s)
+    rate = BF16_FLOP_PER_S if elem == 2 else FP32_FLOP_PER_S
+    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops_ / rate * 1e3
+    return ((t_b, "bytes") if t_b >= t_o else (t_o, "operations")), ops_, \
+        executed
+
+
+def time_b6_backward(args, dev, timer, rehearse, card):
+    """B6's backward at the layer shapes of ``B6_BWD_SHAPES`` (bf16, causal,
+    16 of 32 tiles of 128): held against its plain version, then timed
+    (the backward op: key-tile lists + dQ + dK/dV) beside the plain
+    backward, the lists alone, ``torch.autograd.grad`` of
+    ``scaled_dot_product_attention`` with the equivalent boolean mask (the
+    library time), and the bound. Launches here are not a path's."""
+    from repro_torch.core.clusterkv import sparse_block_attention
+    from repro_torch.kernels import block_attention as k_ba
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 185)
+    it_fast, it_slow = (2, 1) if rehearse else (20, 3)
+    n_sel = 4 if rehearse else 16
+    rows = []
+    with uncounted(k_ba.block_attention, k_ba.key_tile_lists,
+                   k_ba.block_attention_backward):
+        for what, b, hq, hkv, dh, dv in B6_BWD_SHAPES:
+            s = 512 if rehearse else 4096
+            if rehearse:
+                b = 1
+            dtype = torch.float32 if rehearse else torch.bfloat16
+            q, k, _, kpos, qpos, idx = attention_inputs(
+                gen, b, hq, hkv, s, dh, 128, n_sel, dtype, dev)
+            v = torch.randn((b, hkv, s, dv), generator=gen,
+                            device=dev).to(dtype)
+            if rehearse:
+                out, m, l = sparse_block_attention(q, k, v, kpos, qpos, idx,
+                                                   128, 128, stats=True)
+                stats = torch.stack([m, l])
+            else:
+                out, stats = torch.ops.repro_torch.block_attention_with_stats(
+                    q, k, v, kpos, qpos, idx, 128, 128, True)
+            dout = torch.randn(tuple(out.shape), generator=gen,
+                               device=dev).to(dtype)
+            run = lambda: k_ba.block_attention_backward(
+                q, k, v, kpos, qpos, idx, out, stats, dout, bq=128, bk=128)
+            plain = lambda: k_ba.block_attention_backward_plain(
+                q, k, v, kpos, qpos, idx, out, None, dout, bq=128, bk=128)
+            got, want = run(), plain()
+            again = run()
+            errs = []
+            for name, g_, a, w in zip(("dq", "dk", "dv"), got, again, want):
+                if not torch.equal(g_, a):
+                    raise AssertionError(f"B6 backward {what}: {name} "
+                                         "differs from run to run")
+                errs.append(check_close(
+                    f"B6 backward {what} {name}", g_.float(), w.float(),
+                    rel_tol=B6_BWD_REL_TOL,
+                    bf16_ulps=BF16_ULPS if dtype == torch.bfloat16 else 0))
+            lists = lambda: k_ba.key_tile_lists(idx, s // 128)
+            lk, lp = lists(), k_ba.key_tile_lists_plain(idx, s // 128)
+            if not (torch.equal(lk[0], lp[0]) and torch.equal(lk[1], lp[1])):
+                raise AssertionError(f"key-tile lists {what} differ from "
+                                     "their plain version")
+            ms, plain_ms = timer(run, it_fast), timer(plain, it_slow)
+            lists_ms = timer(lists, it_fast)
+            lists_plain_ms = timer(lambda: k_ba.key_tile_lists_plain(
+                idx, s // 128), it_slow)
+            # the library yardstick: SDPA's backward over the same keys
+            # with the equivalent boolean mask (selected tiles AND causal)
+            g = hq // hkv
+            tile_of = torch.arange(s, device=dev) // 128
+            sel = torch.zeros((b, hkv, s // 128, s // 128), dtype=torch.bool,
+                              device=dev)
+            sel.scatter_(-1, idx.long(), True)
+            mask = sel[:, :, :, tile_of].repeat_interleave(128, dim=2)
+            mask &= kpos[:, :, None, :] <= qpos[None, None, :, None]
+            mask = mask.repeat_interleave(g, dim=1)
+            xs = [t.detach().clone().requires_grad_() for t in (
+                q, k.repeat_interleave(g, dim=1),
+                v.repeat_interleave(g, dim=1))]
+            o_lib = torch.nn.functional.scaled_dot_product_attention(
+                *xs, attn_mask=mask)
+            lib_ms = timer(lambda: torch.autograd.grad(
+                o_lib, xs, dout, retain_graph=True), it_fast)
+            del o_lib, xs, mask, sel
+            (bound, by), flops, executed = b6_backward_bound(
+                b, hq, hkv, s, dh, dv, n_sel, 2 if dtype == torch.bfloat16
+                else 4)
+            say(f"  B6 backward, {what} layer: q ({b}, {hq}, {s}, {dh}), k "
+                f"({b}, {hkv}, {s}, {dh}), v (..., {dv}) {dtype}, {n_sel} of "
+                f"{s // 128} tiles: kernels {ms:.3f} ms (lists alone "
+                f"{lists_ms:.4f}), plain {plain_ms:.3f} ms, SDPA backward "
+                f"(boolean mask) {lib_ms:.3f} ms, bound {bound:.4f} ms "
+                f"({by}: {flops / 1e9:.1f} GFLOP the gradient needs; the "
+                f"kernels execute {executed / 1e9:.1f}); errs dq/dk/dv "
+                + "/".join(f"{e:.2e}" for e, _ in errs)
+                + f" (tolerance {B6_BWD_REL_TOL:g} x scale + {BF16_ULPS} "
+                f"bf16 spacing); bit-equal run to run; {card}")
+            rows.append({"config": what, "dtype": str(dtype), "B": b,
+                         "hq": hq, "hkv": hkv, "dh": dh, "dv": dv, "S": s,
+                         "n_sel": n_sel, "max_abs_err": max(e for e, _ in
+                                                            errs),
+                         "errs": errs, "ms": ms, "lists_ms": lists_ms,
+                         "lists_plain_ms": lists_plain_ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": bound, "bound_by": by,
+                         "gflop": flops / 1e9,
+                         "executed_gflop": executed / 1e9})
+            del q, k, v, kpos, qpos, idx, out, stats, dout, got, want, again
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return rows
+
+
+def b6_backward_entries(rows: list) -> list:
+    """The kernels line's entries of B6's backward and its key-tile lists,
+    at the main path's shape (Qwen2-0.5B's training microbatch); the other
+    layer shapes ride along."""
+    qwen = rows[0]
+    shape = (f"q ({qwen['B']}, {qwen['hq']}, {qwen['S']}, {qwen['dh']}) "
+             f"{qwen['dtype']}, k/v ({qwen['B']}, {qwen['hkv']}, "
+             f"{qwen['S']}, {qwen['dh']}), bq=bk=128, n_sel={qwen['n_sel']},"
+             f" causal")
+    src = "src/repro_torch/kernels/csrc/block_attention_bwd.cu"
+    # the lists read idx once and write the offsets and entries once
+    n_idx = qwen["B"] * qwen["hkv"] * (qwen["S"] // 128) * qwen["n_sel"]
+    list_bytes = 4 * (2 * n_idx + qwen["B"] * qwen["hkv"]
+                      * (qwen["S"] // 128 + 1))
+    return [
+        {"name": "block_attention_backward", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/block_attention.py:60",
+         "backward_of": "B6 (the reference differentiates "
+                        "src/repro/core/clusterkv.py:211 with jax.grad)",
+         "launches": 0, "shape": shape, "max_abs_err": qwen["max_abs_err"],
+         "ms": qwen["ms"], "plain_ms": qwen["plain_ms"],
+         "bound_ms": qwen["bound_ms"], "bound_by": qwen["bound_by"],
+         "library_ms": qwen["library_ms"], "layer_shapes": rows},
+        {"name": "key_tile_lists", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/block_attention.py:60",
+         "backward_of": "B6 (the transpose of idx its backward walks)",
+         "launches": 0, "shape": f"idx ({qwen['B']}, {qwen['hkv']}, "
+                                 f"{qwen['S'] // 128}, {qwen['n_sel']})",
+         "max_abs_err": 0.0, "ms": qwen["lists_ms"],
+         "plain_ms": qwen["lists_plain_ms"],
+         "bound_ms": list_bytes / HBM_BYTES_PER_S * 1e3,
+         "bound_by": "bytes", "library_ms": None}]
+
+
+def phase_train(args, dev, sync, timer, rehearse, reset_counts,
+                collect_counts, card: str):
     """Phase 18: single-card training. Qwen2-0.5B trained at full width
-    and depth, then served from its trained weights through B6/B5; the
-    accumulation checks, the scan's gradient, one step of each other
-    family, and C40's raise on the card."""
+    and depth with flash attention, then served from its trained weights
+    through B6/B5, then trained through ClusterKV (B6's forward and its
+    hand-written backward); the accumulation checks, the scan's gradient,
+    one step of each other family, one ClusterKV step of granite and
+    minicpm3, the ClusterKV step against B6's plain forward and backward,
+    B6's backward at three layer shapes, and C40 for B1-B5."""
     t_phase = time.perf_counter()
     say("== phase 18: single-card training (make_train_step, AdamW / "
-        "Adafactor, remat, chunked CE) and serving the trained weights")
+        "Adafactor, remat, chunked CE), serving the trained weights, and "
+        "training through ClusterKV")
     out = {"qwen": train_qwen(args, dev, sync, rehearse, reset_counts,
                               collect_counts, card)}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["qwen_clusterkv"] = train_qwen_clusterkv(
+        args, dev, sync, rehearse, reset_counts, collect_counts, card,
+        out["qwen"])
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     out["accumulation"] = train_accumulation_checks(args, dev, sync,
                                                     rehearse)
     out["scan_grad"] = scan_gradient_check(args, dev, rehearse)
     out["families"] = train_families(args, dev, sync, rehearse, card)
-    out["c40"] = clusterkv_train_raises(args, dev, rehearse)
+    out["families_clusterkv"] = train_families_clusterkv(
+        args, dev, sync, rehearse, reset_counts, collect_counts, card)
+    reset_counts()
+    out["ckv_against_plain"] = ckv_step_against_plain(args, dev, sync,
+                                                      rehearse, card)
+    out["b6_backward"] = time_b6_backward(args, dev, timer, rehearse, card)
+    out["c40"] = c40_still_raises(args, dev, rehearse)
     collect_counts("phase 18 checks")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -4733,6 +5369,9 @@ def dryrun_cells(rehearse: bool) -> dict:
     cells["prefill_32k_clusterkv"] = dict(
         arch="qwen2-0.5b", shape="prefill_32k", mesh=None,
         backend="clusterkv", sizes=small)
+    cells["train_4k_clusterkv"] = dict(
+        arch="qwen2-0.5b", shape="train_4k", mesh=None, backend="clusterkv",
+        sizes=small)
     return cells, dev
 
 
@@ -4838,6 +5477,12 @@ def phase_dryrun(args, dev, timer, rehearse: bool, mesh_train: dict,
     if not rehearse and b6.get("block_attention", 0) <= 0:
         raise AssertionError(f"the ClusterKV prefill cell traced no B6 op: "
                              f"{b6}")
+    b6t = recs["train_4k_clusterkv"].get("kernel_ops", {})
+    if not rehearse and not (
+            b6t.get("block_attention_with_stats", 0) > 0
+            and b6t.get("block_attention_backward", 0) > 0):
+        raise AssertionError(f"the ClusterKV train cell traced B6's "
+                             f"forward and backward ops {b6t}")
     # the prediction against phase 19's measured peak
     step = recs["phase19_step"]
     predicted = step["memory"]["peak_bytes"]
@@ -4945,6 +5590,8 @@ def main() -> int:
                 "gamma_pairs": k_gs.gamma_pairs,
                 "tsne_force": k_tf.tsne_force,
                 "block_attention": k_ba.block_attention,
+                "key_tile_lists": k_ba.key_tile_lists,
+                "block_attention_backward": k_ba.block_attention_backward,
                 "decode_attend_fused": k_da.decode_attend_fused}
     # the decode kernel's wrapper also counts its launches per contract
     mode_counters = {"decode_attend_fused.plain_mode": "plain_mode_launches",
@@ -4989,7 +5636,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     smi_line = "no nvidia-smi (CPU rehearsal)"
     sms, sm_mhz = H100_SMS, H100_MAX_SM_MHZ
-    ptxas = []
+    ptxas, ptxas_bwd = [], []
     if not rehearse:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5018,7 +5665,15 @@ def main() -> int:
             raise AssertionError(f"-Xptxas -v reports {len(ptxas)} B6 "
                                  "instantiations, expected 5 bf16 + 6 "
                                  "float32")
-        for row in ptxas:
+        # B6's backward: dQ and dK/dV, each bf16 and float32
+        ptxas_bwd = [row for k in ("dq_mma", "dkv_mma", "dq_kernel",
+                                   "dkv_kernel")
+                     for row in ptxas_summary(report, k)]
+        if len(ptxas_bwd) != 22:
+            raise AssertionError(f"-Xptxas -v reports {len(ptxas_bwd)} "
+                                 "instantiations of B6's backward, expected "
+                                 "2 x (5 bf16 + 6 float32)")
+        for row in ptxas + ptxas_bwd:
             say(f"  ptxas {row['kernel']}: {row['registers']} registers, "
                 f"{row['spill_stores']} bytes spill stores, "
                 f"{row['spill_loads']} bytes spill loads")
@@ -5193,6 +5848,7 @@ def main() -> int:
                     f"{err:.2e} (scale {scale:.2e}), bit-reproducible")
             del p4, c4, y4, padded, nan4
     check_attention_kernels(args, dev, rehearse, micro_cases)
+    check_b6_backward(args, dev, rehearse, micro_cases)
 
     # ------------------------------------------------------------ 3 + 4 ---
     reset_counts()
@@ -5485,8 +6141,9 @@ def main() -> int:
                          for name in main_launches}
     # --------------------------------------------------------------- 18 ---
     before = dict(main_launches)
-    train = phase_train(args, dev, sync, rehearse, reset_counts,
+    train = phase_train(args, dev, sync, timer, rehearse, reset_counts,
                         collect_counts, smi_line)
+    entries += b6_backward_entries(train["b6_backward"])
     train["launches"] = {name: main_launches[name] - before[name]
                          for name in main_launches}
     # --------------------------------------------------------------- 19 ---
@@ -5511,6 +6168,9 @@ def main() -> int:
             e["launches_solvers"] = solvers["launches"][e["name"]]
             e["launches_persist"] = persist["launches"][e["name"]]
             e["launches_shard"] = shard["launches"][e["name"]]
+        if e["name"] in ("key_tile_lists", "block_attention_backward"):
+            e["launches_train"] = train["launches"][e["name"]]
+            e["launches_mesh_train"] = mesh_train["launches"][e["name"]]
         if e["name"] in ("decode_attend_fused", "block_attention"):
             e["launches_service"] = service["launches"][e["name"]]
             e["launches_zoo"] = zoo["launches"][e["name"]]
@@ -5523,6 +6183,8 @@ def main() -> int:
         if e["name"] == "block_attention":
             e["zoo_shapes"] = zoo_b6
             e["ptxas"] = ptxas
+        if e["name"] == "block_attention_backward":
+            e["ptxas"] = ptxas_bwd
         if e["name"] == "decode_attend_fused":
             e["zoo_shapes"] = zoo_b5
 
@@ -5538,6 +6200,7 @@ def main() -> int:
     # both lines are composed in the rehearsal too, so that a fault in
     # them shows on the CPU
     details = json.dumps({"ptxas_b6": ptxas,
+                          "ptxas_b6_backward": ptxas_bwd,
                           "micro_cases": micro_cases,
                           "build_plan_s": build_s,
                           "stage_s": stage_s,

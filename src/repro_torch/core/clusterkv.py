@@ -195,8 +195,8 @@ def select_blocks(q_cent: torch.Tensor, k_cent: torch.Tensor,
 def sparse_block_attention(q: torch.Tensor, k_sorted: torch.Tensor,
                            v_sorted: torch.Tensor, pos_sorted: torch.Tensor,
                            qpos: torch.Tensor, idx: torch.Tensor,
-                           bq: int, bk: int, causal: bool = True
-                           ) -> torch.Tensor:
+                           bq: int, bk: int, causal: bool = True,
+                           stats: bool = False):
     """Block-sparse attention with dense tiles (the plain PyTorch path;
     the CUDA kernel in kernels/block_attention.py computes the same
     contract).
@@ -205,7 +205,10 @@ def sparse_block_attention(q: torch.Tensor, k_sorted: torch.Tensor,
     pos_sorted (B,Hkv,S_k) original positions; qpos (S,) query positions;
     idx (B,Hkv,nqb,n_sel) selected key tiles per query tile. Hq must be a
     multiple of Hkv (GQA: query head h reads kv head h // g). Products and
-    sums in float32; the output is in q's dtype.
+    sums in float32 (float64 for float64 inputs); the output is in q's
+    dtype. ``stats=True`` also returns each row's final max ``m`` and sum
+    ``l`` (B,Hq,S) in the working dtype, natural units: the weights are
+    ``exp(logit - m) / l`` (the backward's row statistics).
     """
     b, hq, s, dh = q.shape
     hkv, s_k = k_sorted.shape[1], k_sorted.shape[2]
@@ -214,8 +217,9 @@ def sparse_block_attention(q: torch.Tensor, k_sorted: torch.Tensor,
     nqb = s // bq
     n_sel = idx.shape[-1]
     scale = 1.0 / float(dh) ** 0.5
+    wt = torch.promote_types(q.dtype, torch.float32)
 
-    qb = q.reshape(b, hkv, g, nqb, bq, dh).float()
+    qb = q.reshape(b, hkv, g, nqb, bq, dh).to(wt)
     kb = k_sorted.reshape(b, hkv, s_k // bk, bk, dh)
     vb = v_sorted.reshape(b, hkv, s_k // bk, bk, dv)
     pb = pos_sorted.reshape(b, hkv, s_k // bk, bk)
@@ -224,13 +228,13 @@ def sparse_block_attention(q: torch.Tensor, k_sorted: torch.Tensor,
     bi = torch.arange(b, device=q.device)[:, None, None]
     hi = torch.arange(hkv, device=q.device)[None, :, None]
 
-    m = torch.full((b, hkv, g, nqb, bq), NEG_INF, device=q.device)
-    l = torch.zeros((b, hkv, g, nqb, bq), device=q.device)
-    acc = torch.zeros((b, hkv, g, nqb, bq, dv), device=q.device)
+    m = torch.full((b, hkv, g, nqb, bq), NEG_INF, dtype=wt, device=q.device)
+    l = torch.zeros((b, hkv, g, nqb, bq), dtype=wt, device=q.device)
+    acc = torch.zeros((b, hkv, g, nqb, bq, dv), dtype=wt, device=q.device)
     for j in range(n_sel):
         t = ix[..., j]                                    # (b, hkv, nqb)
-        kt = kb[bi, hi, t].float()                        # (b,hkv,nqb,bk,dh)
-        vt = vb[bi, hi, t].float()
+        kt = kb[bi, hi, t].to(wt)                         # (b,hkv,nqb,bk,dh)
+        vt = vb[bi, hi, t].to(wt)
         pt = pb[bi, hi, t]                                # (b,hkv,nqb,bk)
         logit = torch.einsum("bhgqtd,bhqsd->bhgqts", qb, kt) * scale
         if causal:
@@ -245,7 +249,10 @@ def sparse_block_attention(q: torch.Tensor, k_sorted: torch.Tensor,
                                                     p, vt)
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(b, hq, s, dv).to(q.dtype)
+    out = out.reshape(b, hq, s, dv).to(q.dtype)
+    if stats:
+        return out, m.reshape(b, hq, s), l.reshape(b, hq, s)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -35,8 +35,10 @@ SIGNATURES = {
     "repro_bsr_spmv": (_P,) * 5 + (_I,) * 5 + (_P,),
     "repro_gamma_pairs": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
     "repro_tsne_force": (_P,) * 5 + (_I,) * 4 + (_P,),
-    "repro_block_attention": (_P, _P, _P, _P, _P, _P, _P) + (_I,) * 12
-                             + (_P,),
+    "repro_block_attention": (_P,) * 8 + (_I,) * 12 + (_P,),
+    "repro_key_tile_lists": (_P,) * 3 + (_I,) * 3 + (_P,),
+    "repro_block_attention_dq": (_P,) * 11 + (_I,) * 12 + (_P,),
+    "repro_block_attention_dkv": (_P,) * 12 + (_I,) * 12 + (_P,),
     "repro_decode_attend": (_P,) * 11 + (_I,) * 14 + (_P,),
 }
 

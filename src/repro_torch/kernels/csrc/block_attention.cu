@@ -69,9 +69,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
 #include "smem.cuh"
 
 namespace {
+
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait_all;
+using repro::ldsm_x4;
+using repro::ldsm_x4_trans;
+using repro::mma_bf16;
+using repro::split_bf16;
 
 // ---------------------------------------------------------------------------
 // float32 on the CUDA cores
@@ -107,6 +116,7 @@ __global__ void __launch_bounds__(kThreads)
                            const int* __restrict__ qpos,
                            const int* __restrict__ idx,
                            float* __restrict__ out,
+                           float* __restrict__ stats,
                            int hq, int hkv, int s, int s_k, int n_sel,
                            int causal, float scale) {
   constexpr int RQ = QR / 16;
@@ -241,70 +251,22 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < RV; ++j)
       ob[(ty + 16 * i) * DV + tx + 16 * j] = o[i][j] * inv;
   }
+  // the row statistics for the backward: m (natural units) and l, each
+  // lane of a row holds both whole
+  if (stats != nullptr && tx == 0) {
+    const long long plane = (long long)gridDim.z * hq * s;
+    float* sm = stats + ((long long)b * hq + h) * s + row0;
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      sm[ty + 16 * i] = m[i];
+      sm[plane + ty + 16 * i] = l[i];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of
-// matrix i, register i receives its fragment
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x0, x1) -> hi = bf16(x), lo = bf16(x - hi), each packed low column first
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x0 - __low2float(h),
-                                  x1 - __high2float(h)));
-}
 
 template <int BQ, int BK, int DK, int DV>
 struct MmaShape {
@@ -331,9 +293,9 @@ __global__ void __launch_bounds__(MmaShape<BQ, BK, DK, DV>::kThreads,
                         const int* __restrict__ kpos,
                         const int* __restrict__ qpos,
                         const int* __restrict__ idx,
-                        __nv_bfloat16* __restrict__ out, int hq, int hkv,
-                        int s, int s_k, int n_sel, int causal,
-                        float scale_log2) {
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ stats, int hq, int hkv, int s,
+                        int s_k, int n_sel, int causal, float scale_log2) {
   using Shape = MmaShape<BQ, BK, DK, DV>;
   constexpr int NT = Shape::kThreads;
   constexpr int LDK = Shape::LDK;
@@ -551,6 +513,16 @@ __global__ void __launch_bounds__(MmaShape<BQ, BK, DK, DV>::kThreads,
     *reinterpret_cast<__nv_bfloat162*>(r1 + n * 8) =
         __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
   }
+  // the row statistics for the backward: m (log2 units, as the logits
+  // here) and l; lane tg == 0 of each row writes them
+  if (stats != nullptr && tg == 0) {
+    const long long plane = (long long)gridDim.z * hq * s;
+    float* sm = stats + ((long long)b * hq + h) * s + row0;
+    sm[0] = m0;
+    sm[8] = m1;
+    sm[plane] = l0;
+    sm[plane + 8] = l1;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -560,7 +532,7 @@ __global__ void __launch_bounds__(MmaShape<BQ, BK, DK, DV>::kThreads,
 template <int BQ, int BK, int DK, int DV>
 int launch_f32(const float* q, const float* k, const float* v,
                const int* kpos, const int* qpos, const int* idx, float* out,
-               int b, int hq, int hkv, int s, int s_k, int n_sel, int causal,
+               float* stats, int b, int hq, int hkv, int s, int s_k, int n_sel, int causal,
                cudaStream_t stream) {
   constexpr int QR = f32_rows<BQ, BK, DK, DV>();
   constexpr size_t smem = smem_bytes<QR, BK, DK, DV>();
@@ -573,16 +545,18 @@ int launch_f32(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(s / QR, hq, b);
   const float scale = 1.f / sqrtf((float)DK);
-  kern<<<grid, kThreads, smem, stream>>>(q, k, v, kpos, qpos, idx, out, hq,
-                                         hkv, s, s_k, n_sel, causal, scale);
+  kern<<<grid, kThreads, smem, stream>>>(q, k, v, kpos, qpos, idx, out,
+                                         stats, hq, hkv, s, s_k, n_sel,
+                                         causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <int BQ, int BK, int DK, int DV>
 int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                 const __nv_bfloat16* v, const int* kpos, const int* qpos,
-                const int* idx, __nv_bfloat16* out, int b, int hq, int hkv,
-                int s, int s_k, int n_sel, int causal, cudaStream_t stream) {
+                const int* idx, __nv_bfloat16* out, float* stats, int b,
+                int hq, int hkv, int s, int s_k, int n_sel, int causal,
+                cudaStream_t stream) {
   using Shape = MmaShape<BQ, BK, DK, DV>;
   static_assert(Shape::kSmem <= kMaxSmem, "bf16 ring exceeds shared memory");
   static repro::SmemOptin opt;
@@ -595,7 +569,7 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
   // logits in log2 units: exp(x) = exp2(x log2 e), folded into the scale
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)DK);
   kern<<<grid, Shape::kThreads, Shape::kSmem, stream>>>(
-      q, k, v, kpos, qpos, idx, out, hq, hkv, s, s_k, n_sel, causal,
+      q, k, v, kpos, qpos, idx, out, stats, hq, hkv, s, s_k, n_sel, causal,
       scale_log2);
   return (int)cudaGetLastError();
 }
@@ -604,7 +578,12 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
 
 // q (B, Hq, S, dh); k (B, Hkv, S_k, dh) and v (B, Hkv, S_k, dv)
 // cluster-sorted; kpos (B, Hkv, S_k) i32; qpos (S,) i32; idx
-// (B, Hkv, S/bq, n_sel) i32 key tiles; out (B, Hq, S, dv). dtype 0 =
+// (B, Hkv, S/bq, n_sel) i32 key tiles; out (B, Hq, S, dv); stats null, or
+// (2, B, Hq, S) float32 for the backward: each row's final max m (in the
+// kernel's own units: the scaled logit in float32, the scaled logit times
+// log2 e in bf16) and its sum l, so that p = exp(s - m) / l (exp2 in
+// bf16) is the forward's own p. A null stats launches exactly what runs
+// without it. dtype 0 =
 // float32 (CUDA cores), 1 = bfloat16 (tensor cores); q, k, v and out
 // alike. Instantiated for bq == bk and (bq, dh, dv) in
 //   {32, 64, 128} x (64, 64)  every ClusterKV prefill at head dim 64,
@@ -616,7 +595,8 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
 extern "C" int repro_block_attention(const void* q, const void* k,
                                      const void* v, const void* kpos,
                                      const void* qpos, const void* idx,
-                                     void* out, int b, int hq, int hkv, int s,
+                                     void* out, void* stats, int b, int hq,
+                                     int hkv, int s,
                                      int s_k, int dh, int dv, int bq, int bk,
                                      int n_sel, int causal, int dtype,
                                      void* stream) {
@@ -627,15 +607,15 @@ extern "C" int repro_block_attention(const void* q, const void* k,
   if (dtype == 0 && bq == BT && dh == DK && dv == DV)                        \
     return launch_f32<BT, BT, DK, DV>(                                       \
         (const float*)q, (const float*)k, (const float*)v, (const int*)kpos, \
-        (const int*)qpos, (const int*)idx, (float*)out, b, hq, hkv, s, s_k,  \
-        n_sel, causal, st);
+        (const int*)qpos, (const int*)idx, (float*)out, (float*)stats, b,    \
+        hq, hkv, s, s_k, n_sel, causal, st);
 #define REPRO_BA_BF16(BT, DK, DV)                                            \
   if (dtype == 1 && bq == BT && dh == DK && dv == DV)                        \
     return launch_bf16<BT, BT, DK, DV>(                                      \
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,                    \
         (const __nv_bfloat16*)v, (const int*)kpos, (const int*)qpos,         \
-        (const int*)idx, (__nv_bfloat16*)out, b, hq, hkv, s, s_k, n_sel,     \
-        causal, st);
+        (const int*)idx, (__nv_bfloat16*)out, (float*)stats, b, hq, hkv, s,  \
+        s_k, n_sel, causal, st);
 #define REPRO_BA_BOTH(BT, DK, DV) \
   REPRO_BA_F32(BT, DK, DV)        \
   REPRO_BA_BF16(BT, DK, DV)

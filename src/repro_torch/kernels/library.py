@@ -2,10 +2,14 @@
 
 ``torch.ops.repro_torch.block_attention`` (B6) and
 ``torch.ops.repro_torch.decode_attend`` (B5) are defined here through
-``torch.library.Library(..., "DEF")``; their ``CUDA`` implementations,
+``torch.library.Library(..., "DEF")``, with B6's differentiable form
+``block_attention_with_stats`` (output and row statistics) and its
+backward ``block_attention_backward``; their ``CUDA`` implementations,
 the ctypes launches, are registered by ``kernels/block_attention.py`` and
 ``kernels/decode_attend.py`` beside their fake implementations (output
-shape, dtype and device, no data read). The wrappers of ``kernels/ops.py``
+shape, dtype and device, no data read), B6's two training ops also with
+``CPU`` implementations (the plain versions) and the autograd formula
+that joins them. The wrappers of ``kernels/ops.py``
 reach the kernels only through these ops, so a trace under
 ``FakeTensorMode`` (``launch/dryrun.py``) passes through them as single
 ops without touching ``data_ptr()``, and ``FlopCounterMode`` counts them
@@ -22,6 +26,13 @@ from torch.utils.flop_counter import register_flop_formula
 LIB = torch.library.Library("repro_torch", "DEF")
 LIB.define("block_attention(Tensor q, Tensor k, Tensor v, Tensor kpos, "
            "Tensor qpos, Tensor idx, int bq, int bk, bool causal) -> Tensor")
+LIB.define("block_attention_with_stats(Tensor q, Tensor k, Tensor v, "
+           "Tensor kpos, Tensor qpos, Tensor idx, int bq, int bk, "
+           "bool causal) -> (Tensor, Tensor)")
+LIB.define("block_attention_backward(Tensor q, Tensor k, Tensor v, "
+           "Tensor kpos, Tensor qpos, Tensor idx, Tensor out, Tensor stats, "
+           "Tensor dout, int bq, int bk, bool causal) "
+           "-> (Tensor, Tensor, Tensor)")
 LIB.define("decode_attend(Tensor q, Tensor k, Tensor v, Tensor pos, "
            "Tensor cent, Tensor qpos, Tensor? k_self, Tensor? v_self, "
            "Tensor(a!)? sel_out, int n_sel, int bk, bool plan_mode, "
@@ -37,6 +48,20 @@ def block_attention_flops(q, k, v, kpos, qpos, idx, bq: int, bk: int,
     b, hq, s, dh = q
     dv = v[3]
     return 2 * bq * bk * (dh + dv) * b * hq * (s // bq) * idx[3]
+
+
+def block_attention_backward_flops(q, k, v, kpos, qpos, idx, out, stats,
+                                   dout, bq: int, bk: int, causal: bool, *,
+                                   out_shape=None) -> int:
+    """B6's backward: per selected (query tile, key tile) pair
+    ``2 bq bk (2 dh + dv)`` in the dQ kernel (S, dP, dQ) and
+    ``2 bq bk (2 dh + 2 dv)`` in the dK/dV kernel (S, dP, dV, dK), over the
+    forward's ``B x Hq x S/bq x n_sel`` pairs (the bf16 kernels run the
+    products of p and dS twice, as hi + lo, which is not counted)."""
+    b, hq, s, dh = q
+    dv = v[3]
+    pairs = b * hq * (s // bq) * idx[3]
+    return 2 * bq * bk * ((2 * dh + dv) + (2 * dh + 2 * dv)) * pairs
 
 
 def decode_attend_flops(q, k, v, pos, cent, qpos, k_self, v_self, sel_out,
@@ -55,5 +80,9 @@ def decode_attend_flops(q, k, v, pos, cent, qpos, k_self, v_self, sel_out,
 
 register_flop_formula(torch.ops.repro_torch.block_attention)(
     block_attention_flops)
+register_flop_formula(torch.ops.repro_torch.block_attention_with_stats)(
+    block_attention_flops)
+register_flop_formula(torch.ops.repro_torch.block_attention_backward)(
+    block_attention_backward_flops)
 register_flop_formula(torch.ops.repro_torch.decode_attend)(
     decode_attend_flops)

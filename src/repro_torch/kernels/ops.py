@@ -19,12 +19,16 @@ the ``cuda`` decode backend) take the batched layouts of the reference's
 ``ops.py`` and cast positions and indices to int32; the kernel modules
 they call count the launches.
 
-None of the kernels has a backward, in this package or in the reference
-(whose ``jax.grad`` through a Pallas kernel raises), so a wrapper about to
-launch one raises ``NotImplementedError`` when grad mode is on and an input
-requires grad (ROADMAP C40), rather than return an output whose gradient
-would be dropped. On a CPU tensor the plain version runs, and autograd
-differentiates it.
+B6 (``block_attention``) differentiates: under grad it runs the opaque op
+``repro_torch::block_attention_with_stats``, whose backward is the
+hand-written ``csrc/block_attention_bwd.cu`` on a CUDA tensor and the plain
+backward on a CPU tensor (``kernels/block_attention.py``). B1-B5 have no
+backward, in this package or in the reference (no path of the reference
+differentiates them; its ``jax.grad`` through a Pallas kernel raises), so
+their wrappers about to launch a kernel raise ``NotImplementedError`` when
+grad mode is on and an input requires grad (ROADMAP C40), rather than
+return an output whose gradient would be dropped. On a CPU tensor their
+plain versions run, and autograd differentiates them.
 """
 from __future__ import annotations
 
@@ -196,8 +200,8 @@ def block_attention(q, k_sorted, v_sorted, kpos, qpos, idx, *, bq, bk,
 
     q (B,Hq,S,dh); k/v_sorted (B,Hkv,S,dh|dv); kpos (B,Hkv,S); qpos (S,);
     idx (B,Hkv,nqb,n_sel). GQA: q heads grouped onto kv heads, one kernel
-    launch for every (query tile, query head, batch member)."""
-    _no_backward("block_attention (B6)", q, k_sorted, v_sorted)
+    launch for every (query tile, query head, batch member). Under grad
+    its backward is B6's hand-written backward (dQ, dK/dV kernels)."""
     return _ba.block_attention(q.contiguous(), k_sorted.contiguous(),
                                v_sorted.contiguous(), _i32(kpos), _i32(qpos),
                                _i32(idx), bq=bq, bk=bk, causal=causal)

@@ -238,7 +238,10 @@ def _check_kernel_setting(cfg: ClusterKVConfig, x: torch.Tensor) -> None:
 def _tile_attention(q, k_s, v_s, pos_s, qpos, idx, bq, bk, causal,
                     cfg: ClusterKVConfig):
     """Dense-tile interaction through ``ops.block_attention``: the CUDA
-    kernel for a CUDA tensor, the plain online softmax for a CPU tensor."""
+    kernel for a CUDA tensor, the plain online softmax for a CPU tensor;
+    under grad B6's differentiable op, whose backward is the hand-written
+    ``csrc/block_attention_bwd.cu`` on the card and the plain backward on
+    the CPU."""
     _check_kernel_setting(cfg, q)
     return kops.block_attention(q, k_s, v_s, pos_s, qpos, idx, bq=bq, bk=bk,
                                 causal=causal)

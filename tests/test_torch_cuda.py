@@ -1573,14 +1573,11 @@ def _c40_calls(device):
     v = torch.randn(1, 1, 128, 64, generator=g, device=device)
     pos = torch.arange(128, dtype=torch.int32, device=device)
     kpos = pos.expand(1, 1, 128)
-    idx = torch.zeros(1, 1, 1, 1, dtype=torch.int32, device=device)
     cent = k.reshape(1, 1, 1, 128, 64).mean(3)
     vals = torch.randn(2, 1, 32, 32, generator=g, device=device)
     col = torch.zeros(2, 1, dtype=torch.int32, device=device)
     x = torch.randn(64, 3, generator=g, device=device)
     return {
-        "B6": (q, lambda t: t_ops.block_attention(t, k, v, kpos, pos, idx,
-                                                  bq=128, bk=128)),
         "B5": (q[:, :, 0].contiguous(), lambda t: t_ops.decode_attend_fused(
             t, k, v, kpos, cent, torch.tensor(127, device=device), n_sel=1,
             bk=128)),
@@ -1597,11 +1594,11 @@ def _c40_calls(device):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4", "B5", "B6"])
+@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4", "B5"])
 def test_cuda_kernel_wrappers_raise_c40_under_grad(cuda_device, kernel):
-    """C40: no kernel has a backward, so a wrapper given a card tensor that
+    """C40: B1-B5 have no backward, so a wrapper given a card tensor that
     requires grad, under grad mode, raises naming the kernel; with grad
-    mode off it launches."""
+    mode off it launches. B6 differentiates (below)."""
     t, call = _c40_calls(cuda_device)[kernel]
     with pytest.raises(NotImplementedError, match=f"{kernel}.*C40"):
         call(t.clone().requires_grad_())
@@ -1611,12 +1608,114 @@ def test_cuda_kernel_wrappers_raise_c40_under_grad(cuda_device, kernel):
     assert torch.isfinite(out).all()
 
 
+# B6's backward against its plain version: float32 sums in another order;
+# dS = p o (dP - D) subtracts two sums of dv products each whose float32
+# rounding (about dv x 2^-24 of |dO| |V|) does not shrink with dS, so the
+# bound is 1e-4 x the gradient's largest value (5x the forward's), plus,
+# in bf16, one bf16 spacing of each element (both round a float32 result;
+# p and dS enter the tensor cores as hi + lo, within 2^-17 of float32)
+B6_BWD_REL = 1e-4
+B6_BWD_CASES = [(dt, *sh) for dt in (torch.float32, torch.bfloat16)
+                for sh in sorted(t_ba.SUPPORTED_F32)
+                if dt == torch.float32 or sh in t_ba.SUPPORTED]
+
+
+def _assert_grad_close(got, want, dtype):
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    got, want = got.float(), want.float()
+    limit = B6_BWD_REL * float(want.abs().max())
+    if dtype == torch.bfloat16:
+        _, e = torch.frexp(want)
+        limit = limit + torch.where(want == 0, 0.0, torch.ldexp(
+            torch.ones_like(want), e - 8))
+    assert bool(((got - want).abs() <= limit).all()), \
+        float((got - want).abs().max())
+
+
+def _natural_stats(stats, dtype):
+    """The CUDA forward's statistics in the plain version's units: the bf16
+    kernel keeps m in log2 units (a row whose keys are all masked keeps
+    the mask's -1e30, which its masked logits equal)."""
+    nat = stats.clone()
+    if dtype == torch.bfloat16:
+        nat[0] = torch.where(stats[0] == t_ckv.NEG_INF, stats[0],
+                             stats[0] * float(np.log(2.0)))
+    return nat
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,bq,dh,dv", B6_BWD_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_block_attention_backward_matches_plain(cuda_device, dtype, bq,
+                                                     dh, dv, causal):
+    """B6 under autograd on the card: the forward writes its statistics
+    and its output stays bit-equal to the launch without them; the
+    backward runs the key-tile lists, dQ and dK/dV kernels, and dq, dk,
+    dv hold against the plain backward at every shape the forward
+    supports (GQA g = 3, one duplicate tile id); a second backward is
+    bit-equal (no atomics)."""
+    q, k, v, kpos, qpos, idx = _attention_inputs(
+        bq + dh + dv, 2, 6, 2, 4 * bq, dh, bq, 3, cuda_device, dtype, dv=dv)
+    idx[0, 1, 2, 1] = idx[0, 1, 2, 0]
+    dout = torch.randn((2, 6, 4 * bq, dv), device=cuda_device).to(dtype)
+    live = [t.clone().requires_grad_() for t in (q, k, v)]
+    n = (t_ba.block_attention.launches, t_ba.key_tile_lists.launches,
+         t_ba.block_attention_backward.launches)
+    out = t_ops.block_attention(*live, kpos, qpos, idx, bq=bq, bk=bq,
+                                causal=causal)
+    got = torch.autograd.grad(out, live, dout, retain_graph=True)
+    again = torch.autograd.grad(out, live, dout)
+    torch.cuda.synchronize()
+    assert (t_ba.block_attention.launches, t_ba.key_tile_lists.launches,
+            t_ba.block_attention_backward.launches) == \
+        (n[0] + 1, n[1] + 2, n[2] + 2)
+    with torch.no_grad():
+        assert torch.equal(out.detach(), t_ops.block_attention(
+            q, k, v, kpos, qpos, idx, bq=bq, bk=bq, causal=causal))
+    want = t_ba.block_attention_backward_plain(
+        q, k, v, kpos, qpos, idx, out.detach(), None, dout, bq=bq, bk=bq,
+        causal=causal)
+    for g_, a, w in zip(got, again, want):
+        assert torch.equal(g_, a)
+        _assert_grad_close(g_, w, dtype)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_block_attention_backward_skips_tile_ids_outside_the_cache(
+        cuda_device, dtype):
+    """A tile id outside ``[0, S_k/bk)`` is skipped by the forward, so the
+    backward skips it too: against the plain backward, which lists it
+    nowhere, on the forward kernel's own statistics; the lists kernel
+    bit-equal to its plain version."""
+    q, k, v, kpos, qpos, idx = _attention_inputs(
+        11, 2, 4, 2, 512, 64, 128, 3, cuda_device, dtype)
+    idx[0, 0, 1, 2] = 4
+    idx[1, 1, 3, 0] = -1
+    out, stats = torch.ops.repro_torch.block_attention_with_stats(
+        q, k, v, kpos, qpos, idx, 128, 128, True)
+    dout = torch.randn_like(out)
+    got = t_ba.block_attention_backward(q, k, v, kpos, qpos, idx, out,
+                                        stats, dout, bq=128, bk=128)
+    want = t_ba.block_attention_backward_plain(
+        q, k, v, kpos, qpos, idx, out, _natural_stats(stats, dtype), dout,
+        bq=128, bk=128)
+    for g_, w in zip(got, want):
+        _assert_grad_close(g_, w, dtype)
+    off, ent = t_ba.key_tile_lists(idx, 4)
+    woff, went = t_ba.key_tile_lists_plain(idx, 4)
+    assert torch.equal(off, woff) and torch.equal(ent, went)
+    assert int(ent[0, 0, -1]) == -1
+
+
 @pytest.mark.requires_cuda
 def test_cuda_two_layer_qwen_trains_without_launching_a_kernel(cuda_device):
     """Qwen2-0.5B at full width, 2 layers, bf16 compute over float32
     masters: two AdamW steps on one batch with flash attention give finite,
     falling losses and launch no kernel; the same step with ClusterKV
-    raises C40 at B6; the trained weights then prefill through B6."""
+    differentiates through B6 (its forward twice a layer, the first time
+    and remat's recompute, its backward once); the trained weights then
+    prefill through B6."""
     from repro_torch.configs import get_config
     from repro_torch.data import pipeline
     from repro_torch.models import model_api
@@ -1641,8 +1740,15 @@ def test_cuda_two_layer_qwen_trains_without_launching_a_kernel(cuda_device):
     assert np.isfinite(losses).all() and losses[1] < losses[0]
     ckv_step, _ = trainer.make_train_step(cfg, None, "clusterkv",
                                           optimizer=opt)
-    with pytest.raises(NotImplementedError, match="block_attention.*C40"):
-        ckv_step(params, state, batch)
+    nl, nb = t_ba.key_tile_lists.launches, t_ba.block_attention_backward.launches
+    params, state, m = ckv_step(params, state, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+    assert (t_ba.block_attention.launches - n6,
+            t_ba.key_tile_lists.launches - nl,
+            t_ba.block_attention_backward.launches - nb) == \
+        (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    n6 = t_ba.block_attention.launches
     with torch.no_grad():
         _, logits = trainer.make_prefill_step(cfg, backend="clusterkv")(
             params, {"tokens": batch["tokens"]})

@@ -7,9 +7,10 @@ The reference's float32 parameters of each reduced config cross over by
 (``data.pipeline.token_batch``, bit-equal in both packages) goes through
 ``jax.value_and_grad`` of the reference's ``loss_fn`` and through autograd
 of the port's, on the CPU. ClusterKV runs the reference's XLA path
-(``use_pallas=False``, what ``jax.grad`` differentiates) and the port's
-plain versions of B5/B6 (on the card their wrappers raise under grad,
-C40). Tolerances:
+(``use_pallas=False``, what ``jax.grad`` differentiates) and, in the port,
+B6's differentiable op with its plain forward and plain backward on the
+CPU (the hand-written backward on the card); B1-B5 raise under grad where
+they would launch a kernel (C40). Tolerances:
 
 * the loss within ``rtol 1e-5``, every gradient leaf within ``1e-4 x`` the
   largest value of the reference's leaf (a whole model's float32 sums,
@@ -443,14 +444,15 @@ def _guarded_calls():
     }
 
 
-@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4", "B5", "B6"])
+@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4", "B5"])
 def test_kernel_wrappers_raise_under_grad_where_they_launch(kernel,
                                                             monkeypatch):
-    """C40: where a wrapper launches its kernel (a CUDA tensor; emulated
-    here by patching ``ops._launches_kernel``) it raises under grad mode
-    with an input that requires grad, naming the kernel, rather than give
-    an output whose gradient would be dropped; with grad mode off, or
-    inputs that do not require grad, it runs (here the plain version)."""
+    """C40: where a wrapper of B1-B5 launches its kernel (a CUDA tensor;
+    emulated here by patching ``ops._launches_kernel``) it raises under
+    grad mode with an input that requires grad, naming the kernel, rather
+    than give an output whose gradient would be dropped; with grad mode
+    off, or inputs that do not require grad, it runs (here the plain
+    version). B6 has a backward and does not raise (below)."""
     t, call = _guarded_calls()[kernel]
     monkeypatch.setattr(t_ops, "_launches_kernel", lambda _: True)
     with pytest.raises(NotImplementedError, match=f"{kernel}.*C40"):
@@ -464,14 +466,45 @@ def test_kernel_wrappers_raise_under_grad_where_they_launch(kernel,
     assert out.requires_grad
 
 
-def test_clusterkv_train_step_raises_c40_where_b6_launches(monkeypatch):
+class _OpLog(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the ``repro_torch`` ops dispatched under it, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.name()
+        if name.startswith("repro_torch::"):
+            self.counts[name] = self.counts.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_clusterkv_train_step_differentiates_through_b6_where_it_launches(
+        monkeypatch):
+    """With the card emulated (``ops._launches_kernel`` patched, as for
+    C40) a ClusterKV train step no longer raises at B6: each layer's
+    attention runs B6's differentiable op and its backward op (their CPU
+    implementations, the plain versions) once a step, remat recomputing
+    the forward inside the backward; the step equals the step without
+    the patch bit for bit."""
     rcfg = _rcfg("qwen2-0.5b")
     _, tcfg, tp = _cross(rcfg)
+    tcfg = tcfg.with_(remat=True)
     _, tb = _batches(rcfg)
     step, opt = t_tr.make_train_step(tcfg, None, "clusterkv")
+    p0 = t_pm.tree_map(lambda t: t.clone(), tp)
+    _, _, want = step(p0, opt.init(p0), tb)
     monkeypatch.setattr(t_ops, "_launches_kernel", lambda _: True)
-    with pytest.raises(NotImplementedError, match="block_attention.*C40"):
-        step(tp, opt.init(tp), tb)
+    with _OpLog() as log:
+        _, _, got = step(tp, opt.init(tp), tb)
+    n = tcfg.n_layers
+    assert log.counts == {"repro_torch::block_attention_with_stats": 2 * n,
+                          "repro_torch::block_attention_backward": n}
+    assert float(got["loss"]) == float(want["loss"])
+    assert float(got["grad_norm"]) == float(want["grad_norm"])
+    for a, b in zip(t_pm.tree_leaves(tp), t_pm.tree_leaves(p0)):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
