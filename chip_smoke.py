@@ -38,10 +38,11 @@ the run when it fails:
    7, float32 and bf16; at head dim 128 with g = 7 and 12; the same tiles
    selected as the plain path; and one NaN key tile, selected first as
    ``topk_stable`` ranks it); B6's backward under autograd (the forward's
-   statistics, the key-tile lists, dQ and dK/dV) against the plain
-   backward at every shape the forward supports, both dtypes, causal and
-   not, and the key-tile lists bit-equal to theirs with ids outside the
-   cache;
+   statistics, the key-tile lists and their order, dQ and dK/dV; bf16 at
+   tiles of 128 by wgmma) against the plain backward at every shape the
+   forward supports, both dtypes, causal and not, the key-tile lists and
+   their order bit-equal to theirs with ids outside the cache, and S of
+   one tile pair by the backward's wgmma against the forward's mma.sync;
 3. the main path at full size — per-stage build times, ``matvec`` through
    the ``cuda`` backend for (n,) and (n, 8) charges against the ``bsr``
    and ``csr`` reference paths, the single-plan kernel entry on the plan's
@@ -260,11 +261,14 @@ device time without the host's, which is the larger part of a call.
    B6's plain forward and backward (loss rel 1e-3, grad norm rel 1e-2)
    and through B6's forward kernel and plain backward (each attention
    projection's gradient in each layer rel 2e-2), with four faults
-   planted in B6's backward that must break that limit; B6's backward at Qwen's training microbatch and a llava-next-34b and
-   a minicpm3-4b layer, held against its plain version and timed beside
-   it, beside ``torch.autograd.grad`` of SDPA with the equivalent boolean
-   mask and its bound; and C40's raise for B1-B5 (B5's wrapper under
-   grad);
+   planted in B6's backward that must break that limit; B6's backward at
+   Qwen's training microbatch and a llava-next-34b and a minicpm3-4b
+   layer, held against its plain version and timed beside it (the whole
+   op, and the lists, their order, dQ and dK/dV each alone, with the
+   tensor cores' issued TFLOP/s and a dK/dV block's largest and mean
+   visits), beside ``torch.autograd.grad`` of SDPA with the equivalent
+   boolean mask and its bound; and C40's raise for B1-B5 (B5's wrapper
+   under grad);
 19. training on a process mesh of the one card: an ``nccl`` group of one
    rank in this process (``file://`` rendezvous, ``device_id`` cuda:0),
    torn down at the end, and a (1, 1) ("data", "model") mesh
@@ -307,8 +311,8 @@ Launch counters are set to 0 just before each path (phases 3-4, 6, 7, 9,
 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20) and read just after it; launches made to
 compare or time a kernel are not counted. Every kernel must have been
 launched by a path: B6 by the prefills and the service's plan prefills
-and by ClusterKV training (phase 18), B6's backward and its key-tile
-lists by ClusterKV training,
+and by ClusterKV training (phase 18), B6's backward, its key-tile
+lists and their order by ClusterKV training,
 B5 by the ticks of both engines (plan mode) and the scalar steps (plain
 mode; phase 18 serves its trained weights through both), B1
 once per 48-member ``PlanBatch.matvec``, by every streamed plan's and
@@ -1220,7 +1224,10 @@ def check_b6_backward(args, dev, rehearse, cases):
     kernels) against the plain backward at every shape the forward
     supports, both dtypes, causal and not (GQA g = 3, one duplicate tile
     id), within ``B6_BWD_REL_TOL`` x scale (+ one bf16 spacing); the lists
-    bit-equal to their plain version with ids outside the cache."""
+    and their order bit-equal to their plain versions with ids outside the
+    cache; S of one tile pair by the backward's wgmma against the forward's
+    mma.sync (printed: whether the recomputed S is bit for bit the
+    forward's)."""
     from repro_torch.kernels import block_attention as k_ba
     from repro_torch.kernels import ops
 
@@ -1269,8 +1276,37 @@ def check_b6_backward(args, dev, rehearse, cases):
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError("the key-tile lists differ from their plain "
                              "version")
-    say("  key-tile lists (2 x 3 kv heads, 6 x 4 ids in [-1, 8], 8 tiles): "
-        "bit-equal to their plain version")
+    if not torch.equal(k_ba.key_tile_order(got[0]),
+                       k_ba.key_tile_order_plain(want[0])):
+        raise AssertionError("the key-tile order differs from its plain "
+                             "version")
+    say("  key-tile lists (2 x 3 kv heads, 6 x 4 ids in [-1, 8], 8 tiles) "
+        "and their order: bit-equal to their plain versions")
+    if rehearse:
+        return
+    # the backward recomputes S by wgmma; the forward computed it by
+    # mma.sync: the two on one tile pair, each held against float64 (its
+    # bf16 products are exact, its float32 sums of 64 within 64 x 2^-24 of
+    # the sum of |q k|)
+    qt = torch.randn((128, 64), generator=gen, device=dev).bfloat16()
+    kt = torch.randn((128, 64), generator=gen, device=dev).bfloat16()
+    s_mma, s_wgmma = k_ba.logits_two_ways(qt, kt)
+    exact = qt.double() @ kt.double().T
+    bound = 64 * 2.0 ** -24 * (qt.double().abs() @ kt.double().abs().T)
+    for name, got in (("mma.sync", s_mma), ("wgmma", s_wgmma)):
+        if bool(((got.double() - exact).abs() > bound).any()):
+            raise AssertionError(f"S by {name} is off the float64 product")
+    differ = int((s_mma != s_wgmma).sum())
+    gap = float((s_mma - s_wgmma).abs().max())
+    cases.append({"kernel": "block_attention_backward",
+                  "check": "S by wgmma against the forward's mma.sync",
+                  "elements": s_mma.numel(), "differ": differ,
+                  "max_abs_diff": gap})
+    say(f"  S of one 128 x 128 tile pair (dh 64, bf16) by the backward's "
+        f"wgmma against the forward's mma.sync: {differ} of "
+        f"{s_mma.numel()} elements differ, largest gap {gap:.3e} "
+        f"({'bit-equal' if differ == 0 else 'not bit-equal'}; both within "
+        "float32 summation of the float64 product)")
 
 
 def time_attention_kernels(args, dev, timer, rehearse, launches):
@@ -4538,7 +4574,7 @@ def train_qwen_clusterkv(args, dev, sync, rehearse, reset_counts,
                              f"batch did not lower its loss: {losses}")
     per = cfg.n_layers * TRAIN_MICRO * TRAIN_STEPS
     want = {"block_attention": 2 * per, "key_tile_lists": per,
-            "block_attention_backward": per}
+            "key_tile_order": per, "block_attention_backward": per}
     if not rehearse and any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"ClusterKV training launched {launches}, "
                              f"expected {want}")
@@ -4550,7 +4586,8 @@ def train_qwen_clusterkv(args, dev, sync, rehearse, reset_counts,
         f"{flash['step_ms_median']:.1f} ms, {flash['tokens_per_s']:.0f} "
         f"tokens/s, {flash['peak_bytes'] / 2 ** 30:.2f} GiB; launches B6 "
         f"{launches['block_attention']}, lists "
-        f"{launches['key_tile_lists']}, backward "
+        f"{launches['key_tile_lists']}, order "
+        f"{launches['key_tile_order']}, backward "
         f"{launches['block_attention_backward']}; {card}")
     out = {"arch": cfg.name, "batch": b, "seq": s, "microbatch": TRAIN_MICRO,
            "losses": losses, "grad_norms": norms, "step_ms": ms,
@@ -4736,7 +4773,7 @@ def ckv_step_against_plain(args, dev, sync, rehearse, card):
             for i in range(cfg.n_layers)}
 
     counted = (k_ba.block_attention, k_ba.key_tile_lists,
-               k_ba.block_attention_backward)
+               k_ba.key_tile_order, k_ba.block_attention_backward)
     runs, picks = {}, {}
     for name, fn in (("kernel", kernel_path), ("plain", through(PlainB6)),
                      ("plain backward", through(KernelForwardPlainBackward)),
@@ -4848,10 +4885,14 @@ def b6_backward_bound(b, hq, hkv, s, dh, dv, n_sel, elem: int):
 def time_b6_backward(args, dev, timer, rehearse, card):
     """B6's backward at the layer shapes of ``B6_BWD_SHAPES`` (bf16, causal,
     16 of 32 tiles of 128): held against its plain version, then timed
-    (the backward op: key-tile lists + dQ + dK/dV) beside the plain
-    backward, the lists alone, ``torch.autograd.grad`` of
+    (the backward op: key-tile lists + their order + dQ + dK/dV, and each
+    of the four launches alone, ``block_attention.backward_stages``) beside
+    the plain backward, ``torch.autograd.grad`` of
     ``scaled_dot_product_attention`` with the equivalent boolean mask (the
-    library time), and the bound. Launches here are not a path's."""
+    library time), and the bound; the operations the kernels issue over
+    dQ + dK/dV's time, and the largest and mean number of visits of a
+    dK/dV block (its key tile's list x g). Launches here are not a
+    path's."""
     from repro_torch.core.clusterkv import sparse_block_attention
     from repro_torch.kernels import block_attention as k_ba
 
@@ -4860,7 +4901,7 @@ def time_b6_backward(args, dev, timer, rehearse, card):
     n_sel = 4 if rehearse else 16
     rows = []
     with uncounted(k_ba.block_attention, k_ba.key_tile_lists,
-                   k_ba.block_attention_backward):
+                   k_ba.key_tile_order, k_ba.block_attention_backward):
         for what, b, hq, hkv, dh, dv in B6_BWD_SHAPES:
             s = 512 if rehearse else 4096
             if rehearse:
@@ -4894,15 +4935,32 @@ def time_b6_backward(args, dev, timer, rehearse, card):
                     f"B6 backward {what} {name}", g_.float(), w.float(),
                     rel_tol=B6_BWD_REL_TOL,
                     bf16_ulps=BF16_ULPS if dtype == torch.bfloat16 else 0))
-            lists = lambda: k_ba.key_tile_lists(idx, s // 128)
-            lk, lp = lists(), k_ba.key_tile_lists_plain(idx, s // 128)
+            lk = k_ba.key_tile_lists(idx, s // 128)
+            lp = k_ba.key_tile_lists_plain(idx, s // 128)
             if not (torch.equal(lk[0], lp[0]) and torch.equal(lk[1], lp[1])):
                 raise AssertionError(f"key-tile lists {what} differ from "
                                      "their plain version")
+            if not torch.equal(k_ba.key_tile_order(lk[0]),
+                               k_ba.key_tile_order_plain(lp[0])):
+                raise AssertionError(f"key-tile order {what} differs from "
+                                     "its plain version")
+            visits = (lp[0][..., 1:] - lp[0][..., :-1]).float() * (hq // hkv)
             ms, plain_ms = timer(run, it_fast), timer(plain, it_slow)
-            lists_ms = timer(lists, it_fast)
             lists_plain_ms = timer(lambda: k_ba.key_tile_lists_plain(
                 idx, s // 128), it_slow)
+            order_plain_ms = timer(lambda: k_ba.key_tile_order_plain(lp[0]),
+                                   it_slow)
+            if rehearse:           # the launches exist on the card only
+                stage_ms = dict.fromkeys(("lists", "order", "dq", "dkv"),
+                                         0.0)
+            else:
+                stages, _ = k_ba.backward_stages(
+                    q, k, v, kpos, qpos, idx, out, stats, dout, 128, 128,
+                    True)
+                for f in stages.values():
+                    f()
+                stage_ms = {name: timer(f, it_fast)
+                            for name, f in stages.items()}
             # the library yardstick: SDPA's backward over the same keys
             # with the equivalent boolean mask (selected tiles AND causal)
             g = hq // hkv
@@ -4924,13 +4982,25 @@ def time_b6_backward(args, dev, timer, rehearse, card):
             (bound, by), flops, executed = b6_backward_bound(
                 b, hq, hkv, s, dh, dv, n_sel, 2 if dtype == torch.bfloat16
                 else 4)
+            # what dQ + dK/dV issue to the tensor cores: S and dP in both,
+            # dQ, dK and dV twice (p and dS as hi + lo)
+            issued = (2.0 * 128 * 128 * (6 * dh + 4 * dv)
+                      * b * hq * (s // 128) * n_sel)
+            kern_ms = stage_ms["dq"] + stage_ms["dkv"]
+            tflops = issued / (kern_ms * 1e-3) / 1e12 if kern_ms else 0.0
             say(f"  B6 backward, {what} layer: q ({b}, {hq}, {s}, {dh}), k "
                 f"({b}, {hkv}, {s}, {dh}), v (..., {dv}) {dtype}, {n_sel} of "
-                f"{s // 128} tiles: kernels {ms:.3f} ms (lists alone "
-                f"{lists_ms:.4f}), plain {plain_ms:.3f} ms, SDPA backward "
-                f"(boolean mask) {lib_ms:.3f} ms, bound {bound:.4f} ms "
-                f"({by}: {flops / 1e9:.1f} GFLOP the gradient needs; the "
-                f"kernels execute {executed / 1e9:.1f}); errs dq/dk/dv "
+                f"{s // 128} tiles: kernels {ms:.3f} ms = lists "
+                f"{stage_ms['lists']:.4f} + order {stage_ms['order']:.4f} + "
+                f"dQ {stage_ms['dq']:.4f} + dK/dV {stage_ms['dkv']:.4f} "
+                f"(each alone; dQ + dK/dV issue {issued / 1e9:.1f} GFLOP with "
+                f"hi + lo, {tflops:.1f} TFLOP/s), "
+                f"plain {plain_ms:.3f} ms, SDPA backward (boolean mask) "
+                f"{lib_ms:.3f} ms, bound {bound:.4f} ms ({by}: "
+                f"{flops / 1e9:.1f} GFLOP the gradient needs; the kernels "
+                f"execute {executed / 1e9:.1f}); dK/dV visits a block max "
+                f"{float(visits.max()):g}, mean {float(visits.mean()):g}; "
+                "errs dq/dk/dv "
                 + "/".join(f"{e:.2e}" for e, _ in errs)
                 + f" (tolerance {B6_BWD_REL_TOL:g} x scale + {BF16_ULPS} "
                 f"bf16 spacing); bit-equal run to run; {card}")
@@ -4938,8 +5008,16 @@ def time_b6_backward(args, dev, timer, rehearse, card):
                          "hq": hq, "hkv": hkv, "dh": dh, "dv": dv, "S": s,
                          "n_sel": n_sel, "max_abs_err": max(e for e, _ in
                                                             errs),
-                         "errs": errs, "ms": ms, "lists_ms": lists_ms,
+                         "errs": errs, "ms": ms,
+                         "lists_ms": stage_ms["lists"],
+                         "order_ms": stage_ms["order"],
+                         "dq_ms": stage_ms["dq"], "dkv_ms": stage_ms["dkv"],
+                         "issued_gflop": issued / 1e9,
+                         "issued_tflops": tflops,
+                         "visits_max": float(visits.max()),
+                         "visits_mean": float(visits.mean()),
                          "lists_plain_ms": lists_plain_ms,
+                         "order_plain_ms": order_plain_ms,
                          "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": bound, "bound_by": by,
                          "gflop": flops / 1e9,
@@ -4951,21 +5029,28 @@ def time_b6_backward(args, dev, timer, rehearse, card):
 
 
 def b6_backward_entries(rows: list) -> list:
-    """The kernels line's entries of B6's backward and its key-tile lists,
-    at the main path's shape (Qwen2-0.5B's training microbatch); the other
+    """The kernels line's entries of B6's backward, its key-tile lists and
+    their order, at the main path's shape (Qwen2-0.5B's training microbatch); the other
     layer shapes ride along."""
     qwen = rows[0]
     shape = (f"q ({qwen['B']}, {qwen['hq']}, {qwen['S']}, {qwen['dh']}) "
              f"{qwen['dtype']}, k/v ({qwen['B']}, {qwen['hkv']}, "
              f"{qwen['S']}, {qwen['dh']}), bq=bk=128, n_sel={qwen['n_sel']},"
              f" causal")
+    # the backward at these shapes (bf16, tiles of 128) is the Hopper
+    # kernels'; the lists, their order and the other instances are
+    # block_attention_bwd.cu's
     src = "src/repro_torch/kernels/csrc/block_attention_bwd.cu"
+    src_sm90 = "src/repro_torch/kernels/csrc/block_attention_bwd_sm90.cu"
     # the lists read idx once and write the offsets and entries once
     n_idx = qwen["B"] * qwen["hkv"] * (qwen["S"] // 128) * qwen["n_sel"]
     list_bytes = 4 * (2 * n_idx + qwen["B"] * qwen["hkv"]
                       * (qwen["S"] // 128 + 1))
+    # the order reads the offsets once and writes one int a key tile
+    order_bytes = 4 * qwen["B"] * qwen["hkv"] * (2 * (qwen["S"] // 128) + 1)
     return [
-        {"name": "block_attention_backward", "route": "cuda", "source": src,
+        {"name": "block_attention_backward", "route": "cuda",
+         "source": src_sm90,
          "replaces": "src/repro/kernels/block_attention.py:60",
          "backward_of": "B6 (the reference differentiates "
                         "src/repro/core/clusterkv.py:211 with jax.grad)",
@@ -4981,6 +5066,15 @@ def b6_backward_entries(rows: list) -> list:
          "max_abs_err": 0.0, "ms": qwen["lists_ms"],
          "plain_ms": qwen["lists_plain_ms"],
          "bound_ms": list_bytes / HBM_BYTES_PER_S * 1e3,
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "key_tile_order", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/block_attention.py:60",
+         "backward_of": "B6 (the order its dK/dV blocks are numbered in)",
+         "launches": 0, "shape": f"off ({qwen['B']}, {qwen['hkv']}, "
+                                 f"{qwen['S'] // 128 + 1})",
+         "max_abs_err": 0.0, "ms": qwen["order_ms"],
+         "plain_ms": qwen["order_plain_ms"],
+         "bound_ms": order_bytes / HBM_BYTES_PER_S * 1e3,
          "bound_by": "bytes", "library_ms": None}]
 
 
@@ -5591,6 +5685,7 @@ def main() -> int:
                 "tsne_force": k_tf.tsne_force,
                 "block_attention": k_ba.block_attention,
                 "key_tile_lists": k_ba.key_tile_lists,
+                "key_tile_order": k_ba.key_tile_order,
                 "block_attention_backward": k_ba.block_attention_backward,
                 "decode_attend_fused": k_da.decode_attend_fused}
     # the decode kernel's wrapper also counts its launches per contract
@@ -5665,18 +5760,26 @@ def main() -> int:
             raise AssertionError(f"-Xptxas -v reports {len(ptxas)} B6 "
                                  "instantiations, expected 5 bf16 + 6 "
                                  "float32")
-        # B6's backward: dQ and dK/dV, each bf16 and float32
-        ptxas_bwd = [row for k in ("dq_mma", "dkv_mma", "dq_kernel",
-                                   "dkv_kernel")
+        # B6's backward: dQ and dK/dV, bf16 by wgmma at tiles of 128,
+        # by mma.sync at tiles of 32 and 64, and float32
+        ptxas_bwd = [row for k in ("dq_wgmma", "dkv_wgmma", "dq_mma",
+                                   "dkv_mma", "dq_kernel", "dkv_kernel")
                      for row in ptxas_summary(report, k)]
         if len(ptxas_bwd) != 22:
             raise AssertionError(f"-Xptxas -v reports {len(ptxas_bwd)} "
                                  "instantiations of B6's backward, expected "
-                                 "2 x (5 bf16 + 6 float32)")
+                                 "2 x (3 wgmma bf16 + 2 mma.sync bf16 + 6 "
+                                 "float32)")
         for row in ptxas + ptxas_bwd:
             say(f"  ptxas {row['kernel']}: {row['registers']} registers, "
                 f"{row['spill_stores']} bytes spill stores, "
                 f"{row['spill_loads']} bytes spill loads")
+        # what ptxas says of the wgmma pipelines (a serialised wgmma is a
+        # loss of speed, not of correctness)
+        serial = sorted({ln.strip() for ln in report.splitlines()
+                         if "wgmma.mma_async" in ln})
+        say(f"  ptxas: {len(serial)} notes of serialised wgmma"
+            + "".join(f"\n  ptxas: {ln[:240]}" for ln in serial))
 
     # ---------------------------------------------------------------- 2 ---
     say("== phase 2: kernels against their plain versions")
@@ -6168,7 +6271,8 @@ def main() -> int:
             e["launches_solvers"] = solvers["launches"][e["name"]]
             e["launches_persist"] = persist["launches"][e["name"]]
             e["launches_shard"] = shard["launches"][e["name"]]
-        if e["name"] in ("key_tile_lists", "block_attention_backward"):
+        if e["name"] in ("key_tile_lists", "key_tile_order",
+                         "block_attention_backward"):
             e["launches_train"] = train["launches"][e["name"]]
             e["launches_mesh_train"] = mesh_train["launches"][e["name"]]
         if e["name"] in ("decode_attend_fused", "block_attention"):

@@ -37,9 +37,11 @@ SIGNATURES = {
     "repro_tsne_force": (_P,) * 5 + (_I,) * 4 + (_P,),
     "repro_block_attention": (_P,) * 8 + (_I,) * 12 + (_P,),
     "repro_key_tile_lists": (_P,) * 3 + (_I,) * 3 + (_P,),
+    "repro_key_tile_order": (_P,) * 2 + (_I,) * 2 + (_P,),
     "repro_block_attention_dq": (_P,) * 11 + (_I,) * 12 + (_P,),
-    "repro_block_attention_dkv": (_P,) * 12 + (_I,) * 12 + (_P,),
+    "repro_block_attention_dkv": (_P,) * 13 + (_I,) * 12 + (_P,),
     "repro_decode_attend": (_P,) * 11 + (_I,) * 14 + (_P,),
+    "repro_b6_logits_two_ways": (_P,) * 5,
 }
 
 _lock = threading.Lock()

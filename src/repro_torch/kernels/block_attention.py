@@ -22,9 +22,11 @@ differentiable op ``repro_torch::block_attention_with_stats`` instead: the
 same forward, which also writes each row's statistics (m, l), and whose
 backward is ``repro_torch::block_attention_backward``. Their ``CUDA``
 implementations launch B6's forward (:func:`launch_with_stats`) and the
-hand-written backward of ``csrc/block_attention_bwd.cu``
-(:func:`launch_backward`: the key-tile lists, dQ, dK/dV, counted in
-``key_tile_lists.launches``, ``block_attention_backward.launches``); their
+hand-written backward of ``csrc/block_attention_bwd.cu`` (bf16 at tiles of
+128 in ``csrc/block_attention_bwd_sm90.cu``) (:func:`launch_backward`: the
+key-tile lists, their order, dQ, dK/dV, counted in
+``key_tile_lists.launches``, ``key_tile_order.launches``,
+``block_attention_backward.launches``); their
 ``CPU`` implementations are the plain forward and
 :func:`block_attention_backward_plain`, so a CPU train step runs the
 algorithm the card runs.
@@ -75,6 +77,16 @@ def key_tile_lists_plain(idx: torch.Tensor, nkb: int):
     ent = torch.where(pos < off[:, -1:], order, -1)
     return (off.to(torch.int32).reshape(b, hkv, nkb + 1),
             ent.to(torch.int32).reshape(b, hkv, n))
+
+
+def key_tile_order_plain(off: torch.Tensor) -> torch.Tensor:
+    """Plain version of the key-tile order: the items ``bh * nkb + t`` of
+    the lists' offsets ``off`` (B,Hkv,nkb+1), longest list first, equal
+    lengths in index order. Returns (B*Hkv*nkb,) int32. The dK/dV kernel
+    numbers its blocks by it, so that the longest walks start first."""
+    n = (off[..., 1:] - off[..., :-1]).reshape(-1)
+    return torch.sort(n, descending=True, stable=True).indices.to(
+        torch.int32)
 
 
 def block_attention_backward_plain(q, k_sorted, v_sorted, kpos, qpos, idx,
@@ -318,13 +330,37 @@ def key_tile_lists(idx: torch.Tensor, nkb: int):
     return off, ent
 
 
-def launch_backward(q, k_sorted, v_sorted, kpos, qpos, idx, out, stats,
+def key_tile_order(off: torch.Tensor) -> torch.Tensor:
+    """The key-tile order of the lists' offsets ``off`` (B,Hkv,nkb+1)
+    int32: one launch of ``csrc/block_attention_bwd.cu``'s ranking kernel
+    on a CUDA tensor, no host sync; the plain version on a CPU tensor.
+    Returns (B*Hkv*nkb,) int32 as :func:`key_tile_order_plain`."""
+    if off.device.type != "cuda":
+        return key_tile_order_plain(off)
+    if off.dtype != torch.int32 or not off.is_contiguous() or off.ndim != 3:
+        raise ValueError("key_tile_order needs contiguous (B, Hkv, nkb + 1) "
+                         f"int32 offsets, got {off.dtype} {tuple(off.shape)}")
+    bh, nkb = off.shape[0] * off.shape[1], off.shape[2] - 1
+    order = torch.empty((bh * nkb,), dtype=torch.int32, device=off.device)
+    with torch.cuda.device(off.device):
+        code = _build.load().repro_key_tile_order(
+            off.data_ptr(), order.data_ptr(), bh, nkb,
+            _build.current_stream())
+    _build.check(code, "key_tile_order")
+    key_tile_order.launches += 1
+    return order
+
+
+def backward_stages(q, k_sorted, v_sorted, kpos, qpos, idx, out, stats,
                     dout, bq: int, bk: int, causal: bool):
-    """The ``CUDA`` implementation of ``repro_torch::block_attention_backward``:
-    the key-tile lists, then the dQ kernel (which also writes D) and the
-    dK/dV kernel of ``csrc/block_attention_bwd.cu``, on the current stream,
-    from the forward's inputs, its output, its statistics and the
-    cotangent ``dout``. Returns (dq, dk, dv) in the inputs' dtype."""
+    """B6's backward on CUDA tensors as its four launches, each a call of
+    no argument, in the order they must first run: ``lists``
+    (:func:`key_tile_lists`), ``order`` (:func:`key_tile_order`), ``dq``
+    (the dQ kernel, which also writes D) and ``dkv`` (the dK/dV kernel) of
+    ``csrc/block_attention_bwd.cu`` (``csrc/block_attention_bwd_sm90.cu``
+    in bf16 at tiles of 128), each on the current stream into buffers the
+    stages share. Returns ``(stages, (dq, dk, dv))``, the gradients filled
+    once every stage ran. A stage may be run again alone (to time it)."""
     b, hq, s, dh = q.shape
     hkv, s_k, dv = k_sorted.shape[1], k_sorted.shape[2], v_sorted.shape[3]
     for name, t, shape, dtype in (
@@ -336,30 +372,81 @@ def launch_backward(q, k_sorted, v_sorted, kpos, qpos, idx, out, stats,
             raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
                              f"shape {shape} on {q.device}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    off, ent = key_tile_lists(idx, s_k // bk)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k_sorted)
     dvt = torch.empty_like(v_sorted)
-    dsum = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    lib = _build.load()
+    # D = rowsum(dout o out), and 1 / l (written by the bf16 dQ kernel at
+    # tiles of 128 for its dK/dV kernel)
+    dsum = torch.empty((2, b, hq, s), dtype=torch.float32, device=q.device)
+    lists = {}
     dims = (b, hq, hkv, s, s_k, dh, dv, bq, bk, idx.shape[3], int(causal),
             DTYPES[q.dtype])
-    with torch.cuda.device(q.device):
-        stream = _build.current_stream()
-        code = lib.repro_block_attention_dq(
-            q.data_ptr(), k_sorted.data_ptr(), v_sorted.data_ptr(),
-            kpos.data_ptr(), qpos.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            stats.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-            dsum.data_ptr(), *dims, stream)
+
+    def run_lists():
+        lists["off"], lists["ent"] = key_tile_lists(idx, s_k // bk)
+
+    def run_order():
+        lists["order"] = key_tile_order(lists["off"])
+
+    def run_dq():
+        with torch.cuda.device(q.device):
+            code = _build.load().repro_block_attention_dq(
+                q.data_ptr(), k_sorted.data_ptr(), v_sorted.data_ptr(),
+                kpos.data_ptr(), qpos.data_ptr(), idx.data_ptr(),
+                out.data_ptr(), stats.data_ptr(), dout.data_ptr(),
+                dq.data_ptr(), dsum.data_ptr(), *dims,
+                _build.current_stream())
         _build.check(code, "block_attention backward (dQ)")
-        code = lib.repro_block_attention_dkv(
-            q.data_ptr(), k_sorted.data_ptr(), v_sorted.data_ptr(),
-            kpos.data_ptr(), qpos.data_ptr(), stats.data_ptr(),
-            dsum.data_ptr(), dout.data_ptr(), off.data_ptr(), ent.data_ptr(),
-            dk.data_ptr(), dvt.data_ptr(), *dims, stream)
+
+    def run_dkv():
+        with torch.cuda.device(q.device):
+            code = _build.load().repro_block_attention_dkv(
+                q.data_ptr(), k_sorted.data_ptr(), v_sorted.data_ptr(),
+                kpos.data_ptr(), qpos.data_ptr(), stats.data_ptr(),
+                dsum.data_ptr(), dout.data_ptr(), lists["off"].data_ptr(),
+                lists["ent"].data_ptr(), lists["order"].data_ptr(),
+                dk.data_ptr(), dvt.data_ptr(), *dims,
+                _build.current_stream())
         _build.check(code, "block_attention backward (dK/dV)")
+
+    return ({"lists": run_lists, "order": run_order, "dq": run_dq,
+             "dkv": run_dkv}, (dq, dk, dvt))
+
+
+def logits_two_ways(q: torch.Tensor, k: torch.Tensor):
+    """A check of the backward's recomputation, not a path's launch: S =
+    q.k^T of one tile pair, ``q`` and ``k`` (128, 64) contiguous bf16 on a
+    card, by the forward's ``mma.sync`` in its order and by the backward's
+    ``wgmma`` from the same shared tiles. Returns ``(s_mma, s_wgmma)``,
+    (128, 128) float32 each."""
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16 \
+            or tuple(q.shape) != (128, 64) or tuple(k.shape) != (128, 64) \
+            or k.dtype != q.dtype or not (q.is_contiguous()
+                                          and k.is_contiguous()):
+        raise ValueError("logits_two_ways takes two contiguous (128, 64) "
+                         "bf16 tiles on a card")
+    s_mma = torch.empty((128, 128), dtype=torch.float32, device=q.device)
+    s_wgmma = torch.empty_like(s_mma)
+    with torch.cuda.device(q.device):
+        code = _build.load().repro_b6_logits_two_ways(
+            q.data_ptr(), k.data_ptr(), s_mma.data_ptr(), s_wgmma.data_ptr(),
+            _build.current_stream())
+    _build.check(code, "logits_two_ways")
+    return s_mma, s_wgmma
+
+
+def launch_backward(q, k_sorted, v_sorted, kpos, qpos, idx, out, stats,
+                    dout, bq: int, bk: int, causal: bool):
+    """The ``CUDA`` implementation of ``repro_torch::block_attention_backward``:
+    the four launches of :func:`backward_stages` in turn, from the
+    forward's inputs, its output, its statistics and the cotangent
+    ``dout``, no host sync. Returns (dq, dk, dv) in the inputs' dtype."""
+    stages, grads = backward_stages(q, k_sorted, v_sorted, kpos, qpos, idx,
+                                    out, stats, dout, bq, bk, causal)
+    for run in stages.values():
+        run()
     block_attention_backward.launches += 1
-    return dq, dk, dvt
+    return grads
 
 
 def block_attention_backward(q, k_sorted, v_sorted, kpos, qpos, idx, out,
@@ -418,6 +505,7 @@ def _backward(ctx, dout, _dstats):
 
 block_attention.launches = 0
 key_tile_lists.launches = 0
+key_tile_order.launches = 0
 block_attention_backward.launches = 0
 LIB.impl("block_attention", launch, "CUDA")
 LIB.impl("block_attention_with_stats", launch_with_stats, "CUDA")

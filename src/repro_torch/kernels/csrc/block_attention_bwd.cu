@@ -22,40 +22,51 @@
 // over exactly the (query tile, key tile) pairs the forward visited: a
 // tile id outside [0, S_k/bk) is skipped, a duplicate id counts twice.
 //
-// Three kernels, each with a bf16 (tensor cores) and a float32 (CUDA
-// cores) instance at every forward shape:
+// Kernels (no atomics anywhere: every block owns its outputs and sums in a
+// fixed order, so the result is bit-equal run to run):
 //
 // * key_tile_lists: for each (b, kv head) the transpose of idx as CSR, by
-//   a counting sort with no atomics: one thread per key tile counts its
-//   occurrences, one thread scans the counts, then each key tile's thread
-//   lists the flat positions qt * n_sel + slot that selected it, in
-//   ascending order (a duplicate once per occurrence, the rest of the
-//   list -1). No host sync: the lists stay on the device.
+//   a counting sort: one thread per key tile counts its occurrences, one
+//   thread scans the counts, then each key tile's thread lists the flat
+//   positions qt * n_sel + slot that selected it, in ascending order (a
+//   duplicate once per occurrence, the rest of the list -1). No host sync:
+//   the lists stay on the device.
+// * key_tile_order: every (b, kv head, key tile) ranked by its list's
+//   length, longest first (each thread ranks its own item against all):
+//   the dK/dV blocks are numbered in this order. A key tile's work is its
+//   list times g, unequal by 1.5-2x between tiles (Qwen2-0.5B's own
+//   selections: 224 visits against a mean of 112), and the card's block
+//   scheduler hands out blocks in index order as SMs free up, so the
+//   longest walks start first and the last wave is short ones.
 // * dQ: one block per (query tile, query head, b), as the forward; it also
-//   computes D and writes it for the dK/dV kernel.
+//   writes D (and, at bf16 tiles of 128, 1 / l) for the dK/dV kernel.
 // * dK/dV: one block per (key tile, kv head, b); it walks the tile's list
 //   and, for each entry, the g query heads of the group, so the GQA sum
-//   and the sum over query tiles stay in the block's registers: no
-//   atomics anywhere, and the result is bit-equal run to run.
+//   and the sum over query tiles stay in the block's registers.
 //
-// What bounds it: operations. A selected (query tile, key tile) pair costs
-// 2 bq bk (2 dh + dv) in dQ (S, dP, dQ) and 2 bq bk (2 dh + 2 dv) in dK/dV
-// (S, dP, dV, dK): a Qwen2-0.5B layer at S = 4096, 14 heads, 16 of 32 tiles
-// is 105 GFLOP, 0.106 ms at 989 TFLOP/s bf16. The bf16 design is the
-// forward's: mma.sync.m16n8k16 with float32 accumulators, one warp per 16
-// rows (query rows in dQ, keys in dK/dV), operand tiles through a 2-stage
-// cp.async ring with rows padded by 16 bytes for ldmatrix. The float32
-// operands that enter a product as bf16 (p and dS) are split into
-// hi + lo, two mmas each, as the forward does for p: |x - hi - lo| <=
-// 2^-17 |x|, so the kernel stays within the forward's bound of the plain
-// version. One block an SM (up to 255 registers a thread): the
-// accumulators alone are DK / 2 floats a thread in dQ and (DK + DV) / 2 in
-// dK/dV. wgmma and TMA are later work.
+// What bounds dQ and dK/dV: operations. A selected (query tile, key tile)
+// pair costs 2 bq bk (2 dh + dv) in dQ (S, dP, dQ) and 2 bq bk (2 dh +
+// 2 dv) in dK/dV (S, dP, dV, dK). The float32 operands that enter a bf16
+// product (p and dS) are split into hi + lo, two products each:
+// |x - hi - lo| <= 2^-17 |x|, within the forward's bound of the plain
+// version. Three designs:
+//
+// * bf16 at tiles of 128 (every ClusterKV train step):
+//   block_attention_bwd_sm90.cu, wgmma fed by a TMA ring, warp-specialised
+//   (its note says how);
+// * bf16 at tiles of 32 and 64: dq_mma / dkv_mma below, the forward's
+//   design: mma.sync.m16n8k16 with float32 accumulators, one warp per 16
+//   rows (query rows in dQ, keys in dK/dV), operand tiles through a
+//   2-stage cp.async ring with rows padded by 16 bytes for ldmatrix, one
+//   block an SM;
+// * float32 on the CUDA cores (dq_kernel / dkv_kernel), the covering
+//   checks' dtype.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_attention_bwd.cuh"
 #include "mma_bf16.cuh"
 #include "smem.cuh"
 
@@ -104,6 +115,34 @@ __global__ void __launch_bounds__(kListThreads)
       if (ib[j] == t) e[w++] = j;
   }
   for (int j = o[nkb] + threadIdx.x; j < n; j += kListThreads) e[j] = -1;
+}
+
+// the key tiles of all (b, kv head) heaviest first: item i = bh * nkb + t
+// weighs its list's length; order[rank] = i, rank = the items that weigh
+// more, or as much at a lower index (no atomics: each thread ranks its own
+// item against all, the weights staged through shared memory)
+constexpr int kOrderThreads = 256;
+
+__global__ void __launch_bounds__(kOrderThreads)
+    key_tile_order_kernel(const int* __restrict__ off, int* __restrict__ order,
+                          int n, int nkb) {
+  __shared__ int w[kOrderThreads];
+  auto weight = [&](int i) {
+    const int* o = off + (long long)(i / nkb) * (nkb + 1) + i % nkb;
+    return o[1] - o[0];
+  };
+  const int i = blockIdx.x * kOrderThreads + threadIdx.x;
+  const int wi = i < n ? weight(i) : 0;
+  int rank = 0;
+  for (int j0 = 0; j0 < n; j0 += kOrderThreads) {
+    __syncthreads();
+    if (j0 + threadIdx.x < n) w[threadIdx.x] = weight(j0 + threadIdx.x);
+    __syncthreads();
+    const int m = n - j0 < kOrderThreads ? n - j0 : kOrderThreads;
+    for (int j = 0; j < m; ++j)
+      rank += w[j] > wi || (w[j] == wi && j0 + j < i);
+  }
+  if (i < n) order[rank] = i;
 }
 
 // ---------------------------------------------------------------------------
@@ -957,13 +996,7 @@ __global__ void __launch_bounds__(DkvShape<BQ, BK, DK, DV>::kThreads, 1)
 // launch
 // ---------------------------------------------------------------------------
 
-struct Args {
-  const void *q, *k, *v, *kpos, *qpos, *idx, *out, *stats, *dout, *dsum,
-      *off, *ent;
-  void *dq, *dk, *dv, *dsum_out;
-  int b, hq, hkv, s, s_k, n_sel, causal;
-  cudaStream_t stream;
-};
+using Args = repro::BwdArgs;
 
 template <typename Kern>
 cudaError_t prepare(Kern kern, size_t smem, repro::SmemOptin& opt) {
@@ -1054,23 +1087,23 @@ int dkv_bf16(const Args& a) {
 
 // the forward's instances: bq == bk and (bq, dh, dv) in
 //   {32, 64, 128} x (64, 64), 128 x (128, 128), 128 x (96, 64)
-// in both dtypes, and float32 at 32 x (16, 16)
-#define REPRO_BWD_DISPATCH(F32, BF16)                                     \
+// in both dtypes, and float32 at 32 x (16, 16); bf16 at bq = 128 (every
+// ClusterKV train step) runs the Hopper kernels of
+// block_attention_bwd_sm90.cu
+#define REPRO_BWD_DISPATCH(F32, BF16, SM90)                               \
   if (bq != bk || (dtype != 0 && dtype != 1))                             \
     return (int)cudaErrorInvalidValue;                                    \
+  if (dtype == 1 && bq == 128) return SM90(a, dh, dv);                    \
   if (dtype == 0 && bq == 32 && dh == 16 && dv == 16)                     \
     return F32<32, 32, 16, 16>(a);                                        \
-  if (bq == 128 && dh == 64 && dv == 64)                                  \
-    return dtype == 0 ? F32<128, 128, 64, 64>(a) : BF16<128, 128, 64, 64>(a); \
+  if (bq == 128 && dh == 64 && dv == 64) return F32<128, 128, 64, 64>(a); \
   if (bq == 64 && dh == 64 && dv == 64)                                   \
     return dtype == 0 ? F32<64, 64, 64, 64>(a) : BF16<64, 64, 64, 64>(a); \
   if (bq == 32 && dh == 64 && dv == 64)                                   \
     return dtype == 0 ? F32<32, 32, 64, 64>(a) : BF16<32, 32, 64, 64>(a); \
   if (bq == 128 && dh == 128 && dv == 128)                                \
-    return dtype == 0 ? F32<128, 128, 128, 128>(a)                        \
-                      : BF16<128, 128, 128, 128>(a);                      \
-  if (bq == 128 && dh == 96 && dv == 64)                                  \
-    return dtype == 0 ? F32<128, 128, 96, 64>(a) : BF16<128, 128, 96, 64>(a); \
+    return F32<128, 128, 128, 128>(a);                                    \
+  if (bq == 128 && dh == 96 && dv == 64) return F32<128, 128, 96, 64>(a); \
   return (int)cudaErrorInvalidValue;
 
 }  // namespace
@@ -1087,9 +1120,24 @@ extern "C" int repro_key_tile_lists(const void* idx, void* off, void* ent,
   return (int)cudaGetLastError();
 }
 
-// dQ (B, Hq, S, dh) in q's dtype, and dsum (B, Hq, S) float32 = D, from the
-// forward's inputs, its output out, its stats (2, B, Hq, S) and the
-// cotangent dout (B, Hq, S, dv); dtype 0 = float32, 1 = bfloat16.
+// order (bh * nkb) i32: the items bh * nkb + t of the lists' offsets off
+// (BH, nkb + 1), longest list first, ties in index order; the dK/dV
+// kernel numbers its blocks by it
+extern "C" int repro_key_tile_order(const void* off, void* order, int bh,
+                                    int nkb, void* stream) {
+  const int n = bh * nkb;
+  if (n == 0) return (int)cudaSuccess;
+  key_tile_order_kernel<<<(n + kOrderThreads - 1) / kOrderThreads,
+                          kOrderThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)off, (int*)order, n, nkb);
+  return (int)cudaGetLastError();
+}
+
+// dQ (B, Hq, S, dh) in q's dtype, and dsum (2, B, Hq, S) float32: D in the
+// first plane, 1 / max(l, 1e-30) in the second (written by the bf16 kernel
+// at tiles of 128 only), from the forward's inputs, its output out, its
+// stats (2, B, Hq, S) and the cotangent dout (B, Hq, S, dv); dtype 0 =
+// float32, 1 = bfloat16.
 extern "C" int repro_block_attention_dq(
     const void* q, const void* k, const void* v, const void* kpos,
     const void* qpos, const void* idx, const void* out, const void* stats,
@@ -1098,22 +1146,23 @@ extern "C" int repro_block_attention_dq(
     int dtype, void* stream) {
   if (b == 0 || s == 0) return (int)cudaSuccess;
   Args a{q, k, v, kpos, qpos, idx, out, stats, dout, nullptr, nullptr,
-         nullptr, dq, nullptr, nullptr, dsum, b, hq, hkv, s, s_k, n_sel,
-         causal, (cudaStream_t)stream};
-  REPRO_BWD_DISPATCH(dq_f32, dq_bf16)
+         nullptr, nullptr, dq, nullptr, nullptr, dsum, b, hq, hkv, s, s_k,
+         n_sel, causal, (cudaStream_t)stream};
+  REPRO_BWD_DISPATCH(dq_f32, dq_bf16, repro::bwd_dq_sm90)
 }
 
 // dK (B, Hkv, S_k, dh) and dV (B, Hkv, S_k, dv) in k's dtype, from the
-// key-tile lists (off, ent) and dsum of the dQ kernel.
+// key-tile lists (off, ent), their order (the bf16 kernels at tiles of 128
+// number their blocks by it) and dsum of the dQ kernel.
 extern "C" int repro_block_attention_dkv(
     const void* q, const void* k, const void* v, const void* kpos,
     const void* qpos, const void* stats, const void* dsum, const void* dout,
-    const void* off, const void* ent, void* dk, void* dvo, int b, int hq,
-    int hkv, int s, int s_k, int dh, int dv, int bq, int bk, int n_sel,
-    int causal, int dtype, void* stream) {
+    const void* off, const void* ent, const void* order, void* dk,
+    void* dvo, int b, int hq, int hkv, int s, int s_k, int dh, int dv,
+    int bq, int bk, int n_sel, int causal, int dtype, void* stream) {
   if (b == 0 || s_k == 0) return (int)cudaSuccess;
   Args a{q, k, v, kpos, qpos, nullptr, nullptr, stats, dout, dsum, off, ent,
-         nullptr, dk, dvo, nullptr, b, hq, hkv, s, s_k, n_sel, causal,
-         (cudaStream_t)stream};
-  REPRO_BWD_DISPATCH(dkv_f32, dkv_bf16)
+         order, nullptr, dk, dvo, nullptr, b, hq, hkv, s, s_k, n_sel,
+         causal, (cudaStream_t)stream};
+  REPRO_BWD_DISPATCH(dkv_f32, dkv_bf16, repro::bwd_dkv_sm90)
 }

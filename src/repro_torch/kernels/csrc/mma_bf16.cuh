@@ -1,7 +1,8 @@
 // bf16 tensor-core building blocks shared by the ClusterKV attention kernels
-// (block_attention.cu, block_attention_bwd.cu): cp.async, ldmatrix,
-// mma.sync.m16n8k16 with float32 accumulators, and the hi + lo split that
-// keeps a float32 operand float32-accurate through two bf16 products.
+// (block_attention.cu, block_attention_bwd.cu, block_attention_bwd_sm90.cu):
+// cp.async, ldmatrix, mma.sync.m16n8k16 with float32 accumulators, and the
+// hi + lo split that keeps a float32 operand float32-accurate through two
+// bf16 products.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -13,8 +13,13 @@ key-tile lists and the differentiable ops.
   closed form with the final m and l).
 - The plain backward against autograd of the plain forward in float64,
   within ``F64_TOL x scale``.
+- The same against ``jax.vjp`` at the shapes the Hopper kernels take
+  (tiles of 128, dh 64, 128 and 96 with dv 64) and with skewed
+  selections: one key tile chosen by every query tile (g = 7 and 1), a
+  key tile chosen by none, whose dk and dv are exactly 0.
 - ``key_tile_lists_plain`` against a numpy transpose of ``idx``, with
-  tile ids outside ``[0, S_k/bk)`` and duplicates.
+  tile ids outside ``[0, S_k/bk)`` and duplicates; ``key_tile_order_plain``
+  (the dK/dV blocks' order, longest list first) against a numpy sort.
 - The forward and backward ops under ``FakeTensorMode`` on fake CUDA
   tensors: shapes, dtypes, no ``data_ptr()`` read (warnings are errors),
   no launch counted, and ``FlopCounterMode`` counting the backward's
@@ -42,11 +47,13 @@ F64_TOL = 1e-12
 
 
 def _inputs(seed, b, hq, hkv, s, dh, dv, bq, n_sel, *, dup=False,
-            masked_row=False, dtype=np.float32):
+            masked_row=False, hot=None, dtype=np.float32):
     """Seeded numpy inputs: cluster-sorted k/v with a permuted position per
     key, ``n_sel`` distinct key tiles per query tile; ``dup`` repeats one
     tile id in a slot, ``masked_row`` selects for query tile 0 only tiles
-    that do not hold position 0, so query row 0 sees no unmasked key."""
+    that do not hold position 0, so query row 0 sees no unmasked key;
+    ``hot`` (a tile id) is chosen by every query tile, in slot 0, and the
+    last key tile by none."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, hq, s, dh)).astype(dtype)
     k = rng.standard_normal((b, hkv, s, dh)).astype(dtype)
@@ -62,6 +69,13 @@ def _inputs(seed, b, hq, hkv, s, dh, dv, bq, n_sel, *, dup=False,
                 zero_tile = int(np.argmax(kpos[bi, hi] == 0)) // bq
                 others = [t for t in range(nkb) if t != zero_tile]
                 idx[bi, hi, 0] = others[:n_sel]
+    if hot is not None:
+        rest = [t for t in range(nkb - 1) if t != hot]
+        for bi in range(b):
+            for hi in range(hkv):
+                for qt in range(nqb):
+                    idx[bi, hi, qt] = [hot, *rng.permutation(rest)[
+                        :n_sel - 1]]
     if dup:
         idx[0, 0, 1, 1] = idx[0, 0, 1, 0]
     return q, k, v, kpos, qpos, idx.astype(np.int32)
@@ -128,6 +142,57 @@ def test_plain_backward_matches_the_reference_vjp(causal, g, dh, dv, dup,
         assert float(got[0][0, 0, 0].abs().max()) == 0.0
 
 
+# the Hopper kernels' shapes and skewed selections, at small S:
+# (causal, g, dh, dv, bq, s, hot, dup, masked_row); ``hot`` chosen by every
+# query tile, the last key tile by none
+WIDE_CASES = [
+    (True, 7, 64, 64, 16, 128, 0, False, False),
+    (True, 1, 64, 64, 16, 128, 2, True, False),
+    (False, 7, 32, 16, 16, 128, 5, False, False),
+    (True, 2, 128, 128, 128, 512, None, True, True),
+    (False, 1, 128, 128, 128, 512, 1, False, False),
+    (True, 2, 96, 64, 128, 512, None, False, True),
+    (True, 1, 96, 64, 128, 384, 0, True, False),
+]
+
+
+@pytest.mark.parametrize("causal,g,dh,dv,bq,s,hot,dup,masked_row",
+                         WIDE_CASES)
+def test_plain_backward_matches_the_reference_vjp_wide_and_skewed(
+        causal, g, dh, dv, bq, s, hot, dup, masked_row):
+    n_sel = 2 if s // bq <= 4 else 3
+    q, k, v, kpos, qpos, idx = _inputs(6, 1, 2 * g, 2, s, dh, dv, bq, n_sel,
+                                       dup=dup, masked_row=masked_row,
+                                       hot=hot)
+    if hot is not None:
+        assert (idx[..., 0] == hot).all() and (idx != s // bq - 1).all()
+    cot = np.random.default_rng(7).standard_normal(
+        (1, 2 * g, s, dv)).astype(np.float32)
+
+    def f(q_, k_, v_):
+        return r_ckv.sparse_block_attention(q_, k_, v_, jnp.asarray(kpos),
+                                            jnp.asarray(qpos),
+                                            jnp.asarray(idx), bq, bq,
+                                            causal=causal)
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(cot))]
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    tkp, tqp, tix = map(torch.from_numpy, (kpos, qpos, idx))
+    out, m, l = t_ckv.sparse_block_attention(tq, tk, tv, tkp, tqp, tix, bq,
+                                             bq, causal=causal, stats=True)
+    got = t_ba.block_attention_backward_plain(
+        tq, tk, tv, tkp, tqp, tix, out, torch.stack([m, l]),
+        torch.from_numpy(cot), bq=bq, bk=bq, causal=causal)
+    for name, w, a in zip(("dq", "dk", "dv"), want, got):
+        np.testing.assert_allclose(a.numpy(), w, rtol=0,
+                                   atol=GRAD_TOL * float(np.abs(w).max()),
+                                   err_msg=name)
+    if hot is not None:
+        # the last key tile is chosen by none: its gradients are exactly 0
+        for a in got[1:]:
+            assert float(a[:, :, -bq:].abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("causal,g,dh,dv,dup,masked_row", CASES)
 def test_plain_backward_matches_autograd_of_the_plain_forward_f64(
         causal, g, dh, dv, dup, masked_row):
@@ -187,6 +252,32 @@ def test_key_tile_lists_are_the_transpose_of_idx(nkb, n_sel, seed):
     off2, ent2 = t_ba.key_tile_lists(torch.from_numpy(idx), nkb)
     assert t_ba.key_tile_lists.launches == n0
     assert torch.equal(off2, off) and torch.equal(ent2, ent)
+
+
+def _order_numpy(off):
+    n = (off[..., 1:] - off[..., :-1]).reshape(-1)
+    return np.array(sorted(range(n.size), key=lambda i: (-n[i], i)),
+                    np.int32)
+
+
+@pytest.mark.parametrize("nkb,n_sel,seed,hot", [
+    (4, 2, 0, None), (8, 3, 1, 3), (32, 16, 2, 0), (3, 5, 3, None)])
+def test_key_tile_order_is_longest_list_first(nkb, n_sel, seed, hot):
+    """The order the dK/dV blocks are numbered in: every (b, kv head, key
+    tile) once, by list length, longest first, equal lengths in index
+    order; on the CPU the wrapper is the plain version."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-1, nkb + 1, (2, 3, 5, n_sel)).astype(np.int32)
+    if hot is not None:
+        idx[..., 0] = hot            # one tile chosen by every query tile
+    off, _ = t_ba.key_tile_lists_plain(torch.from_numpy(idx), nkb)
+    order = t_ba.key_tile_order_plain(off)
+    assert order.dtype == torch.int32 and order.shape == (2 * 3 * nkb,)
+    np.testing.assert_array_equal(order.numpy(), _order_numpy(off.numpy()))
+    assert sorted(order.tolist()) == list(range(2 * 3 * nkb))
+    n0 = t_ba.key_tile_order.launches
+    assert torch.equal(t_ba.key_tile_order(off), order)
+    assert t_ba.key_tile_order.launches == n0
 
 
 @pytest.mark.parametrize("dh,dv", [(64, 64), (96, 64)])

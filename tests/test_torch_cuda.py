@@ -1708,6 +1708,78 @@ def test_cuda_block_attention_backward_skips_tile_ids_outside_the_cache(
     assert int(ent[0, 0, -1]) == -1
 
 
+# the Hopper kernels' instances (bf16, tiles of 128) under the selections
+# that stress them: (g, S, n_sel, what); "hot" makes key tile 1 the choice
+# of every query tile and the last key tile the choice of none, "dup" adds
+# a duplicate and two ids outside the cache, "masked" gives query row 0 no
+# unmasked key, "long" runs a ring and a list longer than the stages
+B6_SM90_SHAPES = [(64, 64), (128, 128), (96, 64)]
+B6_SM90_CASES = [(7, 512, 3, "hot"), (1, 512, 3, "hot"),
+                 (3, 512, 3, "dup"), (2, 512, 3, "masked"),
+                 (7, 2048, 8, "long")]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dh,dv", B6_SM90_SHAPES)
+@pytest.mark.parametrize("g,s,n_sel,what", B6_SM90_CASES)
+def test_cuda_hopper_backward_under_skewed_selections(cuda_device, dh, dv, g,
+                                                      s, n_sel, what):
+    """B6's backward at tiles of 128 in bf16 (``block_attention_bwd_sm90.cu``:
+    wgmma, a TMA ring, dK/dV blocks numbered heaviest first) against the
+    plain backward on the forward kernel's own statistics, within
+    ``B6_BWD_REL``, and bit-equal run to run; a key tile no query tile
+    chose gets dk and dv exactly 0; the order kernel bit-equal to its plain
+    version."""
+    hkv = 2
+    q, k, v, kpos, qpos, idx = _attention_inputs(
+        dh + dv + g + s, 2, g * hkv, hkv, s, dh, 128, n_sel, cuda_device,
+        torch.bfloat16, dv=dv)
+    nkb = s // 128
+    if what == "hot":
+        rng = np.random.default_rng(s + g)
+        rest = [t for t in range(nkb - 1) if t != 1]
+        sel = [[1, *rng.permutation(rest)[:n_sel - 1]]
+               for _ in range(2 * hkv * nkb)]
+        idx = torch.tensor(sel, dtype=torch.int32,
+                           device=cuda_device).reshape(idx.shape)
+    elif what == "dup":
+        idx[0, 1, 2, 1] = idx[0, 1, 2, 0]
+        idx[1, 0, 1, 2] = nkb
+        idx[0, 0, 3, 0] = -1
+    elif what == "masked":
+        for b in range(2):
+            for h in range(hkv):
+                zero = int((kpos[b, h] == 0).nonzero()[0, 0]) // 128
+                idx[b, h, 0] = torch.tensor(
+                    [t for t in range(nkb) if t != zero][:n_sel],
+                    dtype=torch.int32)
+    out, stats = torch.ops.repro_torch.block_attention_with_stats(
+        q, k, v, kpos, qpos, idx, 128, 128, True)
+    dout = torch.randn(tuple(out.shape), device=cuda_device).bfloat16()
+    n = t_ba.key_tile_order.launches
+    got = t_ba.block_attention_backward(q, k, v, kpos, qpos, idx, out, stats,
+                                        dout, bq=128, bk=128)
+    again = t_ba.block_attention_backward(q, k, v, kpos, qpos, idx, out,
+                                          stats, dout, bq=128, bk=128)
+    torch.cuda.synchronize()
+    assert t_ba.key_tile_order.launches == n + 2
+    want = t_ba.block_attention_backward_plain(
+        q, k, v, kpos, qpos, idx, out, _natural_stats(stats, torch.bfloat16),
+        dout, bq=128, bk=128)
+    for g_, a, w in zip(got, again, want):
+        assert torch.equal(g_, a)
+        _assert_grad_close(g_, w, torch.bfloat16)
+    if what == "hot":
+        assert float(got[1][:, :, -128:].abs().max()) == 0.0
+        assert float(got[2][:, :, -128:].abs().max()) == 0.0
+    if what == "masked":
+        # query row 0 sees no key: it passes nothing to q
+        assert float(got[0][:, :, 0].float().abs().max()) == 0.0
+    off, _ = t_ba.key_tile_lists(idx, nkb)
+    assert torch.equal(t_ba.key_tile_order(off),
+                       t_ba.key_tile_order_plain(off))
+
+
 @pytest.mark.requires_cuda
 def test_cuda_two_layer_qwen_trains_without_launching_a_kernel(cuda_device):
     """Qwen2-0.5B at full width, 2 layers, bf16 compute over float32

@@ -94,7 +94,7 @@ def test_port_has_the_expected_modules():
     cu = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert cu == {"bsr_spmv.cu", "gamma_pairs.cu", "tsne_force.cu",
                   "block_attention.cu", "block_attention_bwd.cu",
-                  "decode_attend.cu"}
+                  "block_attention_bwd_sm90.cu", "decode_attend.cu"}
 
 
 def test_modules_import_without_toolchain_or_jax():
