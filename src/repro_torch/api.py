@@ -86,6 +86,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch._device import DeviceLike, from_numpy, resolve_device, to_numpy
 from repro_torch.core import hierarchy, interact, knn, measures
 from repro_torch.core import ordering as ordering_mod
@@ -300,14 +301,16 @@ class _PlanHost:
 
 
 @contextmanager
-def _stage(timings: dict, name: str, device: torch.device):
+def _stage(timings: dict, name: str, span: str, device: torch.device):
     """Wall time of one build stage, with the device drained at its end so
-    the time belongs to the stage that queued the work."""
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+    the time belongs to the stage that queued the work; also the trace's
+    span ``span`` (``repro_torch.trace``)."""
+    with trace.span(span):
+        t0 = time.perf_counter()
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
 
 
 def _symmetrize_pattern(rows: np.ndarray, cols: np.ndarray,
@@ -385,33 +388,33 @@ class InteractionPlan:
             x = np.asarray(to_numpy(x), np.float32)
             if config.ordering == "dual_tree":
                 d = min(config.d, x.shape[1])
-                with _stage(timings, "embedding", dev):
+                with _stage(timings, "embedding", "build.embedding", dev):
                     xd = from_numpy(x, dev)
                     emean_t, eaxes_t = pca_map(xd, d, device=dev)
                     y = apply_pca_map(xd, emean_t, eaxes_t, device=dev)
                     emean, eaxes = to_numpy(emean_t), to_numpy(eaxes_t)
                     embedding = to_numpy(y)
                     del xd
-                with _stage(timings, "tree", dev):
+                with _stage(timings, "tree", "build.tree", dev):
                     tree = build_tree(y, bits=config.bits,
                                       leaf_size=config.leaf_size, device=dev)
                 pi = tree.perm
             else:
-                with _stage(timings, "ordering", dev):
+                with _stage(timings, "ordering", "build.ordering", dev):
                     pi = ordering_mod.compute_ordering(
                         config.ordering, x, rows, cols, seed=config.seed,
                         device=dev)
         if pi is None:
             pi = np.arange(n)
-        pi = np.asarray(pi)
-        inv = np.empty_like(pi)
-        inv[pi] = np.arange(n)
-
-        r2, c2 = ordering_mod.apply_ordering(rows, cols, pi)
+        with trace.span("build.apply_ordering"):
+            pi = np.asarray(pi)
+            inv = np.empty_like(pi)
+            inv[pi] = np.arange(n)
+            r2, c2 = ordering_mod.apply_ordering(rows, cols, pi)
         sigma = sigma if sigma is not None else max(config.k / 2.0, 1.0)
         bsr = None
         if with_bsr:
-            with _stage(timings, "build_bsr", dev):
+            with _stage(timings, "build_bsr", "build.bsr", dev):
                 bsr = build_bsr(r2, c2, vals, n, bs=config.bs, sb=config.sb,
                                 max_nbr=max_nbr, slack=config.ell_slack,
                                 device=dev)
@@ -625,8 +628,13 @@ class InteractionPlan:
     def matvec(self, x, backend: Optional[str] = None,
                **kwargs) -> torch.Tensor:
         """``y = A x`` in original order: unpermute ∘ apply ∘ permute."""
-        x = from_numpy(x, self.device, torch.float32)
-        return self.unpermute(self.apply(self.permute(x), backend, **kwargs))
+        with trace.span("plan.matvec"):
+            x = from_numpy(x, self.device, torch.float32)
+            with trace.span("plan.permute"):
+                x = self.permute(x)
+            y = self.apply(x, backend, **kwargs)
+            with trace.span("plan.unpermute"):
+                return self.unpermute(y)
 
     def with_values(self, vals) -> "InteractionPlan":
         """New plan with the same pattern/ordering but fresh edge values
@@ -1316,66 +1324,69 @@ def build_plan(x, *, k: int = 16, ordering: str = "dual_tree", bs: int = 32,
         >>> tuple(plan.matvec(np.ones(64, np.float32)).shape)
         (64,)
     """
-    dev = resolve_device(device)
-    if config is None:
-        config = PlanConfig(k=k, ordering=ordering, bs=bs, sb=sb,
-                            backend=backend, d=d, bits=bits,
-                            leaf_size=leaf_size, symmetrize=symmetrize,
-                            seed=seed, **cfg_overrides)
-    elif cfg_overrides:
-        config = dataclasses.replace(config, **cfg_overrides)
-    x = np.asarray(to_numpy(x), np.float32)
-    n = x.shape[0]
-    if capacity is not None and capacity < n:
-        raise ValueError(f"capacity={capacity} < n={n} points")
-    if sources is not None:
-        sources = np.asarray(to_numpy(sources), np.float32)
-        if sources.shape[0] != n:
-            raise ValueError(
-                f"sources has {sources.shape[0]} points, targets have {n}; "
-                "one ordering indexes both sides of the square plan")
+    with trace.span("plan.build"):
+        dev = resolve_device(device)
+        if config is None:
+            config = PlanConfig(k=k, ordering=ordering, bs=bs, sb=sb,
+                                backend=backend, d=d, bits=bits,
+                                leaf_size=leaf_size, symmetrize=symmetrize,
+                                seed=seed, **cfg_overrides)
+        elif cfg_overrides:
+            config = dataclasses.replace(config, **cfg_overrides)
+        x = np.asarray(to_numpy(x), np.float32)
+        n = x.shape[0]
+        if capacity is not None and capacity < n:
+            raise ValueError(f"capacity={capacity} < n={n} points")
+        if sources is not None:
+            sources = np.asarray(to_numpy(sources), np.float32)
+            if sources.shape[0] != n:
+                raise ValueError(
+                    f"sources has {sources.shape[0]} points, targets have "
+                    f"{n}; one ordering indexes both sides of the square "
+                    "plan")
+            if config.symmetrize:
+                raise ValueError("symmetrize crosses the target/source index "
+                                 "spaces; not meaningful with fixed sources")
+        timings: dict = {}
+        with _stage(timings, "knn", "build.knn", dev):
+            xd = from_numpy(x, dev)
+            sd = xd if sources is None else from_numpy(sources, dev)
+            rows, cols, d2 = (to_numpy(a) for a in knn.knn_coo(
+                xd, sd, config.k, exclude_self=sources is None, device=dev))
+            del xd, sd
+
         if config.symmetrize:
-            raise ValueError("symmetrize crosses the target/source index "
-                             "spaces; not meaningful with fixed sources")
-    timings: dict = {}
-    with _stage(timings, "knn", dev):
-        xd = from_numpy(x, dev)
-        sd = xd if sources is None else from_numpy(sources, dev)
-        rows, cols, d2 = (to_numpy(a) for a in knn.knn_coo(
-            xd, sd, config.k, exclude_self=sources is None, device=dev))
-        del xd, sd
+            # pattern-level symmetrization (first occurrence wins, like the
+            # paper's Fig. 2 interaction patterns) — before values, so a
+            # callable sees the symmetrized edge list
+            rows, cols, d2 = _symmetrize_pattern(rows, cols, d2, n)
 
-    if config.symmetrize:
-        # pattern-level symmetrization (first occurrence wins, like the
-        # paper's Fig. 2 interaction patterns) — before values, so a
-        # callable sees the symmetrized edge list
-        rows, cols, d2 = _symmetrize_pattern(rows, cols, d2, n)
+        with trace.span("build.values"):
+            if values is None:
+                vals = np.ones(len(rows), np.float32)
+            elif callable(values):
+                vals = np.asarray(values(rows, cols, d2), np.float32)
+            else:
+                vals = np.asarray(to_numpy(values), np.float32)
+                if vals.shape[0] != len(rows):
+                    raise ValueError(
+                        f"values has {vals.shape[0]} entries, pattern has "
+                        f"{len(rows)} edges (symmetrize={config.symmetrize})")
 
-    if values is None:
-        vals = np.ones(len(rows), np.float32)
-    elif callable(values):
-        vals = np.asarray(values(rows, cols, d2), np.float32)
-    else:
-        vals = np.asarray(to_numpy(values), np.float32)
-        if vals.shape[0] != len(rows):
-            raise ValueError(
-                f"values has {vals.shape[0]} entries, pattern has "
-                f"{len(rows)} edges (symmetrize={config.symmetrize})")
-
-    plan = InteractionPlan.from_coo(rows, cols, vals, n, x=x, config=config,
-                                    sigma=sigma, with_bsr=with_bsr,
-                                    device=dev, _symmetrized=True,
-                                    _timings=timings)
-    plan.host.pattern_from_knn = True
-    plan.host.sources = sources
-    if callable(values):
-        plan.host.values_mode = "fn"
-        plan.host.values_fn = values
-    elif values is not None:
-        plan.host.values_mode = "static"
-    if capacity is not None and capacity > n:
-        plan = _spread_holes(_grow_plan(plan, capacity))
-    return plan
+        plan = InteractionPlan.from_coo(rows, cols, vals, n, x=x,
+                                        config=config, sigma=sigma,
+                                        with_bsr=with_bsr, device=dev,
+                                        _symmetrized=True, _timings=timings)
+        plan.host.pattern_from_knn = True
+        plan.host.sources = sources
+        if callable(values):
+            plan.host.values_mode = "fn"
+            plan.host.values_fn = values
+        elif values is not None:
+            plan.host.values_mode = "static"
+        if capacity is not None and capacity > n:
+            plan = _spread_holes(_grow_plan(plan, capacity))
+        return plan
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch._device import DeviceLike, from_numpy, resolve_device, to_numpy
 
 
@@ -86,69 +87,75 @@ def build_bsr(rows: np.ndarray, cols: np.ndarray, vals: Optional[np.ndarray],
     the O(nnz) edge arrays and never exists on the host.
     """
     dev = resolve_device(device)
-    rows = np.asarray(rows)
-    cols = np.asarray(cols)
-    nnz = len(rows)
-    if vals is None:
-        vals = np.ones(nnz, np.float32)
-    vals = np.asarray(vals, np.float32)
-    n_rb = (n + bs - 1) // bs
-    n_cb = n_rb
+    with trace.span("bsr.layout"):
+        rows = np.asarray(rows)
+        cols = np.asarray(cols)
+        nnz = len(rows)
+        if vals is None:
+            vals = np.ones(nnz, np.float32)
+        vals = np.asarray(vals, np.float32)
+        n_rb = (n + bs - 1) // bs
+        n_cb = n_rb
 
-    rb, cb = rows // bs, cols // bs
+        rb, cb = rows // bs, cols // bs
 
-    # per-row-block tile lists in the multi-level schedule order
-    # (superblock-major, then column): one np.unique over keyed tiles
-    # yields every row's list already sorted
-    skey = (cb // sb).astype(np.int64) * n_cb + cb
-    span = np.int64(n_cb) * ((n_cb + sb - 1) // sb + 1)
-    uniq = np.unique(rb.astype(np.int64) * span + skey)
-    urow = uniq // span
-    ucol = (uniq % span) % n_cb
-    counts = np.bincount(urow, minlength=n_rb)
-    m = int(counts.max(initial=1)) + max(slack, 0)
-    if max_nbr is not None:
-        m = max_nbr
-        if counts.max(initial=0) > m:
-            raise ValueError(f"max_nbr={m} < needed {counts.max()}")
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    uslot = np.arange(len(uniq)) - starts[urow]
-    col_idx = np.zeros((n_rb, m), np.int32)
-    nbr_mask = np.zeros((n_rb, m), bool)
-    col_idx[urow, uslot] = ucol
-    nbr_mask[urow, uslot] = True
+        # per-row-block tile lists in the multi-level schedule order
+        # (superblock-major, then column): one np.unique over keyed tiles
+        # yields every row's list already sorted
+        skey = (cb // sb).astype(np.int64) * n_cb + cb
+        span = np.int64(n_cb) * ((n_cb + sb - 1) // sb + 1)
+        uniq = np.unique(rb.astype(np.int64) * span + skey)
+        urow = uniq // span
+        ucol = (uniq % span) % n_cb
+        counts = np.bincount(urow, minlength=n_rb)
+        m = int(counts.max(initial=1)) + max(slack, 0)
+        if max_nbr is not None:
+            m = max_nbr
+            if counts.max(initial=0) > m:
+                raise ValueError(f"max_nbr={m} < needed {counts.max()}")
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        uslot = np.arange(len(uniq)) - starts[urow]
+        col_idx = np.zeros((n_rb, m), np.int32)
+        nbr_mask = np.zeros((n_rb, m), bool)
+        col_idx[urow, uslot] = ucol
+        nbr_mask[urow, uslot] = True
+
+        # mask-consistency invariants the multi-level (bsr_ml) schedule and
+        # the kernel rely on: padded slots carry column 0 and zero tiles
+        # (the scatter below only writes (urow, uslot) cells, which are
+        # exactly the masked ones), and within every row the kept columns
+        # are superblock-major sorted (so a superblock's tiles are
+        # contiguous in the ELL slot axis).
+        if col_idx[~nbr_mask].any():
+            raise AssertionError("padded slots must point at column 0")
+        sb_of = col_idx // sb
+        keyed = np.where(nbr_mask, sb_of * np.int64(n_cb) + col_idx,
+                         np.iinfo(np.int64).max)
+        if not (np.diff(keyed, axis=1) >= 0).all():
+            raise AssertionError("tile lists must be superblock-major sorted")
+
+        # each edge's place in the tile tensor
+        pos = np.searchsorted(uniq, rb.astype(np.int64) * span + skey)
+        flat = ((rb.astype(np.int64) * m + uslot[pos]) * bs + rows % bs) \
+            * bs + cols % bs
 
     # dress the tiles on the device: only the edge index/value arrays are
     # uploaded. Every edge lands inside the tensor (no padding entries),
     # and index_add_ sums duplicates.
-    pos = np.searchsorted(uniq, rb.astype(np.int64) * span + skey)
-    flat = ((rb.astype(np.int64) * m + uslot[pos]) * bs + rows % bs) * bs \
-        + cols % bs
-    dense = torch.zeros(n_rb * m * bs * bs, dtype=torch.float32, device=dev)
-    if nnz:
-        dense.index_add_(0, from_numpy(flat, dev, torch.int64),
-                         from_numpy(vals, dev, torch.float32))
-    dense = dense.view(n_rb, m, bs, bs)
-
-    # mask-consistency invariants the multi-level (bsr_ml) schedule and the
-    # kernel rely on: padded slots carry column 0 and zero tiles (the
-    # scatter only writes (urow, uslot) cells, which are exactly the masked
-    # ones), and within every row the kept columns are superblock-major
-    # sorted (so a superblock's tiles are contiguous in the ELL slot axis).
-    if col_idx[~nbr_mask].any():
-        raise AssertionError("padded slots must point at column 0")
-    sb_of = col_idx // sb
-    keyed = np.where(nbr_mask, sb_of * np.int64(n_cb) + col_idx,
-                     np.iinfo(np.int64).max)
-    if not (np.diff(keyed, axis=1) >= 0).all():
-        raise AssertionError("tile lists must be superblock-major sorted")
+    with trace.span("bsr.fill"):
+        dense = torch.zeros(n_rb * m * bs * bs, dtype=torch.float32,
+                            device=dev)
+        if nnz:
+            dense.index_add_(0, from_numpy(flat, dev, torch.int64),
+                             from_numpy(vals, dev, torch.float32))
+        dense = dense.view(n_rb, m, bs, bs)
+        col_idx_t = from_numpy(col_idx, dev)
+        nbr_mask_t = from_numpy(nbr_mask, dev)
 
     kept = int(counts.sum())
     fill = nnz / max(kept * bs * bs, 1)
-    return BSR(bs=bs, sb=sb, n=n, n_rb=n_rb, n_cb=n_cb,
-               col_idx=from_numpy(col_idx, dev),
-               nbr_mask=from_numpy(nbr_mask, dev),
-               vals=dense, fill=fill, max_nbr=m)
+    return BSR(bs=bs, sb=sb, n=n, n_rb=n_rb, n_cb=n_cb, col_idx=col_idx_t,
+               nbr_mask=nbr_mask_t, vals=dense, fill=fill, max_nbr=m)
 
 
 def patch_bsr(bsr: BSR, rows: np.ndarray, cols: np.ndarray,

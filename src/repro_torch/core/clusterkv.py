@@ -31,6 +31,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch._device import DeviceLike, device_of
 from repro_torch.core.embedding import pca_project_det
 from repro_torch.core.hierarchy import morton_codes
@@ -132,24 +133,27 @@ def cluster_perm(k: torch.Tensor, d: int = 3, bits: int = 10) -> torch.Tensor:
     Every (..., S, dh) set is embedded onto its own top-``d`` axes (one
     batched subspace iteration) and stably sorted by its Morton codes.
     """
-    lead = k.shape[:-2]
-    flat = k.reshape((-1,) + tuple(k.shape[-2:]))
-    y = pca_project_det(flat, d, device=k.device)
-    codes = morton_codes(y, bits, device=k.device)
-    return torch.argsort(codes, dim=-1, stable=True).reshape(
-        tuple(lead) + (k.shape[-2],))
+    with trace.span("ckv.cluster_perm"):
+        lead = k.shape[:-2]
+        flat = k.reshape((-1,) + tuple(k.shape[-2:]))
+        with trace.span("ckv.pca"):
+            y = pca_project_det(flat, d, device=k.device)
+        with trace.span("ckv.morton_sort"):
+            codes = morton_codes(y, bits, device=k.device)
+            return torch.argsort(codes, dim=-1, stable=True).reshape(
+                tuple(lead) + (k.shape[-2],))
 
 
 def permute_kv(k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
                perm: torch.Tensor):
     """Apply cluster order along the S axis of k, v (B, H, S, dh), pos (B, H, S)."""
-    perm = perm.long()
-
     def take(a):
         return torch.gather(a, -2, perm[..., None].expand(
             tuple(perm.shape) + (a.shape[-1],)))
 
-    return take(k), take(v), torch.gather(pos, -1, perm)
+    with trace.span("ckv.permute_kv"):
+        perm = perm.long()
+        return take(k), take(v), torch.gather(pos, -1, perm)
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +189,23 @@ def select_blocks(q_cent: torch.Tensor, k_cent: torch.Tensor,
         near = recent & ~invalid
         scores = torch.where(near, scores + 1e4, scores)
     return topk_stable(scores, n_sel).to(torch.int32)
+
+
+def live_pairs(idx: torch.Tensor, kpos_min: torch.Tensor, qpos_max, g: int
+               ) -> torch.Tensor:
+    """How many of the selected (query head, key tile) pairs hold work:
+    idx (B,Hkv,nqb,n_sel) tiles in range whose least key position
+    ``kpos_min`` (B,Hkv,nkb) is at or before the query tile's last
+    position ``qpos_max`` (nqb,); ``None`` (no causal mask) counts every
+    pair in range. Each kv head's pairs count once per query head of its
+    group (``g``). An int64 scalar on idx's device, no host sync."""
+    nkb = kpos_min.shape[-1]
+    ix = idx.long()
+    ok = (ix >= 0) & (ix < nkb)
+    if qpos_max is not None:
+        kmin = torch.gather(kpos_min, -1, ix.clamp(0, nkb - 1).flatten(2))
+        ok &= kmin.view_as(ix) <= qpos_max[:, None]
+    return ok.sum() * g
 
 
 # ---------------------------------------------------------------------------

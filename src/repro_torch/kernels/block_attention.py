@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.clusterkv import NEG_INF, sparse_block_attention
 from repro_torch.kernels import _build
 from repro_torch.kernels.library import LIB
@@ -441,10 +442,11 @@ def launch_backward(q, k_sorted, v_sorted, kpos, qpos, idx, out, stats,
     the four launches of :func:`backward_stages` in turn, from the
     forward's inputs, its output, its statistics and the cotangent
     ``dout``, no host sync. Returns (dq, dk, dv) in the inputs' dtype."""
-    stages, grads = backward_stages(q, k_sorted, v_sorted, kpos, qpos, idx,
-                                    out, stats, dout, bq, bk, causal)
-    for run in stages.values():
-        run()
+    with trace.span("b6.backward"):
+        stages, grads = backward_stages(q, k_sorted, v_sorted, kpos, qpos,
+                                        idx, out, stats, dout, bq, bk, causal)
+        for run in stages.values():
+            run()
     block_attention_backward.launches += 1
     return grads
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import ClusterKVConfig
 from repro_torch.core import clusterkv as ckv
 from repro_torch.core import costmodel
@@ -173,56 +174,65 @@ def clusterkv_attention(q, k, v, qpos, kpos, cfg: ClusterKVConfig, *,
     per-head key ordering instead of the per-call Morton sort. Key entries
     with ``kpos == INT32_MAX`` are holes and never attended.
     """
-    b, hq, s, dh = q.shape
-    hkv = k.shape[1]
-    bq = min(cfg.block_q, s)
-    bk = min(cfg.block_k, s)
-    nqb, nkb = s // bq, k.shape[2] // bk
-    n_sel = min(cfg.blocks_per_query, nkb)
-
-    if kpos.ndim == 1:
-        kposb = kpos.expand(b, hkv, kpos.shape[0])
-    else:
-        kposb = kpos
-    if plan_batch is None:
-        perm = ckv.cluster_perm(k, d=cfg.embed_dim)
-    elif isinstance(plan_batch, torch.Tensor) \
-            or not hasattr(plan_batch, "data"):
-        perm = torch.as_tensor(plan_batch, device=k.device).long()
-    else:
-        perm = ckv.plan_batch_perm(plan_batch, (b, hkv)).to(k.device)
-    k_s, v_s, pos_s = ckv.permute_kv(k, v, kposb, perm)
-    cent = ckv.block_centroids(k_s, bk)
-    posb = pos_s.reshape(b, hkv, nkb, bk)
-    kpmin = posb.amin(-1)
-    # hole slots carry the INT32_MAX sentinel: they must not inflate the
-    # tile's max position (every holey tile would look "recent")
-    kpmax = torch.where(posb == INT32_MAX, -1, posb).amax(-1)
-
-    if not causal:
-        # pi_t: query cluster sort per kv-head group (positions irrelevant)
+    with trace.span("ckv.attention"):
+        b, hq, s, dh = q.shape
+        hkv = k.shape[1]
         g = hq // hkv
-        q_grp = q.reshape(b, hkv, g, s, dh).mean(dim=2)     # (B,Hkv,S,dh)
-        qperm = ckv.cluster_perm(q_grp, d=cfg.embed_dim)    # (B,Hkv,S)
-        qperm_h = qperm.repeat_interleave(g, dim=1)         # (B,Hq,S)
-        q_s = torch.gather(q, -2, qperm_h[..., None].expand(b, hq, s, dh))
-        qc = q_s.reshape(b, hkv, g, nqb, bq, dh).mean(dim=(2, 4))
-        zero = torch.zeros((nqb,), dtype=kpmin.dtype, device=q.device)
-        idx = ckv.select_blocks(qc.float(), cent.float(), kpmin, kpmax,
-                                zero, zero, n_sel, bq, causal=False)
-        out_s = _tile_attention(q_s, k_s, v_s, pos_s, qpos, idx, bq, bk,
-                                False, cfg)
-        inv = torch.argsort(qperm_h, dim=-1)
-        return torch.gather(out_s, -2, inv[..., None].expand(
-            tuple(out_s.shape)))
+        bq = min(cfg.block_q, s)
+        bk = min(cfg.block_k, s)
+        nqb, nkb = s // bq, k.shape[2] // bk
+        n_sel = min(cfg.blocks_per_query, nkb)
 
-    qpmin = qpos.reshape(nqb, bq).amin(-1)
-    qpmax = qpos.reshape(nqb, bq).amax(-1)
-    qc = q.reshape(b, hkv, hq // hkv, nqb, bq, dh).mean(dim=(2, 4))
-    idx = ckv.select_blocks(qc.float(), cent.float(), kpmin, kpmax, qpmin,
-                            qpmax, n_sel, bq, causal=causal,
-                            local_window=cfg.local_window_blocks * bk)
-    return _tile_attention(q, k_s, v_s, pos_s, qpos, idx, bq, bk, causal, cfg)
+        if kpos.ndim == 1:
+            kposb = kpos.expand(b, hkv, kpos.shape[0])
+        else:
+            kposb = kpos
+        if plan_batch is None:
+            perm = ckv.cluster_perm(k, d=cfg.embed_dim)
+        elif isinstance(plan_batch, torch.Tensor) \
+                or not hasattr(plan_batch, "data"):
+            perm = torch.as_tensor(plan_batch, device=k.device).long()
+        else:
+            perm = ckv.plan_batch_perm(plan_batch, (b, hkv)).to(k.device)
+        k_s, v_s, pos_s = ckv.permute_kv(k, v, kposb, perm)
+
+        if not causal:
+            # pi_t: query cluster sort per kv-head group (positions
+            # irrelevant)
+            q_grp = q.reshape(b, hkv, g, s, dh).mean(dim=2)   # (B,Hkv,S,dh)
+            qperm = ckv.cluster_perm(q_grp, d=cfg.embed_dim)  # (B,Hkv,S)
+            qperm_h = qperm.repeat_interleave(g, dim=1)       # (B,Hq,S)
+            q = torch.gather(q, -2, qperm_h[..., None].expand(b, hq, s, dh))
+        with trace.span("ckv.select"):
+            cent = ckv.block_centroids(k_s, bk)
+            posb = pos_s.reshape(b, hkv, nkb, bk)
+            kpmin = posb.amin(-1)
+            # hole slots carry the INT32_MAX sentinel: they must not
+            # inflate the tile's max position (every holey tile would look
+            # "recent")
+            kpmax = torch.where(posb == INT32_MAX, -1, posb).amax(-1)
+            qc = q.reshape(b, hkv, g, nqb, bq, dh).mean(dim=(2, 4)).float()
+            if causal:
+                qpmin = qpos.reshape(nqb, bq).amin(-1)
+                qpmax = qpos.reshape(nqb, bq).amax(-1)
+                idx = ckv.select_blocks(
+                    qc, cent.float(), kpmin, kpmax, qpmin, qpmax, n_sel, bq,
+                    causal=True, local_window=cfg.local_window_blocks * bk)
+            else:
+                qpmax = None
+                zero = torch.zeros((nqb,), dtype=kpmin.dtype,
+                                   device=q.device)
+                idx = ckv.select_blocks(qc, cent.float(), kpmin, kpmax, zero,
+                                        zero, n_sel, bq, causal=False)
+            trace.count("b6.pairs_selected", idx.numel() * g)
+            trace.count_device("b6.pairs_live", ckv.live_pairs, idx, kpmin,
+                               qpmax, g)
+        out = _tile_attention(q, k_s, v_s, pos_s, qpos, idx, bq, bk, causal,
+                              cfg)
+        if causal:
+            return out
+        inv = torch.argsort(qperm_h, dim=-1)
+        return torch.gather(out, -2, inv[..., None].expand(tuple(out.shape)))
 
 
 def _check_kernel_setting(cfg: ClusterKVConfig, x: torch.Tensor) -> None:

@@ -55,6 +55,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model_api
 from repro_torch.models import param as pm
@@ -93,41 +94,48 @@ def make_train_step(cfg: ModelConfig, mesh=None, backend: str = "flash",
     mod = model_api.module_for(cfg)
 
     def loss_and_grads(params, batch):
-        live = tree_map(lambda p: p.detach().requires_grad_(
-            p.is_floating_point()), params)
-        leaves = tree_leaves(live)
-        with torch.enable_grad():
-            loss = mod.loss_fn(live, cfg, batch, backend, NO_SHARD)
-            # a leaf the loss does not reach gets zeros, as jax.grad's
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
-        return loss.detach(), grads
+        with trace.span("train.microbatch"):
+            live = tree_map(lambda p: p.detach().requires_grad_(
+                p.is_floating_point()), params)
+            leaves = tree_leaves(live)
+            with torch.enable_grad():
+                loss = mod.loss_fn(live, cfg, batch, backend, NO_SHARD)
+                # a leaf the loss does not reach gets zeros, as jax.grad's
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+            return loss.detach(), grads
 
     def step(params, opt_state, batch: Dict[str, torch.Tensor]):
-        if microbatch > 1:
-            leaves = tree_leaves(params)
-            gacc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
-            err = [torch.zeros_like(g) for g in gacc] if compress_grads \
-                else None
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=leaves[0].device)
-            for i in range(microbatch):
-                mb = {k: v[i * (v.shape[0] // microbatch):
-                           (i + 1) * (v.shape[0] // microbatch)]
-                      for k, v in batch.items()}
-                l, g = loss_and_grads(params, mb)
-                err = _accumulate(gacc, err, g, compress_grads)
-                loss = loss + l.float()
-                del g
-            with torch.no_grad():
-                torch._foreach_div_(gacc, microbatch)
-            grads = as_tree(params, gacc)
-            loss = loss / microbatch
-        else:
-            loss, g = loss_and_grads(params, batch)
-            grads = as_tree(params, list(g))
-        params, opt_state, gnorm = opt.update(grads, opt_state, params)
-        return params, opt_state, {"loss": loss.float(), "grad_norm": gnorm}
+        with trace.span("train.step"):
+            if microbatch > 1:
+                leaves = tree_leaves(params)
+                gacc = [torch.zeros_like(p, dtype=torch.float32)
+                        for p in leaves]
+                err = [torch.zeros_like(g) for g in gacc] if compress_grads \
+                    else None
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=leaves[0].device)
+                for i in range(microbatch):
+                    mb = {k: v[i * (v.shape[0] // microbatch):
+                               (i + 1) * (v.shape[0] // microbatch)]
+                          for k, v in batch.items()}
+                    l, g = loss_and_grads(params, mb)
+                    with trace.span("train.accumulate"):
+                        err = _accumulate(gacc, err, g, compress_grads)
+                        loss = loss + l.float()
+                    del g
+                with trace.span("train.accumulate"), torch.no_grad():
+                    torch._foreach_div_(gacc, microbatch)
+                grads = as_tree(params, gacc)
+                loss = loss / microbatch
+            else:
+                loss, g = loss_and_grads(params, batch)
+                grads = as_tree(params, list(g))
+            with trace.span("train.optimizer"):
+                params, opt_state, gnorm = opt.update(grads, opt_state,
+                                                      params)
+            return params, opt_state, {"loss": loss.float(),
+                                       "grad_norm": gnorm}
 
     return step, opt
 

@@ -20,6 +20,8 @@ from _torch_parity import (assert_close, cuda_device, ell_masks,  # noqa: F401
                            random_ell, tt)
 
 from repro_torch import api as t_api
+from repro_torch import trace
+from repro_torch.configs import base as t_base
 from repro_torch.data.pipeline import feature_mixture
 from repro_torch.core import clusterkv as t_ckv
 from repro_torch.kernels import block_attention as t_ba
@@ -1927,3 +1929,127 @@ def test_cuda_b5_b6_ops_launch_once_and_equal_their_cuda_implementation(
         assert out.shape == q.shape
     assert (t_ba.block_attention.launches,
             t_da.decode_attend_fused.launches) == n0
+
+
+
+def _traced(fn):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA) and a trace
+    recording: the recording, each span's host event in the profile as
+    ``name -> (start_ns, end_ns)``, and each device operation as ``(name,
+    start_ns of the runtime call that launched it)``, paired through the
+    profiler's correlation id."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        with trace.recording() as rec:
+            fn()
+            torch.cuda.synchronize()
+    names = {sp.name for sp in rec.spans}
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = list(prof.profiler.kineto_results.events())
+    host = {e.name(): (e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in evs if e.device_type() != cuda and e.name() in names}
+    calls = {e.correlation_id(): e.start_ns() for e in evs
+             if e.device_type() != cuda and e.name().startswith("cu")}
+    ops = [(e.name(), calls.get(e.correlation_id())) for e in evs
+           if e.device_type() == cuda and not e.is_user_annotation()]
+    return rec, host, ops
+
+
+def _launched_in(host, ops, name):
+    a, b = host[name]
+    return [op for op, t in ops if t is not None and a <= t <= b]
+
+
+@pytest.mark.requires_cuda
+def test_cuda_trace_spans_hold_their_kernels_on_one_clock(cuda_device):
+    """On the card a kernel launched inside a span has its runtime call
+    inside the span's host event (a torch op's and a hand-written
+    kernel's alike), and each span's in-memory times and its host event
+    in the profiler's trace agree within 50 us."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn((2048, 2048), generator=gen, device=cuda_device)
+    b, hq, hkv, s, dh, bq, n_sel = 1, 4, 2, 512, 64, 128, 2
+    q = torch.randn((b, hq, s, dh), generator=gen,
+                    device=cuda_device).bfloat16()
+    k = torch.randn((b, hkv, s, dh), generator=gen,
+                    device=cuda_device).bfloat16()
+    kpos = torch.arange(s, dtype=torch.int32, device=cuda_device).expand(
+        b, hkv, s).contiguous()
+    qpos = torch.arange(s, dtype=torch.int32, device=cuda_device)
+    idx = torch.arange(n_sel, dtype=torch.int32, device=cuda_device).expand(
+        b, hkv, s // bq, n_sel).contiguous()
+
+    def work():
+        with trace.span("t.outer"):
+            with trace.span("t.mm"):
+                a @ a
+            with trace.span("t.b6"):
+                t_ops.block_attention(q, k, k, kpos, qpos, idx, bq=bq, bk=bq)
+            a.sum()
+
+    work()
+    rec, host, ops = _traced(work)
+    assert [sp.name for sp in rec.spans] == ["t.outer", "t.mm", "t.b6"]
+    mm, b6 = _launched_in(host, ops, "t.mm"), _launched_in(host, ops, "t.b6")
+    assert mm and not any("block_attention" in n for n in mm), ops
+    assert any("block_attention" in n for n in b6), ops
+    assert len(_launched_in(host, ops, "t.outer")) == len(ops) \
+        > len(mm) + len(b6), ops
+    for sp in rec.spans:
+        a_ns, b_ns = host[sp.name]
+        assert abs(a_ns - sp.start_ns) < 50_000, (sp, host[sp.name])
+        assert abs(b_ns - sp.end_ns) < 50_000, (sp, host[sp.name])
+
+
+@pytest.mark.requires_cuda
+def test_cuda_traced_matvec_launches_b1_between_its_permutes(cuda_device):
+    """One traced ``plan.matvec`` on the card: its three spans, the
+    permutation gathers launched inside ``plan.permute`` and
+    ``plan.unpermute``, and B1's kernel inside ``plan.matvec`` but in
+    neither of them."""
+    x = feature_mixture(4096, 32, n_clusters=8, seed=3)
+    plan = t_api.build_plan(x, k=8)
+    c = torch.randn((4096, 8), device=cuda_device)
+    plan.matvec(c)
+    rec, host, ops = _traced(lambda: plan.matvec(c))
+    assert [sp.name for sp in rec.spans] == [
+        "plan.matvec", "plan.permute", "plan.unpermute"]
+    perm = _launched_in(host, ops, "plan.permute")
+    unperm = _launched_in(host, ops, "plan.unpermute")
+    assert perm and unperm, ops
+    assert not any("bsr_sp" in n for n in perm + unperm), ops
+    assert any("bsr_sp" in n
+               for n in _launched_in(host, ops, "plan.matvec")), ops
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n_sel", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_non_causal_clusterkv_at_tiles_of_128(cuda_device, dtype,
+                                                   n_sel, monkeypatch):
+    """Non-causal ClusterKV at tiles of 128 (four key tiles) equals the
+    same call with B6's plain version in the kernel's place; with every
+    key tile selected it is dense non-causal attention whatever the
+    orderings, which holds the query sort and its inverse."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5 + n_sel)
+    b, hq, hkv, s, dh = 1, 4, 2, 512, 64
+    q = torch.randn((b, hq, s, dh), generator=gen, device=cuda_device)
+    k = torch.randn((b, hkv, s, dh), generator=gen, device=cuda_device)
+    v = torch.randn((b, hkv, s, dh), generator=gen, device=cuda_device)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda_device)
+    cfg = t_base.ClusterKVConfig(enabled=True, block_q=128, block_k=128,
+                                 blocks_per_query=n_sel)
+    n0 = t_ba.block_attention.launches
+    got = t_attn.clusterkv_attention(q, k, v, pos, pos, cfg, causal=False)
+    torch.cuda.synchronize()
+    assert t_ba.block_attention.launches == n0 + 1
+    if n_sel == s // 128 and dtype == torch.float32:
+        _assert_kernel_close(got, t_attn.dense_attention(
+            q, k, v, pos, pos, causal=False), dtype)
+    monkeypatch.setattr(t_attn.kops, "block_attention",
+                        t_ba.block_attention_plain)
+    want = t_attn.clusterkv_attention(q, k, v, pos, pos, cfg, causal=False)
+    _assert_kernel_close(got, want, dtype)

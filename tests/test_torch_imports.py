@@ -26,7 +26,6 @@ FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "time_decode.py",
     ROOT / "tools" / "profile_stream.py",
     ROOT / "tools" / "profile_service.py",
-    ROOT / "tools" / "profile_train.py",
     # the mesh tests' worker processes import no JAX either
     ROOT / "tests" / "_torch_mesh_harness.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
@@ -89,7 +88,7 @@ def test_port_has_the_expected_modules():
                  "configs/whisper_medium.py", "optim/__init__.py",
                  "optim/optimizers.py", "train/trainer.py",
                  "launch/ft.py", "launch/analytic.py", "launch/train.py",
-                 "launch/pp.py"):
+                 "launch/pp.py", "trace.py"):
         assert must in names, must
     cu = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert cu == {"bsr_spmv.cu", "gamma_pairs.cu", "tsne_force.cu",
