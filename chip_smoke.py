@@ -43,6 +43,12 @@ the run when it fails:
    forward supports, both dtypes, causal and not, the key-tile lists and
    their order bit-equal to theirs with ids outside the cache, and S of
    one tile pair by the backward's wgmma against the forward's mma.sync;
+   ClusterKV's key ordering (``ops.cluster_codes``: each key set's
+   embedding and Morton codes in one launch) against ``pca_project_det``
+   + ``morton_codes`` on the same keys at minicpm3-4b's two training
+   shapes in bf16 and one float32 shape streamed through shared memory,
+   the same codes run to run, timed beside the plain version and its
+   bound;
 3. the main path at full size — per-stage build times, ``matvec`` through
    the ``cuda`` backend for (n,) and (n, 8) charges against the ``bsr``
    and ``csr`` reference paths, the single-plan kernel entry on the plan's
@@ -1307,6 +1313,82 @@ def check_b6_backward(args, dev, rehearse, cases):
         f"{s_mma.numel()} elements differ, largest gap {gap:.3e} "
         f"({'bit-equal' if differ == 0 else 'not bit-equal'}; both within "
         "float32 summation of the float64 product)")
+
+
+def cluster_order_bound(n_sets: int, s: int, dh: int, esz: int, d: int,
+                        iters: int):
+    """Least time for ClusterKV's key ordering: the keys read once and the
+    codes written once at the memory rate, or the products with the keys
+    (``library.cluster_codes_flops``) at the float32 peak of the CUDA
+    cores, whichever is longer."""
+    from repro_torch.kernels.library import cluster_codes_flops
+    byts = n_sets * s * (dh * esz + 8)
+    ops = cluster_codes_flops((1, n_sets, s, dh), d, 10, iters)
+    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def check_cluster_order(args, dev, timer, rehearse):
+    """Phase 2, ClusterKV's key ordering: ``ops.cluster_codes`` against its
+    plain version (``pca_project_det`` + ``morton_codes``) on the same
+    keys, by ``cluster_order.check_against_plain``, at both training
+    shapes of minicpm3-4b in bf16 and one float32 shape too large for a
+    cluster's shared memory (streamed); the same codes run to run; timed
+    beside the plain version and the bound. Returns the ``kernels`` row."""
+    from repro_torch.kernels import cluster_order as k_co
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 25)
+    it_fast, it_slow = (2, 1) if rehearse else (20, 3)
+    d, iters = 3, 4
+    shapes = ((("train8k", (1, 40, 8192, 96), torch.bfloat16),
+               ("train2k", (4, 40, 2048, 96), torch.bfloat16),
+               ("streamed", (1, 4, 16384, 96), torch.float32))
+              if not rehearse else
+              (("train8k", (1, 4, 512, 96), torch.bfloat16),
+               ("train2k", (4, 4, 128, 96), torch.bfloat16),
+               ("streamed", (1, 2, 600, 96), torch.float32)))
+    rows = []
+    for what, (b, h, s, dh), dtype in shapes:
+        # clustered keys with a nonzero mean, as attention keys come
+        centers = torch.randn((b, h, 16, dh), generator=gen, device=dev) * 3
+        pick = torch.randint(0, 16, (b, h, s, 1), generator=gen, device=dev)
+        k = (torch.gather(centers, 2, pick.expand(b, h, s, dh)) + 1.5
+             + 0.3 * torch.randn((b, h, s, dh), generator=gen, device=dev)
+             ).to(dtype)
+        codes, y = k_co.embed_and_code(k, d)
+        again = ops.cluster_codes(k, d)
+        if not torch.equal(codes, again):
+            raise AssertionError("cluster_codes is not reproducible run to "
+                                 f"run ({what})")
+        got = k_co.check_against_plain(k, codes, y, d)
+        ms = timer(lambda: ops.cluster_codes(k, d), it_fast)
+        plain_ms = timer(lambda: k_co.cluster_codes_plain(k, d, 10, iters),
+                         it_slow)
+        esz = k.element_size()
+        bound, by = cluster_order_bound(b * h, s, dh, esz, d, iters)
+        lay = (None if rehearse else
+               k_co.layout(b * h, s, dh, dtype)._asdict())
+        rows.append({"case": what, "shape": [b, h, s, dh],
+                     "dtype": str(dtype).replace("torch.", ""), **got,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "layout": lay})
+        say(f"  cluster_codes {what} ({b}, {h}, {s}, {dh}) {dtype}: y gap "
+            f"{got['y_gap']:.2e} of scale, {got['codes_differ']:.2e} of "
+            f"codes at cell edges, reproducible; kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.3f} ms  bound {bound:.4f} ms ({by}); layout {lay}")
+        del k, codes, y, again
+    head = rows[0]
+    return {
+        "name": "cluster_codes", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cluster_order.cu",
+        "replaces": "src/repro/core/clusterkv.py:147",
+        "shape": (f"k {tuple(head['shape'])} {head['dtype']}, d={d}, "
+                  f"bits=10, iters={iters}"),
+        "y_gap": head["y_gap"],
+        "codes_differ": head["codes_differ"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None, "cases": rows}
 
 
 def time_attention_kernels(args, dev, timer, rehearse, launches):
@@ -5670,6 +5752,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import block_attention as k_ba
     from repro_torch.kernels import bsr_spmv as k_bsr
+    from repro_torch.kernels import cluster_order as k_co
     from repro_torch.kernels import decode_attend as k_da
     from repro_torch.kernels import gamma_score as k_gs
     from repro_torch.kernels import ops
@@ -5687,7 +5770,8 @@ def main() -> int:
                 "key_tile_lists": k_ba.key_tile_lists,
                 "key_tile_order": k_ba.key_tile_order,
                 "block_attention_backward": k_ba.block_attention_backward,
-                "decode_attend_fused": k_da.decode_attend_fused}
+                "decode_attend_fused": k_da.decode_attend_fused,
+                "cluster_codes": k_co.cluster_codes}
     # the decode kernel's wrapper also counts its launches per contract
     mode_counters = {"decode_attend_fused.plain_mode": "plain_mode_launches",
                      "decode_attend_fused.plan_mode": "plan_mode_launches"}
@@ -5952,6 +6036,7 @@ def main() -> int:
             del p4, c4, y4, padded, nan4
     check_attention_kernels(args, dev, rehearse, micro_cases)
     check_b6_backward(args, dev, rehearse, micro_cases)
+    cluster_order_entry = check_cluster_order(args, dev, timer, rehearse)
 
     # ------------------------------------------------------------ 3 + 4 ---
     reset_counts()
@@ -6172,6 +6257,7 @@ def main() -> int:
     tsne = phase_tsne(args, dev, timer, sync, x, rehearse, reset_counts,
                       collect_counts, k_tf)
     entries.append(tsne.pop("entry"))
+    entries.append(cluster_order_entry)
 
     # ---------------------------------------------------------------- 7 ---
     meanshift = phase_meanshift(args, dev, sync, n_main, n_clusters,
@@ -6275,7 +6361,8 @@ def main() -> int:
                          "block_attention_backward"):
             e["launches_train"] = train["launches"][e["name"]]
             e["launches_mesh_train"] = mesh_train["launches"][e["name"]]
-        if e["name"] in ("decode_attend_fused", "block_attention"):
+        if e["name"] in ("decode_attend_fused", "block_attention",
+                         "cluster_codes"):
             e["launches_service"] = service["launches"][e["name"]]
             e["launches_zoo"] = zoo["launches"][e["name"]]
             e["launches_zoo_b"] = zoo_b["launches"][e["name"]]

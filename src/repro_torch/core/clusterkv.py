@@ -8,7 +8,8 @@ targets, keys = sources). The paper's reordering pipeline is applied per
      (``core.embedding.pca_project_det``, paper §2.4 step 1);
   2. hierarchical clustering by Morton order in the embedding space
      (``core.hierarchy.morton_codes``, step 2) -> keys permuted into
-     cluster order;
+     cluster order (on a card steps 1 and 2 are one kernel,
+     ``kernels.ops.cluster_codes``);
   3. the interaction is computed *block-sparse with dense blocks*: for each
      query tile only the top-B key tiles (by centroid score) are kept, and
      each kept (q-tile, k-tile) pair is a dense block (steps 3-4).
@@ -33,8 +34,6 @@ import torch
 
 from repro_torch import trace
 from repro_torch._device import DeviceLike, device_of
-from repro_torch.core.embedding import pca_project_det
-from repro_torch.core.hierarchy import morton_codes
 
 NEG_INF = -1e30
 INT32_MAX = 2 ** 31 - 1
@@ -131,17 +130,17 @@ def cluster_perm(k: torch.Tensor, d: int = 3, bits: int = 10) -> torch.Tensor:
 
     perm[i] = index (into original order) of the i-th key in cluster order.
     Every (..., S, dh) set is embedded onto its own top-``d`` axes (one
-    batched subspace iteration) and stably sorted by its Morton codes.
+    batched subspace iteration), Morton coded (``ops.cluster_codes``: one
+    kernel launch on a card) and stably sorted by its codes.
     """
+    # kernels.ops imports this module (B5/B6 take its plain versions)
+    from repro_torch.kernels import ops
+
     with trace.span("ckv.cluster_perm"):
-        lead = k.shape[:-2]
-        flat = k.reshape((-1,) + tuple(k.shape[-2:]))
         with trace.span("ckv.pca"):
-            y = pca_project_det(flat, d, device=k.device)
+            codes = ops.cluster_codes(k, d, bits)
         with trace.span("ckv.morton_sort"):
-            codes = morton_codes(y, bits, device=k.device)
-            return torch.argsort(codes, dim=-1, stable=True).reshape(
-                tuple(lead) + (k.shape[-2],))
+            return torch.argsort(codes, dim=-1, stable=True)
 
 
 def permute_kv(k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,

@@ -42,6 +42,9 @@ SIGNATURES = {
     "repro_block_attention_dkv": (_P,) * 13 + (_I,) * 12 + (_P,),
     "repro_decode_attend": (_P,) * 11 + (_I,) * 14 + (_P,),
     "repro_b6_logits_two_ways": (_P,) * 5,
+    "repro_cluster_codes": (_P,) * 3 + (_I,) * 2 + (_L,) * 3 + (_I,) * 6
+    + (_P,),
+    "repro_cluster_layout": (_I,) * 4 + (_P,),
 }
 
 _lock = threading.Lock()

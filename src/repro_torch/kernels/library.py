@@ -1,16 +1,19 @@
-"""The ``repro_torch`` operator library: B5 and B6 as opaque PyTorch ops.
+"""The ``repro_torch`` operator library: B5, B6 and ClusterKV's key
+ordering as opaque PyTorch ops.
 
-``torch.ops.repro_torch.block_attention`` (B6) and
-``torch.ops.repro_torch.decode_attend`` (B5) are defined here through
+``torch.ops.repro_torch.block_attention`` (B6),
+``torch.ops.repro_torch.decode_attend`` (B5) and
+``torch.ops.repro_torch.cluster_codes`` (each key set's embedding and
+Morton codes) are defined here through
 ``torch.library.Library(..., "DEF")``, with B6's differentiable form
 ``block_attention_with_stats`` (output and row statistics) and its
 backward ``block_attention_backward``; their ``CUDA`` implementations,
-the ctypes launches, are registered by ``kernels/block_attention.py`` and
-``kernels/decode_attend.py`` beside their fake implementations (output
-shape, dtype and device, no data read), B6's two training ops also with
-``CPU`` implementations (the plain versions) and the autograd formula
-that joins them. The wrappers of ``kernels/ops.py``
-reach the kernels only through these ops, so a trace under
+the ctypes launches, are registered by ``kernels/block_attention.py``,
+``kernels/decode_attend.py`` and ``kernels/cluster_order.py`` beside their
+fake implementations (output shape, dtype and device, no data read), B6's
+two training ops also with ``CPU`` implementations (the plain versions)
+and the autograd formula that joins them. The wrappers of
+``kernels/ops.py`` reach the kernels only through these ops, so a trace under
 ``FakeTensorMode`` (``launch/dryrun.py``) passes through them as single
 ops without touching ``data_ptr()``, and ``FlopCounterMode`` counts them
 by the formulas below: the kernels' own operation counts, the ones the
@@ -37,6 +40,7 @@ LIB.define("decode_attend(Tensor q, Tensor k, Tensor v, Tensor pos, "
            "Tensor cent, Tensor qpos, Tensor? k_self, Tensor? v_self, "
            "Tensor(a!)? sel_out, int n_sel, int bk, bool plan_mode, "
            "bool use_self, int window) -> Tensor")
+LIB.define("cluster_codes(Tensor k, int d, int bits, int iters) -> Tensor")
 
 
 def block_attention_flops(q, k, v, kpos, qpos, idx, bq: int, bk: int,
@@ -78,6 +82,17 @@ def decode_attend_flops(q, k, v, pos, cent, qpos, k_self, v_self, sel_out,
     return scores + 2 * (dh + dv) * b * hkv * g * keys
 
 
+def cluster_codes_flops(k, d: int, bits: int, iters: int, *,
+                        out_shape=None) -> int:
+    """ClusterKV's key ordering: ``2 S dh x 3`` operations for each product
+    with the keys (the kernel takes three columns for every d <= 3), two a
+    sweep and one for the projection, a (A, B, S, dh) set; the mean, the
+    QR of each (dh, 3) sweep and the codes are not counted (at d = 3 the
+    plain version's matrix products alone)."""
+    a, b, s, dh = k
+    return 2 * s * dh * 3 * (2 * iters + 1) * a * b
+
+
 register_flop_formula(torch.ops.repro_torch.block_attention)(
     block_attention_flops)
 register_flop_formula(torch.ops.repro_torch.block_attention_with_stats)(
@@ -86,3 +101,5 @@ register_flop_formula(torch.ops.repro_torch.block_attention_backward)(
     block_attention_backward_flops)
 register_flop_formula(torch.ops.repro_torch.decode_attend)(
     decode_attend_flops)
+register_flop_formula(torch.ops.repro_torch.cluster_codes)(
+    cluster_codes_flops)

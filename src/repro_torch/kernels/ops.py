@@ -19,6 +19,10 @@ the ``cuda`` decode backend) take the batched layouts of the reference's
 ``ops.py`` and cast positions and indices to int32; the kernel modules
 they call count the launches.
 
+``cluster_codes`` is ClusterKV's key ordering before its stable sort:
+each key set's embedding and Morton codes, one launch for every set
+(``kernels/cluster_order.py``).
+
 B6 (``block_attention``) differentiates: under grad it runs the opaque op
 ``repro_torch::block_attention_with_stats``, whose backward is the
 hand-written ``csrc/block_attention_bwd.cu`` on a CUDA tensor and the plain
@@ -41,6 +45,7 @@ from repro_torch.core.registry import (register_backend,
                                        register_decode_backend)
 from repro_torch.kernels import block_attention as _ba
 from repro_torch.kernels import bsr_spmv as _bsr
+from repro_torch.kernels import cluster_order as _co
 from repro_torch.kernels import decode_attend as _da
 from repro_torch.kernels import gamma_score as _gs
 from repro_torch.kernels import tsne_force as _tf
@@ -205,6 +210,16 @@ def block_attention(q, k_sorted, v_sorted, kpos, qpos, idx, *, bq, bk,
     return _ba.block_attention(q.contiguous(), k_sorted.contiguous(),
                                v_sorted.contiguous(), _i32(kpos), _i32(qpos),
                                _i32(idx), bq=bq, bk=bk, causal=causal)
+
+
+def cluster_codes(k, d: int, bits: int = 10, iters: int = 4
+                  ) -> torch.Tensor:
+    """Morton codes (..., S) int64 of each (..., S, dh) key set embedded on
+    its own top-``d`` principal axes by ``iters`` subspace sweeps: on a
+    CUDA tensor one launch of ``csrc/cluster_order.cu`` for every set, on a
+    CPU tensor ``morton_codes(pca_project_det(k, d, iters), bits)``. The
+    codes carry no gradient."""
+    return _co.cluster_codes(k, d, bits, iters)
 
 
 def decode_attend_fused(q, k, v, pos, cent, qpos, *, n_sel, bk):

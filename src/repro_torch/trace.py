@@ -48,7 +48,11 @@ several device operations, or host work that no kernel name separates:
       train.accumulate, train.optimizer
     ckv.attention                   models.attention.clusterkv_attention;
       ckv.cluster_perm              its own time holds B6's forward
-        ckv.pca, ckv.morton_sort    (core.clusterkv.cluster_perm)
+        ckv.pca                     core.clusterkv.cluster_perm: the keys'
+                                    embedding and Morton codes
+                                    (ops.cluster_codes: one kernel launch
+                                    on a card)
+        ckv.morton_sort             the stable argsort of the codes
       ckv.permute_kv
       ckv.select                    centroids, tile bounds, select_blocks
     b6.backward                     B6's CUDA backward (four launches)
@@ -56,9 +60,15 @@ several device operations, or host work that no kernel name separates:
 The ``build.*`` spans other than ``build.values`` and
 ``build.apply_ordering`` are ``api._stage``'s, which also fills
 ``plan.host.timings``. Counters: ``b6.pairs_selected`` (query-head tile
-pairs ClusterKV handed B6) and ``b6.pairs_live`` (those whose key tile
+pairs ClusterKV handed B6), ``b6.pairs_live`` (those whose key tile
 holds a key at or before the query tile's last position: the pairs
-causality leaves any work in). Under remat the recompute records
+causality leaves any work in) and ``ckv.order_sets`` (key sets the
+ordering kernel embedded and coded, one per (batch, head) a launch; none
+on the CPU, where the plain version runs). Set against the sets a step's
+shapes give (a minicpm3-4b training step at 8k: 21 layers x 2
+microbatches x 2 with remat x 40 heads = 3 360), ``ckv.order_sets`` shows
+that every ClusterKV key set of the step went through the kernel, which
+the kernel's name in a trace does not. Under remat the recompute records
 ``ckv.*`` and the counters a second time.
 """
 from __future__ import annotations

@@ -65,6 +65,7 @@ def test_port_has_the_expected_modules():
                  "configs/paper_spmv.py", "configs/base.py",
                  "configs/qwen2_0_5b.py", "core/clusterkv.py",
                  "kernels/block_attention.py", "kernels/decode_attend.py",
+                 "kernels/cluster_order.py",
                  "models/attention.py", "models/param.py",
                  "models/model_api.py", "models/transformer.py",
                  "train/serve_loop.py", "serve/__init__.py",
@@ -93,7 +94,8 @@ def test_port_has_the_expected_modules():
     cu = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert cu == {"bsr_spmv.cu", "gamma_pairs.cu", "tsne_force.cu",
                   "block_attention.cu", "block_attention_bwd.cu",
-                  "block_attention_bwd_sm90.cu", "decode_attend.cu"}
+                  "block_attention_bwd_sm90.cu", "decode_attend.cu",
+                  "cluster_order.cu"}
 
 
 def test_modules_import_without_toolchain_or_jax():
